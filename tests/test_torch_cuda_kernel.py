@@ -1,5 +1,6 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on
-the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: flash attention, the int8 matrix product, the fused LM head + top-128
+and the int8-KV decode attention.
 
 These tests need a CUDA device and skip without one.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -8,13 +9,19 @@ without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernel.py -q
 
 Tolerance atol = rtol = 1e-4 against the plain version, both fp32: they sum
-in different orders (the kernel key tile by key tile).
+in different orders (the kernel key tile by key tile).  The head kernel is
+held to identical indices and values on exact-arithmetic inputs (integer
+hidden states and weights, power-of-two scales), where no summation order
+changes a logit.
 """
 import itertools
 
 import pytest
 import torch
 
+from tsue_tpu_torch.ops import kv_quant as KV
+from tsue_tpu_torch.ops import lmhead_topk as LT
+from tsue_tpu_torch.ops import quant as Q
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
                                       flash_attention_plain)
 
@@ -87,3 +94,113 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="Hkv"):
         k = q[:, :, :3].contiguous()
         flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("M", [1, 16, 128])
+def test_int8_matmul_matches_plain(dev, M):
+    """Every decode projection shape of Llama-3.2-1B plus ragged K and N;
+    M up to the kernel's limit of 128 rows."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                 (300, 132), (64, 4)):
+        x = torch.randn(M, K, generator=g, device=dev)
+        w8, s = Q.quantize_weight(torch.randn(K, N, generator=g, device=dev))
+        before = Q.int8_matmul.launches
+        out = Q.int8_matmul(x, w8, s)
+        assert Q.int8_matmul.launches == before + 1
+        ref = Q.int8_matmul_ref(x, w8, s)
+        torch.cuda.synchronize()
+        # K products of up to 127 x |x| each, summed in another order:
+        # the error scales with the largest output, not with each one
+        torch.testing.assert_close(
+            out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()),
+            msg=lambda m: f"M={M} K={K} N={N}: {m}")
+
+
+def test_int8_matmul_rejects_what_it_does_not_take(dev):
+    w8, s = Q.quantize_weight(torch.randn(64, 8, device=dev))
+    with pytest.raises(ValueError, match="rows"):
+        Q.int8_matmul(torch.randn(129, 64, device=dev), w8, s)
+    w8o, so = Q.quantize_weight(torch.randn(64, 6, device=dev))
+    with pytest.raises(ValueError, match="N % 4"):
+        Q.int8_matmul(torch.randn(2, 64, device=dev), w8o, so)
+    with pytest.raises(TypeError):
+        Q.int8_matmul(torch.randn(2, 64, device=dev).double(), w8, s)
+
+
+def _exact_head(dev, g, B, D, V, layout):
+    h = torch.randint(-3, 4, (B, D), generator=g, device=dev).float()
+    if layout == "int8":
+        w8 = torch.randint(-4, 5, (D, V), generator=g, device=dev).to(
+            torch.int8)
+        scale = 2.0 ** torch.randint(-3, 2, (V,), generator=g,
+                                     device=dev).float()
+        return h, None, (w8, scale)
+    return h, torch.randint(-2, 3, (V, D), generator=g,
+                            device=dev).float(), None
+
+
+@pytest.mark.parametrize("layout", ["tied_fp32", "int8"])
+def test_lmhead_topk_exact_ties_across_tiles(dev, layout):
+    """Tied logits straddling the 1024-column tile borders, a ragged last
+    tile, an all-banned row, penalised rows, and batches of 1, 16 and 20
+    rows (two row groups): indices and values identical to a stable
+    descending sort of the processed logits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    D = 64
+    for B, V in ((1, 1024), (16, 3000), (20, 2176), (3, 128)):
+        h, w, quant = _exact_head(dev, g, B, D, V, layout)
+        if w is not None:                  # one tied value across a border
+            w[V // 2 - 40:V // 2 + 40] = w[V // 2]
+            if V > 1024:
+                w[1000:1100] = w[1000]
+        mask = torch.randint(0, 4, (B, V), generator=g, device=dev).int()
+        mask[0] = 2                        # every token banned
+        for m, pen in ((None, 1.0), (mask, 2.0), (mask, 1.0)):
+            before = LT.lmhead_topk.launches
+            vals, idx = LT.lmhead_topk(h, w, m, penalty=pen, quant=quant)
+            assert LT.lmhead_topk.launches == before + 1
+            rv, ri = LT.lmhead_topk_plain(h, w, m, penalty=pen, quant=quant)
+            torch.cuda.synchronize()
+            assert torch.equal(idx, ri), (B, V, pen)
+            assert torch.equal(vals, rv), (B, V, pen)
+        assert (rv[0] == -1e9).all() and torch.equal(
+            ri[0], torch.arange(128, device=dev, dtype=torch.int32))
+
+
+def test_lmhead_topk_random_close(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, D, V = 16, 2048, 128256
+    h = torch.randn(B, D, generator=g, device=dev)
+    w = torch.randn(V, D, generator=g, device=dev) * 0.05
+    w8, s = Q.quantize_weight(w, axis=1)
+    for weight, quant in ((w, None), (None, (w8.t().contiguous(), s))):
+        vals, idx = LT.lmhead_topk(h, weight, None, quant=quant)
+        rv, ri = LT.lmhead_topk_plain(h, weight, None, quant=quant)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vals, rv, **TOL)
+        assert (idx == ri).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("D", KV.SUPPORTED_HEAD_DIMS)
+def test_attend_int8_kv_matches_plain(dev, D):
+    """Fully masked rows, S not a multiple of the thread count, GQA groups
+    1..8, one and several query steps."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    for (Hq, Hkv), S, Tq in itertools.product(
+            ((4, 4), (32, 8), (8, 1)), (1, 37, 200, 592), (1, 3)):
+        B = 3
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        cache = KV.quantize_cache([(k, v)])[0]
+        q = torch.randn(B, Tq, Hq, D, generator=g, device=dev)
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        lens[1] = 0                        # every slot masked
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        before = KV.attend_int8_kv.launches
+        out = KV.attend_int8_kv(q, cache, mask)
+        assert KV.attend_int8_kv.launches == before + 1
+        ref = KV.attend_int8_kv_plain(q, cache, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **TOL, msg=lambda m: (
+            f"Hq={Hq} Hkv={Hkv} S={S} Tq={Tq}: {m}"))

@@ -1,12 +1,15 @@
 """Each model module of the port against its Flax counterpart.
 
 Flax initialises the weights, ``convert.load_flax_params`` carries them into
-the port, and the same numpy inputs go through both.  Tolerance 1e-4
+the port, and the same numpy inputs go through both.  Each side takes its own
+package's config classes, built from the same fields.  Tolerance 1e-4
 (relative, and absolute on O(1) hidden states): both sides are fp32, but
 matmul and LayerNorm statistics sum in different orders through several
 layers (flax's LayerNorm takes the variance as E[x^2] - E[x]^2, torch's in
 two passes), so errors of a few 1e-6 grow layer by layer.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ from tsue_tpu.models.llama import LlamaModel as JaxLlama
 from tsue_tpu.models.ltsf import TransformerLTSF as JaxLTSF
 from tsue_tpu.models.qformer import QFormer as JaxQFormer
 from tsue_tpu.ops.attention import attention_impl
+from tsue_tpu_torch import config as port_config
 from tsue_tpu_torch.convert import load_flax_params
 from tsue_tpu_torch.models.lane_encoder import LanePolygonEncoder
 from tsue_tpu_torch.models.llama import LlamaModel
@@ -55,6 +59,11 @@ def _t(x):
     return torch.from_numpy(np.asarray(x))
 
 
+def _port_cfg(cfg):
+    """The port's config object with the fields of a JAX-package one."""
+    return getattr(port_config, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
 def test_lane_encoder_with_empty_polygons():
     rng = np.random.default_rng(0)
     poly = (rng.random((3, 64, 2)) * 1000).astype(np.float32)
@@ -80,7 +89,7 @@ def test_qformer():
     params = _init(flax_mod, jnp.asarray(vis))
     ref = _apply(flax_mod, params, jnp.asarray(vis))
     with torch.no_grad():
-        out = _port(QFormer(cfg), params)(_t(vis))
+        out = _port(QFormer(_port_cfg(cfg)), params)(_t(vis))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
@@ -113,7 +122,8 @@ def test_llama_model_through_rope_kernel(dtype):
         ref, _ = _apply(flax_mod, params, jnp.asarray(x), jnp.asarray(mask))
     assert ref.dtype == jnp.float32
     with torch.no_grad():
-        out = _port(LlamaModel(LLAMA, tdt), params)(_t(x), _t(mask))
+        out = _port(LlamaModel(_port_cfg(LLAMA), tdt), params)(_t(x),
+                                                               _t(mask))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 

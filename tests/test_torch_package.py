@@ -1,5 +1,6 @@
-"""Package-level properties of the port: no JAX, a strict weight bridge,
-and no kernel launch on CPU tensors."""
+"""Package-level properties of the port: no JAX and nothing of the JAX
+package, a strict weight bridge, the CUDA device by default, and no kernel
+launch on CPU tensors."""
 import os
 import subprocess
 import sys
@@ -16,18 +17,59 @@ from tsue_tpu_torch.convert import load_flax_params
 from tsue_tpu_torch.models.lane_encoder import LanePolygonEncoder
 from tsue_tpu_torch.ops.attention import dot_product_attention
 from tsue_tpu_torch.ops.flash import flash_attention
+from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, quantize_kv
+from tsue_tpu_torch.ops.lmhead_topk import lmhead_topk
+from tsue_tpu_torch.ops.quant import int8_matmul, quantize_weight
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+PORT_MODULES = (
+    "tsue_tpu_torch", "tsue_tpu_torch.config", "tsue_tpu_torch.data",
+    "tsue_tpu_torch.serve", "tsue_tpu_torch.convert",
+    "tsue_tpu_torch.eval.generation", "tsue_tpu_torch.ops.sampling",
+    "tsue_tpu_torch.ops.quant", "tsue_tpu_torch.ops.kv_quant",
+    "tsue_tpu_torch.ops.lmhead_topk", "chip_smoke")
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, tsue_tpu_torch, tsue_tpu_torch.serve, "
-            "tsue_tpu_torch.convert; "
+    """The port and chip_smoke.py import neither JAX nor any module of the
+    JAX package (``tsue_tpu``, ``tsue_tpu.*``)."""
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]; assert not bad, bad")
+            "('jax', 'jaxlib', 'flax', 'tsue_tpu')]\n"
+            "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_predictor_defaults_to_cuda():
+    """Without ``device=`` the Predictor wants the CUDA device; on a host
+    without one it raises instead of running on the CPU."""
+    from tsue_tpu_torch.config import (DataConfig, ExperimentConfig,
+                                       LaneEncoderConfig, LTSFConfig,
+                                       ModelConfig)
+    from tsue_tpu_torch.models.tsue import TrajectoryModel
+    from tsue_tpu_torch.serve import Predictor
+    import inspect
+    assert inspect.signature(Predictor).parameters["device"].default == \
+        "cuda"
+    cfg = ExperimentConfig(
+        name="device", data=DataConfig(seq_len=6, out_len=6, use_text=False,
+                                       use_vision=False),
+        model=ModelConfig(use_llm=False,
+                          lane=LaneEncoderConfig(d_model=16, nhead=2,
+                                                 num_layers=1),
+                          ltsf=LTSFConfig(d_model=16, polygon_embed_dim=16)))
+    state = TrajectoryModel(cfg.model, 6, 6).state_dict()
+    if torch.cuda.is_available():
+        assert Predictor(cfg, state).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Predictor(cfg, state)
+    assert Predictor(cfg, state, device="cpu").device.type == "cpu"
 
 
 @pytest.fixture(scope="module")
@@ -70,20 +112,80 @@ def test_converter_is_strict(lane_params, fault):
         load_flax_params(_port(), traverse_util.unflatten_dict(flat))
 
 
-def test_cpu_tensors_never_launch_the_kernel():
+def _kernel_inputs(device="cpu"):
     rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 5, 2, 16),
-                                                     dtype=np.float32))
-               for _ in range(3))
-    before = flash_attention.launches
-    flash_attention(q, k, v, is_causal=True)
-    dot_product_attention(q, k, v, torch.ones(1, 5, dtype=torch.int32))
-    assert flash_attention.launches == before == 0
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(device)
+    q, k, v = t((1, 5, 2, 16)), t((1, 5, 2, 16)), t((1, 5, 2, 16))
+    w8, scale = quantize_weight(t((16, 8)))
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    head = quantize_weight(t((128, 16)), axis=1)
+    return dict(q=q, k=k, v=v, w8=w8, scale=scale,
+                cache=(k8, ks, v8, vs), head=head,
+                hidden=t((2, 16)), emb=t((128, 16)))
+
+
+def test_cpu_tensors_never_launch_the_kernels():
+    x = _kernel_inputs()
+    counters = (flash_attention, int8_matmul, attend_int8_kv, lmhead_topk)
+    before = [f.launches for f in counters]
+    flash_attention(x["q"], x["k"], x["v"], is_causal=True)
+    dot_product_attention(x["q"], x["k"], x["v"],
+                          torch.ones(1, 5, dtype=torch.int32))
+    int8_matmul(x["q"], x["w8"], x["scale"])
+    attend_int8_kv(x["q"][:, :1], x["cache"], torch.ones(1, 5))
+    lmhead_topk(x["hidden"], x["emb"], None)
+    w8, s = x["head"]
+    lmhead_topk(x["hidden"], None, None, quant=(w8.t().contiguous(), s))
+    assert [f.launches for f in counters] == before == [0, 0, 0, 0]
 
 
 def test_no_fallback_off_the_cpu():
     """A tensor that is neither on the CPU nor on a CUDA device gets no
-    plain-version fallback."""
+    plain-version fallback, from any of the four wrappers."""
     q = torch.empty(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no attention kernel"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_matmul(q, torch.empty(16, 8, dtype=torch.int8),
+                    torch.ones(8))
+    with pytest.raises(ValueError, match="no int8 attention kernel"):
+        attend_int8_kv(q, (None, None, None, None), None)
+    with pytest.raises(ValueError, match="no head kernel"):
+        lmhead_topk(q[0, 0], q[0, 0], None)
+
+
+def test_shared_wrapper_contract():
+    """The checks every kernel wrapper shares: a tensor of another device,
+    dtype, shape or layout raises before a launch; a launch that returns a
+    CUDA error raises and is not counted, one that succeeds is."""
+    from tsue_tpu_torch.ops._build import (check_tensor, count_launch,
+                                           uses_kernel)
+    cpu = torch.device("cpu")
+    t = torch.zeros(4, 8)
+    check_tensor("t", t, cpu, (4, 8), torch.float32, aligned=True)
+    with pytest.raises(TypeError):
+        check_tensor("t", t, cpu, (4, 8), torch.int8)
+    with pytest.raises(ValueError, match="shape"):
+        check_tensor("t", t, cpu, (8, 4), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_tensor("t", t.t(), cpu, (8, 4), torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_tensor("t", t.reshape(-1)[1:], cpu, (31,), torch.float32,
+                     aligned=True)
+    with pytest.raises(ValueError, match="is on meta"):
+        check_tensor("t", t.to("meta"), cpu, (4, 8), torch.float32)
+    assert not uses_kernel(t, "test kernel")
+    with pytest.raises(ValueError, match="no test kernel for device meta"):
+        uses_kernel(t.to("meta"), "test kernel")
+
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    with pytest.raises(RuntimeError, match="wrapper launch failed"):
+        count_launch(wrapper, 700)
+    count_launch(wrapper, 0)
+    assert wrapper.launches == 1

@@ -15,14 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from tsue_tpu.config import (DataConfig, ExperimentConfig, LaneEncoderConfig,
-                             LlamaConfig, LTSFConfig, ModelConfig,
-                             QFormerConfig)
-from tsue_tpu.data import build_windows, make_synthetic_tracks
-from tsue_tpu.data.tokenizer import ByteTokenizer
+from tsue_tpu import config as jax_config
+from tsue_tpu.data.tokenizer import ByteTokenizer as JaxByteTokenizer
 from tsue_tpu.models.tsue import TrajectoryModel as JaxTrajectoryModel
 from tsue_tpu.serve import Predictor as JaxPredictor
+from tsue_tpu_torch import config as port_config
 from tsue_tpu_torch.convert import load_flax_params
+from tsue_tpu_torch.data import build_windows, make_synthetic_tracks
+from tsue_tpu_torch.data.tokenizer import ByteTokenizer
 from tsue_tpu_torch.models.tsue import TrajectoryModel
 from tsue_tpu_torch.serve import Predictor
 
@@ -30,27 +30,30 @@ K = 3
 PX_TOL = dict(atol=1e-2, rtol=0)
 
 
-def _cfg(dropout: float) -> ExperimentConfig:
+def _cfg(dropout: float, c=port_config):
+    """The slice's configuration in the config classes of module ``c`` (the
+    port's by default, the JAX package's for its predictor)."""
     tok = ByteTokenizer()
-    return ExperimentConfig(
+    return c.ExperimentConfig(
         name="torch_slice",
-        data=DataConfig(seq_len=6, out_len=6, max_length=32),
-        model=ModelConfig(
-            llama=LlamaConfig.tiny(tok.vocab_size),
-            qformer=QFormerConfig(hidden_size=32, num_heads=2,
-                                  num_encoder_layers=1, num_decoder_layers=1,
-                                  num_query_tokens=4, dropout=dropout),
-            lane=LaneEncoderConfig(d_model=16, nhead=2, num_layers=1,
-                                   dropout=dropout),
-            ltsf=LTSFConfig(d_model=16, polygon_embed_dim=16,
-                            dropout=dropout)))
+        data=c.DataConfig(seq_len=6, out_len=6, max_length=32),
+        model=c.ModelConfig(
+            llama=c.LlamaConfig.tiny(tok.vocab_size),
+            qformer=c.QFormerConfig(hidden_size=32, num_heads=2,
+                                    num_encoder_layers=1,
+                                    num_decoder_layers=1,
+                                    num_query_tokens=4, dropout=dropout),
+            lane=c.LaneEncoderConfig(d_model=16, nhead=2, num_layers=1,
+                                     dropout=dropout),
+            ltsf=c.LTSFConfig(d_model=16, polygon_embed_dim=16,
+                              dropout=dropout)))
 
 
 @pytest.fixture(scope="module")
 def stacks():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    cfg0 = _cfg(0.0)
+    cfg0 = _cfg(0.0, jax_config)
     model = JaxTrajectoryModel(cfg0.model, 6, 6)
     dummy = JaxPredictor(cfg0, None, batch_size=4)._dummy_batch()
     params = jax.device_get(jax.jit(
@@ -58,13 +61,14 @@ def stacks():
                               "dropout": jax.random.key(1)}, b, False))(
         dummy)["params"])
     jax_pred = JaxPredictor(cfg0, params, batch_size=4, num_candidates=K,
-                            tokenizer=ByteTokenizer())
-    state = load_flax_params(TrajectoryModel(cfg0.model, 6, 6),
+                            tokenizer=JaxByteTokenizer())
+    state = load_flax_params(TrajectoryModel(_cfg(0.0).model, 6, 6),
                              params).state_dict()
 
     def port(dropout):
         return Predictor(_cfg(dropout), state, batch_size=4,
-                         num_candidates=K, tokenizer=ByteTokenizer()).warmup()
+                         num_candidates=K, tokenizer=ByteTokenizer(),
+                         device="cpu").warmup()
 
     yield jax_pred, port(0.0), port(0.1)
     torch.set_num_threads(prev)

@@ -15,6 +15,11 @@ the module's type says how the leaf maps:
 
 It is strict: every Flax leaf is consumed exactly once, every port
 parameter is filled, and every shape must match.  It never imports jax.
+
+Only parameters cross the bridge.  The int8 decode tables (the JAX
+package's ``"quant"`` collection) are not carried: the port builds them
+from its own fp32 parameters (``ops.quant.quantize_llama_params``), and
+``tests/test_torch_quant.py`` holds them equal to the JAX package's.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ Counterpart of ``tsue_tpu/models/fusion.py`` (``MultiModalLLM.fuse`` and
 ``__call__``; ref scripts/train.py:459-575): image tokens projected to the
 LLM width plus learned vision/text modality embeddings, input-level concat
 [img || text], the extended attention mask, and the Llama forward returning
-the last hidden states.  Generation and the LM loss come with later slices.
+the last hidden states, and generation support: the soft-prefix prefill
+into a KV cache and the cached decode step (``fusion.py:87-161``).  The LM
+loss comes with a later slice.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from tsue_tpu.config import LlamaConfig, QFormerConfig
-from tsue_tpu_torch.models.llama import LlamaForCausalLM
+from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
+from tsue_tpu_torch.models.llama import LlamaForCausalLM, init_kv_cache
 from tsue_tpu_torch.models.qformer import QFormer
 
 
@@ -55,3 +57,55 @@ class MultiModalLLM(nn.Module):
         """Stage-2 path: (final_hidden (B, n_img + L, D), fused_mask)."""
         fused, mask, _ = self.fuse(vision, input_ids, attention_mask)
         return self.llama(fused, mask), mask
+
+    # generation support: soft-prefix prefill + cached decode
+
+    def prefill(self, vision: Optional[torch.Tensor],
+                prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                cache_len: int):
+        """Prefill fp32 KV caches of ``cache_len`` slots with the fused
+        [img || prompt] prefix.  Returns (caches, last_hidden (B, D),
+        prefix_valid_len (B,), fused_mask (B, P)).  Positions are the
+        cumulative count of the fused mask; the prompt occupies a prefix of
+        its row, so the last valid position is ``valid_len - 1``."""
+        fused, fmask, _ = self.fuse(vision, prompt_ids, prompt_mask)
+        B, P, _ = fused.shape
+        caches = init_kv_cache(self.llama.cfg, B, cache_len, fused.dtype,
+                               fused.device)
+        hidden = self.llama.model(fused, fmask, kv_caches=caches,
+                                  cache_index=0)
+        valid_len = fmask.sum(dim=1)
+        rows = torch.arange(B, device=fused.device)
+        last_hidden = hidden[rows, valid_len - 1]
+        return caches, last_hidden, valid_len.to(torch.int32), fmask
+
+    def decode_hidden(self, token: torch.Tensor, step_index: int,
+                      prefix_len: torch.Tensor, caches,
+                      fused_mask: torch.Tensor, cache_len: int,
+                      quant_ok: bool = True) -> torch.Tensor:
+        """One cached decode step without the LM head: token (B,) at
+        decode step ``step_index`` (an int) -> hidden (B, D); the caches
+        are written in place at slot P + step_index.  Generated tokens are
+        embedded without the text modality embedding (the reference's
+        patched embedding) at positions ``prefix_len + step_index``; they
+        see the valid prefix and the decode slots up to their own."""
+        P = fused_mask.shape[1]
+        dev = token.device
+        emb = self.llama.embed(token[:, None])
+        pos = (prefix_len.long() + step_index)[:, None]
+        slot = P + step_index
+        k_idx = torch.arange(cache_len, device=dev)[None, :]
+        prefix_ok = torch.nn.functional.pad(fused_mask, (0, cache_len - P)) > 0
+        kv_mask = ((k_idx < P) & prefix_ok) | ((k_idx >= P) & (k_idx <= slot))
+        hidden = self.llama.model(emb, positions=pos, kv_caches=caches,
+                                  cache_index=slot, kv_mask=kv_mask,
+                                  quant_ok=quant_ok)
+        return hidden[:, 0]
+
+    def decode_step(self, token: torch.Tensor, step_index: int,
+                    prefix_len: torch.Tensor, caches,
+                    fused_mask: torch.Tensor, cache_len: int) -> torch.Tensor:
+        """``decode_hidden`` followed by the LM head: (B, V) fp32 logits."""
+        hidden = self.decode_hidden(token, step_index, prefix_len, caches,
+                                    fused_mask, cache_len)
+        return self.llama.logits_from_hidden(hidden, quant_ok=True)

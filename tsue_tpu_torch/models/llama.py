@@ -1,9 +1,15 @@
 """Llama-3.2-style decoder stack with LoRA, eval forward only.
 
 Counterpart of ``tsue_tpu/models/llama.py``.  What is carried: RMSNorm,
-llama-3 rope scaling, ``LoRADense`` (eval forward), the attention / MLP /
-layer / model classes and the tied-embedding layout.  No KV cache, remat,
-quantisation or loss yet.
+llama-3 rope scaling, ``LoRADense`` (eval forward, with the int8 decode
+branch of ``ops/quant.py``), the attention / MLP / layer / model classes
+with the KV cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the
+tied-embedding layout and ``logits_from_hidden``.  No remat or loss yet.
+
+KV caches are lists of per-layer tensors written in place (the JAX package
+returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
+int8 layer is ``(k8, ks, v8, vs)``.  Keys are roped before they are
+written.
 
 Compute dtype.  Weights are fp32 parameters.  Where the JAX package casts a
 weight to the compute dtype (``LoRADense``: ``jnp.dot(x, kernel.astype(
@@ -14,15 +20,18 @@ embeddings are fp32) and ``jnp.dot`` promotes fp32 x bf16 to fp32.  So the
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tsue_tpu.config import LlamaConfig
+from tsue_tpu_torch.config import LlamaConfig
 from tsue_tpu_torch.ops.attention import dot_product_attention
+from tsue_tpu_torch.ops.flash import rope_bthd
+from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, update_kv_int8
+from tsue_tpu_torch.ops.quant import int8_matmul
 
 
 class RMSNorm(nn.Module):
@@ -66,7 +75,12 @@ class LoRADense(nn.Module):
 
     y = x @ W + (alpha / r) * (x @ A) @ B, each weight rounded to
     ``dtype`` and the product formed in the activations' fp32.  LoRA dropout
-    is a training-time op and is not carried (eval forward)."""
+    is a training-time op and is not carried (eval forward).
+
+    With int8 tables attached (``ops.quant.attach_quant``: buffers ``w8``
+    (in, out) and ``scale`` (out,)) a call with ``quant_ok=True`` takes
+    ``x @ W`` from ``int8_matmul`` instead; the LoRA delta is still added
+    after it (``tsue_tpu/models/llama.py:139-162``)."""
 
     def __init__(self, in_features: int, features: int, lora_r: int = 0,
                  lora_alpha: float = 32.0,
@@ -79,12 +93,18 @@ class LoRADense(nn.Module):
         if lora_r > 0:
             self.lora_a = nn.Parameter(torch.empty(in_features, lora_r))
             self.lora_b = nn.Parameter(torch.zeros(lora_r, features))
+        self.register_buffer("w8", None, persistent=False)
+        self.register_buffer("scale", None, persistent=False)
 
     def _w(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return w.to(self.dtype).to(x.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self._w(self.kernel, x)
+    def forward(self, x: torch.Tensor, quant_ok: bool = False
+                ) -> torch.Tensor:
+        if quant_ok and self.w8 is not None:
+            y = int8_matmul(x, self.w8, self.scale)
+        else:
+            y = x @ self._w(self.kernel, x)
         if self.lora_r > 0:
             delta = (x @ self._w(self.lora_a, x)) @ self._w(self.lora_b, x)
             y = y + (self.lora_alpha / self.lora_r) * delta
@@ -108,16 +128,55 @@ class LlamaAttention(nn.Module):
         self.v_proj = dense("v_proj", c.num_kv_heads * c.head_dim)
         self.o_proj = dense("o_proj", c.hidden_size)
 
-    def forward(self, x, mask, rope):
+    def forward(self, x, mask, rope, kv_cache=None, cache_index=None,
+                kv_mask=None, quant_ok=False):
+        """Without a cache: causal self-attention over x, ``mask`` (B, T)
+        key validity, the rope applied in the kernel.
+
+        With a cache, q and k are roped first and the new k/v rows are
+        written at ``cache_index`` (an int).  Prefill form (``kv_mask`` is
+        None): the rows are the whole valid cache (``cache_index`` 0), so
+        attention runs over the new keys themselves, causally with the
+        (B, T) ``mask`` — the JAX package's (B, 1, T, S) prefill mask
+        (``tsue_tpu/models/fusion.py:109-117``) is that function, since
+        the slots past T are masked.  Decode form: attention runs over the
+        whole cache with the (B, S) ``kv_mask``, not causal; an int8 cache
+        goes to ``attend_int8_kv``."""
         c = self.cfg
         B, T, _ = x.shape
-        q = self.q_proj(x).reshape(B, T, c.num_heads, c.head_dim)
-        k = self.k_proj(x).reshape(B, T, c.num_kv_heads, c.head_dim)
-        v = self.v_proj(x).reshape(B, T, c.num_kv_heads, c.head_dim)
-        # the rope goes to the attention op, which applies it in the kernel
-        out = dot_product_attention(q, k, v, mask=mask, is_causal=True,
-                                    rope=rope)
-        return self.o_proj(out.reshape(B, T, c.num_heads * c.head_dim))
+        q = self.q_proj(x, quant_ok).reshape(B, T, c.num_heads, c.head_dim)
+        k = self.k_proj(x, quant_ok).reshape(B, T, c.num_kv_heads,
+                                             c.head_dim)
+        v = self.v_proj(x, quant_ok).reshape(B, T, c.num_kv_heads,
+                                             c.head_dim)
+        if kv_cache is None:
+            # the rope goes to the attention op, which applies it in the
+            # kernel
+            out = dot_product_attention(q, k, v, mask=mask, is_causal=True,
+                                        rope=rope)
+        else:
+            q = rope_bthd(q, *rope)
+            k = rope_bthd(k, *rope)
+            if len(kv_cache) == 4:
+                if kv_mask is None:
+                    raise ValueError("an int8 cache is for decode only: "
+                                     "prefill into fp32 and quantise")
+                update_kv_int8(kv_cache, k, v, cache_index)
+                out = attend_int8_kv(q, kv_cache, kv_mask)
+            else:
+                ck, cv = kv_cache
+                ck[:, cache_index:cache_index + T] = k
+                cv[:, cache_index:cache_index + T] = v
+                if kv_mask is None:
+                    if cache_index != 0:
+                        raise ValueError("prefill writes from slot 0")
+                    out = dot_product_attention(q, k, v, mask=mask,
+                                                is_causal=True)
+                else:
+                    out = dot_product_attention(q, ck, cv, mask=kv_mask,
+                                                is_causal=False)
+        return self.o_proj(out.reshape(B, T, c.num_heads * c.head_dim),
+                           quant_ok)
 
 
 class LlamaMLP(nn.Module):
@@ -131,8 +190,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = LoRADense(c.intermediate_size, c.hidden_size,
                                    dtype=dtype)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, quant_ok=False):
+        return self.down_proj(F.silu(self.gate_proj(x, quant_ok))
+                              * self.up_proj(x, quant_ok), quant_ok)
 
 
 class LlamaLayer(nn.Module):
@@ -143,9 +203,11 @@ class LlamaLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg, dtype)
 
-    def forward(self, x, mask, rope):
-        x = x + self.attn(self.input_norm(x), mask, rope)
-        return x + self.mlp(self.post_attn_norm(x))
+    def forward(self, x, mask, rope, kv_cache=None, cache_index=None,
+                kv_mask=None, quant_ok=False):
+        x = x + self.attn(self.input_norm(x), mask, rope, kv_cache,
+                          cache_index, kv_mask, quant_ok)
+        return x + self.mlp(self.post_attn_norm(x), quant_ok)
 
 
 class LlamaModel(nn.Module):
@@ -167,40 +229,90 @@ class LlamaModel(nn.Module):
         return self.embed_tokens(input_ids)
 
     def forward(self, inputs_embeds: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                kv_caches: Optional[List] = None, cache_index: int = 0,
+                kv_mask: Optional[torch.Tensor] = None,
+                quant_ok: bool = False) -> torch.Tensor:
         """inputs_embeds (B, T, D); attention_mask (B, T), 1 = real token.
-        Returns the final-normed hidden states (B, T, D)."""
+        Returns the final-normed hidden states (B, T, D).
+
+        ``kv_caches`` (per layer, see the module docstring) are written in
+        place at ``cache_index``: without ``kv_mask`` this is the prefill
+        (the T rows are the whole valid cache), with ``kv_mask`` (B, S) a
+        decode step over the whole cache.  ``positions`` (B, T) default to
+        the cumulative count of ``attention_mask`` (or 0..T-1).
+        ``quant_ok=True`` (decode only) lets the projections use attached
+        int8 tables."""
         B, T, _ = inputs_embeds.shape
         dev = inputs_embeds.device
+        mask = None
         if attention_mask is not None:
-            positions = (attention_mask.long().cumsum(1) - 1).clamp_min(0)
             mask = attention_mask.bool()
-        else:
-            positions = torch.arange(T, device=dev).expand(B, T)
-            mask = None
+        if positions is None:
+            if attention_mask is not None:
+                positions = (attention_mask.long().cumsum(1) - 1).clamp_min(0)
+            else:
+                positions = torch.arange(T, device=dev).expand(B, T)
         angles = positions[..., None].float() * self.inv_freq   # (B, T, D/2)
         rope = (torch.cos(angles), torch.sin(angles))
         x = inputs_embeds
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, rope)
+            cache = None if kv_caches is None else kv_caches[i]
+            x = getattr(self, f"layer_{i}")(x, mask, rope, cache, cache_index,
+                                            kv_mask, quant_ok)
         return self.final_norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
-    """LlamaModel with its (tied, by default) LM-head weight.  The head is
-    not applied on this path: the stage-2 forward needs hidden states."""
+    """LlamaModel with its (tied, by default) LM head.  The stage-2 forward
+    returns hidden states; ``logits_from_hidden`` applies the head (decode).
+    With int8 tables attached (buffers ``lm_head_w8`` (D, V) and
+    ``lm_head_scale`` (V,)), decode calls (``quant_ok=True``) stream them
+    through ``int8_matmul``."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.model = LlamaModel(cfg, dtype)
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False)
+        self.register_buffer("lm_head_w8", None, persistent=False)
+        self.register_buffer("lm_head_scale", None, persistent=False)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed(input_ids)
 
+    def head_weight(self) -> torch.Tensor:
+        """The fp32 (V, D) head weight: the tied embedding or the untied
+        head."""
+        if self.cfg.tie_word_embeddings:
+            return self.model.embed_tokens.weight
+        return self.lm_head.weight
+
+    def logits_from_hidden(self, hidden: torch.Tensor,
+                           quant_ok: bool = False) -> torch.Tensor:
+        """(..., D) -> (..., V) fp32 logits.  The tied head rounds the
+        embedding to the compute dtype, as the JAX package does
+        (``llama.py:385-388``); the untied head is an fp32 Dense."""
+        if quant_ok and self.lm_head_w8 is not None:
+            return int8_matmul(hidden, self.lm_head_w8, self.lm_head_scale)
+        if self.cfg.tie_word_embeddings:
+            w = self.model.embed_tokens.weight
+            return hidden @ w.to(self.dtype).to(hidden.dtype).t()
+        return self.lm_head(hidden).float()
+
     def forward(self, inputs_embeds, attention_mask=None) -> torch.Tensor:
         return self.model(inputs_embeds, attention_mask)
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.float32,
+                  device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-layer (k, v) zero buffers of shape (B, max_len, Hkv, Dh)."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_layers)]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tsue_tpu.config import QFormerConfig
+from tsue_tpu_torch.config import QFormerConfig
 from tsue_tpu_torch.models.layers import DecoderBlock, EncoderBlock
 
 

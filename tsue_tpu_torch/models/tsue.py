@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tsue_tpu.config import ModelConfig
+from tsue_tpu_torch.config import ModelConfig
 from tsue_tpu_torch.models.fusion import MultiModalLLM
 from tsue_tpu_torch.models.lane_encoder import LanePolygonEncoder
 from tsue_tpu_torch.models.llama import LoRADense, RMSNorm

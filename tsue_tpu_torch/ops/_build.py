@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and the contract their wrappers
+share.
 
 Each ``csrc/*.cu`` file has a plain C interface.  At first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
@@ -6,6 +7,12 @@ repository's ``build/`` directory (git-ignored), keyed by a hash of the
 source, and loaded with ctypes.  Nothing here runs at import time: this
 module imports on machines without CUDA, where only the plain PyTorch
 versions of the kernels run.
+
+Every wrapper follows one rule, kept here: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises, any other device
+raises (``uses_kernel``); arguments are checked before the launch
+(``check_tensor``), and a launch that returns a CUDA error raises while one
+that succeeds adds one to the wrapper's ``launches`` (``count_launch``).
 """
 from __future__ import annotations
 
@@ -15,7 +22,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -43,22 +52,85 @@ def build(name: str) -> Tuple[ctypes.CDLL, str]:
     Returns (library, ptxas report).  The report lists each kernel's
     registers, shared memory and spills; it is empty when the library
     was already built."""
-    if name in _loaded:
-        return _loaded[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    report = ""
-    if not lib_path.exists():
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """``build`` for several sources, one ``nvcc`` process each, all
+    started together."""
+    pending = {}
+    for name in names:
+        if name in _loaded or name in pending:
+            continue
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+        if lib_path.exists():
+            _loaded[name] = (ctypes.CDLL(str(lib_path)), "")
+            continue
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
                str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        pending[name] = (proc, tmp, lib_path)
+    failures = []
+    for name, (proc, tmp, lib_path) in pending.items():
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+            failures.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
         os.replace(tmp, lib_path)
-        report = proc.stderr
-    _loaded[name] = (ctypes.CDLL(str(lib_path)), report)
-    return _loaded[name]
+        _loaded[name] = (ctypes.CDLL(str(lib_path)), err)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: _loaded[name] for name in names}
+
+
+def bind(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """``build(name)`` and declare its C functions: each returns an int (a
+    CUDA error code, or a size) and takes the given ctypes arguments."""
+    lib, _ = build(name)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = list(argtypes)
+    return lib
+
+
+def uses_kernel(t: torch.Tensor, what: str) -> bool:
+    """True on a CUDA tensor (launch the kernel), False on a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} for device {t.device}")
+    return True
+
+
+def check_tensor(name: str, t: torch.Tensor, device: torch.device,
+                 shape: Tuple[int, ...], dtype: torch.dtype,
+                 aligned: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (and 16-byte aligned, with ``aligned``)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def count_launch(wrapper: Callable, err: int) -> None:
+    """After a kernel's C entry point returned ``err``: raise on a CUDA
+    error, else add one to ``wrapper.launches``."""
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed (CUDA error "
+                           f"{err})")
+    wrapper.launches += 1

@@ -12,9 +12,13 @@ no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
+
+from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
+                                     uses_kernel)
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 1024)
 
@@ -42,29 +46,13 @@ def flash_attention_plain(q, k, v, mask=None, is_causal=False, scale=None,
     return _plain_attention(q, k, v, mask, is_causal, scale)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
-    from tsue_tpu_torch.ops._build import build
-    lib, _ = build("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.restype = i32
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v mask cos sin out
-                   i32, i32, i32, i32, i32, i32,      # B Tq Tk Hq Hkv D
-                   i32, ctypes.c_float, ptr]          # causal scale stream
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, device: torch.device,
-           shape: Tuple[int, ...], dtype: torch.dtype) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return bind("flash_attn_fwd", {"flash_attn_fwd": [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v mask cos sin out
+        i32, i32, i32, i32, i32, i32,       # B Tq Tk Hq Hkv D
+        i32, ctypes.c_float, ptr]})         # causal scale stream
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
@@ -73,9 +61,9 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     dev = q.device
-    _check("q", q, dev, (B, Tq, Hq, D), torch.float32)
-    _check("k", k, dev, (B, Tk, Hkv, D), torch.float32)
-    _check("v", v, dev, (B, Tk, Hkv, D), torch.float32)
+    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32)
+    check_tensor("k", k, dev, (B, Tk, Hkv, D), torch.float32)
+    check_tensor("v", v, dev, (B, Tk, Hkv, D), torch.float32)
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel "
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
@@ -88,7 +76,7 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
         if mask.dim() != 2:
             raise ValueError("the kernel takes a (B, Tk) key mask only")
         mask = mask.to(torch.int32).contiguous()
-        _check("mask", mask, dev, (B, Tk), torch.int32)
+        check_tensor("mask", mask, dev, (B, Tk), torch.int32)
         mask_ptr = mask.data_ptr()
     cos_ptr = sin_ptr = None
     if rope is not None:
@@ -96,19 +84,17 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
             raise ValueError("in-kernel rope takes self-attention with "
                              f"D <= 128 (Tq={Tq}, Tk={Tk}, D={D})")
         cos, sin = rope
-        _check("cos", cos, dev, (B, Tk, D // 2), torch.float32)
-        _check("sin", sin, dev, (B, Tk, D // 2), torch.float32)
+        check_tensor("cos", cos, dev, (B, Tk, D // 2), torch.float32)
+        check_tensor("sin", sin, dev, (B, Tk, D // 2), torch.float32)
         cos_ptr, sin_ptr = cos.data_ptr(), sin.data_ptr()
     out = torch.empty_like(q)
-    fn = _lib()
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos_ptr,
-                 sin_ptr, out.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
-                 int(bool(is_causal)), float(scale),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed (CUDA error {err})")
-    flash_attention.launches += 1
+        err = _lib().flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos_ptr,
+            sin_ptr, out.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
+            int(bool(is_causal)), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(flash_attention, err)
     return out
 
 
@@ -127,10 +113,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention.launches`` counts kernel launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if not uses_kernel(q, "attention kernel"):
         return flash_attention_plain(q, k, v, mask, is_causal, scale, rope)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
     return _flash_cuda(q, k, v, mask, is_causal, scale, rope)
 
 

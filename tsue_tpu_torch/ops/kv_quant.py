@@ -1,0 +1,169 @@
+"""Int8 KV cache: quantisation, cache writes and decode attention over it.
+
+Counterpart of ``tsue_tpu/ops/kv_quant.py``.  The decode cache is stored
+per-token, per-head symmetric int8 (``k ~ k8 * ks``).  Prefill stays exact:
+the prefix is prefilled into an fp32 cache and ``quantize_cache`` converts
+it once before the decode loop; every decode write quantises the new rows
+on the way in (``update_kv_int8``).  A cache layer is the 4-tuple
+``(k8, ks, v8, vs)``; the port writes it in place where the JAX package
+returns a new one.
+
+``attend_int8_kv`` runs the CUDA kernel ``csrc/attend_int8_kv.cu`` on CUDA
+tensors and its plain version ``attend_int8_kv_plain`` on CPU tensors, and
+only there: a CUDA tensor the kernel cannot take raises.  Both compute the
+fp32 softmax(QK^T)V of the Pallas kernel ``_attend_kernel`` (masked logits
+-1e30, ``p / max(s, 1e-30)``), which is also the function of the JAX
+package's default XLA formulation.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Tuple
+
+import torch
+
+from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
+                                     uses_kernel)
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+
+LayerCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> (int8 (..., Dh), fp32 scale (...,)): symmetric per
+    vector (per token, per head)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    x8 = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return x8, scale
+
+
+def dequantize_kv(x8: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (x8.float() * scale[..., None]).to(dtype)
+
+
+def quantize_cache(caches: List[Tuple[torch.Tensor, torch.Tensor]]
+                   ) -> List[LayerCache]:
+    """Per-layer fp32 (k, v) -> per-layer (k8, ks, v8, vs), once after
+    prefill."""
+    out = []
+    for k, v in caches:
+        k8, ks = quantize_kv(k)
+        v8, vs = quantize_kv(v)
+        out.append((k8, ks, v8, vs))
+    return out
+
+
+def update_kv_int8(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
+                   cache_index: int) -> LayerCache:
+    """Quantise new (B, T, Hkv, Dh) rows and write them at the shared slot
+    ``cache_index`` (in place); returns the layer cache."""
+    k8, ks, v8, vs = layer_cache
+    T = k.shape[1]
+    k8n, ksn = quantize_kv(k)
+    v8n, vsn = quantize_kv(v)
+    k8[:, cache_index:cache_index + T] = k8n
+    ks[:, cache_index:cache_index + T] = ksn
+    v8[:, cache_index:cache_index + T] = v8n
+    vs[:, cache_index:cache_index + T] = vsn
+    return layer_cache
+
+
+def attend_int8_kv_plain(q: torch.Tensor, layer_cache: LayerCache,
+                         mask: Optional[torch.Tensor],
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's function in PyTorch ops (fp32 throughout)."""
+    k8, ks, v8, vs = layer_cache
+    B, Tq, Hq, D = q.shape
+    S, Hkv = k8.shape[1], k8.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    k = dequantize_kv(k8, ks)
+    v = dequantize_kv(v8, vs)
+    qg = q.float().reshape(B, Tq, Hkv, G, D)
+    logits = torch.einsum("bthgd,bshd->bhgts", qg, k) * scale
+    if mask is not None:
+        valid = mask.bool()[:, None, None, None, :]
+        logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v)
+    return out.reshape(B, Tq, Hq, D).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("attend_int8_kv", {
+        "attend_int8_kv": [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k8 ks v8 vs mask out
+            i32, i32, i32, i32, i32, i32,       # B Tq S Hq Hkv D
+            ctypes.c_float, ptr],               # scale stream
+        "attend_int8_kv_max_smem": [], "attend_int8_kv_max_groups": []})
+
+
+def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
+    k8, ks, v8, vs = layer_cache
+    if q.dim() != 4 or k8.dim() != 4:
+        raise ValueError("q must be (B, Tq, Hq, D) and k8/v8 (B, S, Hkv, D)")
+    B, Tq, Hq, D = q.shape
+    S, Hkv = k8.shape[1], k8.shape[2]
+    dev = q.device
+    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32)
+    check_tensor("k8", k8, dev, (B, S, Hkv, D), torch.int8, aligned=True)
+    check_tensor("v8", v8, dev, (B, S, Hkv, D), torch.int8)
+    check_tensor("ks", ks, dev, (B, S, Hkv), torch.float32)
+    check_tensor("vs", vs, dev, (B, S, Hkv), torch.float32)
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the kernel "
+                         f"(supported: {SUPPORTED_HEAD_DIMS})")
+    lib = _lib()
+    if Hkv == 0 or Hq % Hkv or Hq // Hkv > lib.attend_int8_kv_max_groups():
+        raise ValueError(f"Hkv={Hkv} must divide Hq={Hq} in at most "
+                         f"{lib.attend_int8_kv_max_groups()} groups")
+    if min(B, Tq, S) == 0 or max(B, Tq) > 65535:
+        raise ValueError(f"unsupported sizes B={B} Tq={Tq} S={S}")
+    if ((Hq // Hkv) * (D + S) + 64 * D) * 4 > lib.attend_int8_kv_max_smem():
+        raise ValueError(f"cache length S={S} too long for the kernel's "
+                         "shared memory")
+    mask_ptr = None
+    if mask is not None:
+        if mask.dim() != 2:
+            raise ValueError("the kernel takes a (B, S) key mask only")
+        mask = mask.to(torch.int32).contiguous()
+        check_tensor("mask", mask, dev, (B, S), torch.int32)
+        mask_ptr = mask.data_ptr()
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = lib.attend_int8_kv(
+            q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+            vs.data_ptr(), mask_ptr, out.data_ptr(), B, Tq, S, Hq, Hkv, D,
+            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(attend_int8_kv, err)
+    return out
+
+
+def attend_int8_kv(q: torch.Tensor, layer_cache: LayerCache,
+                   mask: Optional[torch.Tensor],
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over an int8 layer cache.
+
+    q: (B, Tq, Hq, Dh) roped queries; layer_cache: (k8, ks, v8, vs) with
+    k8/v8 (B, S, Hkv, Dh) and ks/vs (B, S, Hkv); mask: (B, S) key validity
+    or None.  Returns (B, Tq, Hq, Dh) fp32.  CPU tensors take
+    ``attend_int8_kv_plain``; CUDA tensors launch the kernel or raise.
+    ``attend_int8_kv.launches`` counts kernel launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not uses_kernel(q, "int8 attention kernel"):
+        return attend_int8_kv_plain(q, layer_cache, mask, scale)
+    return _attend_cuda(q, layer_cache, mask, scale)
+
+
+attend_int8_kv.launches = 0

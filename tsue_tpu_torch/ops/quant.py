@@ -1,0 +1,155 @@
+"""Int8 weight-only decode: the Hopper kernel, its plain version and the
+int8 tables.
+
+Counterpart of ``tsue_tpu/ops/quant.py``.  The Llama projections and the LM
+head are stored per-output-channel symmetric int8 (``w ~ w8 * scale``) and
+streamed as int8 during decode; activations stay fp32.  The tables are
+built from the port's own fp32 parameters (``quantize_llama_params``) and
+attached to its modules (``attach_quant``); ``LoRADense`` and
+``LlamaForCausalLM.logits_from_hidden`` use them only on decode calls
+(``quant_ok=True``), so prefill keeps the full-precision weights.
+
+``int8_matmul`` runs the CUDA kernel ``csrc/int8_matmul.cu`` on CUDA
+tensors and its plain version ``int8_matmul_ref`` on CPU tensors, and only
+there: a CUDA tensor the kernel cannot take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from tsue_tpu_torch.ops._build import bind, count_launch, uses_kernel
+
+PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+        "down_proj")
+MAX_ROWS = 128       # the kernel takes decode batches; the JAX path falls
+                     # back to XLA above this (quant.py:226-234)
+
+
+def quantize_weight(w: torch.Tensor, axis: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel int8: ``w ~ w8 * scale`` with one scale per
+    output channel (``axis`` is the contraction axis reduced over).
+    Returns (w8 int8, scale fp32 of shape w.shape[1 - axis]); rounding is
+    half to even, as ``jnp.round``."""
+    wf = w.float()
+    a = wf.abs().amax(dim=axis, keepdim=True)
+    scale = a.clamp_min(1e-8) / 127.0
+    w8 = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return w8, scale.reshape(-1)
+
+
+def int8_matmul_ref(x: torch.Tensor, w8: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: the weight dequantised to
+    x's fp32, the product, then the per-column scale."""
+    return (x @ w8.to(x.dtype)) * scale
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("int8_matmul", {
+        "int8_matmul": [ptr, ptr, ptr, ptr, ptr,   # x w8 scale out partial
+                        i32, i32, i32, ptr],        # M K N stream
+        "int8_matmul_splits": [i32, i32, i32]})
+
+
+def _int8_cuda(x2: torch.Tensor, w8: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    M, K = x2.shape
+    N = w8.shape[1]
+    dev = x2.device
+    if x2.dtype != torch.float32 or w8.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"int8_matmul takes fp32 x, int8 w8 and fp32 scale, "
+                        f"got {x2.dtype}, {w8.dtype}, {scale.dtype}")
+    if w8.device != dev or scale.device != dev:
+        raise ValueError("x, w8 and scale must be on one device")
+    if w8.shape[0] != K or tuple(scale.shape) != (N,):
+        raise ValueError(f"shapes x {tuple(x2.shape)}, w8 {tuple(w8.shape)}, "
+                         f"scale {tuple(scale.shape)} do not match")
+    if not 0 < M <= MAX_ROWS:
+        raise ValueError(f"the int8 kernel takes 1..{MAX_ROWS} rows, got {M}")
+    if N % 4 or not w8.is_contiguous() or w8.data_ptr() % 16:
+        raise ValueError("w8 must be contiguous, 16-byte aligned, with "
+                         f"N % 4 == 0 (N={N})")
+    x2 = x2.contiguous()
+    scale = scale.contiguous()
+    lib = _lib()
+    splits = lib.int8_matmul_splits(M, K, N)
+    out = torch.empty(M, N, device=dev, dtype=torch.float32)
+    partial = (torch.empty(splits, M, N, device=dev, dtype=torch.float32)
+               if splits > 1 else None)
+    with torch.cuda.device(dev):
+        err = lib.int8_matmul(
+            x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, K, N,
+            torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(int8_matmul, err)
+    return out
+
+
+def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``x @ (w8 * scale)`` with w8 streamed as int8.  x: (..., K) fp32;
+    w8: (K, N) int8; scale: (N,) fp32.  Returns (..., N) fp32.
+
+    CPU tensors take ``int8_matmul_ref``; CUDA tensors launch the kernel
+    (at most ``MAX_ROWS`` rows) or raise.  ``int8_matmul.launches`` counts
+    kernel launches."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if uses_kernel(x, "int8 kernel"):
+        out = _int8_cuda(x2, w8, scale)
+    else:
+        out = int8_matmul_ref(x2, w8, scale)
+    return out.reshape(*lead, w8.shape[1])
+
+
+int8_matmul.launches = 0
+
+
+@torch.no_grad()
+def quantize_llama_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The int8 tables of every Llama inside ``model`` (a TrajectoryModel,
+    a MultiModalLLM or a LlamaForCausalLM of the port), as a flat dict keyed
+    like the JAX package's ``"quant"`` collection with ``.`` for ``/``:
+
+    - ``<...>.attn.q_proj.w8`` / ``.scale`` for each projection of the
+      attention and MLP blocks, from its fp32 ``kernel`` (K, N), one scale
+      per output column;
+    - ``<llama>.lm_head_w8`` (D, V) and ``<llama>.lm_head_scale`` (V,) at
+      the LlamaForCausalLM, from the fp32 head weight quantised per vocab
+      row: the tied embedding (V, D), or the untied head.
+
+    The fp32 parameters are quantised as they are, not rounded to the
+    compute dtype first (``tsue_tpu/ops/quant.py:268``)."""
+    from tsue_tpu_torch.models.llama import LlamaForCausalLM, LoRADense
+    tables: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        parts = name.split(".")
+        if isinstance(mod, LoRADense) and parts[-1] in PROJ \
+                and len(parts) > 1 and parts[-2] in ("attn", "mlp"):
+            w8, s = quantize_weight(mod.kernel, axis=0)
+            tables[f"{name}.w8"] = w8
+            tables[f"{name}.scale"] = s
+        elif isinstance(mod, LlamaForCausalLM):
+            w8, s = quantize_weight(mod.head_weight(), axis=1)
+            prefix = f"{name}." if name else ""
+            tables[f"{prefix}lm_head_w8"] = w8.t().contiguous()
+            tables[f"{prefix}lm_head_scale"] = s
+    return tables
+
+
+def attach_quant(model: nn.Module, tables: Dict[str, torch.Tensor]) -> None:
+    """Set the tables of ``quantize_llama_params(model)`` on the modules
+    they belong to (non-persistent buffers: the state dict is unchanged)."""
+    modules = dict(model.named_modules())
+    for key, t in tables.items():
+        mod_name, _, leaf = key.rpartition(".")
+        setattr(modules[mod_name], leaf, t)

@@ -1,0 +1,247 @@
+"""Sampled-decoding logit processors in PyTorch ops.
+
+Counterpart of ``tsue_tpu/ops/sampling.py`` (HF-``generate`` semantics of
+the reference: temperature 0.9, top-k 40, top-p 0.9, repetition penalty
+1.2, no-repeat-ngram 3):
+
+- repetition penalty (CTRL): logits of tokens already seen are divided by
+  the penalty when positive, multiplied when negative;
+- no-repeat-ngram: tokens completing an already-seen n-gram are banned
+  (``NEG_INF``);
+- top-k then top-p filtering, then the draw, through the tie-exact
+  (B, k+1)-slot sampler of the JAX package (``_topk_topp_slots``,
+  ``_tie_blocks``, ``_draw_sliced``), shared-generator form only.
+
+Draws come from an explicit ``torch.Generator``: the categorical draw is a
+Gumbel-max over ``torch.rand`` noise, then one uniform per row for the tie
+pick.  The JAX package draws from threefry keys, so sampled tokens agree
+with it in distribution, not bit for bit; greedy decoding agrees exactly.
+Every operation is a tensor op on the logits' device: nothing here waits
+for the device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+NEG_INF = -1e9
+_TIE_LANES = 128
+
+
+class SamplingConfig(NamedTuple):
+    temperature: float = 0.9
+    top_k: int = 40
+    top_p: float = 0.9
+    repetition_penalty: float = 1.2
+    no_repeat_ngram_size: int = 3
+    do_sample: bool = True
+
+
+def _scatter_any(B: int, V: int, index: torch.Tensor,
+                 flags: torch.Tensor) -> torch.Tensor:
+    """(B, V) bool: True where some position j of row b has
+    ``index[b, j] == v`` and ``flags[b, j]`` (a scatter-max, so duplicate
+    indices never overwrite a True with a False)."""
+    out = torch.zeros(B, V, dtype=torch.int32, device=index.device)
+    out.scatter_reduce_(1, index.long(), flags.to(torch.int32), reduce="amax")
+    return out > 0
+
+
+def seen_tokens(token_history: torch.Tensor, history_len: torch.Tensor,
+                vocab_size: int) -> torch.Tensor:
+    """(B, V) bool: token v occurs in the first ``history_len`` entries."""
+    B, L = token_history.shape
+    valid = (torch.arange(L, device=token_history.device)[None, :]
+             < history_len[:, None])
+    return _scatter_any(B, vocab_size, token_history, valid)
+
+
+def banned_tokens(token_history: torch.Tensor, history_len: torch.Tensor,
+                  vocab_size: int, n: int) -> torch.Tensor:
+    """(B, V) bool: token v would complete an n-gram already in the
+    history — the window match of ``apply_no_repeat_ngram``."""
+    B, L = token_history.shape
+    dev = token_history.device
+    idx = torch.arange(L, device=dev)
+    rows = torch.arange(B, device=dev)
+
+    def suffix_tok(k):          # k = distance from the end (0 = last token)
+        pos = (history_len - 1 - k).clamp(0, L - 1)
+        return token_history[rows, pos]
+
+    match = torch.ones(B, L, dtype=torch.bool, device=dev)
+    for k in range(n - 1):
+        shifted = torch.roll(token_history, -k, dims=1)
+        match &= shifted == suffix_tok(n - 2 - k)[:, None]
+    fits = idx[None, :] + n - 1 < history_len[:, None]
+    enough = (history_len >= n - 1)[:, None]
+    match &= fits & enough
+    next_tok = token_history[:, (idx + n - 1).clamp(0, L - 1)]
+    return _scatter_any(B, vocab_size, next_tok, match)
+
+
+def apply_repetition_penalty(logits: torch.Tensor,
+                             token_history: torch.Tensor,
+                             history_len: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """logits (B, V); token_history (B, L) padded ids; history_len (B,)."""
+    if penalty == 1.0:
+        return logits
+    seen = seen_tokens(token_history, history_len, logits.shape[1])
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def apply_no_repeat_ngram(logits: torch.Tensor, token_history: torch.Tensor,
+                          history_len: torch.Tensor, n: int) -> torch.Tensor:
+    """Ban tokens that would complete any already-seen n-gram."""
+    if n <= 0:
+        return logits
+    banned = banned_tokens(token_history, history_len, logits.shape[1], n)
+    return logits.masked_fill(banned, NEG_INF)
+
+
+def sorted_desc(logits: torch.Tensor, k: int):
+    """(vals, idx) of the k largest entries per row, ordered by (value
+    desc, index asc) — ``lax.top_k``'s order, ties included."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filtering with HF semantics (the first token crossing p is
+    kept)."""
+    if p >= 1.0:
+        return logits
+    sorted_logits, _ = torch.sort(logits, dim=-1, descending=True)
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < p
+    inf = torch.full_like(sorted_logits, float("inf"))
+    thresh = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
+    return torch.where(logits >= thresh, logits,
+                       torch.full_like(logits, NEG_INF))
+
+
+def gumbel_argmax(logits: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A categorical draw per row: argmax of logits plus Gumbel noise."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def process_and_sample(logits: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       token_history: torch.Tensor,
+                       history_len: torch.Tensor,
+                       cfg: SamplingConfig) -> torch.Tensor:
+    """The full processor chain -> next token ids (B,).  Greedy
+    (``do_sample=False``) is the argmax with ascending-index ties and
+    draws nothing from ``generator``."""
+    logits = logits.float()
+    logits = apply_repetition_penalty(logits, token_history, history_len,
+                                      cfg.repetition_penalty)
+    logits = apply_no_repeat_ngram(logits, token_history, history_len,
+                                   cfg.no_repeat_ngram_size)
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    if cfg.temperature != 1.0:
+        logits = logits / cfg.temperature
+    if 0 < cfg.top_k < logits.shape[-1]:
+        k = cfg.top_k
+        slot_logits, idx, t_keep, tie_blocks = _topk_topp_slots(
+            logits, k, cfg.top_p)
+        return _draw_sliced(slot_logits, idx, t_keep, tie_blocks, k,
+                            generator)
+    return gumbel_argmax(apply_top_p(logits, cfg.top_p), generator)
+
+
+def _tie_blocks(logits: torch.Tensor, thresh: torch.Tensor):
+    """Tie mask in 128-wide blocks and per-block counts: (mb (B, nb, 128)
+    bool, bs (B, nb) int)."""
+    B, V = logits.shape
+    m = logits == thresh
+    pad = (-V) % _TIE_LANES
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    mb = m.reshape(B, -1, _TIE_LANES)
+    return mb, mb.sum(dim=-1)
+
+
+def slot_logits_from_sorted(vals: torch.Tensor, k: int, p: float,
+                            n_tie: torch.Tensor):
+    """The (B, k+1) slot logits and ``t_keep`` from a row's sorted top
+    values ``vals`` (at least k columns, (value desc, index asc)) and the
+    size ``n_tie`` of the tie class at the k-th value.  Slots 0..k-1 are
+    the entries strictly above the k-th value, top-p-masked with HF's
+    per-slot rule; slot k carries the mass of the kept part of the tie
+    class (``t_keep`` entries of ``exp(thresh)``)."""
+    kv = vals[:, :k]
+    thresh = kv[:, k - 1:k]
+    mx = kv[:, :1]
+    exp_v = torch.exp(kv - mx)
+    e_t = torch.exp(thresh - mx)[:, 0]
+    m = k - (kv == thresh).sum(dim=-1)
+    above = torch.arange(k, device=vals.device)[None, :] < m[:, None]
+    e_above = torch.where(above, exp_v, torch.zeros_like(exp_v))
+    cum = torch.cumsum(e_above, dim=-1)
+    cum_m = cum[:, -1]
+    n_tie_f = n_tie.to(torch.float32)
+    if p < 1.0:
+        pZ = p * (cum_m + n_tie_f * e_t)
+        keep_above = above & ((cum - e_above) < pZ[:, None])
+        t_keep = torch.ceil((pZ - cum_m) / e_t.clamp_min(1e-38))
+        t_keep = torch.minimum(t_keep.clamp_min(0.0), n_tie_f)
+        t_keep = torch.where(m == 0, t_keep.clamp_min(1.0), t_keep)
+    else:
+        keep_above = above
+        t_keep = n_tie_f
+    neg = torch.full_like(kv, NEG_INF)
+    tie_slot = torch.where(
+        t_keep > 0, torch.log((t_keep * e_t).clamp_min(1e-38)) + mx[:, 0],
+        torch.full_like(t_keep, NEG_INF))
+    slot_logits = torch.cat([torch.where(keep_above, kv, neg),
+                             tie_slot[:, None]], dim=-1)
+    return slot_logits, t_keep
+
+
+def _topk_topp_slots(logits: torch.Tensor, k: int, p: float):
+    """Tie-exact (B, k+1)-slot logits for the sliced top-k/top-p draw:
+    returns (slot_logits, idx, t_keep, (mb, bs) tie blocks)."""
+    vals, idx = sorted_desc(logits, k)
+    mb, bs = _tie_blocks(logits, vals[:, k - 1:k])
+    slot_logits, t_keep = slot_logits_from_sorted(vals, k, p, bs.sum(-1))
+    return slot_logits, idx, t_keep, (mb, bs)
+
+
+def tie_target(t_keep: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Which kept tied token a tie-slot draw picks (0-based, in ascending
+    token order): floor(u * t_keep), clamped to t_keep - 1 so an f32
+    round-up never reaches a tied token beyond the kept top-p prefix."""
+    u = torch.rand(t_keep.shape, generator=generator, device=t_keep.device)
+    return torch.minimum((u * t_keep).to(torch.int64),
+                         (t_keep.to(torch.int64) - 1).clamp_min(0))
+
+
+def _draw_sliced(slot_logits, idx, t_keep, tie_blocks, k: int,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Draw next tokens from the (B, k+1) slots and the tie blocks: the
+    categorical noise first, then one uniform per row for the tie pick."""
+    B = slot_logits.shape[0]
+    mb, bs = tie_blocks
+    choice = gumbel_argmax(slot_logits, generator)
+    target = tie_target(t_keep, generator)
+    rows = torch.arange(B, device=slot_logits.device)
+    cum_b = torch.cumsum(bs, dim=-1)
+    blk = torch.argmax((cum_b > target[:, None]).to(torch.int32), dim=-1)
+    before = cum_b[rows, blk] - bs[rows, blk]
+    within = (target - before)[:, None]
+    bm = mb[rows, blk]                                 # (B, 128) one block
+    wrank = torch.cumsum(bm.to(torch.int64), dim=-1) - 1
+    off = torch.argmax((bm & (wrank == within)).to(torch.int32), dim=-1)
+    tie_tok = blk * mb.shape[-1] + off
+    from_slice = idx.gather(1, choice.clamp_max(k - 1)[:, None])[:, 0]
+    return torch.where(choice == k, tie_tok.to(idx.dtype), from_slice)
