@@ -6,38 +6,56 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA device must be present; print its name and power limit
      as nvidia-smi gives them; TF32 off for fp32 products;
-  2. build: compile the four kernels in tsue_tpu_torch/csrc/ with nvcc, one
+  2. build: compile the six kernels in tsue_tpu_torch/csrc/ with nvcc, one
      process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at every shape
      of the paths below, with errors, CUDA-event times (L2 flushed before
      each launch), the least time the card could take (bound) and the time
      of one PyTorch library call computing the same function where there
-     is one;
+     is one; then the gradient of each autograd.Function (flash, RMSNorm,
+     SwiGLU: kernel forward, backward by recompute) against autograd
+     through the plain version;
   4. small configuration, on the card against the CPU (plain versions):
-     Predictor.predict, and greedy Predictor.generate_context with the
-     three decode switches all on and all off (token ids equal);
+     Predictor.predict, greedy Predictor.generate_context with the three
+     decode switches all on and all off (token ids equal), one train step
+     in the frozen_mllm and lora_only regimes with the fused switch on and
+     dropout 0 (loss and parameters equal within the CPU tests'
+     tolerances), and run_stage2 for one epoch on the card;
   5. predict path at the full width of the repo's Llama-3.2-1B
      configuration ("test_18_18", bfloat16 weights, random weights from a
      seed) with K=10 candidates: warmup, three requests, a repeated
-     request, and the flash kernel's launch count;
+     request, the flash kernel's launch count, and one request with the
+     fused switch on (RMSNorm and SwiGLU kernels) against the same request
+     with it off;
   6. generation path at the same width: generate_context with int8 decode
      weights, the fused LM head and the int8 KV cache (batch 16, 64 new
      tokens, default sampling): warmup, three requests of 32 tracks, a
      repeated request whose ids must be equal, the launch count of each
      kernel against the expected count, a torch.profiler trace of one
      request for the device's busy share, and one greedy request with the
-     three switches off.
+     three switches off;
+  7. training at the same width (fp32, the fused switch on, random weights
+     from a seed), for the presets "train_18_30" (frozen_mllm, batch 16)
+     and "lora_only_18_18" (batch 8): the launch counts of one step's
+     forward and of its backward (none), a warmup step and three timed
+     steps (ms per step, train windows/s, peak memory, launch counts),
+     frozen parameters bit-identical and trainable ones changed, a
+     repeated step from the same state and seed bit-identical, and an
+     eval step.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 TOL = dict(atol=1e-4, rtol=1e-4)   # fp32 vs fp32, different summation order
 PX_TOL = 1e-2                      # pixels, small-config predict vs the CPU
@@ -55,7 +73,13 @@ KERNELS = {
                     "tsue_tpu/ops/lmhead_topk.py:133 _head_topk_kernel"),
     "attend_int8_kv": ("tsue_tpu_torch/csrc/attend_int8_kv.cu",
                        "tsue_tpu/ops/kv_quant.py:147 _attend_kernel"),
+    "rmsnorm": ("tsue_tpu_torch/csrc/rmsnorm.cu",
+                "tsue_tpu/ops/fused.py:96 _rmsnorm_kernel"),
+    "swiglu_matmul": ("tsue_tpu_torch/csrc/swiglu_matmul.cu",
+                      "tsue_tpu/ops/fused.py:176 _swiglu_kernel"),
 }
+TRAIN_PRESETS = ("train_18_30", "lora_only_18_18")
+TEXT_TOKENS = 512         # the synthetic prompts fill the 512-token bucket
 GEN_NEW_TOKENS = 64
 
 
@@ -411,6 +435,116 @@ def attend_checks(dev, gpu, timer):
     return rows
 
 
+def fused_checks(dev, gpu, timer):
+    """RMSNorm (M, 2048) and the SwiGLU down-projection (M, 8192) x (8192,
+    2048) at M = B * (16 image + 512 text tokens): training at batch 16
+    (also the predict chunk with the fused switch on) and at batch 8."""
+    import torch
+    import torch.nn.functional as F
+    from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
+                                          swiglu_matmul, swiglu_matmul_plain)
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = {"rmsnorm": [], "swiglu_matmul": []}
+    D, I = 2048, 8192
+    for paths, B in (("train_18_30 b16 / predict b16", 16),
+                     ("lora_only_18_18 b8", 8)):
+        M = B * (16 + TEXT_TOKENS)
+        x = torch.randn(M, D, generator=g, device=dev)
+        scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+        out = fused_rmsnorm(x, scale, 1e-5)
+        ref = rmsnorm_plain(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        check(torch.allclose(out, ref, **TOL),
+              f"rmsnorm disagrees with the plain version at M={M}: {err}")
+        plain_ms = timer.ms(lambda: rmsnorm_plain(x, scale, 1e-5))
+        ms = timer.ms(lambda: fused_rmsnorm(x, scale, 1e-5))
+        lib_ms = timer.ms(lambda: F.rms_norm(x, (D,), scale, 1e-5))
+        b = bound(nbytes(x, scale, out), 4.0 * M * D)
+        rows["rmsnorm"].append(row("rmsnorm", f"{paths}: M={M} K={D}", gpu,
+                                   err, rel, ms, plain_ms, b, lib_ms,
+                                   batch=B))
+        del x, out, ref
+        gate = torch.randn(M, I, generator=g, device=dev)
+        up = torch.randn(M, I, generator=g, device=dev)
+        w = torch.randn(I, D, generator=g, device=dev) * I ** -0.5
+        out = swiglu_matmul(gate, up, w)
+        ref = swiglu_matmul_plain(gate, up, w)
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        # 8192 products summed in another order: the error scales with the
+        # largest output
+        atol = 1e-5 * ref.abs().max().item()
+        check(torch.allclose(out, ref, rtol=1e-4, atol=atol),
+              f"swiglu_matmul disagrees with the plain version at M={M}: "
+              f"max abs err {err} (rtol 1e-4, atol {atol})")
+        plain_ms = timer.ms(lambda: swiglu_matmul_plain(gate, up, w))
+        ms = timer.ms(lambda: swiglu_matmul(gate, up, w))
+        b = bound(nbytes(gate, up, w, out), 2.0 * M * D * I)
+        rows["swiglu_matmul"].append(row(
+            "swiglu_matmul", f"{paths}: M={M} K={I} N={D}", gpu, err, rel,
+            ms, plain_ms, b, None, batch=B))
+        del gate, up, w, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def function_grad_checks(dev):
+    """Each kernel's autograd.Function on the card (kernel forward, backward
+    by recompute through the plain version) against autograd through the
+    plain version, at reduced shapes; the comparison's launches do not
+    count for any path."""
+    import torch
+    from tsue_tpu_torch.models.llama import rope_inv_freq
+    from tsue_tpu_torch.config import LlamaConfig
+    from tsue_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
+                                          swiglu_matmul, swiglu_matmul_plain)
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+
+    def grads(fn, inputs, cot):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        (fn(*leaves) * cot).sum().backward()
+        return [t.grad for t in leaves]
+
+    B, T = 2, 96
+    mask = (torch.arange(T, device=dev)[None] < torch.tensor(
+        [[T], [61]], device=dev)).int()
+    ang = ((mask.cumsum(1) - 1).clamp_min(0).float()[..., None]
+           * torch.as_tensor(rope_inv_freq(LlamaConfig()), device=dev))
+    rope = (torch.cos(ang), torch.sin(ang))
+    cases = {
+        "flash_attn_fwd": (
+            lambda q, k, v: flash_attention(q, k, v, mask, True, None, rope),
+            lambda q, k, v: flash_attention_plain(q, k, v, mask, True, None,
+                                                  rope),
+            (randn(B, T, 32, 64), randn(B, T, 8, 64), randn(B, T, 8, 64)),
+            randn(B, T, 32, 64)),
+        "rmsnorm": (fused_rmsnorm,
+                    lambda x, s: rmsnorm_plain(x, s, 1e-5),
+                    (randn(256, 2048), 1.0 + randn(2048, s=0.1)),
+                    randn(256, 2048)),
+        "swiglu_matmul": (swiglu_matmul, swiglu_matmul_plain,
+                          (randn(256, 1024), randn(256, 1024),
+                           randn(1024, 256, s=0.03)), randn(256, 256)),
+    }
+    out = {}
+    for name, (fn, plain, inputs, cot) in cases.items():
+        ours, ref = grads(fn, inputs, cot), grads(plain, inputs, cot)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(ours, ref))
+        ok = all(torch.allclose(a, b, **TOL) for a, b in zip(ours, ref))
+        print(f"function_grad {name}: {len(ours)} input gradients, max abs "
+              f"err {err} against autograd through the plain version "
+              f"(atol/rtol {TOL['atol']})", flush=True)
+        check(ok, f"the {name} Function's gradient disagrees: {err}")
+        out[name] = err
+    return out
+
+
 # --------------------------------------------------------------------------
 # 4. small configuration: the card against the CPU
 # --------------------------------------------------------------------------
@@ -470,6 +604,138 @@ def small_reference_phase(dev):
               f"{ids[1].shape}, cuda == cpu: {same}, "
               f"{len(np.unique(ids[1]))} distinct ids", flush=True)
         check(same, f"small greedy generation differs on the card ({flags})")
+
+
+def small_train_cfg(regime: str, dropout: float = 0.0, batch: int = 4):
+    """``small_cfg`` in fp32 for training: hidden 256 and intermediate 512
+    reach the fused kernels (M = 4 * (16 + 96) = 448 rows)."""
+    from tsue_tpu_torch.config import TrainConfig
+    cfg = small_cfg()
+    m = cfg.model
+    return cfg.replace(
+        name=f"smoke_train_{regime}",
+        model=dataclasses.replace(
+            m, dtype="float32",
+            llama=dataclasses.replace(m.llama, lora_dropout=dropout),
+            qformer=dataclasses.replace(m.qformer, dropout=dropout),
+            lane=dataclasses.replace(m.lane, dropout=dropout),
+            ltsf=dataclasses.replace(m.ltsf, dropout=dropout)),
+        train=TrainConfig(batch_size=batch, freeze_regime=regime))
+
+
+def small_training_phase(dev):
+    """One train step per regime on the card against the CPU (same weights,
+    batch and seed; the fused switch on, dropout 0), then run_stage2 for one
+    epoch on the card with dropout live.  Tolerances are the CPU train
+    tests' (tests/test_torch_train.py): loss rtol 1e-4; after the step, a
+    parameter element within atol 2e-6, or 2 * lr where its gradient is
+    below 1e-4 or 1e-3 of its tensor's largest, or is an attention key
+    bias's (zero in exact arithmetic): the clipped gradients are near Adam's
+    eps, where a step moves by up to lr / 4 times the gradient's relative
+    error, and the two devices' errors scale with the tensor's largest
+    gradient; frozen ones unchanged.
+    The lane polygons go in in kilopixels: at random init raw pixel
+    polygons saturate the lane attention, whose gradient is then rounding
+    noise on any device."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import run_stage2, to_device
+    from tsue_tpu_torch.train.losses import denorm_mse_loss
+    from tsue_tpu_torch.train.trainer import (TrainState, make_optimizer,
+                                              make_train_step)
+    from tsue_tpu_torch.utils.random import step_generator
+
+    tracks = make_synthetic_tracks(num_tracks=3, track_len=400, seed=4)
+    for regime in ("frozen_mllm", "lora_only"):
+        cfg = small_train_cfg(regime)
+        L = cfg.model.llama.num_layers
+        ds = build_windows(tracks, cfg.data, get_tokenizer())
+        batch = next(iter(BatchIterator(ds, 4, seed=cfg.train.seed)))
+        batch["polygon"] = batch["polygon"] / 1000.0
+        base = TrajectoryModel(cfg.model, 18, 18)
+        init_params(base, torch.Generator().manual_seed(1))
+        start = base.state_dict()
+        runs = []
+        with fused_scope("on"):
+            for d in ("cpu", dev):
+                with torch.device(d):
+                    model = TrajectoryModel(cfg.model, 18, 18)
+                model.load_state_dict(start)
+                state = TrainState(model, make_optimizer(cfg, model),
+                                   cfg.train.seed)
+                b = to_device(batch, d)
+                grads = None
+                if d == "cpu":       # the step's gradients, for conditioning
+                    pred = model(b, deterministic=False,
+                                 stop_llm_grad=regime == "frozen_mllm",
+                                 generator=step_generator(cfg.train.seed, 0))
+                    denorm_mse_loss(pred, b["traj_out"], b["norm_stat"],
+                                    b["valid"]).backward()
+                    grads = {n: p.grad.abs() for n, p in
+                             model.named_parameters() if p.grad is not None}
+                    state.optimizer.zero_grad()
+                reset_counts()
+                loss = float(make_train_step(cfg)(state, b)["loss"])
+                counts = read_counts()
+                runs.append((loss, {n: p.detach().cpu() for n, p in
+                                    model.named_parameters()}, grads,
+                             counts))
+        (l_cpu, p_cpu, grads, _), (l_gpu, p_gpu, _, counts) = runs
+        m = cfg.model       # dropout 0: every attention takes the kernel
+        expected = {"flash_attn_fwd": L + m.lane.num_layers
+                    + m.qformer.num_encoder_layers
+                    + 2 * m.qformer.num_decoder_layers + 2,
+                    "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
+                    "rmsnorm": 2 * L + 1, "swiglu_matmul": L}
+        check(counts == expected, f"small train {regime}: launches {counts} "
+                                  f"!= {expected}")
+        check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"small train {regime}: loss {l_gpu} on the card, {l_cpu} on "
+              "the CPU")
+        worst = 0.0
+        lr = cfg.train.lr
+        for n, before in start.items():
+            a, c = p_gpu[n], p_cpu[n]
+            if n not in grads:
+                check(torch.equal(a, before) and torch.equal(c, before),
+                      f"small train {regime}: frozen {n} changed")
+                continue
+            gm = grads[n]
+            small = (gm < 1e-4) | (gm < 1e-3 * gm.max())
+            if n.endswith(".k.bias"):
+                # zero in exact arithmetic (a shift common to all keys):
+                # both sides step on rounding noise
+                small[:] = True
+            diff = (a - c).abs()
+            check(bool((diff[~small] <= 2e-6).all())
+                  and bool((diff[small] <= 2 * lr).all()),
+                  f"small train {regime}: {n} differs by "
+                  f"{diff.max().item()}")
+            if (~small).any():
+                worst = max(worst, diff[~small].max().item())
+        print(f"small_train {regime}: loss cuda {l_gpu} cpu {l_cpu}; "
+              f"parameters after one step: max abs diff {worst} on "
+              f"well-conditioned elements (tol 2e-6); launches "
+              f"{json.dumps(counts)}", flush=True)
+
+    # run_stage2 for one epoch on the card, dropout live
+    cfg = small_train_cfg("frozen_mllm", dropout=0.1, batch=8)
+    t0 = time.time()
+    with fused_scope("on"):
+        metrics = run_stage2(
+            cfg, out_dir=str(Path(__file__).resolve().parent / "runs"
+                             / "chip_smoke"),
+            epochs=1, eval_candidates=3, synthetic_tracks=12, device=dev)
+    check(set(metrics) == {"test_ade", "test_fde", "min_ade", "min_fde",
+                           "min_rmse", "K"}
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"run_stage2 on the card: {metrics}")
+    print(f"small run_stage2 on the card, 1 epoch: {json.dumps(metrics)} in "
+          f"{time.time() - t0:.1f}s", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -559,9 +825,36 @@ def predict_phase(dev, gpu, cfg, state):
           f"{windows / seconds:.3f} windows/s, "
           f"{windows * K / seconds:.3f} candidate trajectories/s (K={K}, "
           f"batch {B}); peak memory {peak:.2f} GiB; gpu: {gpu}", flush=True)
+
+    # the first request again with the fused switch on: the context's Llama
+    # (in _predict and in the rollout) takes the RMSNorm and SwiGLU kernels
+    from tsue_tpu_torch.ops.fused import fused_scope
+    L = m.llama.num_layers
+    reset_counts()
+    t0 = time.perf_counter()
+    with fused_scope("on"):
+        fused = pred.predict(tracks,
+                             torch.Generator(device=dev).manual_seed(1))
+    dt = time.perf_counter() - t0
+    fused_counts = read_counts()
+    c = math.ceil(len(fused) / B)
+    expected = {"flash_attn_fwd": c * (per_predict + per_rollout),
+                "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
+                "rmsnorm": c * 2 * (2 * L + 1), "swiglu_matmul": c * 2 * L}
+    err = max(float(np.abs(a[key] - b[key]).max())
+              for a, b in zip(out, fused)
+              for key in ("pred_pixel_xy", "candidates_pixel_xy"))
+    print(f"predict, fused switch on: {len(fused)} windows in {dt:.3f}s, "
+          f"max abs diff {err} px from the same request with it off (tol "
+          f"{PX_TOL}); launches {json.dumps(fused_counts)}; gpu: {gpu}",
+          flush=True)
+    check(len(fused) == len(out) and err <= PX_TOL,
+          f"predict with the fused switch on differs by {err} px")
+    check(fused_counts == expected, f"predict, fused on: launches "
+                                    f"{fused_counts} != {expected}")
     del pred
     torch.cuda.empty_cache()
-    return {"flash_attn_fwd": launches}
+    return {"flash_attn_fwd": launches}, fused_counts
 
 
 # --------------------------------------------------------------------------
@@ -570,11 +863,13 @@ def predict_phase(dev, gpu, cfg, state):
 
 def counters():
     from tsue_tpu_torch.ops.flash import flash_attention
+    from tsue_tpu_torch.ops.fused import fused_rmsnorm, swiglu_matmul
     from tsue_tpu_torch.ops.kv_quant import attend_int8_kv
     from tsue_tpu_torch.ops.lmhead_topk import lmhead_topk
     from tsue_tpu_torch.ops.quant import int8_matmul
     return {"flash_attn_fwd": flash_attention, "int8_matmul": int8_matmul,
-            "lmhead_topk": lmhead_topk, "attend_int8_kv": attend_int8_kv}
+            "lmhead_topk": lmhead_topk, "attend_int8_kv": attend_int8_kv,
+            "rmsnorm": fused_rmsnorm, "swiglu_matmul": swiglu_matmul}
 
 
 def reset_counts():
@@ -584,6 +879,34 @@ def reset_counts():
 
 def read_counts():
     return {k: f.launches for k, f in counters().items()}
+
+
+def profile_device(dev, gpu, what: str, wall_s: float, fn) -> None:
+    """Run ``fn`` once under torch.profiler and print the device's busy
+    time, its busy and idle shares against ``wall_s`` (the unprofiled wall
+    time of the same work: the trace's own host cost stretches its wall
+    time, so the share under the trace is printed beside it) and the ten
+    kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        traced = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    print(f"{what}: device busy {busy:.3f}s; unprofiled wall {wall_s:.3f}s "
+          f"-> busy share {busy / wall_s:.3f}, idle share "
+          f"{1 - busy / wall_s:.3f} (under the trace: wall {traced:.3f}s, "
+          f"idle share {1 - busy / traced:.3f}); gpu: {gpu}", flush=True)
+    for e in sorted(device, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        print(f"  {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
+              f"{e.count} calls", flush=True)
 
 
 def request_stats(pred):
@@ -656,7 +979,8 @@ def generation_phase(dev, gpu, cfg, state):
     counts = read_counts()
     expected = {"flash_attn_fwd": chunks * (L + qformer_calls),
                 "int8_matmul": steps * 7 * L, "lmhead_topk": steps,
-                "attend_int8_kv": steps * L}
+                "attend_int8_kv": steps * L, "rmsnorm": 0,
+                "swiglu_matmul": 0}
     print(f"generate: launches {json.dumps(counts)} over {chunks} chunks and "
           f"{steps} decode steps, expected {json.dumps(expected)}",
           flush=True)
@@ -671,29 +995,12 @@ def generation_phase(dev, gpu, cfg, state):
     # trace of one chunk (16 tracks), against the wall time of one chunk of
     # the unprofiled requests above; the trace's own host cost stretches
     # its wall time, so the share under the trace is printed beside it
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     tracks = make_synthetic_tracks(num_tracks=16, track_len=400, seed=7)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred.generate_context(tracks, max_new_tokens=N, generator=gen(7))
-        torch.cuda.synchronize(dev)
-        traced = time.perf_counter() - t0
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) / 1e6
-    chunk_wall = seconds / chunks3
-    print(f"generate profile: one chunk of 16 tracks, {N} decode steps: "
-          f"device busy {busy:.3f}s; unprofiled chunk wall "
-          f"{chunk_wall:.3f}s -> busy share {busy / chunk_wall:.3f}, idle "
-          f"share {1 - busy / chunk_wall:.3f} (under the trace: wall "
-          f"{traced:.3f}s, idle share {1 - busy / traced:.3f}); gpu: {gpu}",
-          flush=True)
-    for e in sorted(device, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:10]:
-        print(f"  {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
-              f"{e.count} calls", flush=True)
+    profile_device(
+        dev, gpu, f"generate profile: one chunk of 16 tracks, {N} decode "
+        "steps", seconds / chunks3,
+        lambda: pred.generate_context(tracks, max_new_tokens=N,
+                                      generator=gen(7)))
     del pred
     torch.cuda.empty_cache()
 
@@ -710,7 +1017,8 @@ def generation_phase(dev, gpu, cfg, state):
     check(len(out) == 32 and len(np.unique(plain.last_request["ids"])) > 32,
           "generate (switches off): output")
     exp_off = {"flash_attn_fwd": c * (L + qformer_calls) + s * L,
-               "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0}
+               "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
+               "rmsnorm": 0, "swiglu_matmul": 0}
     print(f"generate, switches off, greedy: 32 tracks in {dt:.3f}s, {s} "
           f"decode steps, prefill {', '.join(f'{p:.4f}' for p in prefill)} "
           f"s per chunk, {step_ms:.3f} ms per decode step, "
@@ -721,6 +1029,160 @@ def generation_phase(dev, gpu, cfg, state):
     del plain
     torch.cuda.empty_cache()
     return counts, off
+
+
+# --------------------------------------------------------------------------
+# 7. training at full width
+# --------------------------------------------------------------------------
+
+def train_phase(dev, gpu, preset: str):
+    """A stage-2 trainer of the preset at full Llama-3.2-1B width (fp32, the
+    vocabulary of the preset, random weights from the preset's seed) with
+    the fused switch on, through the port's entry points: ``make_optimizer``,
+    ``make_train_step``, ``make_eval_step``."""
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import to_device
+    from tsue_tpu_torch.train.losses import denorm_mse_loss
+    from tsue_tpu_torch.train.trainer import (TrainState, make_eval_step,
+                                              make_optimizer,
+                                              make_train_step)
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = get_preset(preset)
+    m, regime, B = cfg.model, cfg.train.freeze_regime, cfg.train.batch_size
+    L = m.llama.num_layers
+    tracks = make_synthetic_tracks(num_tracks=8, track_len=600, seed=5)
+    ds = build_windows(tracks, cfg.data, get_tokenizer())
+    batches = [to_device(b, dev) for _, b in zip(range(6), BatchIterator(
+        ds, B, seed=cfg.train.seed, length_buckets=cfg.data.length_buckets))]
+    check(len(batches) == 6, f"{preset}: too few windows ({len(ds)})")
+    T = m.qformer.num_query_tokens + batches[0]["input_ids"].shape[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    with torch.device(dev):
+        model = TrajectoryModel(m, cfg.data.seq_len, cfg.data.out_len)
+    init_params(model, torch.Generator(device=dev).manual_seed(
+        cfg.train.seed))
+    state = TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
+    train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
+    params = dict(model.named_parameters())
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    start = {n: p.detach().clone() for n, p in params.items()}
+    n_train = sum(params[n].numel() for n in trainable)
+    print(f"train {preset} ({regime}, batch {B}, {B} x {T} tokens, lr "
+          f"{cfg.train.lr}): {sum(p.numel() for p in params.values()) / 1e9:.3f}"
+          f"B params, {n_train / 1e6:.2f}M trainable; model + data "
+          f"{time.time() - t0:.1f}s", flush=True)
+    per_forward = {"flash_attn_fwd": L, "int8_matmul": 0, "lmhead_topk": 0,
+                   "attend_int8_kv": 0, "rmsnorm": 2 * L + 1,
+                   "swiglu_matmul": L}
+    with fused_scope("on"):
+        # one step's forward and backward, counted apart
+        reset_counts()
+        b = batches[0]
+        pred = model(b, deterministic=False,
+                     stop_llm_grad=regime == "frozen_mllm",
+                     generator=step_generator(cfg.train.seed, 0, dev))
+        loss = denorm_mse_loss(pred, b["traj_out"], b["norm_stat"],
+                               b["valid"])
+        fwd = read_counts()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        bwd = {k: v - fwd[k] for k, v in read_counts().items()}
+        state.optimizer.zero_grad()
+        del pred, loss
+        print(f"train {preset}: launches in one step's forward "
+              f"{json.dumps(fwd)}, in its backward {json.dumps(bwd)}",
+              flush=True)
+        check(fwd == per_forward, f"{preset}: forward launches {fwd} != "
+                                  f"{per_forward}")
+        check(not any(bwd.values()), f"{preset}: the backward launched {bwd}")
+
+        train_step(state, batches[0])                     # warmup
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        times, losses = [], []
+        for b in batches[1:4]:
+            t0 = time.perf_counter()
+            losses.append(float(train_step(state, b)["loss"]))
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        expected = {k: 3 * v for k, v in per_forward.items()}
+        profile_device(dev, gpu, f"train {preset} profile: one step",
+                       sum(times) / len(times),
+                       lambda: train_step(state, batches[3]))
+        check(counts == expected, f"{preset}: launches in 3 steps {counts} "
+                                  f"!= {expected}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{preset}: losses {losses}")
+        # frozen parameters bit-identical; trainable ones changed, unless
+        # no gradient above Adam's eps reached them (the lane attention's
+        # q/k saturate on raw pixel polygons at random init), so that the
+        # step and the decay lr * wd are below fp32 resolution
+        adam = state.optimizer.adamw.state
+        unreached = []
+        for n, p in params.items():
+            same = torch.equal(p.detach(), start[n])
+            if n not in trainable:
+                check(same, f"{preset}: frozen {n} changed")
+            elif same:
+                unreached.append(n)
+                check(adam[p]["exp_avg"].abs().max().item() < 1e-8,
+                      f"{preset}: trainable {n} got a gradient but did not "
+                      "change")
+        check(len(unreached) < len(trainable) // 2,
+              f"{preset}: most trainable tensors did not change")
+        del start
+
+        # a repeated step from the same state and seed
+        snap = {n: params[n].detach().clone() for n in trainable}
+        opt_snap = copy.deepcopy(state.optimizer.state_dict())
+        step0 = state.step
+        train_step(state, batches[4])
+        first = {n: params[n].detach().clone() for n in trainable}
+        with torch.no_grad():
+            for n in trainable:
+                params[n].copy_(snap[n])
+        state.optimizer.load_state_dict(opt_snap)
+        state.step = step0
+        train_step(state, batches[4])
+        check(all(torch.equal(params[n], first[n]) for n in trainable),
+              f"{preset}: a repeated step from the same state and seed "
+              "differs")
+        del snap, first, opt_snap
+
+        reset_counts()
+        ev = eval_step(state, batches[5])
+        ev_counts = read_counts()
+        ev_expected = dict(per_forward, flash_attn_fwd=L + m.lane.num_layers
+                           + m.qformer.num_encoder_layers
+                           + 2 * m.qformer.num_decoder_layers + 2)
+        check(ev_counts == ev_expected, f"{preset}: eval launches "
+                                        f"{ev_counts} != {ev_expected}")
+        check(tuple(ev["pred"].shape) == (B, 2, cfg.data.out_len)
+              and bool(torch.isfinite(ev["pred"]).all())
+              and math.isfinite(float(ev["loss"])),
+              f"{preset}: eval step output")
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_s = sum(times) / len(times)
+    print(f"train {preset}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms "
+          f"per step = {B / step_s:.3f} train windows/s (batch {B}); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; eval loss "
+          f"{float(ev['loss']):.4f}; {len(trainable) - len(unreached)} of "
+          f"{len(trainable)} trainable tensors changed (gradients below 1e-8: "
+          f"{unreached}); repeated step bit-identical; peak memory "
+          f"{peak:.2f} GiB; launches per step {json.dumps(per_forward)}; eval "
+          f"launches {json.dumps(ev_counts)}; gpu: {gpu}", flush=True)
+    del state, model, params, batches, ev
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -749,12 +1211,20 @@ def main() -> int:
     rows = {"flash_attn_fwd": flash_checks(dev, gpu, timer),
             "int8_matmul": int8_checks(dev, gpu, timer),
             "lmhead_topk": head_checks(dev, gpu, timer),
-            "attend_int8_kv": attend_checks(dev, gpu, timer)}
+            "attend_int8_kv": attend_checks(dev, gpu, timer),
+            **fused_checks(dev, gpu, timer)}
     del timer
+    grad_errs = function_grad_checks(dev)
     small_reference_phase(dev)
+    small_training_phase(dev)
     cfg, state = full_width_state(dev)
-    predict_counts = predict_phase(dev, gpu, cfg, state)
+    predict_counts, fused_predict_counts = predict_phase(dev, gpu, cfg,
+                                                         state)
     gen_counts, off_counts = generation_phase(dev, gpu, cfg, state)
+    del state
+    torch.cuda.empty_cache()
+    train_counts = {preset: train_phase(dev, gpu, preset)
+                    for preset in TRAIN_PRESETS}
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
@@ -767,6 +1237,8 @@ def main() -> int:
         elif name == "lmhead_topk":
             pick = [x for x in r if x["layout"] == "int8"
                     and not x["exact"]]
+        elif name in ("rmsnorm", "swiglu_matmul"):
+            pick = [r[0]]                      # training at batch 16
         else:
             pick = [r[-1]]                     # S = 592
         out = {"ms": sum(x["ms"] for x in pick),
@@ -781,24 +1253,29 @@ def main() -> int:
                          "one decoder layer's 7 projections, M=16")}
         return out
 
-    launches = {name: predict_counts.get(name, 0) + gen_counts[name]
-                + off_counts[name] for name in KERNELS}
+    by_path = {name: {
+        "predict": predict_counts.get(name, 0),
+        "predict_fused": fused_predict_counts[name],
+        "generate_all_switches": gen_counts[name],
+        "generate_switches_off": off_counts[name],
+        **{f"train {p} (3 steps)": train_counts[p][name]
+           for p in TRAIN_PRESETS}} for name in KERNELS}
     for name in KERNELS:
-        check(gen_counts[name] > 0,
-              f"{name} was not launched on the generation path")
+        check(sum(by_path[name].values()) > 0,
+              f"{name} was not launched on any driven path")
     check(predict_counts["flash_attn_fwd"] > 0,
           "flash_attn_fwd was not launched on the predict path")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_by_path": {
-                "predict": predict_counts.get(name, 0),
-                "generate_all_switches": gen_counts[name],
-                "generate_switches_off": off_counts[name]},
+            "replaces": replaces, "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
-            **head(name), "gpu": gpu})
+            **head(name), "gpu": gpu}
+        if name in grad_errs:
+            entry["grad_max_abs_err"] = grad_errs[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

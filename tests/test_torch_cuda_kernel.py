@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: flash attention, the int8 matrix product, the fused LM head + top-128
-and the int8-KV decode attention.
+card: flash attention, the int8 matrix product, the fused LM head + top-128,
+the int8-KV decode attention, the one-pass RMSNorm and the fused SwiGLU
+down-projection, and the gradients of the three kernels training
+differentiates (flash, RMSNorm, SwiGLU) against autograd through their
+plain versions.
 
 These tests need a CUDA device and skip without one.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -19,6 +22,7 @@ import itertools
 import pytest
 import torch
 
+from tsue_tpu_torch.ops import fused as FU
 from tsue_tpu_torch.ops import kv_quant as KV
 from tsue_tpu_torch.ops import lmhead_topk as LT
 from tsue_tpu_torch.ops import quant as Q
@@ -204,3 +208,105 @@ def test_attend_int8_kv_matches_plain(dev, D):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, **TOL, msg=lambda m: (
             f"Hq={Hq} Hkv={Hkv} S={S} Tq={Tq}: {m}"))
+
+
+@pytest.mark.parametrize("M", [128, 129, 8448])
+def test_rmsnorm_matches_plain(dev, M):
+    """Rows of K = 128, 2048 and 8192 (the kernel's widest); a row of zeros
+    (the eps alone), rows of large values.  Both sides take fp32 sums of
+    squares in different orders and the kernel's rsqrtf is within 2 ulp:
+    atol = rtol = 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    for K in (128, 2048, 8192):
+        x = torch.randn(M, K, generator=g, device=dev)
+        x[0] = 0.0
+        x[-1] *= 1e3
+        scale = 1.0 + 0.1 * torch.randn(K, generator=g, device=dev)
+        before = FU.fused_rmsnorm.launches
+        out = FU.fused_rmsnorm(x, scale, 1e-5)
+        assert FU.fused_rmsnorm.launches == before + 1
+        ref = FU.rmsnorm_plain(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and (out[0] == 0).all()
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
+                                   msg=lambda m: f"M={M} K={K}: {m}")
+
+
+@pytest.mark.parametrize("M", [128, 129, 8448])
+def test_swiglu_matmul_matches_plain(dev, M):
+    """K = 128 and 8192, N = 128; a row tail (M = 129) and the gate up to
+    +-60, where sigmoid saturates at both ends.  The fp32 sums run in
+    another order: rtol 1e-4, atol 1e-5 of the largest output."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    for K in (128, 8192):
+        gate = torch.randn(M, K, generator=g, device=dev) * 3
+        gate[:, :64] = torch.linspace(-60, 60, 64, device=dev)
+        up = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(K, 128, generator=g, device=dev) * K ** -0.5
+        before = FU.swiglu_matmul.launches
+        out = FU.swiglu_matmul(gate, up, w)
+        assert FU.swiglu_matmul.launches == before + 1
+        ref = FU.swiglu_matmul_plain(gate, up, w)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(
+            out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()),
+            msg=lambda m: f"M={M} K={K}: {m}")
+        again = FU.swiglu_matmul(gate, up, w)
+        assert torch.equal(out, again)            # one fixed order of sums
+
+
+def test_swiglu_kernel_column_tail_and_rejects(dev):
+    """The kernel predicates a column tail (N % 128 != 0; the dispatch sends
+    such N to the plain version, the kernel itself takes N % 4 == 0); the
+    wrapper rejects K % 128, N % 4 and other dtypes."""
+    gate = torch.randn(200, 256, device=dev)
+    up = torch.randn(200, 256, device=dev)
+    w = torch.randn(256, 132, device=dev) * 0.05
+    out = FU._swiglu_cuda(gate, up, w)
+    torch.testing.assert_close(out, FU.swiglu_matmul_plain(gate, up, w),
+                               rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="K % 128"):
+        FU._swiglu_cuda(gate[:, :200].contiguous(), up[:, :200].contiguous(),
+                        w[:200].contiguous())
+    with pytest.raises(ValueError, match="N % 4"):
+        FU._swiglu_cuda(gate, up, w[:, :130].contiguous())
+    with pytest.raises(TypeError):
+        FU._swiglu_cuda(gate.double(), up.double(), w.double())
+
+
+def _grads(fn, inputs, cot):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    (fn(*leaves) * cot).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def test_function_gradients_match_plain_autograd(dev):
+    """The flash, RMSNorm and SwiGLU Functions on the card: kernel forward,
+    backward by recompute, against autograd through the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    q, k, v, mask, cs = _inputs(dev, g, 2, 40, 40, 8, 2, 64, "pad", True)
+    cot = randn(2, 40, 8, 64)
+    before = flash_attention.launches
+    ours = _grads(lambda a, b, c: flash_attention(a, b, c, mask, True, None,
+                                                  cs), (q, k, v), cot)
+    assert flash_attention.launches == before + 1
+    ref = _grads(lambda a, b, c: flash_attention_plain(a, b, c, mask, True,
+                                                       None, cs),
+                 (q, k, v), cot)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, **TOL)
+    x, s, cot = randn(256, 2048), 1.0 + 0.1 * randn(2048), randn(256, 2048)
+    ours = _grads(FU.fused_rmsnorm, (x, s), cot)
+    ref = _grads(lambda a, b: FU.rmsnorm_plain(a, b, 1e-5), (x, s), cot)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, **TOL)
+    gate, up, w = randn(256, 1024), randn(256, 1024), randn(1024, 256) * 0.03
+    cot = randn(256, 256)
+    ours_s = _grads(FU.swiglu_matmul, (gate, up, w), cot)
+    ref_s = _grads(FU.swiglu_matmul_plain, (gate, up, w), cot)
+    for a, b in zip(ours_s, ref_s):
+        torch.testing.assert_close(a, b, **TOL)

@@ -99,6 +99,42 @@ def test_track_text_dataset_bit_identical(require):
     assert ours.reference_text == theirs.reference_text
 
 
+@pytest.mark.parametrize("kw", [
+    dict(shuffle=True),
+    dict(shuffle=False, length_buckets=(256, 384, 640)),
+    dict(shuffle=True, process_index=1, process_count=2),
+    dict(shuffle=True, group_by_track=True, drop_remainder=True),
+], ids=["shuffle", "buckets", "process_slice", "by_track"])
+def test_batch_iterator_bit_identical(kw):
+    """Seeded per-epoch shuffle, wrap-around padding with ``valid``, length
+    buckets and the per-process slice, over two epochs."""
+    data_cfg = dict(seq_len=6, out_len=6, stride=6, max_length=640)
+    ours = port_data.build_windows(_tracks(port_data),
+                                   port_config.DataConfig(**data_cfg),
+                                   port_data.ByteTokenizer())
+    theirs = jax_data.build_windows(_tracks(jax_data),
+                                    jax_config.DataConfig(**data_cfg),
+                                    jax_data.ByteTokenizer())
+    for ds in (ours, theirs):           # rows of 200..400 tokens: buckets
+        ds.attention_mask[200 + 7 * np.arange(len(ds))[:, None] % 200
+                          <= np.arange(640)[None, :]] = 0
+    a = port_data.BatchIterator(ours, 8, seed=5, **kw)
+    b = jax_data.BatchIterator(theirs, 8, seed=5, **kw)
+    assert len(a) == len(b) > 1
+    for epoch in (0, 1):
+        a.set_epoch(epoch)
+        b.set_epoch(epoch)
+        pairs = list(zip(a, b, strict=True))
+        widths = {x["input_ids"].shape[1] for x, _ in pairs}
+        assert widths == ({256, 384, 640} if "length_buckets" in kw
+                          else {640})
+        for x, y in pairs:
+            assert sorted(x) == sorted(y)
+            for key in y:
+                assert x[key].dtype == y[key].dtype, key
+                np.testing.assert_array_equal(x[key], y[key], err_msg=key)
+
+
 def test_tokenizer_round_trips():
     ours, theirs = port_data.get_tokenizer(), jax_data.get_tokenizer()
     assert (ours.vocab_size, ours.pad_id, ours.eos_id, ours.bos_id) == \

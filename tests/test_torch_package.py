@@ -1,6 +1,7 @@
 """Package-level properties of the port: no JAX and nothing of the JAX
-package, a strict weight bridge, the CUDA device by default, and no kernel
-launch on CPU tensors."""
+package, a strict weight bridge, the CUDA device by default (serving and
+training), no kernel launch on CPU tensors, and no decode kernel under
+autograd."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ from tsue_tpu_torch.convert import load_flax_params
 from tsue_tpu_torch.models.lane_encoder import LanePolygonEncoder
 from tsue_tpu_torch.ops.attention import dot_product_attention
 from tsue_tpu_torch.ops.flash import flash_attention
+from tsue_tpu_torch.ops.fused import fused_rmsnorm, swiglu_matmul
 from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, quantize_kv
 from tsue_tpu_torch.ops.lmhead_topk import lmhead_topk
 from tsue_tpu_torch.ops.quant import int8_matmul, quantize_weight
@@ -29,7 +31,9 @@ PORT_MODULES = (
     "tsue_tpu_torch.serve", "tsue_tpu_torch.convert",
     "tsue_tpu_torch.eval.generation", "tsue_tpu_torch.ops.sampling",
     "tsue_tpu_torch.ops.quant", "tsue_tpu_torch.ops.kv_quant",
-    "tsue_tpu_torch.ops.lmhead_topk", "chip_smoke")
+    "tsue_tpu_torch.ops.lmhead_topk", "tsue_tpu_torch.ops.fused",
+    "tsue_tpu_torch.data.dataset", "tsue_tpu_torch.utils.logging",
+    "tsue_tpu_torch.train.trainer", "tsue_tpu_torch.runner", "chip_smoke")
 
 
 def test_port_imports_no_jax():
@@ -125,13 +129,16 @@ def _kernel_inputs(device="cpu"):
     head = quantize_weight(t((128, 16)), axis=1)
     return dict(q=q, k=k, v=v, w8=w8, scale=scale,
                 cache=(k8, ks, v8, vs), head=head,
-                hidden=t((2, 16)), emb=t((128, 16)))
+                hidden=t((2, 16)), emb=t((128, 16)), rows=t((130, 128)))
 
 
 def test_cpu_tensors_never_launch_the_kernels():
     x = _kernel_inputs()
-    counters = (flash_attention, int8_matmul, attend_int8_kv, lmhead_topk)
+    counters = (flash_attention, int8_matmul, attend_int8_kv, lmhead_topk,
+                fused_rmsnorm, swiglu_matmul)
     before = [f.launches for f in counters]
+    fused_rmsnorm(x["rows"], torch.ones(128))
+    swiglu_matmul(x["rows"], x["rows"], x["rows"][:128])
     flash_attention(x["q"], x["k"], x["v"], is_causal=True)
     dot_product_attention(x["q"], x["k"], x["v"],
                           torch.ones(1, 5, dtype=torch.int32))
@@ -140,7 +147,7 @@ def test_cpu_tensors_never_launch_the_kernels():
     lmhead_topk(x["hidden"], x["emb"], None)
     w8, s = x["head"]
     lmhead_topk(x["hidden"], None, None, quant=(w8.t().contiguous(), s))
-    assert [f.launches for f in counters] == before == [0, 0, 0, 0]
+    assert [f.launches for f in counters] == before == [0] * 6
 
 
 def test_no_fallback_off_the_cpu():
@@ -156,6 +163,11 @@ def test_no_fallback_off_the_cpu():
         attend_int8_kv(q, (None, None, None, None), None)
     with pytest.raises(ValueError, match="no head kernel"):
         lmhead_topk(q[0, 0], q[0, 0], None)
+    rows = torch.empty(128, 128, device="meta")
+    with pytest.raises(ValueError, match="no rmsnorm kernel"):
+        fused_rmsnorm(rows, rows[0])
+    with pytest.raises(ValueError, match="no swiglu kernel"):
+        swiglu_matmul(rows, rows, rows)
 
 
 def test_shared_wrapper_contract():
@@ -189,3 +201,58 @@ def test_shared_wrapper_contract():
         count_launch(wrapper, 700)
     count_launch(wrapper, 0)
     assert wrapper.launches == 1
+
+
+def test_refuse_grad_contract():
+    """The shared rule of the decode kernels, which have no backward: under
+    grad mode an input that requires a gradient raises; under no_grad, or
+    with no such input, the call goes on."""
+    from tsue_tpu_torch.ops._build import refuse_grad
+    t = torch.zeros(2, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        refuse_grad("test kernel", None, torch.zeros(2), t)
+    refuse_grad("test kernel", torch.zeros(2), None)
+    with torch.no_grad():
+        refuse_grad("test kernel", t)
+    with torch.inference_mode():
+        refuse_grad("test kernel", t)
+
+
+def test_decode_wrappers_raise_under_grad_on_cuda(monkeypatch):
+    """Each decode wrapper applies the rule on its kernel's path, before
+    any launch (the path is taken here by pretending the tensors are on
+    the card)."""
+    from tsue_tpu_torch.ops import kv_quant, lmhead_topk as lt, quant
+    x = _kernel_inputs()
+    for mod in (quant, lt, kv_quant):
+        monkeypatch.setattr(mod, "uses_kernel", lambda t, what: True)
+    q = x["q"].requires_grad_()
+    with pytest.raises(RuntimeError, match="int8_matmul has no backward"):
+        int8_matmul(q, x["w8"], x["scale"])
+    with pytest.raises(RuntimeError, match="attend_int8_kv has no backward"):
+        attend_int8_kv(q[:, :1], x["cache"], None)
+    w8, s = x["head"]
+    with pytest.raises(RuntimeError, match="lmhead_topk has no backward"):
+        lmhead_topk(x["hidden"], None, None,
+                    quant=(w8.t().contiguous(), s.requires_grad_()))
+    assert int8_matmul.launches == attend_int8_kv.launches == \
+        lmhead_topk.launches == 0
+
+
+def test_training_defaults_to_cuda():
+    """``run_stage2`` and the model it trains want the CUDA device unless
+    given ``device="cpu"``; without one they raise instead of running on
+    the CPU."""
+    import inspect
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import ByteTokenizer
+    from tsue_tpu_torch.runner import build_model_and_params, run_stage2
+    for fn in (run_stage2, build_model_and_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_preset("train_18_30")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_stage2(cfg, epochs=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model_and_params(cfg, ByteTokenizer())

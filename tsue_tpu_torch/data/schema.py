@@ -5,8 +5,9 @@ keys ``raw_trajectory`` (N,2 float pixel coords), ``vision_embeddings``
 (N,512), ``context_str`` (natural-language description), ``lane_roi`` (nested
 polygon dict {"Site C": {"A": {"1".."6","safe": [[x,y],...]}}}), ``track_id``.
 
-The port keeps only what its paths and tests use: the split and the
-synthetic fixtures (a parametric lane ROI, :func:`make_synthetic_lane_roi`).
+The port keeps only what its paths and tests use: loading a track pickle,
+the split and the synthetic fixtures (a parametric lane ROI,
+:func:`make_synthetic_lane_roi`).
 
 The reference splits with an UNSEEDED in-place shuffle per rank
 (ref scripts/train.py:31-39) — rank divergence hazard.  We use the seeded
@@ -15,10 +16,19 @@ sees the same split.
 """
 from __future__ import annotations
 
+import pickle
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def load_tracks(path: str) -> List[dict]:
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    if not isinstance(data, list):
+        raise ValueError(f"expected a list of track dicts in {path}")
+    return data
 
 
 def split_tracks(tracks: Sequence[dict], train_ratio: float = 0.7,

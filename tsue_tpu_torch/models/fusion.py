@@ -6,7 +6,8 @@ LLM width plus learned vision/text modality embeddings, input-level concat
 [img || text], the extended attention mask, and the Llama forward returning
 the last hidden states, and generation support: the soft-prefix prefill
 into a KV cache and the cached decode step (``fusion.py:87-161``).  The LM
-loss comes with a later slice.
+loss comes with a later slice.  The stage-2 forward drops (Q-Former, LoRA)
+when a ``generator`` is passed, and only then.
 """
 from __future__ import annotations
 
@@ -36,27 +37,33 @@ class MultiModalLLM(nn.Module):
             torch.zeros(1, 1, llama.hidden_size))
         self.llama = LlamaForCausalLM(llama, dtype)
 
-    def image_tokens(self, vision: torch.Tensor) -> torch.Tensor:
-        return self.q_proj(self.qformer(vision)) + self.vision_modality_embedding
+    def image_tokens(self, vision: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        return (self.q_proj(self.qformer(vision, generator))
+                + self.vision_modality_embedding)
 
     def fuse(self, vision: Optional[torch.Tensor], input_ids: torch.Tensor,
-             attention_mask: torch.Tensor):
+             attention_mask: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
         """Fused embeddings and mask: returns (embeds, mask, n_img)."""
         text = self.llama.embed(input_ids) + self.text_modality_embedding
         if not (self.use_vision and vision is not None):
             return text, attention_mask, 0
-        img = self.image_tokens(vision).to(text.dtype)
+        img = self.image_tokens(vision, generator).to(text.dtype)
         n_img = img.shape[1]
         img_mask = torch.ones(text.shape[0], n_img, dtype=attention_mask.dtype,
                               device=attention_mask.device)
         return (torch.cat([img, text], dim=1),
                 torch.cat([img_mask, attention_mask], dim=1), n_img)
 
-    def forward(self, vision, input_ids, attention_mask
+    def forward(self, vision, input_ids, attention_mask,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stage-2 path: (final_hidden (B, n_img + L, D), fused_mask)."""
-        fused, mask, _ = self.fuse(vision, input_ids, attention_mask)
-        return self.llama(fused, mask), mask
+        fused, mask, _ = self.fuse(vision, input_ids, attention_mask,
+                                   generator)
+        return self.llama(fused, mask, generator), mask
 
     # generation support: soft-prefix prefill + cached decode
 

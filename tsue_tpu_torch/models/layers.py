@@ -7,11 +7,10 @@ d_model is).  Submodules carry the Flax names (``MHA_0``, ``LayerNorm_0``,
 ``FFN_0``, ``Dense_0``) so ``convert.load_flax_params`` maps weights by path.
 All attention goes through ``ops.attention.dot_product_attention``.
 
-``MHA`` drops (probabilities and output) when a ``generator`` is passed, and
-only then: the forecaster's K candidates need it.  The encoder/decoder
-blocks carry the eval forward only, without dropout: they run in the
-deterministic context (lane encoder, Q-Former).  Their training-time dropout
-comes with the training slice.
+Every block drops (``MHA``: probabilities and output; ``FFN``: after the
+activation and after the second Dense, as torch's Transformer layers do)
+when a ``generator`` is passed, and only then: the training step and the
+forecaster's K candidates pass one, the deterministic forward passes None.
 """
 from __future__ import annotations
 
@@ -69,43 +68,48 @@ class MHA(nn.Module):
 
 
 class FFN(nn.Module):
-    def __init__(self, d_model: int, dim_ff: int):
+    def __init__(self, d_model: int, dim_ff: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.Dense_0 = nn.Linear(d_model, dim_ff)
         self.Dense_1 = nn.Linear(dim_ff, d_model)
 
-    def forward(self, x):
-        return self.Dense_1(torch.relu(self.Dense_0(x)))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        h = dropout(torch.relu(self.Dense_0(x)), self.dropout, generator)
+        return dropout(self.Dense_1(h), self.dropout, generator)
 
 
 class EncoderBlock(nn.Module):
     """Post-LN transformer encoder block (torch TransformerEncoderLayer)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
-        self.MHA_0 = MHA(d_model, num_heads)
+        self.MHA_0 = MHA(d_model, num_heads, dropout)
         self.LayerNorm_0 = layer_norm(d_model)
-        self.FFN_0 = FFN(d_model, DIM_FF)
+        self.FFN_0 = FFN(d_model, DIM_FF, dropout)
         self.LayerNorm_1 = layer_norm(d_model)
 
-    def forward(self, x, key_mask=None):
-        x = self.LayerNorm_0(x + self.MHA_0(x, x, mask=key_mask))
-        return self.LayerNorm_1(x + self.FFN_0(x))
+    def forward(self, x, key_mask=None,
+                generator: Optional[torch.Generator] = None):
+        x = self.LayerNorm_0(x + self.MHA_0(x, x, mask=key_mask,
+                                            generator=generator))
+        return self.LayerNorm_1(x + self.FFN_0(x, generator))
 
 
 class DecoderBlock(nn.Module):
     """Post-LN transformer decoder block with self + cross attention."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MHA(d_model, num_heads)
+        self.self_attn = MHA(d_model, num_heads, dropout)
         self.LayerNorm_0 = layer_norm(d_model)
-        self.cross_attn = MHA(d_model, num_heads)
+        self.cross_attn = MHA(d_model, num_heads, dropout)
         self.LayerNorm_1 = layer_norm(d_model)
-        self.FFN_0 = FFN(d_model, DIM_FF)
+        self.FFN_0 = FFN(d_model, DIM_FF, dropout)
         self.LayerNorm_2 = layer_norm(d_model)
 
-    def forward(self, x, memory):
-        x = self.LayerNorm_0(x + self.self_attn(x, x))
-        x = self.LayerNorm_1(x + self.cross_attn(x, memory))
-        return self.LayerNorm_2(x + self.FFN_0(x))
+    def forward(self, x, memory, generator: Optional[torch.Generator] = None):
+        x = self.LayerNorm_0(x + self.self_attn(x, x, generator=generator))
+        x = self.LayerNorm_1(x + self.cross_attn(x, memory,
+                                                 generator=generator))
+        return self.LayerNorm_2(x + self.FFN_0(x, generator))

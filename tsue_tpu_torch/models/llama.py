@@ -1,10 +1,13 @@
-"""Llama-3.2-style decoder stack with LoRA, eval forward only.
+"""Llama-3.2-style decoder stack with LoRA.
 
-Counterpart of ``tsue_tpu/models/llama.py``.  What is carried: RMSNorm,
-llama-3 rope scaling, ``LoRADense`` (eval forward, with the int8 decode
-branch of ``ops/quant.py``), the attention / MLP / layer / model classes
-with the KV cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the
-tied-embedding layout and ``logits_from_hidden``.  No remat or loss yet.
+Counterpart of ``tsue_tpu/models/llama.py``.  What is carried: RMSNorm
+(through ``ops.fused.fused_rmsnorm`` when the ``TSUE_FUSED`` switch is on),
+llama-3 rope scaling, ``LoRADense`` (LoRA dropout, the int8 decode branch of
+``ops/quant.py`` and the MLP's fused SwiGLU down-projection of
+``ops/fused.py``), the attention / MLP / layer / model classes with the KV
+cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the tied-embedding
+layout and ``logits_from_hidden``.  No remat or LM loss yet.  Dropout (LoRA)
+draws from the ``generator`` a training forward passes, and only then.
 
 KV caches are lists of per-layer tensors written in place (the JAX package
 returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
@@ -30,12 +33,16 @@ from torch import nn
 from tsue_tpu_torch.config import LlamaConfig
 from tsue_tpu_torch.ops.attention import dot_product_attention
 from tsue_tpu_torch.ops.flash import rope_bthd
+from tsue_tpu_torch.ops.fused import (fused_enabled, fused_rmsnorm,
+                                      rmsnorm_plain, swiglu_matmul)
 from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, update_kv_int8
 from tsue_tpu_torch.ops.quant import int8_matmul
+from tsue_tpu_torch.utils.random import dropout
 
 
 class RMSNorm(nn.Module):
-    """``tsue_tpu.ops.fused.rmsnorm_ref``: fp32 statistics, scale, cast back."""
+    """fp32 statistics, scale, cast back; the one-pass kernel when the fused
+    switch is on (``tsue_tpu/models/llama.py:55-67``)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -43,9 +50,9 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
+        if fused_enabled():
+            return fused_rmsnorm(x, self.scale, self.eps)
+        return rmsnorm_plain(x, self.scale, self.eps)
 
 
 def rope_inv_freq(cfg: LlamaConfig) -> np.ndarray:
@@ -73,22 +80,29 @@ class LoRADense(nn.Module):
     """Dense with an optional additive low-rank adapter, Flax layout:
     ``kernel`` (in, out), ``lora_a`` (in, r), ``lora_b`` (r, out).
 
-    y = x @ W + (alpha / r) * (x @ A) @ B, each weight rounded to
-    ``dtype`` and the product formed in the activations' fp32.  LoRA dropout
-    is a training-time op and is not carried (eval forward).
+    y = x @ W + (alpha / r) * (dropout(x) @ A) @ B, each weight rounded to
+    ``dtype`` and the product formed in the activations' fp32; the LoRA
+    dropout draws from ``generator`` and is the identity without one.
 
     With int8 tables attached (``ops.quant.attach_quant``: buffers ``w8``
     (in, out) and ``scale`` (out,)) a call with ``quant_ok=True`` takes
     ``x @ W`` from ``int8_matmul`` instead; the LoRA delta is still added
-    after it (``tsue_tpu/models/llama.py:139-162``)."""
+    after it (``tsue_tpu/models/llama.py:139-162``).
+
+    ``swiglu_up`` makes it the MLP's down-projection: x is the gate and the
+    input is ``silu(x) * swiglu_up``.  With the fused switch on, no int8
+    decode call and no adapter, ``ops.fused.swiglu_matmul`` forms that
+    product inside its kernel (the JAX precedence, ``llama.py:125-138``;
+    the port's LoRADense has no bias)."""
 
     def __init__(self, in_features: int, features: int, lora_r: int = 0,
-                 lora_alpha: float = 32.0,
+                 lora_alpha: float = 32.0, lora_dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.lora_r = lora_r
         self.lora_alpha = lora_alpha
+        self.lora_dropout = lora_dropout
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         if lora_r > 0:
             self.lora_a = nn.Parameter(torch.empty(in_features, lora_r))
@@ -99,14 +113,21 @@ class LoRADense(nn.Module):
     def _w(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return w.to(self.dtype).to(x.dtype)
 
-    def forward(self, x: torch.Tensor, quant_ok: bool = False
-                ) -> torch.Tensor:
-        if quant_ok and self.w8 is not None:
+    def forward(self, x: torch.Tensor, quant_ok: bool = False,
+                swiglu_up: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        decode_quant = quant_ok and self.w8 is not None
+        if swiglu_up is not None:
+            if not decode_quant and fused_enabled() and self.lora_r == 0:
+                return swiglu_matmul(x, swiglu_up, self._w(self.kernel, x))
+            x = F.silu(x) * swiglu_up
+        if decode_quant:
             y = int8_matmul(x, self.w8, self.scale)
         else:
             y = x @ self._w(self.kernel, x)
         if self.lora_r > 0:
-            delta = (x @ self._w(self.lora_a, x)) @ self._w(self.lora_b, x)
+            h = dropout(x, self.lora_dropout, generator)
+            delta = (h @ self._w(self.lora_a, x)) @ self._w(self.lora_b, x)
             y = y + (self.lora_alpha / self.lora_r) * delta
         return y
 
@@ -122,14 +143,15 @@ class LlamaAttention(nn.Module):
             return LoRADense(c.hidden_size if name != "o_proj"
                              else c.num_heads * c.head_dim, out,
                              lora_r=lr if name in c.lora_targets else 0,
-                             lora_alpha=c.lora_alpha, dtype=dtype)
+                             lora_alpha=c.lora_alpha,
+                             lora_dropout=c.lora_dropout, dtype=dtype)
         self.q_proj = dense("q_proj", c.num_heads * c.head_dim)
         self.k_proj = dense("k_proj", c.num_kv_heads * c.head_dim)
         self.v_proj = dense("v_proj", c.num_kv_heads * c.head_dim)
         self.o_proj = dense("o_proj", c.hidden_size)
 
     def forward(self, x, mask, rope, kv_cache=None, cache_index=None,
-                kv_mask=None, quant_ok=False):
+                kv_mask=None, quant_ok=False, generator=None):
         """Without a cache: causal self-attention over x, ``mask`` (B, T)
         key validity, the rope applied in the kernel.
 
@@ -144,11 +166,12 @@ class LlamaAttention(nn.Module):
         goes to ``attend_int8_kv``."""
         c = self.cfg
         B, T, _ = x.shape
-        q = self.q_proj(x, quant_ok).reshape(B, T, c.num_heads, c.head_dim)
-        k = self.k_proj(x, quant_ok).reshape(B, T, c.num_kv_heads,
-                                             c.head_dim)
-        v = self.v_proj(x, quant_ok).reshape(B, T, c.num_kv_heads,
-                                             c.head_dim)
+        q = self.q_proj(x, quant_ok, generator=generator).reshape(
+            B, T, c.num_heads, c.head_dim)
+        k = self.k_proj(x, quant_ok, generator=generator).reshape(
+            B, T, c.num_kv_heads, c.head_dim)
+        v = self.v_proj(x, quant_ok, generator=generator).reshape(
+            B, T, c.num_kv_heads, c.head_dim)
         if kv_cache is None:
             # the rope goes to the attention op, which applies it in the
             # kernel
@@ -176,7 +199,7 @@ class LlamaAttention(nn.Module):
                     out = dot_product_attention(q, ck, cv, mask=kv_mask,
                                                 is_causal=False)
         return self.o_proj(out.reshape(B, T, c.num_heads * c.head_dim),
-                           quant_ok)
+                           quant_ok, generator=generator)
 
 
 class LlamaMLP(nn.Module):
@@ -191,8 +214,8 @@ class LlamaMLP(nn.Module):
                                    dtype=dtype)
 
     def forward(self, x, quant_ok=False):
-        return self.down_proj(F.silu(self.gate_proj(x, quant_ok))
-                              * self.up_proj(x, quant_ok), quant_ok)
+        return self.down_proj(self.gate_proj(x, quant_ok), quant_ok,
+                              swiglu_up=self.up_proj(x, quant_ok))
 
 
 class LlamaLayer(nn.Module):
@@ -204,9 +227,9 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, dtype)
 
     def forward(self, x, mask, rope, kv_cache=None, cache_index=None,
-                kv_mask=None, quant_ok=False):
+                kv_mask=None, quant_ok=False, generator=None):
         x = x + self.attn(self.input_norm(x), mask, rope, kv_cache,
-                          cache_index, kv_mask, quant_ok)
+                          cache_index, kv_mask, quant_ok, generator)
         return x + self.mlp(self.post_attn_norm(x), quant_ok)
 
 
@@ -233,7 +256,8 @@ class LlamaModel(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 kv_caches: Optional[List] = None, cache_index: int = 0,
                 kv_mask: Optional[torch.Tensor] = None,
-                quant_ok: bool = False) -> torch.Tensor:
+                quant_ok: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """inputs_embeds (B, T, D); attention_mask (B, T), 1 = real token.
         Returns the final-normed hidden states (B, T, D).
 
@@ -243,7 +267,7 @@ class LlamaModel(nn.Module):
         decode step over the whole cache.  ``positions`` (B, T) default to
         the cumulative count of ``attention_mask`` (or 0..T-1).
         ``quant_ok=True`` (decode only) lets the projections use attached
-        int8 tables."""
+        int8 tables.  ``generator``: the LoRA dropout's draws (training)."""
         B, T, _ = inputs_embeds.shape
         dev = inputs_embeds.device
         mask = None
@@ -260,7 +284,7 @@ class LlamaModel(nn.Module):
         for i in range(self.cfg.num_layers):
             cache = None if kv_caches is None else kv_caches[i]
             x = getattr(self, f"layer_{i}")(x, mask, rope, cache, cache_index,
-                                            kv_mask, quant_ok)
+                                            kv_mask, quant_ok, generator)
         return self.final_norm(x)
 
 
@@ -304,8 +328,9 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ w.to(self.dtype).to(hidden.dtype).t()
         return self.lm_head(hidden).float()
 
-    def forward(self, inputs_embeds, attention_mask=None) -> torch.Tensor:
-        return self.model(inputs_embeds, attention_mask)
+    def forward(self, inputs_embeds, attention_mask=None,
+                generator=None) -> torch.Tensor:
+        return self.model(inputs_embeds, attention_mask, generator=generator)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,

@@ -5,11 +5,14 @@ lane polygon encoder + multimodal LLM hidden states + LTSF forecaster +
 last-input-position residual, split into the deterministic per-batch
 context (``encode_context``/``encode_context_kv``) and the forecaster
 (``forecast``/``forecast_kv``), whose dropout drives K-candidate diversity.
-This is the serving path's eval forward: only ``forecast_kv`` drops, when a
-``generator`` is passed (the rollout's K candidates).
+Dropout draws from a ``generator`` and runs only where one is passed: the
+training forward (``forward(batch, deterministic=False, generator=...)``)
+drops everywhere, the fast rollout drops in ``forecast_kv`` only, and the
+deterministic forward nowhere.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -29,7 +32,8 @@ class TrajectoryModel(nn.Module):
         self.cfg = cfg
         self.lane_encoder = LanePolygonEncoder(
             d_model=cfg.lane.d_model, num_heads=cfg.lane.nhead,
-            num_layers=cfg.lane.num_layers, max_points=cfg.lane.max_points)
+            num_layers=cfg.lane.num_layers, max_points=cfg.lane.max_points,
+            dropout=cfg.lane.dropout)
         if cfg.use_llm:
             dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                      else torch.float32)
@@ -46,14 +50,24 @@ class TrajectoryModel(nn.Module):
             cross_dim=cfg.llama.hidden_size,
             cross_nhead=cfg.ltsf.cross_nhead, use_cross_attn=cfg.use_llm)
 
-    def encode_context(self, batch: dict):
-        """(final_hidden, hidden_mask, poly_emb): the per-batch context."""
-        poly_emb = self.lane_encoder(batch["polygon"], batch["polygon_len"])
+    def encode_context(self, batch: dict,
+                       generator: Optional[torch.Generator] = None,
+                       stop_llm_grad: bool = False):
+        """(final_hidden, hidden_mask, poly_emb): the per-batch context.
+
+        ``stop_llm_grad=True`` runs the MLLM under ``torch.no_grad()``: the
+        JAX package's ``stop_gradient`` at the MLLM output, for the regime
+        that freezes the whole MLLM (ref scripts/train.py:1141-1142).  Its
+        dropout still draws from ``generator``."""
+        poly_emb = self.lane_encoder(batch["polygon"], batch["polygon_len"],
+                                     generator)
         final_hidden = hidden_mask = None
         if self.cfg.use_llm:
-            final_hidden, hidden_mask = self.mllm(
-                batch.get("vision") if self.cfg.use_vision else None,
-                batch["input_ids"], batch["attention_mask"])
+            with (torch.no_grad() if stop_llm_grad
+                  else contextlib.nullcontext()):
+                final_hidden, hidden_mask = self.mllm(
+                    batch.get("vision") if self.cfg.use_vision else None,
+                    batch["input_ids"], batch["attention_mask"], generator)
         return final_hidden, hidden_mask, poly_emb
 
     def encode_context_kv(self, batch: dict):
@@ -72,16 +86,30 @@ class TrajectoryModel(nn.Module):
                          cross_kv=cross_kv)
         return pred + x[:, :, -1:]
 
-    def forecast(self, batch: dict, final_hidden, hidden_mask, poly_emb):
+    def forecast(self, batch: dict, final_hidden, hidden_mask, poly_emb,
+                 generator: Optional[torch.Generator] = None):
         """LTSF decode + last-input-position residual (ref :941-943)."""
         x = batch["traj_in"]
-        pred = self.ltsf(x, poly_emb, final_hidden, hidden_mask)
+        pred = self.ltsf(x, poly_emb, final_hidden, hidden_mask, generator)
         return pred + x[:, :, -1:]
 
-    def forward(self, batch: dict) -> torch.Tensor:
-        """batch -> pred (B, 2, out_len) in normalized coordinates."""
-        final_hidden, hidden_mask, poly_emb = self.encode_context(batch)
-        return self.forecast(batch, final_hidden, hidden_mask, poly_emb)
+    def forward(self, batch: dict, deterministic: bool = True,
+                stop_llm_grad: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """batch -> pred (B, 2, out_len) in normalized coordinates.
+
+        ``deterministic=False`` is the training forward: every dropout draws
+        from ``generator``, which it then needs.  ``stop_llm_grad``: see
+        ``encode_context``."""
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("a non-deterministic forward needs a generator "
+                             "for its dropout")
+        final_hidden, hidden_mask, poly_emb = self.encode_context(
+            batch, generator, stop_llm_grad)
+        return self.forecast(batch, final_hidden, hidden_mask, poly_emb,
+                             generator)
 
 
 @torch.no_grad()

@@ -13,6 +13,13 @@ version, a CUDA tensor launches the kernel or raises, any other device
 raises (``uses_kernel``); arguments are checked before the launch
 (``check_tensor``), and a launch that returns a CUDA error raises while one
 that succeeds adds one to the wrapper's ``launches`` (``count_launch``).
+
+Gradients.  A kernel that training differentiates sits in a
+``torch.autograd.Function`` whose backward recomputes through the plain
+version (``recompute_backward``), as the JAX package's ``custom_vjp``s
+recompute through XLA.  A decode kernel has no backward: on a CUDA tensor it
+raises when autograd would need one (``refuse_grad``) rather than return a
+tensor with no history.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -134,3 +141,28 @@ def count_launch(wrapper: Callable, err: int) -> None:
         raise RuntimeError(f"{wrapper.__name__} launch failed (CUDA error "
                            f"{err})")
     wrapper.launches += 1
+
+
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would have to differentiate a kernel that has no
+    backward: grad mode is on and one of ``tensors`` requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() (or "
+            "torch.inference_mode()) or on tensors that require no gradient")
+
+
+def recompute_backward(fn: Callable, inputs: Sequence[torch.Tensor],
+                       needs: Sequence[bool], grad: torch.Tensor
+                       ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward of a kernel through its plain version ``fn``: rerun
+    ``fn(*inputs)`` with autograd on and return the gradient of each input
+    whose ``needs`` entry is True (None for the others, which autograd then
+    never computes: a frozen weight costs no dW)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        want = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(fn(*leaves), want, grad)
+                     if want else ())
+    return tuple(next(grads) if n else None for n in needs)

@@ -7,7 +7,9 @@ kernel here, ``csrc/flash_attn_fwd.cu``: on Hopper the GQA index map
 
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only there.  On a CUDA tensor it launches the kernel or raises: there is
-no fallback.
+no fallback.  Training differentiates it through ``_FlashAttention``, whose
+backward recomputes with the plain version, as the JAX package's
+``_flash_bwd`` does (``tsue_tpu/ops/flash.py:394-419``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
-                                     uses_kernel)
+                                     recompute_backward, uses_kernel)
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 1024)
 
@@ -98,6 +100,31 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the plain version
+    (rope included) and returns dq, dk, dv, as the JAX package's
+    ``_flash_bwd`` does.  The mask, cos and sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, cos, sin, is_causal, scale):
+        ctx.save_for_backward(q, k, v, mask, cos, sin)
+        ctx.is_causal, ctx.scale = is_causal, scale
+        rope = None if cos is None else (cos, sin)
+        if uses_kernel(q, "attention kernel"):
+            return _flash_cuda(q, k, v, mask, is_causal, scale, rope)
+        return flash_attention_plain(q, k, v, mask, is_causal, scale, rope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, mask, cos, sin = ctx.saved_tensors
+        rope = None if cos is None else (cos, sin)
+        dq, dk, dv = recompute_backward(
+            lambda q_, k_, v_: flash_attention_plain(
+                q_, k_, v_, mask, ctx.is_causal, ctx.scale, rope),
+            (q, k, v), ctx.needs_input_grad[:3], grad)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     is_causal: bool = False, scale: Optional[float] = None,
@@ -109,13 +136,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the rotary embedding to q and k (self-attention only).
 
     CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
-    kernel (fp32, contiguous, D in ``SUPPORTED_HEAD_DIMS``) or raise.
-    ``flash_attention.launches`` counts kernel launches."""
+    kernel (fp32, contiguous, D in ``SUPPORTED_HEAD_DIMS``) or raise.  Both
+    are differentiable in q, k and v, through a backward that recomputes
+    with the plain version.  ``flash_attention.launches`` counts kernel
+    launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not uses_kernel(q, "attention kernel"):
-        return flash_attention_plain(q, k, v, mask, is_causal, scale, rope)
-    return _flash_cuda(q, k, v, mask, is_causal, scale, rope)
+    cos, sin = rope if rope is not None else (None, None)
+    return _FlashAttention.apply(q, k, v, mask, cos, sin, bool(is_causal),
+                                 float(scale))
 
 
 flash_attention.launches = 0

@@ -1,0 +1,213 @@
+"""The Llama block's fused kernels: one-pass RMSNorm and the SwiGLU
+down-projection, each with its plain PyTorch version.
+
+Counterpart of ``tsue_tpu/ops/fused.py``.  ``fused_rmsnorm`` reads each row
+once and writes it once (``csrc/rmsnorm.cu``); ``swiglu_matmul`` computes
+``(silu(gate) * up) @ W`` without writing the activation product to memory
+(``csrc/swiglu_matmul.cu``).  Both are opt-in, as in the JAX package: the
+``TSUE_FUSED`` switch (``auto`` | ``on`` | ``off``, ``auto`` = off) routes
+``models.llama.RMSNorm`` and the MLP's ``down_proj`` to them.  The JAX
+package reads the switch when it traces a program, so a jitted callable
+keeps the value it was built with; the port runs eagerly and reads it on
+every call, so ``fused_scope`` takes effect at once.
+
+Dispatch is the JAX package's: a shape the kernel would tile badly takes
+the plain version on any device (RMSNorm: ``K % 128`` or ``M < 128``, which
+keeps decode steps plain; SwiGLU: also ``N % 128``).  Otherwise a CPU tensor
+takes the plain version and a CUDA tensor launches the kernel or raises.
+Each kernel sits in a ``torch.autograd.Function`` whose backward recomputes
+through the plain version, as the JAX package's ``custom_vjp``s recompute
+through XLA; it computes only the gradients autograd asks for.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+import torch.nn.functional as F
+
+from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
+                                     recompute_backward, uses_kernel)
+
+_MODES = ("auto", "on", "off")
+_FUSED = os.environ.get("TSUE_FUSED", "auto")
+
+
+def set_fused(name: str) -> None:
+    if name not in _MODES:
+        raise ValueError(f"TSUE_FUSED must be one of {_MODES}, got {name!r}")
+    global _FUSED
+    _FUSED = name
+
+
+def fused_enabled() -> bool:
+    """True when the switch is ``on``; ``auto`` is off, as in the JAX
+    package (its A/B measured the fusions as a wash on the TPU)."""
+    return _FUSED == "on"
+
+
+class fused_scope:
+    """Scoped override of the switch: ``with fused_scope("on"): ...``."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.prev = _FUSED
+        set_fused(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        set_fused(self.prev)
+        return False
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1] if x.shape[-1] else 0
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+
+def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """fp32 mean of squares, rsqrt, scale, cast back (``rmsnorm_ref``)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rmsnorm_lib():
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("rmsnorm", {
+        "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr],
+        "rmsnorm_max_k": []})
+
+
+def _rmsnorm_cuda(x2: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    M, K = x2.shape
+    dev = x2.device
+    check_tensor("x", x2, dev, (M, K), torch.float32, aligned=True)
+    check_tensor("scale", scale, dev, (K,), torch.float32, aligned=True)
+    lib = _rmsnorm_lib()
+    if M == 0 or K % 4 or K > lib.rmsnorm_max_k():
+        raise ValueError(f"the rmsnorm kernel takes M > 0 rows of K % 4 == 0,"
+                         f" K <= {lib.rmsnorm_max_k()} (M={M}, K={K})")
+    out = torch.empty_like(x2)
+    with torch.cuda.device(dev):
+        err = lib.rmsnorm(x2.data_ptr(), scale.data_ptr(), out.data_ptr(), M,
+                          K, float(eps),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(fused_rmsnorm, err)
+    return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, scale, eps):
+        ctx.save_for_backward(x2, scale)
+        ctx.eps = eps
+        if uses_kernel(x2, "rmsnorm kernel"):
+            return _rmsnorm_cuda(x2, scale, eps)
+        return rmsnorm_plain(x2, scale, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, scale = ctx.saved_tensors
+        dx, ds = recompute_backward(
+            lambda x_, s_: rmsnorm_plain(x_, s_, ctx.eps), (x2, scale),
+            ctx.needs_input_grad[:2], grad)
+        return dx, ds, None
+
+
+def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """One-pass RMSNorm over the last axis of x (..., K) with scale (K,).
+    ``K % 128 != 0`` or fewer than 128 rows take ``rmsnorm_plain``; else
+    CPU tensors take it too and CUDA tensors launch the kernel (fp32) or
+    raise.  ``fused_rmsnorm.launches`` counts kernel launches."""
+    K = x.shape[-1]
+    M = _rows(x)
+    if K % 128 != 0 or M < 128:
+        return rmsnorm_plain(x, scale, eps)
+    return _RMSNorm.apply(x.reshape(M, K), scale, float(eps)).reshape(x.shape)
+
+
+fused_rmsnorm.launches = 0
+
+
+# --------------------------------------------------------------------------
+# (silu(gate) * up) @ W
+# --------------------------------------------------------------------------
+
+def swiglu_matmul_plain(gate: torch.Tensor, up: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """The activation product, then the product with W: the unfused MLP's
+    own ops."""
+    return (F.silu(gate) * up) @ w
+
+
+@functools.lru_cache(maxsize=None)
+def _swiglu_lib():
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("swiglu_matmul", {
+        "swiglu_matmul": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]})
+
+
+def _swiglu_cuda(g: torch.Tensor, u: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    M, K = g.shape
+    N = w.shape[1]
+    dev = g.device
+    check_tensor("gate", g, dev, (M, K), torch.float32, aligned=True)
+    check_tensor("up", u, dev, (M, K), torch.float32, aligned=True)
+    check_tensor("w", w, dev, (K, N), torch.float32, aligned=True)
+    if M == 0 or K % 128 or N % 4:
+        raise ValueError(f"the swiglu kernel takes M > 0, K % 128 == 0 and "
+                         f"N % 4 == 0 (M={M}, K={K}, N={N})")
+    out = torch.empty(M, N, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = _swiglu_lib().swiglu_matmul(
+            g.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
+            torch.cuda.current_stream(dev).cuda_stream)
+    count_launch(swiglu_matmul, err)
+    return out
+
+
+class _SwiGLUMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, u, w):
+        ctx.save_for_backward(g, u, w)
+        if uses_kernel(g, "swiglu kernel"):
+            return _swiglu_cuda(g, u, w)
+        return swiglu_matmul_plain(g, u, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_backward(swiglu_matmul_plain, ctx.saved_tensors,
+                                  ctx.needs_input_grad, grad)
+
+
+def swiglu_matmul(gate: torch.Tensor, up: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``(silu(gate) * up) @ w`` for gate/up (..., K) and w (K, N).
+    ``K % 128``, ``N % 128`` or fewer than 128 rows take
+    ``swiglu_matmul_plain``; else CPU tensors take it too and CUDA tensors
+    launch the kernel (fp32) or raise.  ``swiglu_matmul.launches`` counts
+    kernel launches."""
+    K = gate.shape[-1]
+    N = w.shape[1]
+    lead = gate.shape[:-1]
+    M = _rows(gate)
+    if K % 128 != 0 or N % 128 != 0 or M < 128:
+        return swiglu_matmul_plain(gate, up, w)
+    out = _SwiGLUMatmul.apply(gate.reshape(M, K), up.reshape(M, K), w)
+    return out.reshape(*lead, N)
+
+
+swiglu_matmul.launches = 0

@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
-                                     uses_kernel)
+                                     refuse_grad, uses_kernel)
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -157,12 +157,14 @@ def attend_int8_kv(q: torch.Tensor, layer_cache: LayerCache,
     q: (B, Tq, Hq, Dh) roped queries; layer_cache: (k8, ks, v8, vs) with
     k8/v8 (B, S, Hkv, Dh) and ks/vs (B, S, Hkv); mask: (B, S) key validity
     or None.  Returns (B, Tq, Hq, Dh) fp32.  CPU tensors take
-    ``attend_int8_kv_plain``; CUDA tensors launch the kernel or raise.
-    ``attend_int8_kv.launches`` counts kernel launches."""
+    ``attend_int8_kv_plain``; CUDA tensors launch the kernel or raise (also
+    under grad mode when an input requires a gradient: the kernel has no
+    backward).  ``attend_int8_kv.launches`` counts kernel launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not uses_kernel(q, "int8 attention kernel"):
         return attend_int8_kv_plain(q, layer_cache, mask, scale)
+    refuse_grad("attend_int8_kv", q, *layer_cache)
     return _attend_cuda(q, layer_cache, mask, scale)
 
 

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
-                                     uses_kernel)
+                                     refuse_grad, uses_kernel)
 from tsue_tpu_torch.ops.sampling import (NEG_INF, SamplingConfig,
                                          banned_tokens, gumbel_argmax,
                                          seen_tokens, slot_logits_from_sorted,
@@ -132,10 +132,12 @@ def lmhead_topk(hidden: torch.Tensor, weight: Optional[torch.Tensor],
     None with ``quant=(w8 (D, V) int8, scale (V,) fp32)``.  ``mask``: the
     (B, V) int32 ``token_state_mask`` or None.  Returns (vals (B, 128)
     fp32, idx (B, 128) int32).  CPU tensors take ``lmhead_topk_plain``;
-    CUDA tensors launch the kernel or raise.  ``lmhead_topk.launches``
-    counts kernel launches."""
+    CUDA tensors launch the kernel or raise (also under grad mode when an
+    input requires a gradient: the kernel has no backward).
+    ``lmhead_topk.launches`` counts kernel launches."""
     if not uses_kernel(hidden, "head kernel"):
         return lmhead_topk_plain(hidden, weight, mask, penalty, quant)
+    refuse_grad("lmhead_topk", hidden, weight, *(quant or ()))
     return _lmhead_cuda(hidden, weight, mask, penalty, quant)
 
 

@@ -22,7 +22,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from tsue_tpu_torch.ops._build import bind, count_launch, uses_kernel
+from tsue_tpu_torch.ops._build import (bind, count_launch, refuse_grad,
+                                     uses_kernel)
 
 PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
         "down_proj")
@@ -100,11 +101,13 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
     w8: (K, N) int8; scale: (N,) fp32.  Returns (..., N) fp32.
 
     CPU tensors take ``int8_matmul_ref``; CUDA tensors launch the kernel
-    (at most ``MAX_ROWS`` rows) or raise.  ``int8_matmul.launches`` counts
-    kernel launches."""
+    (at most ``MAX_ROWS`` rows) or raise, and raise under grad mode when x
+    or scale requires a gradient (the kernel has no backward).
+    ``int8_matmul.launches`` counts kernel launches."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if uses_kernel(x, "int8 kernel"):
+        refuse_grad("int8_matmul", x, scale)
         out = _int8_cuda(x2, w8, scale)
     else:
         out = int8_matmul_ref(x2, w8, scale)

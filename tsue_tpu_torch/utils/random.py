@@ -3,7 +3,9 @@
 ``torch.nn.functional.dropout`` draws from the global generator and takes
 no ``torch.Generator``; the port's dropout draws its keep mask from the
 generator it is given, so a candidate rollout is reproducible from one
-seed.  On a CUDA tensor the generator must be a CUDA generator.
+seed.  On a CUDA tensor the generator must be a CUDA generator.  A train
+step's dropout draws from ``step_generator(seed, step)``, the counterpart of
+the JAX package's ``fold_in(key(seed), step)``.
 """
 from __future__ import annotations
 
@@ -22,3 +24,10 @@ def dropout(x: torch.Tensor, p: float,
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+def step_generator(seed: int, step: int, device=None) -> torch.Generator:
+    """The generator of training step ``step`` of a run seeded ``seed``: a
+    fresh stream per (seed, step), so a step can be repeated exactly."""
+    g = torch.Generator(device=device)
+    return g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
