@@ -6,21 +6,26 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: a CUDA device must be present; print its name and power limit
      as nvidia-smi gives them; TF32 off for fp32 products;
-  2. build: compile the six kernels in tsue_tpu_torch/csrc/ with nvcc, one
+  2. build: compile the nine kernels in tsue_tpu_torch/csrc/ with nvcc, one
      process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version at every shape
      of the paths below, with errors, CUDA-event times (L2 flushed before
      each launch), the least time the card could take (bound) and the time
      of one PyTorch library call computing the same function where there
-     is one; then the gradient of each autograd.Function (flash, RMSNorm,
-     SwiGLU: kernel forward, backward by recompute) against autograd
-     through the plain version;
+     is one; NLinear, the fused LoRA product and the per-sample ADE/FDE,
+     which no path of the JAX package calls, at the shapes where they
+     would sit (their launches here are the only ones, and are reported
+     under their own name); then the gradient of each autograd.Function
+     (flash, RMSNorm, SwiGLU, NLinear, LoRA: kernel forward, backward by
+     recompute) against autograd through the plain version;
   4. small configuration, on the card against the CPU (plain versions):
      Predictor.predict, greedy Predictor.generate_context with the three
      decode switches all on and all off (token ids equal), one train step
-     in the frozen_mllm and lora_only regimes with the fused switch on and
-     dropout 0 (loss and parameters equal within the CPU tests'
-     tolerances), and run_stage2 for one epoch on the card;
+     in the frozen_mllm and lora_only regimes and one stage-1 step with
+     the fused switch on and dropout 0 (loss and parameters equal within
+     the CPU tests' tolerances), run_stage1 for one epoch on the card
+     (export and generation dump), and run_stage2 for one epoch from that
+     artifact;
   5. predict path at the full width of the repo's Llama-3.2-1B
      configuration ("test_18_18", bfloat16 weights, random weights from a
      seed) with K=10 candidates: warmup, three requests, a repeated
@@ -41,7 +46,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      steps (ms per step, train windows/s, peak memory, launch counts),
      frozen parameters bit-identical and trainable ones changed, a
      repeated step from the same state and seed bit-identical, and an
-     eval step.
+     eval step;
+  8. stage-1 MLLM fine-tuning at the same width ("train_18_30": lora_only,
+     batch 16, the Llama-3.2-1B vocabulary, the fused switch on): the launch
+     counts of one step's forward and backward, a warmup step and three
+     timed steps (ms per step, stage-1 train windows/s, supervised
+     tokens/s, peak memory), a profiled step (idle share), a repeated step
+     bit-identical, the same step with loss_chunk=128 (loss within rel
+     1e-5 of the dense one, peak memory), and an eval step.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -61,6 +73,7 @@ TOL = dict(atol=1e-4, rtol=1e-4)   # fp32 vs fp32, different summation order
 PX_TOL = 1e-2                      # pixels, small-config predict vs the CPU
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet, at 700 W
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores, same sheet
+BF16_FLOPS = 989e12                # bf16 tensor cores, dense, same sheet
 KERNELS = {
     "flash_attn_fwd": (
         "tsue_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -77,7 +90,18 @@ KERNELS = {
                 "tsue_tpu/ops/fused.py:96 _rmsnorm_kernel"),
     "swiglu_matmul": ("tsue_tpu_torch/csrc/swiglu_matmul.cu",
                       "tsue_tpu/ops/fused.py:176 _swiglu_kernel"),
+    "nlinear": ("tsue_tpu_torch/csrc/nlinear.cu",
+                "tsue_tpu/ops/nlinear.py:31 _nlinear_kernel"),
+    "lora_matmul": ("tsue_tpu_torch/csrc/lora_matmul.cu",
+                    "tsue_tpu/ops/lora.py:32 _lora_kernel"),
+    "ade_fde": ("tsue_tpu_torch/csrc/ade_fde.cu",
+                "tsue_tpu/ops/metric_kernels.py:19 _ade_fde_kernel"),
 }
+# kernels no path of the JAX package calls (only its op API and its tests):
+# they are driven by the kernel phase alone, and the port wires them into
+# no path either
+NO_PATH = ("nlinear", "lora_matmul", "ade_fde")
+KERNEL_PHASE = "kernel phase (no caller in the JAX package)"
 TRAIN_PRESETS = ("train_18_30", "lora_only_18_18")
 TEXT_TOKENS = 512         # the synthetic prompts fill the 512-token bucket
 GEN_NEW_TOKENS = 64
@@ -124,11 +148,12 @@ class Timer:
         return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms, what sets it): bytes over the memory rate or fp32 flops
-    over the fp32 rate, whichever is larger."""
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+    """(least ms, what sets it): bytes over the memory rate or flops over
+    the peak rate of the inputs' type (fp32 unless given), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -489,6 +514,126 @@ def fused_checks(dev, gpu, timer):
     return rows
 
 
+def nlinear_checks(dev, gpu, timer):
+    """NLinear where it would sit in the LTSF (C = 64 channels): the
+    deterministic forecast at batch 16 (18 -> 18 and 18 -> 30) and the K=10
+    rollout's 160 rows.  No one PyTorch call computes it (the einsum alone
+    omits the last-step subtract and add; its time is printed beside)."""
+    import torch
+    from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for B, Ti, To in ((16, 18, 18), (160, 18, 18), (16, 18, 30)):
+        C = 64
+        x = torch.randn(B, C, Ti, generator=g, device=dev)
+        w = torch.randn(C, Ti, To, generator=g, device=dev) * Ti ** -0.5
+        b = torch.randn(C, To, generator=g, device=dev) * 0.1
+        out = nlinear_fused(x, w, b)
+        ref = nlinear_ref(x, w, b)
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        check(torch.allclose(out, ref, **TOL),
+              f"nlinear disagrees with the plain version at B={B} {Ti}->{To}"
+              f": max abs err {err}")
+        plain_ms = timer.ms(lambda: nlinear_ref(x, w, b))
+        ms = timer.ms(lambda: nlinear_fused(x, w, b))
+        einsum_ms = timer.ms(lambda: torch.einsum("bct,cto->bco", x, w))
+        name = f"B={B} C={C} {Ti}->{To}"
+        print(f"nlinear {name}: torch.einsum alone (no subtract/add, not the "
+              f"same function) {einsum_ms:.4f} ms; gpu: {gpu}", flush=True)
+        b_ = bound(nbytes(x, w, b, out), 2.0 * B * C * Ti * To)
+        rows.append(row("nlinear", name, gpu, err, rel, ms, plain_ms, b_,
+                        None, einsum_ms=einsum_ms))
+    return rows
+
+
+LORA_SHAPES = (   # (name, M, K, N): stage-1 batch 16, 16 + 512 tokens
+    ("q_proj", 16 * (16 + TEXT_TOKENS), 2048, 2048),
+    ("v_proj", 16 * (16 + TEXT_TOKENS), 2048, 512))
+
+
+def lora_checks(dev, gpu, timer):
+    """The fused LoRA product where it would sit in stage 1 (r = 8, scale
+    32 / 8 = 4), fp32 and, at q_proj, bf16.  fp32: rtol 1e-4, atol 1e-5 of
+    the largest output (K products summed in another order); bf16 (xA
+    rounded to bf16 before the second product, as the Pallas kernel): rtol
+    = atol = 2^-7 of the largest output, two bf16 ulps.  No one PyTorch
+    call computes it; the cuBLAS time of x @ w alone, the floor any fused
+    LoRA product competes with, is printed beside."""
+    import torch
+    from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    r, scale = 8, 4.0
+    for (name, M, K, N), dtype in ((LORA_SHAPES[0], torch.float32),
+                                   (LORA_SHAPES[1], torch.float32),
+                                   (LORA_SHAPES[0], torch.bfloat16)):
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+        a = (torch.randn(K, r, generator=g, device=dev) * K ** -0.5).to(dtype)
+        b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
+        out = lora_matmul(x, w, a, b, scale)
+        ref = lora_ref(x, w, a, b, scale, round_xa=True)
+        torch.cuda.synchronize()
+        err, rel = errors(out.float(), ref.float())
+        big = ref.float().abs().max().item()
+        tol = (dict(rtol=1e-4, atol=1e-5 * big) if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=2 ** -7 * big))
+        label = f"{name} M={M} K={K} N={N} r={r} {str(dtype)[6:]}"
+        check(torch.allclose(out.float(), ref.float(), **tol),
+              f"lora_matmul disagrees with the plain version at {label}: "
+              f"max abs err {err} ({tol})")
+        check(torch.equal(out, lora_matmul(x, w, a, b, scale)),
+              f"lora_matmul {label}: a repeated call differs")
+        plain_ms = timer.ms(lambda: lora_ref(x, w, a, b, scale,
+                                             round_xa=True))
+        ms = timer.ms(lambda: lora_matmul(x, w, a, b, scale))
+        base_ms = timer.ms(lambda: x @ w)
+        print(f"lora_matmul {label}: cuBLAS x @ w alone {base_ms:.4f} ms; "
+              f"gpu: {gpu}", flush=True)
+        flops = 2.0 * M * N * K + 2.0 * M * K * r + 2.0 * M * r * N
+        # bf16 inputs: the card's bound is the bf16 tensor-core rate, which
+        # this fp32-FMA kernel does not use
+        rate = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        rows.append(row("lora_matmul", label, gpu, err, rel, ms, plain_ms,
+                        bound(nbytes(x, w, a, b, out), flops, rate), None,
+                        cublas_xw_ms=base_ms, dtype=str(dtype)[6:]))
+        del x, w, a, b, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ade_fde_checks(dev, gpu, timer):
+    """Per-sample ADE/FDE at the evaluation's shapes: a batch of 16 at 18
+    and 30 output steps, and the K=10 rollout's 160 candidate rows.  Against
+    the plain version (the same arithmetic) atol = rtol = 1e-4; no one
+    PyTorch call computes it."""
+    import torch
+    from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for B, T in ((16, 18), (160, 18), (16, 30)):
+        pred = torch.rand(B, 2, T, generator=g, device=dev)
+        gt = torch.rand(B, 2, T, generator=g, device=dev)
+        lo = torch.rand(B, 2, generator=g, device=dev) * 500
+        hi = lo + 100 + torch.rand(B, 2, generator=g, device=dev) * 3000
+        stat = torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], 1)
+        out = fused_ade_fde(pred, gt, stat)
+        ref = ade_fde_plain(pred, gt, stat)
+        torch.cuda.synchronize()
+        err, rel = errors(out, ref)
+        check(torch.allclose(out, ref, **TOL),
+              f"ade_fde disagrees with the plain version at B={B} T={T}: "
+              f"max abs err {err}")
+        plain_ms = timer.ms(lambda: ade_fde_plain(pred, gt, stat))
+        ms = timer.ms(lambda: fused_ade_fde(pred, gt, stat))
+        # per step: 2 differences, 2 scalings, 2 squares, 2 adds, a root
+        rows.append(row("ade_fde", f"B={B} T={T}", gpu, err, rel, ms,
+                        plain_ms, bound(nbytes(pred, gt, stat, out),
+                                        9.0 * B * T), None))
+    return rows
+
+
 def function_grad_checks(dev):
     """Each kernel's autograd.Function on the card (kernel forward, backward
     by recompute through the plain version) against autograd through the
@@ -500,6 +645,8 @@ def function_grad_checks(dev):
     from tsue_tpu_torch.ops.flash import flash_attention, flash_attention_plain
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
                                           swiglu_matmul, swiglu_matmul_plain)
+    from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+    from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
     g = torch.Generator(device=dev).manual_seed(5)
 
     def randn(*shape, s=1.0):
@@ -530,6 +677,14 @@ def function_grad_checks(dev):
         "swiglu_matmul": (swiglu_matmul, swiglu_matmul_plain,
                           (randn(256, 1024), randn(256, 1024),
                            randn(1024, 256, s=0.03)), randn(256, 256)),
+        "nlinear": (nlinear_fused, nlinear_ref,
+                    (randn(16, 64, 18), randn(64, 18, 30, s=0.2),
+                     randn(64, 30)), randn(16, 64, 30)),
+        "lora_matmul": (lambda *t: lora_matmul(*t, 4.0),
+                        lambda *t: lora_ref(*t, 4.0),
+                        (randn(528, 2048), randn(2048, 512, s=0.02),
+                         randn(2048, 8, s=0.02), randn(8, 512, s=0.1)),
+                        randn(528, 512)),
     }
     out = {}
     for name, (fn, plain, inputs, cot) in cases.items():
@@ -625,8 +780,10 @@ def small_train_cfg(regime: str, dropout: float = 0.0, batch: int = 4):
 
 def small_training_phase(dev):
     """One train step per regime on the card against the CPU (same weights,
-    batch and seed; the fused switch on, dropout 0), then run_stage2 for one
-    epoch on the card with dropout live.  Tolerances are the CPU train
+    batch and seed; the fused switch on, dropout 0) and one stage-1 step
+    likewise, then run_stage1 for one epoch on the card (export and
+    generation dump) and run_stage2 for one epoch from its artifact, with
+    dropout live.  Tolerances are the CPU train
     tests' (tests/test_torch_train.py): loss rtol 1e-4; after the step, a
     parameter element within atol 2e-6, or 2 * lr where its gradient is
     below 1e-4 or 1e-3 of its tensor's largest, or is an attention key
@@ -643,7 +800,7 @@ def small_training_phase(dev):
                                      get_tokenizer, make_synthetic_tracks)
     from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
     from tsue_tpu_torch.ops.fused import fused_scope
-    from tsue_tpu_torch.runner import run_stage2, to_device
+    from tsue_tpu_torch.runner import run_stage1, run_stage2, to_device
     from tsue_tpu_torch.train.losses import denorm_mse_loss
     from tsue_tpu_torch.train.trainer import (TrainState, make_optimizer,
                                               make_train_step)
@@ -684,58 +841,155 @@ def small_training_phase(dev):
                 runs.append((loss, {n: p.detach().cpu() for n, p in
                                     model.named_parameters()}, grads,
                              counts))
-        (l_cpu, p_cpu, grads, _), (l_gpu, p_gpu, _, counts) = runs
+        (l_cpu, *_), (l_gpu, _, _, counts) = runs
         m = cfg.model       # dropout 0: every attention takes the kernel
         expected = {"flash_attn_fwd": L + m.lane.num_layers
                     + m.qformer.num_encoder_layers
                     + 2 * m.qformer.num_decoder_layers + 2,
                     "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
-                    "rmsnorm": 2 * L + 1, "swiglu_matmul": L}
+                    "rmsnorm": 2 * L + 1, "swiglu_matmul": L,
+                    **dict.fromkeys(NO_PATH, 0)}
         check(counts == expected, f"small train {regime}: launches {counts} "
                                   f"!= {expected}")
-        check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
-              f"small train {regime}: loss {l_gpu} on the card, {l_cpu} on "
-              "the CPU")
-        worst = 0.0
-        lr = cfg.train.lr
-        for n, before in start.items():
-            a, c = p_gpu[n], p_cpu[n]
-            if n not in grads:
-                check(torch.equal(a, before) and torch.equal(c, before),
-                      f"small train {regime}: frozen {n} changed")
-                continue
-            gm = grads[n]
-            small = (gm < 1e-4) | (gm < 1e-3 * gm.max())
-            if n.endswith(".k.bias"):
-                # zero in exact arithmetic (a shift common to all keys):
-                # both sides step on rounding noise
-                small[:] = True
-            diff = (a - c).abs()
-            check(bool((diff[~small] <= 2e-6).all())
-                  and bool((diff[small] <= 2 * lr).all()),
-                  f"small train {regime}: {n} differs by "
-                  f"{diff.max().item()}")
-            if (~small).any():
-                worst = max(worst, diff[~small].max().item())
+        worst = step_parity(f"small train {regime}", start, runs,
+                            cfg.train.lr)
         print(f"small_train {regime}: loss cuda {l_gpu} cpu {l_cpu}; "
               f"parameters after one step: max abs diff {worst} on "
               f"well-conditioned elements (tol 2e-6); launches "
               f"{json.dumps(counts)}", flush=True)
 
-    # run_stage2 for one epoch on the card, dropout live
-    cfg = small_train_cfg("frozen_mllm", dropout=0.1, batch=8)
+    small_stage1_step(dev)
+
+    # run_stage1 for one epoch on the card (export + generation dump), then
+    # run_stage2 for one epoch from its artifact, dropout live
+    cfg = small_stage1_cfg(small_train_cfg("frozen_mllm", dropout=0.1,
+                                           batch=8))
+    out = Path(__file__).resolve().parent / "runs" / "chip_smoke"
+    art = str(out / "stage1_mllm")
     t0 = time.time()
     with fused_scope("on"):
-        metrics = run_stage2(
-            cfg, out_dir=str(Path(__file__).resolve().parent / "runs"
-                             / "chip_smoke"),
-            epochs=1, eval_candidates=3, synthetic_tracks=12, device=dev)
+        s1 = run_stage1(cfg, out_dir=str(out), epochs=1, export_path=art,
+                        synthetic_tracks=12, generation_dump="generated.txt",
+                        device=dev)
+    dump = out / f"stage1_{cfg.name}" / "generated.txt"
+    check(math.isfinite(s1["final_lm_loss"]) and s1["final_lm_loss"] > 0
+          and s1["generated"] > 0 and (Path(art) / "state.pt").exists()
+          and dump.read_text().count("GENERATED:") == s1["generated"],
+          f"run_stage1 on the card: {s1}")
+    print(f"small run_stage1 on the card, 1 epoch: {json.dumps(s1)} in "
+          f"{time.time() - t0:.1f}s; artifact {art}", flush=True)
+    t0 = time.time()
+    with fused_scope("on"):
+        metrics = run_stage2(cfg, out_dir=str(out), mllm_ckpt=art, epochs=1,
+                             eval_candidates=3, synthetic_tracks=12,
+                             device=dev)
     check(set(metrics) == {"test_ade", "test_fde", "min_ade", "min_fde",
                            "min_rmse", "K"}
           and all(np.isfinite(v) for v in metrics.values()),
           f"run_stage2 on the card: {metrics}")
-    print(f"small run_stage2 on the card, 1 epoch: {json.dumps(metrics)} in "
-          f"{time.time() - t0:.1f}s", flush=True)
+    print(f"small run_stage2(mllm_ckpt=<the stage-1 artifact>) on the card, "
+          f"1 epoch: {json.dumps(metrics)} in {time.time() - t0:.1f}s",
+          flush=True)
+
+
+def step_parity(what, start, runs, lr):
+    """One train step on the CPU and on the card from the same ``start``
+    (runs: [(loss, parameters after, the CPU's first gradients, counts)]
+    for the CPU, then the card): the losses within rtol 1e-4, frozen
+    parameters unchanged, trainable ones within 2e-6 where well conditioned
+    (see ``small_training_phase``).  Returns the largest such difference."""
+    import torch
+    (l_cpu, p_cpu, grads, _), (l_gpu, p_gpu, _, _) = runs
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"{what}: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for n, before in start.items():
+        a, c = p_gpu[n], p_cpu[n]
+        if n not in grads:
+            check(torch.equal(a, before) and torch.equal(c, before),
+                  f"{what}: frozen {n} changed")
+            continue
+        gm = grads[n]
+        small = (gm < 1e-4) | (gm < 1e-3 * gm.max())
+        if n.endswith(".k.bias"):
+            # zero in exact arithmetic (a shift common to all keys): both
+            # sides step on rounding noise
+            small[:] = True
+        diff = (a - c).abs()
+        check(bool((diff[~small] <= 2e-6).all())
+              and bool((diff[small] <= 2 * lr).all()),
+              f"{what}: {n} differs by {diff.max().item()}")
+        if (~small).any():
+            worst = max(worst, diff[~small].max().item())
+    return worst
+
+
+def small_stage1_cfg(cfg):
+    """``cfg`` with 600 text tokens and no buckets: the byte tokenizer's
+    prompts take ~430, so the answers (the stage-1 labels) survive."""
+    return cfg.replace(data=dataclasses.replace(cfg.data, max_length=600,
+                                                length_buckets=()))
+
+
+def small_stage1_step(dev):
+    """One stage-1 step (lora_only, the fused switch on, dropout 0) of the
+    small MLLM on the card against the CPU, same weights, batch and seed,
+    with the stage-2 steps' tolerances."""
+    import torch
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import to_device
+    from tsue_tpu_torch.train.stage1 import (make_stage1_optimizer,
+                                             make_stage1_train_step)
+    from tsue_tpu_torch.train.trainer import TrainState
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = small_stage1_cfg(small_train_cfg("lora_only"))
+    m = cfg.model
+    L = m.llama.num_layers
+    tracks = make_synthetic_tracks(num_tracks=3, track_len=400, seed=4)
+    ds = build_windows(tracks, cfg.data, get_tokenizer())
+    batch = next(iter(BatchIterator(ds, 4, seed=cfg.train.seed)))
+    base = MultiModalLLM(m.llama, m.qformer)
+    init_params(base, torch.Generator().manual_seed(2))
+    start = base.state_dict()
+    runs = []
+    with fused_scope("on"):
+        for d in ("cpu", dev):
+            with torch.device(d):
+                mllm = MultiModalLLM(m.llama, m.qformer)
+            mllm.load_state_dict(start)
+            state = TrainState(mllm, make_stage1_optimizer(cfg, mllm),
+                               cfg.train.seed)
+            b = to_device(batch, d)
+            grads = None
+            if d == "cpu":           # the step's gradients, for conditioning
+                mllm.lm_loss(b["vision"], b["input_ids"], b["attention_mask"],
+                             b["labels"]).backward()
+                grads = {n: p.grad.abs() for n, p in mllm.named_parameters()
+                         if p.grad is not None}
+                state.optimizer.zero_grad()
+            reset_counts()
+            loss = float(make_stage1_train_step()(
+                state, b, step_generator(0, 0, d))["lm_loss"])
+            counts = read_counts()
+            runs.append((loss, {n: p.detach().cpu() for n, p in
+                                mllm.named_parameters()}, grads, counts))
+    expected = dict(train_forward_launches(L), flash_attn_fwd=L
+                    + m.qformer.num_encoder_layers
+                    + 2 * m.qformer.num_decoder_layers)   # dropout 0
+    counts = runs[1][3]
+    check(counts == expected, f"small stage-1 step: launches {counts} != "
+                              f"{expected}")
+    check(runs[0][0] > 0, "small stage-1 step: no supervised token")
+    worst = step_parity("small stage-1 step", start, runs, cfg.train.lr)
+    print(f"small_stage1 lora_only: lm loss cuda {runs[1][0]} cpu "
+          f"{runs[0][0]}; parameters after one step: max abs diff {worst} on "
+          f"well-conditioned elements (tol 2e-6); launches "
+          f"{json.dumps(counts)}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -840,7 +1094,8 @@ def predict_phase(dev, gpu, cfg, state):
     c = math.ceil(len(fused) / B)
     expected = {"flash_attn_fwd": c * (per_predict + per_rollout),
                 "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
-                "rmsnorm": c * 2 * (2 * L + 1), "swiglu_matmul": c * 2 * L}
+                "rmsnorm": c * 2 * (2 * L + 1), "swiglu_matmul": c * 2 * L,
+                **dict.fromkeys(NO_PATH, 0)}
     err = max(float(np.abs(a[key] - b[key]).max())
               for a, b in zip(out, fused)
               for key in ("pred_pixel_xy", "candidates_pixel_xy"))
@@ -866,10 +1121,15 @@ def counters():
     from tsue_tpu_torch.ops.fused import fused_rmsnorm, swiglu_matmul
     from tsue_tpu_torch.ops.kv_quant import attend_int8_kv
     from tsue_tpu_torch.ops.lmhead_topk import lmhead_topk
+    from tsue_tpu_torch.ops.lora import lora_matmul
+    from tsue_tpu_torch.ops.metric_kernels import fused_ade_fde
+    from tsue_tpu_torch.ops.nlinear import nlinear_fused
     from tsue_tpu_torch.ops.quant import int8_matmul
     return {"flash_attn_fwd": flash_attention, "int8_matmul": int8_matmul,
             "lmhead_topk": lmhead_topk, "attend_int8_kv": attend_int8_kv,
-            "rmsnorm": fused_rmsnorm, "swiglu_matmul": swiglu_matmul}
+            "rmsnorm": fused_rmsnorm, "swiglu_matmul": swiglu_matmul,
+            "nlinear": nlinear_fused, "lora_matmul": lora_matmul,
+            "ade_fde": fused_ade_fde}
 
 
 def reset_counts():
@@ -980,7 +1240,7 @@ def generation_phase(dev, gpu, cfg, state):
     expected = {"flash_attn_fwd": chunks * (L + qformer_calls),
                 "int8_matmul": steps * 7 * L, "lmhead_topk": steps,
                 "attend_int8_kv": steps * L, "rmsnorm": 0,
-                "swiglu_matmul": 0}
+                "swiglu_matmul": 0, **dict.fromkeys(NO_PATH, 0)}
     print(f"generate: launches {json.dumps(counts)} over {chunks} chunks and "
           f"{steps} decode steps, expected {json.dumps(expected)}",
           flush=True)
@@ -1018,7 +1278,8 @@ def generation_phase(dev, gpu, cfg, state):
           "generate (switches off): output")
     exp_off = {"flash_attn_fwd": c * (L + qformer_calls) + s * L,
                "int8_matmul": 0, "lmhead_topk": 0, "attend_int8_kv": 0,
-               "rmsnorm": 0, "swiglu_matmul": 0}
+               "rmsnorm": 0, "swiglu_matmul": 0,
+               **dict.fromkeys(NO_PATH, 0)}
     print(f"generate, switches off, greedy: 32 tracks in {dt:.3f}s, {s} "
           f"decode steps, prefill {', '.join(f'{p:.4f}' for p in prefill)} "
           f"s per chunk, {step_ms:.3f} ms per decode step, "
@@ -1034,6 +1295,15 @@ def generation_phase(dev, gpu, cfg, state):
 # --------------------------------------------------------------------------
 # 7. training at full width
 # --------------------------------------------------------------------------
+
+def train_forward_launches(L: int):
+    """Launches of one training forward of an L-layer Llama with the fused
+    switch on: the Llama's attention (the Q-Former's drops, so it takes
+    PyTorch ops), 2 L + 1 RMSNorms and L SwiGLU products."""
+    return {"flash_attn_fwd": L, "int8_matmul": 0, "lmhead_topk": 0,
+            "attend_int8_kv": 0, "rmsnorm": 2 * L + 1, "swiglu_matmul": L,
+            **dict.fromkeys(NO_PATH, 0)}
+
 
 def train_phase(dev, gpu, preset: str):
     """A stage-2 trainer of the preset at full Llama-3.2-1B width (fp32, the
@@ -1078,9 +1348,7 @@ def train_phase(dev, gpu, preset: str):
           f"{cfg.train.lr}): {sum(p.numel() for p in params.values()) / 1e9:.3f}"
           f"B params, {n_train / 1e6:.2f}M trainable; model + data "
           f"{time.time() - t0:.1f}s", flush=True)
-    per_forward = {"flash_attn_fwd": L, "int8_matmul": 0, "lmhead_topk": 0,
-                   "attend_int8_kv": 0, "rmsnorm": 2 * L + 1,
-                   "swiglu_matmul": L}
+    per_forward = train_forward_launches(L)
     with fused_scope("on"):
         # one step's forward and backward, counted apart
         reset_counts()
@@ -1185,6 +1453,175 @@ def train_phase(dev, gpu, preset: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# 8. stage-1 MLLM fine-tuning at full width
+# --------------------------------------------------------------------------
+
+def stage1_phase(dev, gpu):
+    """Stage-1 steps of the preset "train_18_30" (its batch 16, lr 5e-4,
+    fp32, the stage-1 default lora_only freeze, LoRA r 8 on q/v, the dense
+    loss) at full Llama-3.2-1B width with its vocabulary (128256; the byte
+    tokenizer's ids index it), random weights from the preset's seed, the
+    fused switch on, through the port's entry points:
+    ``make_stage1_optimizer``, ``make_stage1_train_step``,
+    ``make_stage1_eval_step``.  ``run_stage1`` would resize the vocabulary
+    to the tokenizer's; it runs at the small configuration."""
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.fusion import IGNORE_LABEL, MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import to_device
+    from tsue_tpu_torch.train.stage1 import (make_stage1_eval_step,
+                                             make_stage1_optimizer,
+                                             make_stage1_train_step)
+    from tsue_tpu_torch.train.trainer import TrainState
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = get_preset("train_18_30")
+    m, B = cfg.model, cfg.train.batch_size
+    L = m.llama.num_layers
+    tracks = make_synthetic_tracks(num_tracks=8, track_len=600, seed=5)
+    ds = build_windows(tracks, cfg.data, get_tokenizer())
+    batches = [to_device(b, dev) for _, b in zip(range(6), BatchIterator(
+        ds, B, seed=cfg.train.seed, length_buckets=cfg.data.length_buckets))]
+    check(len(batches) == 6, f"stage1: too few windows ({len(ds)})")
+    T = m.qformer.num_query_tokens + batches[0]["input_ids"].shape[1]
+    supervised = [int((b["labels"] != IGNORE_LABEL).sum()) for b in batches]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    with torch.device(dev):
+        mllm = MultiModalLLM(m.llama, m.qformer, m.use_vision)
+    init_params(mllm, torch.Generator(device=dev).manual_seed(cfg.train.seed))
+    state = TrainState(mllm, make_stage1_optimizer(cfg, mllm), cfg.train.seed)
+    train_step, eval_step = make_stage1_train_step(), make_stage1_eval_step()
+    params = dict(mllm.named_parameters())
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    n_train = sum(params[n].numel() for n in trainable)
+    print(f"stage1 {cfg.name} (lora_only, batch {B}, {B} x {T} tokens, "
+          f"{supervised[0]} supervised, lr {cfg.train.lr}, vocab "
+          f"{m.llama.vocab_size}): "
+          f"{sum(p.numel() for p in params.values()) / 1e9:.3f}B params, "
+          f"{n_train / 1e6:.2f}M trainable; model + data "
+          f"{time.time() - t0:.1f}s", flush=True)
+
+    def gen(i):
+        return step_generator(0, i, dev)
+
+    per_forward = dict(train_forward_launches(L))
+    with fused_scope("on"):
+        # one step's forward and backward, counted apart
+        reset_counts()
+        b = batches[0]
+        loss = mllm.lm_loss(b["vision"], b["input_ids"], b["attention_mask"],
+                            b["labels"], deterministic=False,
+                            generator=gen(0))
+        fwd = read_counts()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        bwd = {k: v - fwd[k] for k, v in read_counts().items()}
+        state.optimizer.zero_grad()
+        del loss
+        print(f"stage1: launches in one step's forward {json.dumps(fwd)}, in "
+              f"its backward {json.dumps(bwd)}", flush=True)
+        check(fwd == per_forward, f"stage1: forward launches {fwd} != "
+                                  f"{per_forward}")
+        check(not any(bwd.values()), f"stage1: the backward launched {bwd}")
+
+        start = {n: p.detach().clone() for n, p in params.items()
+                 if not p.requires_grad}
+        train_step(state, batches[0], gen(0))                 # warmup
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        times, losses = [], []
+        for i, b in enumerate(batches[1:4], 1):
+            t0 = time.perf_counter()
+            losses.append(float(train_step(state, b, gen(i))["lm_loss"]))
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        expected = {k: 3 * v for k, v in per_forward.items()}
+        check(counts == expected, f"stage1: launches in 3 steps {counts} != "
+                                  f"{expected}")
+        check(all(math.isfinite(x) and x > 0 for x in losses),
+              f"stage1: losses {losses}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        step_s = sum(times) / len(times)
+        profile_device(dev, gpu, "stage1 profile: one step", step_s,
+                       lambda: train_step(state, batches[3], gen(3)))
+        for n, before in start.items():
+            check(torch.equal(params[n].detach(), before),
+                  f"stage1: frozen {n} changed")
+        moved = [n for n in trainable if n.endswith("lora_b")
+                 and bool(params[n].detach().abs().max() > 0)]
+        check(len(moved) == 2 * L, f"stage1: LoRA B moved in {moved}")
+        del start
+
+        # a repeated step from the same state and seed, then the same step
+        # with the chunked loss
+        snap = {n: params[n].detach().clone() for n in trainable}
+        opt_snap = copy.deepcopy(state.optimizer.state_dict())
+
+        def restore():
+            with torch.no_grad():
+                for n in trainable:
+                    params[n].copy_(snap[n])
+            state.optimizer.load_state_dict(opt_snap)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        dense_loss = float(train_step(state, batches[4], gen(4))["lm_loss"])
+        dense_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        first = {n: params[n].detach().clone() for n in trainable}
+        restore()
+        again = float(train_step(state, batches[4], gen(4))["lm_loss"])
+        check(again == dense_loss and all(torch.equal(params[n], first[n])
+                                          for n in trainable),
+              "stage1: a repeated step from the same state and seed differs")
+        restore()
+        llama = mllm.llama
+        dense_cfg = llama.cfg
+        llama.cfg = dataclasses.replace(dense_cfg, loss_chunk=128)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        chunk_loss = float(train_step(state, batches[4], gen(4))["lm_loss"])
+        torch.cuda.synchronize(dev)
+        chunk_s = time.perf_counter() - t0
+        chunk_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        llama.cfg = dense_cfg
+        rel = abs(chunk_loss - dense_loss) / abs(dense_loss)
+        print(f"stage1: loss_chunk=128 step loss {chunk_loss} vs dense "
+              f"{dense_loss} (rel {rel:.3e}, tol 1e-5) in {chunk_s * 1e3:.1f}"
+              f" ms; peak memory {chunk_peak:.2f} GiB chunked vs "
+              f"{dense_peak:.2f} GiB dense; gpu: {gpu}", flush=True)
+        check(rel <= 1e-5, f"stage1: chunked loss {chunk_loss} vs dense "
+                           f"{dense_loss}")
+        del snap, first, opt_snap
+
+        reset_counts()
+        ev = float(eval_step(state, batches[5])["lm_loss"])
+        ev_counts = read_counts()
+        ev_expected = dict(per_forward, flash_attn_fwd=L
+                           + m.qformer.num_encoder_layers
+                           + 2 * m.qformer.num_decoder_layers)
+        check(ev_counts == ev_expected, f"stage1: eval launches {ev_counts} "
+                                        f"!= {ev_expected}")
+        check(math.isfinite(ev), f"stage1: eval loss {ev}")
+    tok_s = sum(supervised[1:4]) / sum(times)
+    print(f"stage1 {cfg.name}: {', '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"ms per step = {B / step_s:.3f} stage-1 train windows/s, "
+          f"{tok_s:.1f} supervised tokens/s (batch {B}, {T} tokens, "
+          f"{supervised[1:4]} supervised); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; eval loss {ev:.4f}; "
+          f"repeated step bit-identical; peak memory {peak:.2f} GiB (dense "
+          f"loss); launches per step {json.dumps(per_forward)}; eval "
+          f"launches {json.dumps(ev_counts)}; gpu: {gpu}", flush=True)
+    del state, mllm, params, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1213,6 +1650,11 @@ def main() -> int:
             "lmhead_topk": head_checks(dev, gpu, timer),
             "attend_int8_kv": attend_checks(dev, gpu, timer),
             **fused_checks(dev, gpu, timer)}
+    reset_counts()
+    rows.update(nlinear=nlinear_checks(dev, gpu, timer),
+                lora_matmul=lora_checks(dev, gpu, timer),
+                ade_fde=ade_fde_checks(dev, gpu, timer))
+    kernel_phase = {name: read_counts()[name] for name in NO_PATH}
     del timer
     grad_errs = function_grad_checks(dev)
     small_reference_phase(dev)
@@ -1225,10 +1667,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts = {preset: train_phase(dev, gpu, preset)
                     for preset in TRAIN_PRESETS}
+    stage1_counts = stage1_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
-        decoder layer's seven projections)."""
+        decoder layer's seven projections; the three kernels with no path:
+        where they would sit, at batch 16)."""
         r = rows[name]
         if name == "flash_attn_fwd":
             pick = [r[0]]                      # Llama self-attention, RoPE
@@ -1237,8 +1681,9 @@ def main() -> int:
         elif name == "lmhead_topk":
             pick = [x for x in r if x["layout"] == "int8"
                     and not x["exact"]]
-        elif name in ("rmsnorm", "swiglu_matmul"):
-            pick = [r[0]]                      # training at batch 16
+        elif name in ("rmsnorm", "swiglu_matmul", "nlinear", "lora_matmul",
+                      "ade_fde"):
+            pick = [r[0]]      # batch 16 (LoRA: q_proj, fp32)
         else:
             pick = [r[-1]]                     # S = 592
         out = {"ms": sum(x["ms"] for x in pick),
@@ -1259,8 +1704,18 @@ def main() -> int:
         "generate_all_switches": gen_counts[name],
         "generate_switches_off": off_counts[name],
         **{f"train {p} (3 steps)": train_counts[p][name]
-           for p in TRAIN_PRESETS}} for name in KERNELS}
+           for p in TRAIN_PRESETS},
+        "stage1 train_18_30 (3 steps)": stage1_counts[name]}
+        for name in KERNELS}
     for name in KERNELS:
+        if name in NO_PATH:
+            # no driven path reaches them (none calls them in the JAX
+            # package): their launches are the kernel phase's, named so
+            check(not any(by_path[name].values()),
+                  f"{name} was launched on a driven path: {by_path[name]}")
+            check(kernel_phase[name] > 0, f"{name} was not launched in the "
+                                          "kernel phase")
+            by_path[name][KERNEL_PHASE] = kernel_phase[name]
         check(sum(by_path[name].values()) > 0,
               f"{name} was not launched on any driven path")
     check(predict_counts["flash_attn_fwd"] > 0,

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: flash attention, the int8 matrix product, the fused LM head + top-128,
-the int8-KV decode attention, the one-pass RMSNorm and the fused SwiGLU
-down-projection, and the gradients of the three kernels training
-differentiates (flash, RMSNorm, SwiGLU) against autograd through their
-plain versions.
+the int8-KV decode attention, the one-pass RMSNorm, the fused SwiGLU
+down-projection, NLinear, the fused LoRA product and the per-sample
+ADE/FDE, and the gradients of the kernels in autograd Functions (flash,
+RMSNorm, SwiGLU, NLinear, LoRA) against autograd through their plain
+versions.
 
 These tests need a CUDA device and skip without one.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -26,6 +27,9 @@ from tsue_tpu_torch.ops import fused as FU
 from tsue_tpu_torch.ops import kv_quant as KV
 from tsue_tpu_torch.ops import lmhead_topk as LT
 from tsue_tpu_torch.ops import quant as Q
+from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
+from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
                                       flash_attention_plain)
 
@@ -310,3 +314,131 @@ def test_function_gradients_match_plain_autograd(dev):
     ref_s = _grads(FU.swiglu_matmul_plain, (gate, up, w), cot)
     for a, b in zip(ours_s, ref_s):
         torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_matches_plain_on_ragged_tiles(dev, dtype):
+    """M and N not multiples of the 128 x 128 tile, K not a multiple of the
+    8-deep step or of 4 (the element-by-element loads), r = 4, 8 and 16.
+    fp32: rtol 1e-4, atol 1e-5 of the largest output (K products summed in
+    another order).  bf16 (inputs and output bf16, sums fp32, xA rounded to
+    bf16 as the Pallas kernel rounds it): within 2 bf16 ulps, rtol = atol =
+    2^-7 of the largest output, since a sum on the other side of a rounding
+    boundary moves the output or xA by one ulp."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    for (M, K, N), r in itertools.product(
+            ((1, 64, 4), (129, 256, 132), (200, 37, 300), (300, 2048, 517)),
+            (4, 8, 16)):
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+        a = (torch.randn(K, r, generator=g, device=dev) * K ** -0.5).to(dtype)
+        b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
+        before = lora_matmul.launches
+        out = lora_matmul(x, w, a, b, 32.0 / r)
+        assert lora_matmul.launches == before + 1
+        assert out.dtype == dtype and out.shape == (M, N)
+        ref = lora_ref(x, w, a, b, 32.0 / r, round_xa=True)
+        torch.cuda.synchronize()
+        big = float(ref.float().abs().max())
+        tol = (dict(rtol=1e-4, atol=1e-5 * big) if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=2 ** -7 * big))
+        torch.testing.assert_close(out.float(), ref.float(), **tol,
+                                   msg=lambda m: f"M={M} K={K} N={N} r={r}: "
+                                                 f"{m}")
+        assert torch.equal(out, lora_matmul(x, w, a, b, 32.0 / r))
+
+
+def test_lora_matmul_rejects_what_it_does_not_take(dev):
+    x, w = torch.randn(8, 16, device=dev), torch.randn(16, 8, device=dev)
+    with pytest.raises(ValueError, match="r <="):
+        lora_matmul(x, w, torch.randn(16, 17, device=dev),
+                    torch.randn(17, 8, device=dev), 1.0)
+    with pytest.raises(TypeError):
+        lora_matmul(x.double(), w.double(), torch.randn(16, 4, device=dev,
+                                                        dtype=torch.float64),
+                    torch.randn(4, 8, device=dev, dtype=torch.float64), 1.0)
+    with pytest.raises(TypeError):       # mixed dtypes
+        lora_matmul(x, w.bfloat16(), torch.randn(16, 4, device=dev),
+                    torch.randn(4, 8, device=dev), 1.0)
+
+
+def test_nlinear_matches_plain(dev):
+    """B = 1, 16 and 160; To < Ti, To = Ti and To > Ti; one input step; the
+    sums run in the same order as the plain einsum's only by chance:
+    atol = rtol = 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    for B, C, Ti, To in ((1, 64, 18, 30), (16, 64, 18, 18), (160, 64, 18, 18),
+                         (3, 7, 30, 6), (2, 5, 1, 4)):
+        x = torch.randn(B, C, Ti, generator=g, device=dev)
+        w = torch.randn(C, Ti, To, generator=g, device=dev) * Ti ** -0.5
+        b = torch.randn(C, To, generator=g, device=dev) * 0.1
+        before = nlinear_fused.launches
+        out = nlinear_fused(x, w, b)
+        assert nlinear_fused.launches == before + 1
+        ref = nlinear_ref(x, w, b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
+                                   msg=lambda m: f"B={B} C={C} Ti={Ti} "
+                                                 f"To={To}: {m}")
+    zero = nlinear_fused(x, torch.zeros_like(w), torch.zeros_like(b))
+    assert torch.equal(zero, x[:, :, -1:].expand(-1, -1, w.shape[2]))
+
+
+def test_ade_fde_matches_plain(dev):
+    """B = 1 and 160, T = 1, 18, 30 and 70 (more steps than a warp's
+    lanes); the [xmin, xmax, ymin, ymax] order of norm_stat is taken from
+    a stat whose x and y ranges differ.  atol = rtol = 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    for B, T in ((1, 1), (1, 30), (16, 18), (160, 18), (9, 70)):
+        pred = torch.rand(B, 2, T, generator=g, device=dev)
+        gt = torch.rand(B, 2, T, generator=g, device=dev)
+        lo = torch.rand(B, 2, generator=g, device=dev) * 100
+        hi = lo + 10 + torch.rand(B, 2, generator=g, device=dev) * 900
+        stat = torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], 1)
+        before = fused_ade_fde.launches
+        out = fused_ade_fde(pred, gt, stat)
+        assert fused_ade_fde.launches == before + 1
+        ref = ade_fde_plain(pred, gt, stat)
+        torch.cuda.synchronize()
+        assert out.shape == (B, 2) and out.dtype == torch.float32
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
+                                   msg=lambda m: f"B={B} T={T}: {m}")
+    same = fused_ade_fde(gt, gt, stat)
+    assert torch.allclose(same, torch.full_like(same, 1e-6))
+
+
+def test_ade_fde_raises_under_grad(dev):
+    pred = torch.rand(4, 2, 6, device=dev, requires_grad=True)
+    stat = torch.tensor([[0., 1., 0., 1.]], device=dev).expand(4, 4)
+    before = fused_ade_fde.launches
+    with pytest.raises(RuntimeError, match="fused_ade_fde has no backward"):
+        fused_ade_fde(pred, pred.detach(), stat)
+    with torch.no_grad():
+        fused_ade_fde(pred, pred.detach(), stat)
+    assert fused_ade_fde.launches == before + 1
+
+
+def test_nlinear_and_lora_gradients_match_plain_autograd(dev):
+    """The NLinear and LoRA Functions on the card: kernel forward, backward
+    by recompute through the plain version, against autograd through the
+    plain version (the LoRA forward in fp32, where the kernel's rounding
+    of xA is the identity)."""
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * s
+    inputs = (randn(16, 64, 18), randn(64, 18, 30, s=0.2), randn(64, 30))
+    cot = randn(16, 64, 30)
+    before = nlinear_fused.launches
+    ours = _grads(nlinear_fused, inputs, cot)
+    assert nlinear_fused.launches == before + 1
+    for o, r in zip(ours, _grads(nlinear_ref, inputs, cot)):
+        torch.testing.assert_close(o, r, **TOL)
+    inputs = (randn(200, 256), randn(256, 130, s=0.06), randn(256, 8, s=0.06),
+              randn(8, 130, s=0.1))
+    cot = randn(200, 130)
+    before = lora_matmul.launches
+    ours = _grads(lambda *t: lora_matmul(*t, 4.0), inputs, cot)
+    assert lora_matmul.launches == before + 1
+    for o, r in zip(ours, _grads(lambda *t: lora_ref(*t, 4.0), inputs, cot)):
+        torch.testing.assert_close(o, r, **TOL)

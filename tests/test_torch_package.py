@@ -1,7 +1,8 @@
 """Package-level properties of the port: no JAX and nothing of the JAX
-package, a strict weight bridge, the CUDA device by default (serving and
-training), no kernel launch on CPU tensors, and no decode kernel under
-autograd."""
+package, a strict weight bridge, the CUDA device by default (serving,
+stage-1 and stage-2 training), no kernel launch on CPU tensors, no decode
+kernel (nor the ADE/FDE kernel) under autograd, and the options not ported
+yet raising."""
 import os
 import subprocess
 import sys
@@ -21,6 +22,9 @@ from tsue_tpu_torch.ops.flash import flash_attention
 from tsue_tpu_torch.ops.fused import fused_rmsnorm, swiglu_matmul
 from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, quantize_kv
 from tsue_tpu_torch.ops.lmhead_topk import lmhead_topk
+from tsue_tpu_torch.ops.lora import lora_matmul
+from tsue_tpu_torch.ops.metric_kernels import fused_ade_fde
+from tsue_tpu_torch.ops.nlinear import nlinear_fused
 from tsue_tpu_torch.ops.quant import int8_matmul, quantize_weight
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +37,10 @@ PORT_MODULES = (
     "tsue_tpu_torch.ops.quant", "tsue_tpu_torch.ops.kv_quant",
     "tsue_tpu_torch.ops.lmhead_topk", "tsue_tpu_torch.ops.fused",
     "tsue_tpu_torch.data.dataset", "tsue_tpu_torch.utils.logging",
-    "tsue_tpu_torch.train.trainer", "tsue_tpu_torch.runner", "chip_smoke")
+    "tsue_tpu_torch.train.trainer", "tsue_tpu_torch.train.stage1",
+    "tsue_tpu_torch.train.checkpoint", "tsue_tpu_torch.ops.nlinear",
+    "tsue_tpu_torch.ops.lora", "tsue_tpu_torch.ops.metric_kernels",
+    "tsue_tpu_torch.runner", "chip_smoke")
 
 
 def test_port_imports_no_jax():
@@ -135,8 +142,13 @@ def _kernel_inputs(device="cpu"):
 def test_cpu_tensors_never_launch_the_kernels():
     x = _kernel_inputs()
     counters = (flash_attention, int8_matmul, attend_int8_kv, lmhead_topk,
-                fused_rmsnorm, swiglu_matmul)
+                fused_rmsnorm, swiglu_matmul, nlinear_fused, lora_matmul,
+                fused_ade_fde)
     before = [f.launches for f in counters]
+    nlinear_fused(x["q"][0], torch.zeros(2, 16, 3), torch.zeros(2, 3))
+    lora_matmul(x["hidden"], x["emb"][:16], x["emb"][:16, :4],
+                x["emb"][:4], 4.0)
+    fused_ade_fde(x["q"][0, :, :2], x["k"][0, :, :2], x["emb"][:5, :4])
     fused_rmsnorm(x["rows"], torch.ones(128))
     swiglu_matmul(x["rows"], x["rows"], x["rows"][:128])
     flash_attention(x["q"], x["k"], x["v"], is_causal=True)
@@ -147,7 +159,7 @@ def test_cpu_tensors_never_launch_the_kernels():
     lmhead_topk(x["hidden"], x["emb"], None)
     w8, s = x["head"]
     lmhead_topk(x["hidden"], None, None, quant=(w8.t().contiguous(), s))
-    assert [f.launches for f in counters] == before == [0] * 6
+    assert [f.launches for f in counters] == before == [0] * 9
 
 
 def test_no_fallback_off_the_cpu():
@@ -168,6 +180,12 @@ def test_no_fallback_off_the_cpu():
         fused_rmsnorm(rows, rows[0])
     with pytest.raises(ValueError, match="no swiglu kernel"):
         swiglu_matmul(rows, rows, rows)
+    with pytest.raises(ValueError, match="no nlinear kernel"):
+        nlinear_fused(q[0], q[0], q[0, 0])
+    with pytest.raises(ValueError, match="no lora kernel"):
+        lora_matmul(rows, rows, rows[:, :4], rows[:4], 1.0)
+    with pytest.raises(ValueError, match="no ade/fde kernel"):
+        fused_ade_fde(q[:, :2], q[:, :2], rows[:4, :4])
 
 
 def test_shared_wrapper_contract():
@@ -239,15 +257,29 @@ def test_decode_wrappers_raise_under_grad_on_cuda(monkeypatch):
         lmhead_topk.launches == 0
 
 
+def test_ade_fde_wrapper_raises_under_grad_on_cuda(monkeypatch):
+    """The ADE/FDE kernel has no backward (the JAX kernel has no VJP):
+    under grad mode its kernel path raises before any launch, as the
+    decode wrappers do; the two kernels with a backward (NLinear, LoRA)
+    are autograd Functions instead."""
+    from tsue_tpu_torch.ops import metric_kernels
+    monkeypatch.setattr(metric_kernels, "uses_kernel", lambda t, what: True)
+    pred = torch.rand(2, 2, 5, requires_grad=True)
+    with pytest.raises(RuntimeError, match="fused_ade_fde has no backward"):
+        fused_ade_fde(pred, pred.detach(), torch.ones(2, 4))
+    assert fused_ade_fde.launches == 0
+
+
 def test_training_defaults_to_cuda():
-    """``run_stage2`` and the model it trains want the CUDA device unless
-    given ``device="cpu"``; without one they raise instead of running on
-    the CPU."""
+    """``run_stage1``, ``run_stage2`` and the model stage 2 trains want the
+    CUDA device unless given ``device="cpu"``; without one they raise
+    instead of running on the CPU."""
     import inspect
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.data import ByteTokenizer
-    from tsue_tpu_torch.runner import build_model_and_params, run_stage2
-    for fn in (run_stage2, build_model_and_params):
+    from tsue_tpu_torch.runner import (build_model_and_params, run_stage1,
+                                       run_stage2)
+    for fn in (run_stage1, run_stage2, build_model_and_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -255,4 +287,34 @@ def test_training_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_stage2(cfg, epochs=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_stage1(cfg, epochs=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model_and_params(cfg, ByteTokenizer())
+
+
+@pytest.mark.parametrize("option", [
+    "restore_ckpt", "save_every", "resume", "viz_every", "save_viz", "remat",
+    "bfloat16", "stage1_remat", "stage1_bfloat16", "stage1_pipeline"])
+def test_options_not_ported_yet_raise(option, tmp_path):
+    """What the runners do not take yet raises NotImplementedError before
+    any work (``mllm_ckpt`` is taken since stage 1 landed)."""
+    import dataclasses
+    from tsue_tpu_torch.config import ModelConfig, get_preset
+    from tsue_tpu_torch.runner import run_stage1, run_stage2
+    cfg = get_preset("train_18_30")
+    kw = {}
+    fn = run_stage1 if option.startswith("stage1") else run_stage2
+    what = option.replace("stage1_", "")
+    if what == "remat":
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, llama=dataclasses.replace(cfg.model.llama,
+                                                 remat=True)))
+    elif what == "bfloat16":
+        cfg = cfg.replace(model=ModelConfig(dtype="bfloat16"))
+    elif what == "pipeline":
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
+                                                   pipeline_parallel=2))
+    else:
+        kw[what] = "x" if what == "restore_ckpt" else True
+    with pytest.raises(NotImplementedError):
+        fn(cfg, out_dir=str(tmp_path), epochs=0, device="cpu", **kw)

@@ -1,11 +1,12 @@
 """Batched text generation: soft-prefix prefill + KV-cached sampled decode.
 
 Counterpart of ``tsue_tpu/eval/generation.py`` (``head_arrays``, the
-generator of ``make_generate_fn``, ``postprocess_text``,
-``trim_and_decode``): condition on the fused [image-tokens || prompt]
-prefix, decode with the HF-semantics sampler of ``ops/sampling.py``, stop
-each sequence at EOS, and cut the text at the reference's
-"No right-following vehicle." marker.
+generator of ``make_generate_fn``, ``postprocess_text``, ``prompt_only``,
+``trim_and_decode``, ``generate_texts`` and, for one process,
+``distributed_generate_and_save``): condition on the fused [image-tokens ||
+prompt] prefix, decode with the HF-semantics sampler of
+``ops/sampling.py``, stop each sequence at EOS, and cut the text at the
+reference's "No right-following vehicle." marker.
 
 The JAX package runs the decode as one compiled ``while_loop`` over fixed
 ``scan`` chunks; here it is a Python loop over the same chunks (of the same
@@ -22,8 +23,9 @@ JAX package:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from tsue_tpu_torch.ops.sampling import SamplingConfig, process_and_sample
@@ -189,9 +191,92 @@ def postprocess_text(text: str, extract_answer: bool = False) -> str:
     return text
 
 
+def prompt_only(batch) -> tuple:
+    """(ids, mask) int32 numpy: the prompt span of dataset rows, which hold
+    prompt + answer; the answer span is exactly where labels != -100 (ref
+    check_generation.py generates from the prompt alone)."""
+    from tsue_tpu_torch.models.fusion import IGNORE_LABEL
+    prompt_mask = np.asarray(batch["attention_mask"])
+    if "labels" in batch:
+        prompt_mask = prompt_mask * (
+            np.asarray(batch["labels"]) == IGNORE_LABEL)
+    ids = (np.asarray(batch["input_ids"]) * prompt_mask).astype(np.int32)
+    return ids, prompt_mask.astype(np.int32)
+
+
 def trim_and_decode(row, tokenizer, extract_answer: bool = False) -> str:
     """Generated id row -> postprocessed text (strip pad, cut at EOS)."""
     ids = [int(t) for t in row if t != tokenizer.pad_id]
     if tokenizer.eos_id in ids:
         ids = ids[:ids.index(tokenizer.eos_id)]
     return postprocess_text(tokenizer.decode(ids), extract_answer)
+
+
+def generate_texts(mllm, tokenizer, vision, prompt_ids, prompt_mask,
+                   generator: Optional[torch.Generator],
+                   max_new_tokens: int = 128,
+                   cfg: Optional[SamplingConfig] = None,
+                   extract_answer: bool = False) -> List[str]:
+    """Ids in, postprocessed strings out, on the device of ``mllm``'s
+    parameters (``tsue_tpu/eval/generation.py:210-238``; its speculative
+    form is not ported yet, ROADMAP A.11)."""
+    cfg = cfg or SamplingConfig()
+    dev = next(mllm.parameters()).device
+    gen = make_generate_fn(mllm, cfg, max_new_tokens, prompt_ids.shape[1],
+                           tokenizer.eos_id, tokenizer.pad_id)
+    out = gen(None if vision is None else torch.as_tensor(vision).to(dev),
+              torch.as_tensor(prompt_ids).to(dev),
+              torch.as_tensor(prompt_mask).to(dev), generator)
+    return [trim_and_decode(row, tokenizer, extract_answer)
+            for row in out.cpu().numpy()]
+
+
+def distributed_generate_and_save(mllm, tokenizer, dataset, out_path: str,
+                                  seed: int, batch_size: int = 8,
+                                  max_new_tokens: int = 128,
+                                  cfg: Optional[SamplingConfig] = None,
+                                  reference_texts: Optional[dict] = None):
+    """The generation eval (ref check_generation.py:331-369) in one process
+    (``tsue_tpu/eval/generation.py:241-304`` without the gather): generate
+    from the prompt span of every window of ``dataset`` in order, batch i
+    drawing from ``utils.random.step_generator(seed, i)`` (the counterpart
+    of ``fold_in(key(seed), i)``), and write generated-vs-reference pairs
+    (``reference_texts``: track_id -> ground-truth context) to
+    ``out_path``.  Returns the records of the real (not wrap-padded)
+    windows."""
+    from tsue_tpu_torch.data.dataset import BatchIterator
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = cfg or SamplingConfig()
+    dev = next(mllm.parameters()).device
+    gen = None
+    records = []
+    for i, batch in enumerate(BatchIterator(dataset, batch_size=batch_size,
+                                            shuffle=False)):
+        if gen is None:
+            gen = make_generate_fn(mllm, cfg, max_new_tokens,
+                                   batch["input_ids"].shape[1],
+                                   tokenizer.eos_id, tokenizer.pad_id)
+        ids, prompt_mask = prompt_only(batch)
+        out = gen(torch.from_numpy(batch["vision"]).to(dev),
+                  torch.from_numpy(ids).to(dev),
+                  torch.from_numpy(prompt_mask).to(dev),
+                  step_generator(seed, i, dev)).cpu().numpy()
+        for tid, row, v in zip(batch["track_id"], out, batch["valid"]):
+            if not v:
+                continue
+            rec = {"track_id": int(tid),
+                   "generated": trim_and_decode(row, tokenizer)}
+            if reference_texts is not None:
+                rec["reference"] = reference_texts.get(int(tid), "")
+            records.append(rec)
+    if not records:
+        return []
+    with open(out_path, "w") as f:
+        for rec in records:
+            f.write(f"[track {rec['track_id']}]\n"
+                    f"GENERATED: {rec['generated']}\n")
+            if "reference" in rec:
+                f.write(f"REFERENCE: {rec['reference']}\n")
+            f.write("\n")
+    return records

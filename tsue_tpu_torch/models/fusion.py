@@ -3,11 +3,11 @@
 Counterpart of ``tsue_tpu/models/fusion.py`` (``MultiModalLLM.fuse`` and
 ``__call__``; ref scripts/train.py:459-575): image tokens projected to the
 LLM width plus learned vision/text modality embeddings, input-level concat
-[img || text], the extended attention mask, and the Llama forward returning
-the last hidden states, and generation support: the soft-prefix prefill
-into a KV cache and the cached decode step (``fusion.py:87-161``).  The LM
-loss comes with a later slice.  The stage-2 forward drops (Q-Former, LoRA)
-when a ``generator`` is passed, and only then.
+[img || text], the extended attention mask, the Llama forward returning
+the last hidden states, the stage-1 LM loss (``lm_loss``: -100 over the
+image-token span), and generation support: the soft-prefix prefill into a
+KV cache and the cached decode step (``fusion.py:87-161``).  The blocks
+drop (Q-Former, LoRA) when a ``generator`` is passed, and only then.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
-from tsue_tpu_torch.models.llama import LlamaForCausalLM, init_kv_cache
+from tsue_tpu_torch.models.llama import (IGNORE_LABEL, LlamaForCausalLM,
+                                         init_kv_cache)
 from tsue_tpu_torch.models.qformer import QFormer
 
 
@@ -63,7 +64,28 @@ class MultiModalLLM(nn.Module):
         """Stage-2 path: (final_hidden (B, n_img + L, D), fused_mask)."""
         fused, mask, _ = self.fuse(vision, input_ids, attention_mask,
                                    generator)
-        return self.llama(fused, mask, generator), mask
+        return self.llama(fused, mask, generator=generator)["hidden"], mask
+
+    def lm_loss(self, vision, input_ids, attention_mask, labels,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Stage-1 path: the causal-LM loss over the fused sequence, with
+        -100 prepended across the image-token span (``fusion.py:196-208``,
+        ref scripts/train.py:534-543).  ``deterministic=False`` drops,
+        drawing from ``generator``, which it then needs."""
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("a non-deterministic forward needs a generator "
+                             "for its dropout")
+        fused, mask, n_img = self.fuse(vision, input_ids, attention_mask,
+                                       generator)
+        if n_img:
+            pad = torch.full((labels.shape[0], n_img), IGNORE_LABEL,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        return self.llama(fused, mask, labels=labels,
+                          generator=generator)["loss"]
 
     # generation support: soft-prefix prefill + cached decode
 

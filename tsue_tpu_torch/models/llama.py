@@ -6,8 +6,10 @@ llama-3 rope scaling, ``LoRADense`` (LoRA dropout, the int8 decode branch of
 ``ops/quant.py`` and the MLP's fused SwiGLU down-projection of
 ``ops/fused.py``), the attention / MLP / layer / model classes with the KV
 cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the tied-embedding
-layout and ``logits_from_hidden``.  No remat or LM loss yet.  Dropout (LoRA)
-draws from the ``generator`` a training forward passes, and only then.
+layout, ``logits_from_hidden`` and the causal-LM loss, dense or in
+sequence chunks that never hold the (B, T, V) logits.  No remat yet.
+Dropout (LoRA) draws from the ``generator`` a training forward passes, and
+only then.
 
 KV caches are lists of per-layer tensors written in place (the JAX package
 returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
@@ -23,12 +25,13 @@ embeddings are fp32) and ``jnp.dot`` promotes fp32 x bf16 to fp32.  So the
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tsue_tpu_torch.config import LlamaConfig
 from tsue_tpu_torch.ops.attention import dot_product_attention
@@ -288,9 +291,13 @@ class LlamaModel(nn.Module):
         return self.final_norm(x)
 
 
+IGNORE_LABEL = -100
+
+
 class LlamaForCausalLM(nn.Module):
-    """LlamaModel with its (tied, by default) LM head.  The stage-2 forward
-    returns hidden states; ``logits_from_hidden`` applies the head (decode).
+    """LlamaModel with its (tied, by default) LM head.  The forward returns
+    the hidden states, and the logits and the causal-LM loss when asked
+    (stage 1); ``logits_from_hidden`` applies the head (decode).
     With int8 tables attached (buffers ``lm_head_w8`` (D, V) and
     ``lm_head_scale`` (V,)), decode calls (``quant_ok=True``) stream them
     through ``int8_matmul``."""
@@ -328,9 +335,82 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ w.to(self.dtype).to(hidden.dtype).t()
         return self.lm_head(hidden).float()
 
-    def forward(self, inputs_embeds, attention_mask=None,
-                generator=None) -> torch.Tensor:
-        return self.model(inputs_embeds, attention_mask, generator=generator)
+    def forward(self, inputs_embeds, attention_mask=None, labels=None,
+                generator=None, compute_logits: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """{"hidden"} and, when asked, "logits" (B, T, V) fp32 and "loss",
+        with the JAX package's precedence (``llama.py:402-425``): labels
+        with ``cfg.loss_chunk`` and no ``compute_logits`` take the chunked
+        loss (no logits); otherwise ``compute_logits`` or labels form the
+        logits, and labels the dense loss over them.  Stage 2 asks for
+        neither: the hidden states are all it needs."""
+        hidden = self.model(inputs_embeds, attention_mask,
+                            generator=generator)
+        out = {"hidden": hidden}
+        if labels is not None and self.cfg.loss_chunk and not compute_logits:
+            w = self.head_weight().to(self.dtype).to(hidden.dtype)
+            out["loss"] = causal_lm_loss_chunked(
+                hidden, labels, lambda h, w_: h @ w_.t(), self.cfg.loss_chunk,
+                w)
+        elif compute_logits or labels is not None:
+            out["logits"] = self.logits_from_hidden(hidden)
+            if labels is not None:
+                out["loss"] = causal_lm_loss(out["logits"], labels)
+        return out
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Next-token cross entropy with -100 ignored (HF semantics): the mean
+    over the valid shifted tokens (0 when there are none)."""
+    V = logits.shape[-1]
+    shift = logits[:, :-1].float().reshape(-1, V)
+    y = labels[:, 1:].reshape(-1).long()
+    nll = F.cross_entropy(shift, y, ignore_index=IGNORE_LABEL,
+                          reduction="sum")
+    return nll / (y != IGNORE_LABEL).sum().clamp_min(1)
+
+
+def causal_lm_loss_chunked(hidden: torch.Tensor, labels: torch.Tensor,
+                           logits_fn: Callable, chunk: int,
+                           weight: torch.Tensor) -> torch.Tensor:
+    """``causal_lm_loss`` without ever holding the (B, T, V) logits: the
+    head product and the cross entropy run per sequence chunk, and the
+    backward recomputes each chunk's logits (``torch.utils.checkpoint``)
+    instead of saving them, so the logits' memory is O(B * chunk * V).
+    ``logits_fn(h, weight)`` maps (B, chunk, D) hidden states to fp32
+    logits; ``weight`` is passed through so that its gradient flows."""
+    s, n = causal_lm_ce_sum_chunked(hidden, labels, logits_fn, chunk, weight)
+    return s / n.clamp_min(1)
+
+
+def _chunk_ce(h, y, weight, logits_fn):
+    logits = logits_fn(h, weight).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1), ignore_index=IGNORE_LABEL,
+                           reduction="sum")
+
+
+def causal_lm_ce_sum_chunked(hidden: torch.Tensor, labels: torch.Tensor,
+                             logits_fn: Callable, chunk: int,
+                             weight: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(CE sum, valid-token count) of :func:`causal_lm_loss_chunked`: the
+    shifted sequence is padded to a multiple of ``chunk`` with -100 labels
+    (``tsue_tpu/models/llama.py:457-491``)."""
+    B, T, D = hidden.shape
+    h = hidden[:, :-1]
+    y = labels[:, 1:].long()
+    pad = (-(T - 1)) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=IGNORE_LABEL)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(0, h.shape[1], chunk):
+        total = total + checkpoint(_chunk_ce, h[:, i:i + chunk],
+                                   y[:, i:i + chunk], weight, logits_fn,
+                                   use_reentrant=False)
+    return total, (y != IGNORE_LABEL).sum()
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
