@@ -29,9 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   5. predict path at the full width of the repo's Llama-3.2-1B
      configuration ("test_18_18", bfloat16 weights, random weights from a
      seed) with K=10 candidates: warmup, three requests, a repeated
-     request, the flash kernel's launch count, and one request with the
+     request, the flash kernel's launch count, one request with the
      fused switch on (RMSNorm and SwiGLU kernels) against the same request
-     with it off;
+     with it off, and one request under torch.profiler;
   6. generation path at the same width: generate_context with int8 decode
      weights, the fused LM head and the int8 KV cache (batch 16, 64 new
      tokens, default sampling): warmup, three requests of 32 tracks, a
@@ -1107,6 +1107,17 @@ def predict_phase(dev, gpu, cfg, state):
           f"predict with the fused switch on differs by {err} px")
     check(fused_counts == expected, f"predict, fused on: launches "
                                     f"{fused_counts} != {expected}")
+
+    # the first request once more, then under torch.profiler: where a
+    # chunk's device time goes (the launch counts above are already read)
+    def request():
+        pred.predict(tracks, torch.Generator(device=dev).manual_seed(1))
+    t0 = time.perf_counter()
+    request()
+    torch.cuda.synchronize(dev)
+    profile_device(dev, gpu, f"predict profile: one request, {len(out)} "
+                   f"windows in {math.ceil(len(out) / B)} chunks",
+                   time.perf_counter() - t0, request)
     del pred
     torch.cuda.empty_cache()
     return {"flash_attn_fwd": launches}, fused_counts
@@ -1641,7 +1652,8 @@ def main() -> int:
           "(one nvcc each, in parallel)", flush=True)
     for name, (_, report) in libs.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas {name}: " + line.strip(), flush=True)
 
     timer = Timer(dev)

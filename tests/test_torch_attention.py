@@ -53,6 +53,13 @@ CASES = [
     ("folded_d16", 2, 12, 12, 4, 4, 16, [7, 0], False, False),
     # _folded_kernel: Q-Former width D=96, GQA, a fully masked row
     ("folded_d96", 2, 10, 14, 4, 2, 96, [0, 9], False, False),
+    # _gqa_kernel at the LTSF cross width D=1024, more keys than one tile
+    ("gqa_d1024_cross", 2, 6, 70, 2, 2, 1024, [70, 41], False, False),
+    # _gqa_kernel as one decode step: Tq=1, G=4, padded key mask
+    ("decode_g4", 2, 1, 70, 8, 2, 64, [70, 23], False, False),
+    # _gqa_kernel, causal with Tk > Tq (the tril offset), one row of the
+    # batch with no valid key
+    ("causal_offset_empty", 2, 6, 20, 4, 2, 64, [0, 13], True, False),
 ]
 
 

@@ -65,10 +65,15 @@ def _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, masked, rope):
 @pytest.mark.parametrize("D", SUPPORTED_HEAD_DIMS)
 def test_kernel_matches_plain_on_edge_shapes(dev, D):
     """GQA 1..8, Tq != Tk with the causal offset, padded and empty key
-    rows, RoPE, tails shorter than a 32-key tile or an 8-item block."""
+    rows, RoPE, tails shorter than a 64-key tile or a block of items; Tq
+    and Tk across several 64-item blocks and 64-key tiles (130, 200; 70
+    rows against 130 keys), and few rows over many keys, which take the
+    split-KV form with several key splits (1 x 592, 18 x 600)."""
     g = torch.Generator(device=dev).manual_seed(D)
-    heads = ((4, 4), (4, 2), (8, 1)) + (((32, 8),) if D <= 128 else ())
-    lengths = ((1, 1), (5, 5), (33, 33), (7, 40), (40, 7), (70, 70))
+    heads = ((4, 4), (4, 2), (8, 1), (8, 2)) + (
+        ((32, 8),) if D <= 128 else ())
+    lengths = ((1, 1), (5, 5), (33, 33), (7, 40), (40, 7), (70, 70),
+               (130, 130), (200, 200), (70, 130), (18, 600), (1, 592))
     for (Hq, Hkv), (Tq, Tk), causal, masked, rope in itertools.product(
             heads, lengths, (False, True), ("none", "pad", "empty_rows"),
             (False, True)):
@@ -85,6 +90,29 @@ def test_kernel_matches_plain_on_edge_shapes(dev, D):
         torch.testing.assert_close(out, ref, **TOL, msg=lambda m: (
             f"Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} causal={causal} "
             f"mask={masked} rope={rope}: {m}"))
+
+
+@pytest.mark.parametrize("B,Tq,Tk,Hq,Hkv,D,causal,rope", [
+    (3, 1, 592, 8, 2, 64, False, False),      # split-KV, 10 key splits
+    (3, 18, 600, 2, 2, 1024, False, False),   # split-KV at D = 1024
+    (3, 18, 600, 2, 2, 1024, True, False),
+    (2, 200, 200, 32, 8, 64, True, True),     # tiled, RoPE, causal
+])
+def test_kernel_repeats_bit_identical(dev, B, Tq, Tk, Hq, Hkv, D, causal,
+                                      rope):
+    """Two calls on the same inputs give the same bits: the split-KV form
+    merges its partials in one fixed split order, with no atomics."""
+    g = torch.Generator(device=dev).manual_seed(Tk + D)
+    q, k, v, mask, cs = _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, "empty_rows",
+                                rope)
+    before = flash_attention.launches
+    first = flash_attention(q, k, v, mask, causal, None, cs)
+    second = flash_attention(q, k, v, mask, causal, None, cs)
+    assert flash_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(
+        first, flash_attention_plain(q, k, v, mask, causal, None, cs), **TOL)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -1,314 +1,715 @@
 // Flash-attention forward for Hopper (sm_90a), fp32, GQA-native, optional RoPE.
 //
 // Replaces three Pallas TPU bodies of tsue_tpu/ops/flash.py:
-//   - _gqa_rope_kernel  (Llama self-attention, RoPE applied in the kernel)
-//   - _gqa_kernel       (same without RoPE: LTSF cross-attention, D=1024)
-//   - _folded_kernel    (small-width encoders: Q-Former D=96, lane D=16,
-//                        LTSF self-attention D=32)
+//   - _gqa_rope_kernel (:103)  Llama self-attention, RoPE applied in the kernel
+//   - _gqa_kernel      (:85)   the same without RoPE: LTSF cross-attention
+//                              (D = 1024), the no-RoPE prefill, fp32-cache decode
+//   - _folded_kernel   (:128)  small-width encoders: Q-Former D = 96, lane
+//                              encoder D = 16, LTSF self-attention D = 32
 // On the TPU they differ only in how heads are laid into the (8, 128) vector
-// tiles.  Here the GQA index map h_kv = h_q / G replaces both head folding and
-// K/V repetition, so one kernel covers all three.
+// tiles.  Here the GQA index map h_kv = h_q / G replaces head folding and K/V
+// repetition, so one source covers all three.
 //
-// Semantics (those of tsue_tpu.ops.attention._finish_attention and of the
-// Pallas kernels): fp32 logits q.k * scale; a key is valid when mask[b, j] != 0
-// and, if causal, j <= row + (Tk - Tq) (jnp.tril(k=Tk-Tq)); invalid logits
-// become the finite -1e30, so a row with no valid key gives the uniform
-// average of V over all Tk keys (not NaN); softmax in fp32; out = P.V / sum(P).
+// Semantics (tsue_tpu/ops/flash.py:_softmax_attend and the three bodies):
+// fp32 logits q.k * scale; a key is valid when mask[b, j] != 0 and, if causal,
+// j <= row + (Tk - Tq) (jnp.tril(k=Tk-Tq)); invalid logits become the finite
+// -1e30, so a row with no valid key gives the uniform mean of V over all Tk
+// keys (not NaN); softmax in fp32; out = P.V / max(sum P, 1e-30).  RoPE is
+// rotate-half in fp32 on q and k (self-attention, D <= 128).  Activations
+// are fp32 and products are fp32 FMAs on the CUDA cores (no TF32).
 //
-// What bounds it on this card: the activations are fp32, so the products run
-// on the CUDA cores, not the tensor cores.  At the Llama prefill shape (B=16,
-// T=528, 32 query heads of D=64, 8 KV heads) a layer is 2*B*Hq*T*T/2*D = 4.6G
-// fused multiply-adds under the causal mask: ~0.14 ms at the card's fp32 rate.
-// A first design in which every query row streamed its own keys from L2
-// took 9.6 ms per layer on an H100 80GB HBM3 at 700 W (the plain PyTorch
-// version 4.6 ms): the loads, not the arithmetic, bounded it.  This design
-// (2.6 ms there) moves each K/V tile through shared memory once per block:
-//   - a block owns 8 (query row, query head) items of one (batch, KV head),
-//     one warp each: the G query heads of a group and consecutive rows share
-//     every K/V tile the block loads (8x fewer global reads than a warp per
-//     row, with no K/V repetition for GQA);
-//   - tiles are 32 keys; RoPE is applied to a key once, as the tile is
-//     written to shared memory (rotate-half pairing d, d + D/2);
-//   - lane j computes the logit of key j of the tile (float4 reads of a K row
-//     padded to D+4 floats, so the 32 lanes hit distinct banks; the query row
-//     is a broadcast read), then an online softmax costs one warp max and one
-//     warp sum per 32 keys; P.V spreads the D outputs over the lanes;
-//   - head dims above 128 (D=1024) go through shared memory in 128-wide
-//     slices, the per-lane accumulators staying in registers;
-//   - the block stops at the last key its last row may see; only when some
-//     row of the block saw no valid key does the block run on to Tk.
-// Faster forms (bf16 operands on wgmma, TMA, more rows per K/V tile) are
-// later work.
+// What bounds it on an H100 (67 TFLOP/s fp32, 3.35 TB/s):
+//   - Llama self-attention (B 16, T 528, 32/8 heads of 64, causal, key
+//     mask): 4 * D * Hq * (attended pairs) = 15.9 GFLOP, 0.237 ms of FMAs
+//     against 0.03 ms of bytes: operations.  The design has to keep the FMA
+//     pipes fed, so every operand is reused from registers.
+//   - LTSF cross-attention (Tq 18, Tk 528, 2 heads of 1024) and fp32-cache
+//     decode (Tq 1, S 592, 32/8 x 64): K/V are read once per (b, KV head)
+//     for only 18 or 4 (row, head) items: bytes (0.043 / 0.012 ms).  The
+//     design has to spread each (b, KV head)'s keys over many SMs and read
+//     them from device memory once.
 //
-// C interface (loaded with ctypes): flash_attn_fwd(...) returns the value of
-// cudaGetLastError() after the launch, or -1 for a head dim it does not take
-// (RoPE needs D <= 128).
+// Tiled form (many items per (b, KV head); kernel <D, 16, 4>):
+//   - a block of 256 threads owns BM = 64 items of one (b, KV head): items
+//     are (row, head of the group) pairs, row-major, so at G = 4 a block is
+//     16 rows x 4 heads and at G = 1 64 rows;
+//   - K/V tiles of BN = 64 keys stream through a two-stage shared-memory
+//     ring filled by 16-byte cp.async: the next stage's copy runs under the
+//     current stage's arithmetic.  A tile is two stages (K, then V); K rows
+//     are padded to D + 4 floats, so the float4 reads of 8 consecutive lanes
+//     fall into distinct banks;
+//   - RoPE: the Q block is roped once as it is loaded; each K tile is roped
+//     in place as it lands, every thread rotating the (d, d + D/2) pairs it
+//     copied itself (with the cos/sin it copied beside them), so no extra
+//     barrier is needed;
+//   - S = Q K^T and O += P V are register-tiled: thread (ty, tx) of a 16 x
+//     16 grid holds a 4 x 4 micro-tile of S (items 4ty.., keys tx + 16j)
+//     and its four items' slice of O (columns h*64 + 4tx..).  Row max and
+//     row sum are shuffles among the 16 lanes that share a row; P goes
+//     through shared memory ([key][item], padded) to the P V product;
+//   - causal: a block stops at the last key its last row may see, only
+//     tiles that cross the diagonal test it per element, and the grid hands
+//     out the latest (heaviest) row blocks first.  Only a block in which
+//     some row saw no valid key runs on to Tk (the keys past its causal end
+//     are invalid for all its rows, so the others add exact zeros).
+// Split-KV form (few items per (b, KV head), flash-decoding; kernels
+// <D, 16, 1> for D <= 128 and at most 16 items, <1024, 16, 2> for D = 1024):
+//   - one block per (b, KV head, item chunk, key split) holds all the items
+//     of its (b, KV head) (up to 16, or 32 at D = 1024) and one split of the
+//     keys; the keys are split so that the grid covers at least two waves
+//     of the card, so every K/V byte is read from device memory once.  The
+//     ring has three stages, so the K and V copies of a tile are in flight
+//     together and the Q block rides with the first one;
+//   - D = 1024 goes through the ring in 128-wide head-dim slices (the Q
+//     slice rides with each K slice).  A block takes one 64-key tile, so
+//     its O is needed one slice at a time: each V slice's product is
+//     written out as it ends, 16 registers a thread, two blocks an SM;
+//   - each split writes its items' unnormalised (m, l, acc) to a scratch
+//     the wrapper allocates; a second kernel merges them in split order, so
+//     a repeated call is bit-identical.  Every split is computed (none is
+//     skipped), so a split whose keys are all invalid for an item reports
+//     m = -1e30 with l = its key count, and an item with no valid key
+//     anywhere gets the uniform mean over all Tk keys, as the reference.
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py's kernel phase, L2 flushed):
+// Llama self-attention 0.81 ms (a warp-per-item design took 2.53), LTSF
+// cross 0.14 ms (0.42), decode over a 592-slot fp32 cache 0.048 ms (0.082),
+// Q-Former self-attention at 64 frames 0.021 ms (0.043).
+//
+// ptxas (nvcc -Xptxas -v, sm_90a; chip_smoke.py's build phase prints it),
+// with the dynamic shared memory each launch asks for:
+//   kernel <D, TY, RPT>  registers  spill st/ld bytes  shared memory
+//   tiled  <16, 16, 4>   128        28 / 40            32 KB (40 KB roped)
+//          <32, 16, 4>   128        76 / 72            44 KB (60 KB)
+//          <64, 16, 4>   128        12 / 24            68 KB (100 KB)
+//          <96, 16, 4>   202        0                  92 KB (140 KB)
+//          <128, 16, 4>  198        0                  116 KB (180 KB)
+//   few    <16, 16, 1>   120        0                  21 KB
+//          <32, 16, 1>   123        0                  34 KB
+//          <64, 16, 1>   128        12 / 36            60 KB
+//          <96, 16, 1>   156        0                  86 KB
+//          <128, 16, 1>  152        0                  112 KB
+//   wide   <1024, 16, 2> 124        0                  108 KB
+//   merge_kernel         32         0                  0
+// The spills come from the 128-register cap of two 256-thread blocks an SM.
+//
+// C interface (loaded with ctypes by tsue_tpu_torch/ops/flash.py):
+//   flash_attn_splits(...) is the number of key splits a call will use (the
+//   caller allocates a scratch of splits * B*Tq*Hq * (D + 2) floats when it
+//   is above 1); flash_attn_fwd(...) returns cudaGetLastError() after the
+//   launches, or -1 for what it does not take.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kWarps = 8;            // (row, head) items per block, one per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 32;            // keys per tile: one per lane
-constexpr float kNegInf = -1e30f;    // finite: fully masked rows stay finite
+constexpr int BN = 64;                 // keys per tile
+constexpr int TX = 16;                 // lanes across keys / output columns
+constexpr int KPT = BN / TX;           // keys per thread in S: tx + 16 j
+constexpr float kNegInf = -1e30f;      // finite: fully masked rows stay finite
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
-struct Dims {
-  static constexpr int DS = D <= 128 ? D : 128;  // head-dim slice in shared memory
-  static constexpr int NS = D / DS;              // slices
-  static constexpr int VS = (DS + 31) / 32;      // outputs per lane per slice
-  static constexpr int KP = DS + 4;              // padded K row: conflict-free float4
-  static constexpr int SMEM = (kWarps * D + kKeys * KP + kKeys * DS) * 4;
+enum Kind { kTiled = 0, kSmall = 1, kWide = 2 };
+
+template <int D, int TY, int RPT>
+struct Cfg {
+  static constexpr int NT = TY * TX;              // threads
+  static constexpr int BM = TY * RPT;             // items per block
+  static constexpr int DS = D <= 128 ? D : 128;   // head-dim slice per stage
+  static constexpr int NS = D / DS;               // slices
+  static constexpr bool QRES = NS == 1;           // Q stays in shared memory
+  // D > 128: one key tile per block, so O lives one head-dim slice at a
+  // time (written out after each V slice) instead of all D columns
+  static constexpr bool ONE_TILE = NS > 1;
+  static constexpr bool SPLIT = RPT != 4 || ONE_TILE;   // split-KV form
+  // ring stages: the few-item form keeps two copies in flight (K and V
+  // of a tile land together); the tiled form one, to fit two blocks an SM
+  static constexpr int NBUF = (SPLIT && QRES) ? 3 : 2;
+  static constexpr int P = DS + 4;                // padded Q / K row
+  static constexpr int VEC = DS >= 64 ? 4 : DS / 16;  // O columns per step
+  static constexpr int NH = DS >= 64 ? (DS + 63) / 64 : 1;
+  static constexpr int Q_F = BM * P;
+  static constexpr int K_F = BN * P;
+  static constexpr int V_F = BN * DS;
+  static constexpr int KQ_F = K_F + (QRES ? 0 : Q_F);
+  static constexpr int STAGE_F = KQ_F > V_F ? KQ_F : V_F;
+  static constexpr int PS = BM + 4;               // P row ([key][item])
+  static constexpr int P_F = BN * PS;
+  static constexpr int CS_F = BN * D;             // cos + sin of a K tile
+  static constexpr int MINB = (D <= 64 || ONE_TILE) ? 2 : 1;
+  static int smem(bool rope) {   // RoPE calls take the tiled form only
+    return 4 * ((QRES ? Q_F : 0) + NBUF * STAGE_F + P_F +
+                (rope && !SPLIT ? NBUF * CS_F : 0));
+  }
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 sm4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
 
 struct Args {
   const float* q;
   const float* k;
   const float* v;
-  const int* mask;    // (B, Tk) or nullptr
-  const float* cos;   // (B, T, D/2) or nullptr
+  const int* mask;     // (B, Tk) or nullptr
+  const float* cos;    // (B, T, D/2) or nullptr
   const float* sin;
   float* out;
-  int Tq, Tk, Hq, Hkv, causal;
+  float* part;         // splits > 1: (splits, NI, D) acc then (splits, NI, 2)
+  int B, Tq, Tk, Hq, Hkv, causal, splits, tps;   // tps: tiles per split
   float scale;
 };
 
-// K rows c0 .. c0+n-1, head-dim slice sl, into ks[t * KP + d]; roped when
-// cos/sin are given (then D <= 128 and there is one slice).
-template <int D>
-__device__ __forceinline__ void load_k(const Args& a, int b, int hkv, int c0,
-                                       int n, int sl, float* ks) {
-  using S = Dims<D>;
-  if constexpr (D <= 128) {
-    if (a.cos != nullptr) {
-      constexpr int half = D / 2, h4 = half / 4;
-      for (int e = threadIdx.x; e < n * h4; e += kThreads) {
-        const int t = e / h4, d = (e % h4) * 4;
-        const size_t key = (size_t)b * a.Tk + c0 + t;
-        const float* kr = a.k + (key * a.Hkv + hkv) * D;
-        const float4 k1 = ld4(kr + d), k2 = ld4(kr + half + d);
-        const float4 c = ld4(a.cos + key * half + d);
-        const float4 s = ld4(a.sin + key * half + d);
-        st4(ks + t * S::KP + d,
-            make_float4(k1.x * c.x - k2.x * s.x, k1.y * c.y - k2.y * s.y,
-                        k1.z * c.z - k2.z * s.z, k1.w * c.w - k2.w * s.w));
-        st4(ks + t * S::KP + half + d,
-            make_float4(k2.x * c.x + k1.x * s.x, k2.y * c.y + k1.y * s.y,
-                        k2.z * c.z + k1.z * s.z, k2.w * c.w + k1.w * s.w));
-      }
-      return;
-    }
-  }
-  constexpr int d4 = S::DS / 4;
-  for (int e = threadIdx.x; e < n * d4; e += kThreads) {
-    const int t = e / d4, d = (e % d4) * 4;
-    const size_t key = (size_t)b * a.Tk + c0 + t;
-    st4(ks + t * S::KP + d, ld4(a.k + (key * a.Hkv + hkv) * D + sl * S::DS + d));
-  }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 sm4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ float4 rot_lo(float4 a, float4 b, float4 c, float4 s) {
+  return make_float4(a.x * c.x - b.x * s.x, a.y * c.y - b.y * s.y,
+                     a.z * c.z - b.z * s.z, a.w * c.w - b.w * s.w);
+}
+__device__ __forceinline__ float4 rot_hi(float4 a, float4 b, float4 c, float4 s) {
+  return make_float4(b.x * c.x + a.x * s.x, b.y * c.y + a.y * s.y,
+                     b.z * c.z + a.z * s.z, b.w * c.w + a.w * s.w);
 }
 
-template <int D>
-__device__ __forceinline__ void load_v(const Args& a, int b, int hkv, int c0,
-                                       int n, int sl, float* vs) {
-  using S = Dims<D>;
-  constexpr int d4 = S::DS / 4;
-  for (int e = threadIdx.x; e < n * d4; e += kThreads) {
-    const int t = e / d4, d = (e % d4) * 4;
-    const size_t key = (size_t)b * a.Tk + c0 + t;
-    st4(vs + t * S::DS + d, ld4(a.v + (key * a.Hkv + hkv) * D + sl * S::DS + d));
-  }
+// 16-byte async copy global -> shared; with ok == false it writes zeros
+// (src-size 0), so tails past Tk or past the last item are never garbage.
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>   // all but the newest N groups of this thread landed
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Online softmax over keys [start, end) for the warp's (row, head) item.
-// Every thread of the block runs the loop (block-uniform bounds, barriers);
-// warps without an item only help load the tiles.
-template <int D>
-__device__ __forceinline__ void attend_range(
-    const Args& a, int b, int hkv, int row, bool active, const float* qrow,
-    float* ks, float* vs, int start, int end, float& m, float& l,
-    float (&acc)[Dims<D>::NS * Dims<D>::VS]) {
-  using S = Dims<D>;
-  const int lane = threadIdx.x & 31;
-  const int last = row + (a.Tk - a.Tq);   // last causally visible key
-  for (int c0 = start; c0 < end; c0 += kKeys) {
-    const int n = min(kKeys, end - c0);
-    const int j = c0 + lane;
-    float dot = 0.f;
-#pragma unroll
-    for (int sl = 0; sl < S::NS; ++sl) {
-      __syncthreads();                    // the previous tile is consumed
-      load_k<D>(a, b, hkv, c0, n, sl, ks);
-      if (S::NS == 1) load_v<D>(a, b, hkv, c0, n, 0, vs);
-      __syncthreads();
-      if (active && lane < n) {
-        const float* kr = ks + lane * S::KP;
-        const float* qs = qrow + sl * S::DS;
-#pragma unroll 8
-        for (int d = 0; d < S::DS; d += 4) {
-          const float4 kk = sm4(kr + d), qq = sm4(qs + d);
-          dot += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+template <int D, int TY, int RPT>
+__global__ void __launch_bounds__(Cfg<D, TY, RPT>::NT, Cfg<D, TY, RPT>::MINB)
+attn_kernel(const Args a) {
+  using C = Cfg<D, TY, RPT>;
+  constexpr int NS = C::NS, DS = C::DS, P = C::P, VEC = C::VEC, NH = C::NH;
+  constexpr int NBUF = C::NBUF;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);     // QRES: [BM][P]
+  float* stage = qs + (C::QRES ? C::Q_F : 0);      // [NBUF][STAGE_F]
+  float* ps = stage + NBUF * C::STAGE_F;           // [BN][PS]
+  float* cs = ps + C::P_F;                         // rope: [NBUF][cos, sin]
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int G = a.Hq / a.Hkv, items = a.Tq * G;
+  const int b = blockIdx.x / a.Hkv, hkv = blockIdx.x % a.Hkv;
+  const int ib = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int i0 = ib * C::BM;
+  const int split = blockIdx.z;
+  const int off = a.Tk - a.Tq;
+  const bool rope = a.cos != nullptr;
+  const int ntiles = (a.Tk + BN - 1) / BN;
+  // warps whose items all lie past the last one only copy tiles
+  const bool busy = i0 + (tid / 32) * 2 * RPT < items;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  auto qrow = [&](int it) {            // q row of item it (it < items)
+    const int row = it / G, hq = hkv * G + it % G;
+    return a.q + (((size_t)b * a.Tq + row) * a.Hq + hq) * D;
+  };
+
+  if constexpr (C::QRES) {             // Q block, roped once as it loads
+    if (rope) {
+      constexpr int H4 = D / 8, half = D / 2;
+      for (int e = tid; e < C::BM * H4; e += C::NT) {
+        const int r = e / H4, d = (e % H4) * 4, it = i0 + r;
+        float4 lo = zero, hi = zero;
+        if (it < items) {
+          const float* qr = qrow(it);
+          const size_t cr = ((size_t)b * a.Tq + it / G) * half + d;
+          const float4 x1 = ld4(qr + d), x2 = ld4(qr + half + d);
+          const float4 c = ld4(a.cos + cr), s = ld4(a.sin + cr);
+          lo = rot_lo(x1, x2, c, s);
+          hi = rot_hi(x1, x2, c, s);
         }
+        st4(qs + r * P + d, lo);
+        st4(qs + r * P + half + d, hi);
       }
     }
-    float p = 0.f;
-    if (active) {
-      float s = -INFINITY;                // lanes past the tile take no part
-      if (lane < n) {
-        const bool ok = (a.mask == nullptr || a.mask[(size_t)b * a.Tk + j] != 0) &&
-                        (!a.causal || j <= last);
-        s = ok ? dot * a.scale : kNegInf;
-      }
-      const float m_new = fmaxf(m, warp_max(s));
-      const float corr = expf(m - m_new);
-      p = (lane < n) ? expf(s - m_new) : 0.f;
-      l = l * corr + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < S::NS * S::VS; ++i) acc[i] *= corr;
-      m = m_new;
+    // (the first barrier of run() orders these writes)
+  }
+
+  // Q block without RoPE: copied with the first stage of the ring
+  auto issue_q = [&]() {
+    constexpr int C4 = D / 4;
+    for (int e = tid; e < C::BM * C4; e += C::NT) {
+      const int r = e / C4, d = (e % C4) * 4, it = i0 + r;
+      cp16(qs + r * P + d, qrow(it < items ? it : 0) + d, it < items);
     }
-#pragma unroll
-    for (int sl = 0; sl < S::NS; ++sl) {
-      if (S::NS > 1) {
-        __syncthreads();
-        load_v<D>(a, b, hkv, c0, n, sl, vs);
-        __syncthreads();
-      }
-      if (active) {
-        for (int t = 0; t < n; ++t) {
-          const float pt = __shfl_sync(kFull, p, t);
-          const float* vr = vs + t * S::DS;
-#pragma unroll
-          for (int i = 0; i < S::VS; ++i) {
-            const int d = i * 32 + lane;
-            if (d < S::DS) acc[sl * S::VS + i] += pt * vr[d];
+  };
+
+  // Stage s of tile t: s < NS copies K slice s (with the Q slice when Q is
+  // not resident, and cos/sin when roped), s >= NS copies V slice s - NS.
+  auto issue = [&](int t, int s, int buf) {
+    const int c0 = t * BN;
+    float* dst = stage + buf * C::STAGE_F;
+    constexpr int C4 = DS / 4;
+    if (s < NS) {
+      if (C::QRES && rope) {
+        constexpr int H4 = D / 8, half = D / 2;
+        float* cb = cs + buf * C::CS_F;
+        for (int e = tid; e < BN * H4; e += C::NT) {
+          const int j = e / H4, d = (e % H4) * 4;
+          const bool ok = c0 + j < a.Tk;
+          const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+          const float* kr = a.k + (key * a.Hkv + hkv) * D;
+          cp16(dst + j * P + d, kr + d, ok);
+          cp16(dst + j * P + half + d, kr + half + d, ok);
+          cp16(cb + j * half + d, a.cos + key * half + d, ok);
+          cp16(cb + BN * half + j * half + d, a.sin + key * half + d, ok);
+        }
+      } else {
+        for (int e = tid; e < BN * C4; e += C::NT) {
+          const int j = e / C4, d = (e % C4) * 4;
+          const bool ok = c0 + j < a.Tk;
+          const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+          cp16(dst + j * P + d, a.k + (key * a.Hkv + hkv) * D + s * DS + d, ok);
+        }
+        if (!C::QRES) {
+          float* qd = dst + C::K_F;
+          for (int e = tid; e < C::BM * C4; e += C::NT) {
+            const int r = e / C4, d = (e % C4) * 4, it = i0 + r;
+            const bool ok = it < items;
+            cp16(qd + r * P + d, qrow(ok ? it : 0) + s * DS + d, ok);
           }
         }
       }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_kernel(Args a) {
-  using S = Dims<D>;
-  extern __shared__ float4 smem4[];
-  float* qsm = reinterpret_cast<float*>(smem4);   // [kWarps][D] query rows
-  float* ks = qsm + kWarps * D;                    // [kKeys][KP]
-  float* vs = ks + kKeys * S::KP;                  // [kKeys][DS]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int G = a.Hq / a.Hkv;
-  const int hkv = blockIdx.y, b = blockIdx.z;
-  const int item0 = blockIdx.x * kWarps;
-  const int row = (item0 + warp) / G;
-  const int hq = hkv * G + (item0 + warp) % G;
-  const bool active = row < a.Tq;
-
-  float* qrow = qsm + warp * D;
-  if (active) {
-    const float* qr = a.q + (((size_t)b * a.Tq + row) * a.Hq + hq) * D;
-    if (a.cos != nullptr) {               // rope_bthd's rotate-half on the query
-      constexpr int half = D / 2;
-      const float* cq = a.cos + ((size_t)b * a.Tq + row) * half;
-      const float* sq = a.sin + ((size_t)b * a.Tq + row) * half;
-      for (int d = lane; d < half; d += 32) {
-        const float x1 = qr[d], x2 = qr[d + half], c = cq[d], s = sq[d];
-        qrow[d] = x1 * c - x2 * s;
-        qrow[d + half] = x2 * c + x1 * s;
-      }
     } else {
-      for (int d = lane; d < D; d += 32) qrow[d] = qr[d];
+      const int sl = s - NS;
+      for (int e = tid; e < BN * C4; e += C::NT) {
+        const int j = e / C4, d = (e % C4) * 4;
+        const bool ok = c0 + j < a.Tk;
+        const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+        cp16(dst + j * DS + d, a.v + (key * a.Hkv + hkv) * D + sl * DS + d, ok);
+      }
     }
+    cp_commit();
+  };
+
+  // the pairs this thread copied in issue(): rotate them in place
+  auto rope_own = [&](int buf) {
+    if constexpr (C::QRES) {
+      constexpr int H4 = D / 8, half = D / 2;
+      float* kb = stage + buf * C::STAGE_F;
+      const float* cb = cs + buf * C::CS_F;
+      for (int e = tid; e < BN * H4; e += C::NT) {
+        const int j = e / H4, d = (e % H4) * 4;
+        const float4 x1 = sm4(kb + j * P + d), x2 = sm4(kb + j * P + half + d);
+        const float4 c = sm4(cb + j * half + d);
+        const float4 s = sm4(cb + BN * half + j * half + d);
+        st4(kb + j * P + d, rot_lo(x1, x2, c, s));
+        st4(kb + j * P + half + d, rot_hi(x1, x2, c, s));
+      }
+    }
+  };
+
+  float o[RPT][NH][VEC];   // one head-dim slice: NS == 1 or ONE_TILE
+  float m[RPT], l[RPT], sacc[RPT][KPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[i][h][e] = 0.f;
   }
-  // (the first barrier inside attend_range orders these writes)
+  const size_t NI = (size_t)a.B * a.Tq * a.Hq;
 
-  float m = -INFINITY, l = 0.f, acc[S::NS * S::VS];
+  // O, head-dim slice sl, of the busy thread's items: to out, normalised,
+  // or unnormalised to the split's partials
+  auto write_slice = [&](int sl) {
 #pragma unroll
-  for (int i = 0; i < S::NS * S::VS; ++i) acc[i] = 0.f;
-  const int last_row = min(a.Tq - 1, (item0 + kWarps - 1) / G);
-  const int kend =
-      a.causal ? max(0, min(a.Tk, last_row + (a.Tk - a.Tq) + 1)) : a.Tk;
-  attend_range<D>(a, b, hkv, row, active, qrow, ks, vs, 0, kend, m, l, acc);
-  // m stays at -1e30 (or -inf for an empty range) only if no valid key was
-  // seen: then every key counts with weight 1, as in the reference.  The
-  // keys past kend are invalid for every row of the block, so the rows that
-  // did see a valid key add exact zeros there.
-  const bool empty = active && m <= kNegInf;
-  if (__syncthreads_or(empty) && kend < a.Tk)
-    attend_range<D>(a, b, hkv, row, active, qrow, ks, vs, kend, a.Tk, m, l, acc);
+    for (int i = 0; i < RPT; ++i) {
+      const int it = i0 + ty * RPT + i;
+      if (it >= items) continue;
+      const size_t flat = ((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G;
+      float* dst;
+      float f = 1.f;
+      if (a.splits == 1) {
+        dst = a.out + flat * D;
+        f = 1.f / fmaxf(l[i], 1e-30f);
+      } else {
+        dst = a.part + ((size_t)split * NI + flat) * D;
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int col = h * 64 + tx * VEC;
+        if (col >= DS) continue;
+        float* dp = dst + sl * DS + col;
+        if constexpr (VEC == 4) {
+          st4(dp, make_float4(o[i][h][0] * f, o[i][h][1] * f,
+                              o[i][h][2] * f, o[i][h][3] * f));
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dp[e] = o[i][h][e] * f;
+        }
+      }
+    }
+  };
 
-  if (!active) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  float* orow = a.out + (((size_t)b * a.Tq + row) * a.Hq + hq) * D;
+  // K slice s of tile t: S += Q_s K_s^T; after the last slice, the online
+  // softmax of the tile and P into shared memory.
+  auto k_stage = [&](int t, int s, const float* buf) {
+    const int c0 = t * BN;
+    int mk[KPT];                       // -1 past Tk, 0 masked, 1 valid
+    if (s == NS - 1) {
 #pragma unroll
-  for (int sl = 0; sl < S::NS; ++sl) {
+      for (int j = 0; j < KPT; ++j) {
+        const int key = c0 + tx + 16 * j;
+        mk[j] = key >= a.Tk ? -1
+                : (a.mask == nullptr || __ldg(a.mask + (size_t)b * a.Tk + key) != 0);
+      }
+    }
+    if (s == 0) {
 #pragma unroll
-    for (int i = 0; i < S::VS; ++i) {
-      const int d = i * 32 + lane;
-      if (d < S::DS) orow[sl * S::DS + d] = acc[sl * S::VS + i] * inv;
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) sacc[i][j] = 0.f;
+    }
+    const float* qb = C::QRES ? qs : buf + C::K_F;
+#pragma unroll 8
+    for (int d = 0; d < DS; d += 4) {
+      float4 qv[RPT], kv[KPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qv[i] = sm4(qb + (ty * RPT + i) * P + d);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) kv[j] = sm4(buf + (tx + 16 * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          float x = sacc[i][j];
+          x = fmaf(qv[i].x, kv[j].x, x);
+          x = fmaf(qv[i].y, kv[j].y, x);
+          x = fmaf(qv[i].z, kv[j].z, x);
+          sacc[i][j] = fmaf(qv[i].w, kv[j].w, x);
+        }
+    }
+    if (s != NS - 1) return;
+    const bool diag = a.causal && c0 + BN - 1 > i0 / G + off;
+    float p[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int last = (i0 + ty * RPT + i) / G + off;   // last visible key
+      float sv[KPT], mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const bool ok = mk[j] > 0 && (!diag || c0 + tx + 16 * j <= last);
+        sv[j] = mk[j] < 0 ? -INFINITY : (ok ? sacc[i][j] * a.scale : kNegInf);
+        mx = fmaxf(mx, sv[j]);
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
+      const float mnew = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - mnew);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        p[i][j] = expf(sv[j] - mnew);   // 0 past Tk (sv = -inf)
+        sum += p[i][j];
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(kFull, sum, w);
+      l[i] = l[i] * corr + sum;
+      m[i] = mnew;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) o[i][h][e] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      float* pr = ps + (tx + 16 * j) * C::PS + ty * RPT;
+      if constexpr (RPT == 4) {
+        st4(pr, make_float4(p[0][j], p[1][j], p[2][j], p[3][j]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) pr[i] = p[i][j];
+      }
+    }
+  };
+
+  // V slice sl of the tile: O[:, slice] += P V_sl
+  auto v_stage = [&](int sl, const float* buf) {
+    if constexpr (C::ONE_TILE) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[i][h][e] = 0.f;
+    }
+#pragma unroll 8
+    for (int j = 0; j < BN; ++j) {
+      float pv[RPT];
+      if constexpr (RPT == 4) {
+        const float4 t4 = sm4(ps + j * C::PS + ty * 4);
+        pv[0] = t4.x; pv[1] = t4.y; pv[2] = t4.z; pv[3] = t4.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) pv[i] = ps[j * C::PS + ty * RPT + i];
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const int col = h * 64 + tx * VEC;
+        if (col >= DS) continue;
+        float vv[VEC];
+        const float* vr = buf + j * DS + col;
+        if constexpr (VEC == 4) {
+          const float4 t4 = sm4(vr);
+          vv[0] = t4.x; vv[1] = t4.y; vv[2] = t4.z; vv[3] = t4.w;
+        } else if constexpr (VEC == 2) {
+          const float2 t2 = *reinterpret_cast<const float2*>(vr);
+          vv[0] = t2.x; vv[1] = t2.y;
+        } else {
+          vv[0] = vr[0];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            o[i][h][e] = fmaf(pv[i], vv[e], o[i][h][e]);
+      }
+    }
+    if constexpr (C::ONE_TILE) write_slice(sl);
+  };
+
+  // Tiles [t0, t1) through the ring of NBUF stage buffers, NBUF - 1
+  // copies ahead.  Every thread runs it (the bounds are block-uniform);
+  // warps that are not busy only copy.  Each step commits exactly one copy
+  // group (empty at the end), so cp_wait<NBUF - 2> means "this stage landed".
+  auto run = [&](int t0, int t1, bool with_q) {
+    if (t0 >= t1) return;
+    const int nst = (t1 - t0) * 2 * NS;
+    auto issue_g = [&](int g) {
+      if (g < nst) issue(t0 + g / (2 * NS), g % (2 * NS), g % NBUF);
+      else cp_commit();
+    };
+    if (C::QRES && with_q) issue_q();   // joins the first stage's group
+#pragma unroll
+    for (int g = 0; g < NBUF - 1; ++g) issue_g(g);
+    // a loop, not unrolled: with the 16 stages of D = 1024 unrolled, the
+    // copies stopped overlapping the arithmetic (LTSF cross 0.245 ms, the
+    // copies alone 0.096 and the arithmetic alone 0.105; as a loop 0.137),
+    // most likely the instruction cache
+#pragma unroll 1
+    for (int g = 0; g < nst; ++g) {
+      const int t = t0 + g / (2 * NS), S = g % (2 * NS), buf = g % NBUF;
+      cp_wait<NBUF - 2>();
+      if (S == 0 && C::QRES && rope) rope_own(buf);
+      __syncthreads();     // stage g landed; stage g-1's buffer is free
+      issue_g(g + NBUF - 1);
+      const float* sb = stage + buf * C::STAGE_F;
+      if (busy) {
+        if (S < NS) k_stage(t, S, sb);
+        else v_stage(S - NS, sb);
+      }
+    }
+    __syncthreads();       // the ring and P are free for a later run()
+  };
+
+  int t0 = 0, t1 = ntiles;
+  if (a.splits > 1) {
+    t0 = split * a.tps;
+    t1 = min(ntiles, t0 + a.tps);
+  } else if (a.causal && !C::ONE_TILE) {
+    const int last_row = min(a.Tq - 1, (i0 + C::BM - 1) / G);
+    const int kend = max(0, min(a.Tk, last_row + off + 1));
+    t1 = (kend + BN - 1) / BN;
+  }
+  run(t0, t1, C::QRES && !rope);
+  if (a.splits == 1 && t1 < ntiles) {
+    // m stays at -1e30 only for a row that saw no valid key: then every key
+    // counts with weight 1, as in the reference, so run on to Tk
+    int empty = 0;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      empty |= busy && i0 + ty * RPT + i < items && m[i] <= kNegInf;
+    if (__syncthreads_or(empty)) run(t1, ntiles, false);
+  }
+
+  if (!busy) return;
+  if constexpr (!C::ONE_TILE) write_slice(0);
+  if (a.splits > 1 && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int it = i0 + ty * RPT + i;
+      if (it >= items) continue;
+      const size_t flat = ((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G;
+      float* ml = a.part + (size_t)a.splits * NI * D + ((size_t)split * NI + flat) * 2;
+      ml[0] = m[i];
+      ml[1] = l[i];
     }
   }
 }
 
-template <int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int smem = Dims<D>::SMEM;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Merge of the splits' partials, in split order: out = sum_s w_s acc_s /
+// max(sum_s w_s l_s, 1e-30) with w_s = exp(m_s - max_s m_s).
+__global__ void merge_kernel(const float* __restrict__ part,
+                             float* __restrict__ out, size_t NI, int D,
+                             int splits) {
+  const int D4 = D / 4;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NI * D4) return;
+  const size_t item = i / D4;
+  const int d = (int)(i % D4) * 4;
+  const float* ml = part + (size_t)splits * NI * D;
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[((size_t)s * NI + item) * 2]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const size_t rec = (size_t)s * NI + item;
+    const float w = expf(ml[rec * 2] - M);
+    l = fmaf(ml[rec * 2 + 1], w, l);
+    const float4 x = ld4(part + rec * D + d);
+    acc.x = fmaf(x.x, w, acc.x);
+    acc.y = fmaf(x.y, w, acc.y);
+    acc.z = fmaf(x.z, w, acc.z);
+    acc.w = fmaf(x.w, w, acc.w);
   }
-  const int G = a.Hq / a.Hkv;
-  const dim3 grid((a.Tq * G + kWarps - 1) / kWarps, a.Hkv, B);
-  flash_attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  st4(out + item * D + d, make_float4(acc.x * inv, acc.y * inv, acc.z * inv,
+                                      acc.w * inv));
+}
+
+template <int D, int TY, int RPT>
+struct Kern {
+  using C = Cfg<D, TY, RPT>;
+  static constexpr int BM = C::BM;
+  // allow the largest dynamic shared memory once; blocks per SM
+  static int per_sm() {
+    static int n = -1;
+    if (n < 0) {
+      if (cudaFuncSetAttribute(attn_kernel<D, TY, RPT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::smem(true)) != cudaSuccess)
+        return 0;
+      int k = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &k, attn_kernel<D, TY, RPT>, C::NT, C::smem(false)) != cudaSuccess)
+        return 0;
+      n = k;
+    }
+    return n;
+  }
+  static void launch(const Args& a, dim3 grid, bool rope, cudaStream_t st) {
+    attn_kernel<D, TY, RPT><<<grid, C::NT, C::smem(rope), st>>>(a);
+  }
+};
+
+struct Plan {
+  int kind, bm, nib, splits, tps, per_sm;
+};
+
+// Calls f(Kern<...>{}) for the kernel of (kind, D); false for a D it lacks.
+template <typename F>
+bool dispatch(int kind, int D, F&& f) {
+  if (kind == kWide) {
+    if (D != 1024) return false;
+    f(Kern<1024, 16, 2>{});
+    return true;
+  }
+  switch (D) {
+#define FLASH_CASE(DD)                                               \
+    case DD:                                                         \
+      if (kind == kTiled) f(Kern<DD, 16, 4>{}); else f(Kern<DD, 16, 1>{}); \
+      return true;
+    FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(96) FLASH_CASE(128)
+#undef FLASH_CASE
+    default: return false;
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// The form and the key splits of a call: -1 for what the kernel does not
+// take, -2 when CUDA refused the kernel's set-up.
+int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
+              Plan* p) {
+  if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || Hq % Hkv) return -1;
+  if (rope && (D > 128 || Tq != Tk)) return -1;
+  const int G = Hq / Hkv;
+  const long items = (long)Tq * G;
+  const int ntiles = (Tk + BN - 1) / BN;
+  p->kind = D > 128 ? kWide : (!rope && items <= 16 ? kSmall : kTiled);
+  bool known = dispatch(p->kind, D, [&](auto k) {
+    p->bm = decltype(k)::BM;
+    p->per_sm = decltype(k)::per_sm();
+  });
+  if (!known) return -1;
+  if (p->per_sm < 1) return -2;        // the shared-memory or occupancy query failed
+  const long nib = (items + p->bm - 1) / p->bm;
+  if (nib > 65535 || (long)B * Hkv > 0x7fffffffL) return -1;
+  p->nib = (int)nib;
+  p->tps = ntiles;                      // tiled form: no split
+  if (p->kind == kWide) {
+    p->tps = 1;                         // one tile a block (ONE_TILE)
+  } else if (p->kind == kSmall) {
+    // at least two waves of blocks over the card, whole tiles a split
+    const long base = (long)B * Hkv * nib;
+    const long want = 2L * sm_count() * p->per_sm;
+    const long per = std::max<long>(1, (want + base - 1) / base);
+    p->tps = (int)std::max<long>(1, ntiles / per);
+  }
+  p->splits = (ntiles + p->tps - 1) / p->tps;
+  return p->splits > 65535 ? -1 : 0;    // grid.z
 }
 
 }  // namespace
 
+extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
+                                 int D, int rope) {
+  Plan p;
+  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, &p);
+  return err != 0 ? err : p.splits;
+}
+
 extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                               const int* mask, const float* cos,
-                              const float* sin, float* out, int B, int Tq,
-                              int Tk, int Hq, int Hkv, int D, int causal,
-                              float scale, void* stream) {
-  const Args a{q, k, v, mask, cos, sin, out, Tq, Tk, Hq, Hkv, causal, scale};
+                              const float* sin, float* out, float* part,
+                              int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                              int causal, float scale, int splits,
+                              void* stream) {
+  Plan p;
+  const bool rope = cos != nullptr;
+  if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, &p) != 0) return -1;
+  if (p.splits != splits || (splits > 1 && part == nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cos != nullptr && D > 128) return -1;
-  switch (D) {
-    case 16: return launch<16>(a, B, s);
-    case 32: return launch<32>(a, B, s);
-    case 64: return launch<64>(a, B, s);
-    case 96: return launch<96>(a, B, s);
-    case 128: return launch<128>(a, B, s);
-    case 1024: return launch<1024>(a, B, s);
-    default: return -1;
-  }
+  const Args a{q, k, v, mask, cos, sin, out, part, B, Tq, Tk, Hq, Hkv,
+               causal, p.splits, p.tps, scale};
+  const dim3 grid(B * Hkv, p.nib, p.splits);
+  dispatch(p.kind, D, [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
+  const size_t NI = (size_t)B * Tq * Hq;
+  const size_t n = NI * (D / 4);
+  merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, out, NI, D,
+                                                           p.splits);
+  return static_cast<int>(cudaGetLastError());
 }

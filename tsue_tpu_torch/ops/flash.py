@@ -2,8 +2,13 @@
 
 Counterpart of ``tsue_tpu/ops/flash.py``.  The three Pallas bodies there
 (``_gqa_rope_kernel``, ``_gqa_kernel``, ``_folded_kernel``) are one CUDA
-kernel here, ``csrc/flash_attn_fwd.cu``: on Hopper the GQA index map
-``h_kv = h_q // G`` replaces the TPU's head folding and K/V repetition.
+source here, ``csrc/flash_attn_fwd.cu``: on Hopper the GQA index map
+``h_kv = h_q // G`` replaces the TPU's head folding and K/V repetition.  It
+has two forms, picked per call by the C side: a tiled one for many (row,
+head) items per (batch, KV head), and a split-KV one for few items over
+many keys (decode, the LTSF cross-attention), which writes per-split
+partials to a scratch allocated here and merges them in a second launch.
+``flash_attention.launches`` counts calls, one per call in either form.
 
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only there.  On a CUDA tensor it launches the kernel or raises: there is
@@ -51,10 +56,13 @@ def flash_attention_plain(q, k, v, mask=None, is_causal=False, scale=None,
 @functools.lru_cache(maxsize=None)
 def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return bind("flash_attn_fwd", {"flash_attn_fwd": [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v mask cos sin out
-        i32, i32, i32, i32, i32, i32,       # B Tq Tk Hq Hkv D
-        i32, ctypes.c_float, ptr]})         # causal scale stream
+    return bind("flash_attn_fwd", {
+        "flash_attn_splits": [i32] * 7,     # B Tq Tk Hq Hkv D rope
+        "flash_attn_fwd": [
+            ptr, ptr, ptr, ptr, ptr, ptr,   # q k v mask cos sin
+            ptr, ptr,                       # out, split scratch
+            i32, i32, i32, i32, i32, i32,   # B Tq Tk Hq Hkv D
+            i32, ctypes.c_float, i32, ptr]})  # causal scale splits stream
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
@@ -63,9 +71,9 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     dev = q.device
-    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32)
-    check_tensor("k", k, dev, (B, Tk, Hkv, D), torch.float32)
-    check_tensor("v", v, dev, (B, Tk, Hkv, D), torch.float32)
+    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32, aligned=True)
+    check_tensor("k", k, dev, (B, Tk, Hkv, D), torch.float32, aligned=True)
+    check_tensor("v", v, dev, (B, Tk, Hkv, D), torch.float32, aligned=True)
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel "
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
@@ -86,15 +94,31 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
             raise ValueError("in-kernel rope takes self-attention with "
                              f"D <= 128 (Tq={Tq}, Tk={Tk}, D={D})")
         cos, sin = rope
-        check_tensor("cos", cos, dev, (B, Tk, D // 2), torch.float32)
-        check_tensor("sin", sin, dev, (B, Tk, D // 2), torch.float32)
+        check_tensor("cos", cos, dev, (B, Tk, D // 2), torch.float32,
+                     aligned=True)
+        check_tensor("sin", sin, dev, (B, Tk, D // 2), torch.float32,
+                     aligned=True)
         cos_ptr, sin_ptr = cos.data_ptr(), sin.data_ptr()
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
-        err = _lib().flash_attn_fwd(
+        lib = _lib()
+        splits = lib.flash_attn_splits(B, Tq, Tk, Hq, Hkv, D,
+                                       int(rope is not None))
+        if splits == -2:
+            raise RuntimeError("CUDA refused the attention kernel's "
+                               "shared-memory or occupancy set-up")
+        if splits < 1:
+            raise ValueError(f"the attention kernel does not take B={B} "
+                             f"Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} D={D}")
+        # split-KV form: per-split (acc, m, l) partials, merged in order
+        scratch = (torch.empty(splits * B * Tq * Hq * (D + 2), device=dev,
+                               dtype=torch.float32)
+                   if splits > 1 else None)
+        err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos_ptr,
-            sin_ptr, out.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
-            int(bool(is_causal)), float(scale),
+            sin_ptr, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, Tq, Tk, Hq,
+            Hkv, D, int(bool(is_causal)), float(scale), splits,
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(flash_attention, err)
     return out
