@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of the paths below, with errors, CUDA-event times (L2 flushed before
      each launch), the least time the card could take (bound) and the time
      of one PyTorch library call computing the same function where there
-     is one; NLinear, the fused LoRA product and the per-sample ADE/FDE,
+     is one; the two decode kernels also with their launch plans (K or key
+     splits across a thread block cluster, CTAs) and a repeated call that
+     must give the same bits, the int8 product also at M = 1 and 128;
+     NLinear, the fused LoRA product and the per-sample ADE/FDE,
      which no path of the JAX package calls, at the shapes where they
      would sit (their launches here are the only ones, and are reported
      under their own name); then the gradient of each autograd.Function
@@ -37,8 +40,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      tokens, default sampling): warmup, three requests of 32 tracks, a
      repeated request whose ids must be equal, the launch count of each
      kernel against the expected count, a torch.profiler trace of one
-     request for the device's busy share, and one greedy request with the
-     three switches off;
+     request for the device's busy share and the two decode kernels'
+     device totals, and one greedy request with the three switches off;
   7. training at the same width (fp32, the fused switch on, random weights
      from a seed), for the presets "train_18_30" (frozen_mllm, batch 16)
      and "lora_only_18_18" (batch 8): the launch counts of one step's
@@ -301,16 +304,24 @@ INT8_SHAPES = (   # (name, K, N, projections of this shape per layer)
 
 
 def int8_checks(dev, gpu, timer):
+    """Each projection shape at the decode batch M = 16 (with the library
+    call's time), q_proj also at M = 1 and M = 128, the ends of the row
+    range the kernel takes; each row with its launch plan and a second call
+    that must give the same bits."""
     import torch
-    from tsue_tpu_torch.ops.quant import (int8_matmul, int8_matmul_ref,
-                                          quantize_weight)
+    from tsue_tpu_torch.ops.quant import (int8_matmul, int8_matmul_plan,
+                                          int8_matmul_ref, quantize_weight)
     g = torch.Generator(device=dev).manual_seed(1)
-    rows, M = [], 16
-    for name, K, N, per_layer in INT8_SHAPES:
+    rows = []
+    cases = [(name, K, N, per_layer, 16)
+             for name, K, N, per_layer in INT8_SHAPES]
+    cases += [("q_proj", 2048, 2048, 0, M) for M in (1, 128)]
+    for name, K, N, per_layer, M in cases:
         x = torch.randn(M, K, generator=g, device=dev)
         w8, s = quantize_weight(torch.randn(K, N, generator=g, device=dev)
                                 * K ** -0.5)
         out = int8_matmul(x, w8, s)
+        again = int8_matmul(x, w8, s)
         ref = int8_matmul_ref(x, w8, s)
         torch.cuda.synchronize()
         err, rel = errors(out, ref)
@@ -320,26 +331,34 @@ def int8_checks(dev, gpu, timer):
         ok = torch.allclose(out, ref, rtol=1e-4, atol=atol)
         plain_ms = timer.ms(lambda: int8_matmul_ref(x, w8, s))
         ms = timer.ms(lambda: int8_matmul(x, w8, s))
-        b = bound(nbytes(x, w8, s, out), 2.0 * M * K * N)
-        # the library call: PyTorch's weight-only int8 product, (x @ w.T) *
-        # scale with w (N, K) int8; timed here only, the port never calls it
-        wt = w8.t().contiguous()
-        lib = lambda: torch._weight_int8pack_mm(x, wt, s)  # noqa: E731
+        # the kernel multiplies on the tensor cores in bf16: three terms of
+        # x against each weight, exact products (csrc/int8_matmul.cu)
+        b = bound(nbytes(x, w8, s, out), 3 * 2.0 * M * K * N, BF16_FLOPS)
         lib_ms, lib_note = None, None
-        try:
-            lib_err = errors(lib(), ref)[0]
-        except (RuntimeError, ValueError, TypeError) as e:
-            # the library may refuse fp32 x on the card
-            lib_note = f"torch._weight_int8pack_mm refused: {e}"[:300]
-        else:
-            lib_ms = timer.ms(lib)
-            lib_note = f"torch._weight_int8pack_mm, max abs err {lib_err}"
-        del wt
+        if M == 16:
+            # the library call: PyTorch's weight-only int8 product, (x @
+            # w.T) * scale with w (N, K) int8; timed here only, the port
+            # never calls it
+            wt = w8.t().contiguous()
+            lib = lambda: torch._weight_int8pack_mm(x, wt, s)  # noqa: E731
+            try:
+                lib_err = errors(lib(), ref)[0]
+            except (RuntimeError, ValueError, TypeError) as e:
+                # the library may refuse fp32 x on the card
+                lib_note = f"torch._weight_int8pack_mm refused: {e}"[:300]
+            else:
+                lib_ms = timer.ms(lib)
+                lib_note = (f"torch._weight_int8pack_mm, max abs err "
+                            f"{lib_err}")
+            del wt
         rows.append(row("int8_matmul", f"{name} M={M} K={K} N={N}", gpu, err,
                         rel, ms, plain_ms, b, lib_ms, per_layer=per_layer,
-                        library=lib_note))
-        check(ok, f"int8_matmul disagrees with the plain version at {name}: "
-                  f"max abs err {err} (rtol 1e-4, atol {atol})")
+                        library=lib_note, plan=int8_matmul_plan(M, K, N),
+                        repeat_bit_identical=bool(torch.equal(out, again))))
+        check(ok, f"int8_matmul disagrees with the plain version at {name} "
+                  f"M={M}: max abs err {err} (rtol 1e-4, atol {atol})")
+        check(torch.equal(out, again), f"int8_matmul at {name} M={M}: a "
+                                       "repeated call differs")
     return rows
 
 
@@ -428,9 +447,13 @@ def head_checks(dev, gpu, timer):
 
 
 def attend_checks(dev, gpu, timer):
+    """The decode step's int8-KV attention at the three cache lengths of
+    generation, each row with its launch plan and a second call that must
+    give the same bits."""
     import torch
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
                                              attend_int8_kv_plain,
+                                             attend_int8_kv_plan,
                                              quantize_cache)
     g = torch.Generator(device=dev).manual_seed(3)
     B, Hq, Hkv, D = 16, 32, 8, 64
@@ -446,17 +469,23 @@ def attend_checks(dev, gpu, timer):
         mask = ((s_idx < prefix[:, None])
                 | ((s_idx >= S - 64) & (s_idx <= S - 64 + step))).int()
         out = attend_int8_kv(q, cache, mask)
+        again = attend_int8_kv(q, cache, mask)
         ref = attend_int8_kv_plain(q, cache, mask)
         torch.cuda.synchronize()
         err, rel = errors(out, ref)
         plain_ms = timer.ms(lambda: attend_int8_kv_plain(q, cache, mask))
         ms = timer.ms(lambda: attend_int8_kv(q, cache, mask))
         b = bound(nbytes(q, *cache, mask, out), 4.0 * B * Hq * S * D)
+        plan = attend_int8_kv_plan(S, Hq // Hkv, D)
         rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq=1", gpu,
-                        err, rel, ms, plain_ms, b, None))
+                        err, rel, ms, plain_ms, b, None,
+                        plan={**plan, "ctas": plan["splits"] * B * Hkv},
+                        repeat_bit_identical=bool(torch.equal(out, again))))
         check(torch.allclose(out, ref, **TOL),
               f"attend_int8_kv disagrees with the plain version at S={S}: "
               f"max abs err {err}")
+        check(torch.equal(out, again), f"attend_int8_kv at S={S}: a "
+                                       "repeated call differs")
     return rows
 
 
@@ -1152,12 +1181,14 @@ def read_counts():
     return {k: f.launches for k, f in counters().items()}
 
 
-def profile_device(dev, gpu, what: str, wall_s: float, fn) -> None:
+def profile_device(dev, gpu, what: str, wall_s: float, fn,
+                   totals=()) -> None:
     """Run ``fn`` once under torch.profiler and print the device's busy
     time, its busy and idle shares against ``wall_s`` (the unprofiled wall
     time of the same work: the trace's own host cost stretches its wall
-    time, so the share under the trace is printed beside it) and the ten
-    kernels with the most device time."""
+    time, so the share under the trace is printed beside it), the ten
+    kernels with the most device time and, for each name in ``totals``,
+    the device time and calls of every kernel whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1178,6 +1209,12 @@ def profile_device(dev, gpu, what: str, wall_s: float, fn) -> None:
                     reverse=True)[:10]:
         print(f"  {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
               f"{e.count} calls", flush=True)
+    for name in totals:
+        hits = [e for e in device if name in e.key]
+        print(f"{what}: {name} total "
+              f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
+              f"in {sum(e.count for e in hits)} calls; gpu: {gpu}",
+              flush=True)
 
 
 def request_stats(pred):
@@ -1271,7 +1308,8 @@ def generation_phase(dev, gpu, cfg, state):
         dev, gpu, f"generate profile: one chunk of 16 tracks, {N} decode "
         "steps", seconds / chunks3,
         lambda: pred.generate_context(tracks, max_new_tokens=N,
-                                      generator=gen(7)))
+                                      generator=gen(7)),
+        totals=("int8_matmul_kernel", "attend_int8_kernel"))
     del pred
     torch.cuda.empty_cache()
 
@@ -1657,6 +1695,10 @@ def main() -> int:
                 print(f"  ptxas {name}: " + line.strip(), flush=True)
 
     timer = Timer(dev)
+    # the timer's floor: a launch that does almost nothing
+    tiny = torch.zeros(4, device=dev)
+    print(f"timer floor: one 4-element PyTorch add "
+          f"{timer.ms(lambda: tiny.add_(1)):.4f} ms; gpu: {gpu}", flush=True)
     rows = {"flash_attn_fwd": flash_checks(dev, gpu, timer),
             "int8_matmul": int8_checks(dev, gpu, timer),
             "lmhead_topk": head_checks(dev, gpu, timer),

@@ -132,13 +132,25 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         flash_attention(q, k, k)
 
 
-@pytest.mark.parametrize("M", [1, 16, 128])
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 128])
 def test_int8_matmul_matches_plain(dev, M):
-    """Every decode projection shape of Llama-3.2-1B plus ragged K and N;
-    M up to the kernel's limit of 128 rows."""
+    """Every decode projection shape of Llama-3.2-1B plus ragged K and N; M
+    across the 16-row tiles up to the kernel's limit of 128 rows.  K = 20
+    is less than one stage of the ring (64 rows); K = 300 and 1000 are
+    multiples of neither the stage nor the split; K = 320 at N = 4096 and
+    K = 576 at N = 2048 split K over several cluster ranks (at 576 the last
+    one short); N = 4, 132 and 516 are multiples of 4 but not of the column
+    tile, and not of 16 (the 4-byte copy path).  Every plan gives each
+    cluster rank whole 64-row stages but the last, which is never empty."""
     g = torch.Generator(device=dev).manual_seed(M)
-    for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
-                 (300, 132), (64, 4)):
+    shapes = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+              (300, 132), (64, 4), (20, 516), (320, 4096), (576, 2048),
+              (1000, 132))
+    for K, N in shapes:
+        plan = Q.int8_matmul_plan(M, K, N)
+        per, ranks = plan["k_rows_per_rank"], plan["cluster"]
+        assert per % 64 == 0 and (ranks - 1) * per < K <= ranks * per, plan
+    for K, N in shapes:
         x = torch.randn(M, K, generator=g, device=dev)
         w8, s = Q.quantize_weight(torch.randn(K, N, generator=g, device=dev))
         before = Q.int8_matmul.launches
@@ -220,26 +232,69 @@ def test_lmhead_topk_random_close(dev):
 
 @pytest.mark.parametrize("D", KV.SUPPORTED_HEAD_DIMS)
 def test_attend_int8_kv_matches_plain(dev, D):
-    """Fully masked rows, S not a multiple of the thread count, GQA groups
-    1..8, one and several query steps."""
+    """GQA groups 1..8, one and several query steps, and S giving one key
+    split (S = 1, 20), two (37) and the most (200, 592; a split of 50 and
+    148 keys).  Row 1 has no valid key (the uniform mean over all S, with
+    more than one split when S > 32); row 2's only valid keys sit in the
+    last split; the rest are padded."""
     g = torch.Generator(device=dev).manual_seed(D)
-    for (Hq, Hkv), S, Tq in itertools.product(
-            ((4, 4), (32, 8), (8, 1)), (1, 37, 200, 592), (1, 3)):
-        B = 3
+    splits = {S: KV.attend_int8_kv_plan(S, 4, D)["splits"]
+              for S in (1, 20, 37, 200, 592)}
+    assert splits == {1: 1, 20: 1, 37: 2, 200: 4, 592: 4}, splits
+    for G, S, Tq in itertools.product(range(1, 9), (1, 20, 37, 200, 592),
+                                      (1, 3)):
+        B, Hkv = 3, 2
+        Hq = G * Hkv
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         cache = KV.quantize_cache([(k, v)])[0]
         q = torch.randn(B, Tq, Hq, D, generator=g, device=dev)
         lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
         lens[1] = 0                        # every slot masked
-        mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        slots = torch.arange(S, device=dev)[None]
+        mask = (slots < lens[:, None]).int()
+        mask[2] = (slots[0] >= S - 3).int()  # valid keys in the last split
         before = KV.attend_int8_kv.launches
         out = KV.attend_int8_kv(q, cache, mask)
         assert KV.attend_int8_kv.launches == before + 1
         ref = KV.attend_int8_kv_plain(q, cache, mask)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, **TOL, msg=lambda m: (
-            f"Hq={Hq} Hkv={Hkv} S={S} Tq={Tq}: {m}"))
+            f"G={G} S={S} Tq={Tq}: {m}"))
+
+
+@pytest.mark.parametrize("kernel", ["int8_matmul", "attend_int8_kv"])
+def test_decode_kernels_repeat_bit_identical(dev, kernel):
+    """At the decode shapes (M = 16 against each Llama-3.2-1B projection
+    and the LM head; B = 16, 32/8 heads of 64, S = 592 with padded rows):
+    two calls give the same bits.  Both kernels add their K or key splits
+    in one fixed rank order through a cluster's shared memory, with no
+    atomics."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    if kernel == "int8_matmul":
+        for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                     (2048, 128256)):
+            x = torch.randn(16, K, generator=g, device=dev)
+            w8, s = Q.quantize_weight(torch.randn(K, N, generator=g,
+                                                  device=dev))
+            first, second = Q.int8_matmul(x, w8, s), Q.int8_matmul(x, w8, s)
+            torch.cuda.synchronize()
+            assert torch.equal(first, second), (K, N)
+        return
+    B, S, Hq, Hkv, D = 16, 592, 32, 8, 64
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    cache = KV.quantize_cache([(k, v)])[0]
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
+    lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+    lens[1] = 0
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+    first = KV.attend_int8_kv(q, cache, mask)
+    second = KV.attend_int8_kv(q, cache, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, KV.attend_int8_kv_plain(q, cache, mask),
+                               **TOL)
 
 
 @pytest.mark.parametrize("M", [128, 129, 8448])

@@ -7,156 +7,467 @@
 // to fp32, as the JAX package promotes (quant.py:91), and the scale is
 // applied once to the finished dot product.
 //
-// What bounds it on an H100: at M = 16 the product does 2 flops per weight
-// byte, far below the card's ridge, so it is a stream of the K*N weight bytes
-// (3.35 TB/s).  The design keeps that stream coalesced and wide enough:
-//   - a CTA (8 warps) owns 16 rows of x and 128 output columns; each lane owns
-//     4 consecutive columns, so a warp reads 128 contiguous weight bytes (one
-//     cache line) per K row and keeps 16 x 4 fp32 accumulators in registers;
-//   - the 8 warps take interleaved K rows; x is staged in shared memory in
-//     chunks of 256 K rows and read there as a broadcast;
-//   - when N gives too few column tiles to fill the card, K is split over
-//     grid.z; each split writes its partial sums, and a second kernel adds
-//     them in a fixed order and applies the scale, so results do not depend
-//     on scheduling;
-//   - the 8 warps' partial sums are added in shared memory in warp order.
-// Plain C interface, loaded with ctypes by tsue_tpu_torch/ops/quant.py.
+// What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA cores):
+// at M = 16 each weight byte feeds 16 multiply-adds, so in fp32 FMAs one
+// decoder layer's seven products (60.8 MB of int8) need 29.0 us of
+// arithmetic against 18.2 us of bytes, and an FMA kernel also pays for
+// converting every weight and reading x for every FMA.  This kernel does
+// the products on the tensor cores instead, exactly:
+//   - an int8 weight is exact in bf16; x is split into three bf16 terms by
+//     truncation, x = hi + mid + lo (8 significant bits each, 24 in all, so
+//     the split is exact); every product of a term and a weight is exact in
+//     fp32, and mma.sync.m16n8k16 (bf16 in, fp32 accumulate) adds them.  The
+//     bound is then the weight stream's 18.2 us a layer;
+//   - M = 16 is one m16 tile: a CTA owns 16 rows of x (grid.y covers M) and
+//     CT = 256 or 128 columns; each of its 4 warps takes 16 of every stage's
+//     64 K rows, so one set of x fragments (three terms) feeds all the
+//     column tiles of the warp;
+//   - weights reach shared memory through a 4-stage cp.async ring, 16-byte
+//     copies with neighbouring threads on neighbouring columns (4-byte
+//     copies when N % 16 != 0); a stage is 64 K rows (16 KB at CT = 256), so
+//     three stages are in flight under the arithmetic of the fourth, and two
+//     CTAs an SM keep ~96 KB in flight.  Rows are padded by 16 bytes so the
+//     fragment reads below hit 32 distinct banks; rows past K and columns
+//     past N are zero-filled;
+//   - a thread's B fragment (k = 2q, 2q+1, 2q+8, 2q+9 of one column) sits in
+//     four rows: it reads one 32-bit word of each, covering four columns,
+//     and builds the four columns' fragments with byte permutes: each byte,
+//     biased to b + 128, becomes the low mantissa byte of 2^23, one fp32
+//     subtraction leaves b, and its upper half is b in bf16.  No conversion
+//     unit is used (16 results a clock an SM).  So column tile j of a warp's
+//     32-column group holds columns 4t + j, t = 0..7;
+//   - the warps' partial tiles are added in warp order through the drained
+//     ring; K is split across the CTAs of a thread block cluster (up to 8)
+//     when the column tiles alone would leave SMs idle.  Each rank's partial
+//     tile stays in its shared memory; after a cluster barrier each rank
+//     adds a slice of the tile over all ranks in rank order through
+//     distributed shared memory, applies the scale and writes the output.
+//     One launch, no device-memory scratch, no atomics: a repeated call is
+//     bit-identical.
+// The plan (int8_matmul_plan) picks the column tile and the K split from the
+// shape and from how many clusters the card can hold at once
+// (cudaOccupancyMaxActiveClusters), so every wave is whole.
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py's kernel phase, L2 flushed,
+// M = 16): one layer's seven products 0.132 ms (the split-K FMA kernel it
+// replaces took 0.352; bytes bound 0.019), the int8 LM head 0.151 ms (0.716;
+// bound 0.081).  About 5.5 us of each launch's time is the timer's own
+// floor (chip_smoke.py prints it), so the four small products sit near
+// their fixed costs.
+//
+// ptxas (nvcc -Xptxas -v, sm_90a), with the dynamic shared memory a launch
+// asks for:
+//   int8_matmul_kernel<8>  243 registers, no spills, 103.0 KB (2 CTAs an SM)
+//   int8_matmul_kernel<4>  219 registers, no spills,  62.5 KB
+//
+// C interface (loaded with ctypes by tsue_tpu_torch/ops/quant.py):
+// int8_matmul_plan(M, K, N, field) reports the launch plan, and
+// int8_matmul(...) returns cudaGetLastError() after the one launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;     // rows of x per CTA; grid.y covers M
-constexpr int kCols = 128;    // output columns per CTA, 4 per lane
-constexpr int kChunk = 256;   // K rows of x staged in shared memory per pass
-constexpr size_t kSmem = (size_t)(kRows * kChunk + kWarps * kRows * kCols) * sizeof(float);
+constexpr int kRows = 16;        // rows of x per CTA: one m16 tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKC = 16 * kWarps; // K rows per stage, 16 a warp
+constexpr int kStages = 4;       // cp.async ring depth
+constexpr int kXS = kKC + 8;     // floats per staged row of x (padded)
+constexpr int kMaxCluster = 8;   // portable cluster size
 
-__global__ void __launch_bounds__(kThreads)
+// A CTA of NG 32-column groups.
+template <int NG>
+struct Tile {
+  static constexpr int CT = 32 * NG;               // columns per CTA
+  static constexpr int WS = CT + 16;               // bytes per staged K row
+  static constexpr int W_BYTES = kKC * WS;
+  static constexpr int STAGE = W_BYTES + kRows * kXS * 4;
+  static constexpr int RING = kStages * STAGE;
+  static constexpr int RS = CT + 4;                // floats per reduced row
+  static constexpr int SMEM = RING + (kRows + 1) * CT * 4;   // + tile, scale
+  static_assert(kWarps * kRows * RS * 4 <= RING, "reduction fits the ring");
+};
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>   // all but the newest N groups of this thread landed
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two fp32 values -> three bf16x2 terms (low half the first value), by
+// truncation: a = hi + mid + lo exactly.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
+  const uint32_t hb = __float_as_uint(b) & 0xffff0000u;
+  const float ra = a - __uint_as_float(ha), rb = b - __uint_as_float(hb);
+  const uint32_t ma = __float_as_uint(ra) & 0xffff0000u;
+  const uint32_t mb = __float_as_uint(rb) & 0xffff0000u;
+  const float sa = ra - __uint_as_float(ma), sb = rb - __uint_as_float(mb);
+  hi = __byte_perm(ha, hb, 0x7632);
+  mid = __byte_perm(ma, mb, 0x7632);
+  lo = __byte_perm(__float_as_uint(sa), __float_as_uint(sb), 0x7632);
+}
+
+// Byte j of a biased word (b + 128) -> b as fp32 bits, exactly: 2^23 + b +
+// 128 minus 2^23 + 128.  Its upper half is b in bf16.
+template <int J>
+__device__ __forceinline__ uint32_t byte_f32(uint32_t u) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | J)) - 8388736.f);
+}
+
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Column tile J of a 32-column group: B fragment of column 4g + J from the
+// four biased rows, then the three terms' products, smallest first.
+template <int J>
+__device__ __forceinline__ void tile(float* c, const uint32_t (&a)[3][4],
+                                     const uint32_t (&r)[4]) {
+  const uint32_t b0 = __byte_perm(byte_f32<J>(r[0]), byte_f32<J>(r[1]),
+                                  0x7632);
+  const uint32_t b1 = __byte_perm(byte_f32<J>(r[2]), byte_f32<J>(r[3]),
+                                  0x7632);
+  mma(c, a[2], b0, b1);
+  mma(c, a[1], b0, b1);
+  mma(c, a[0], b0, b1);
+}
+
+template <int NG>
+__global__ void __launch_bounds__(kThreads, 2)
 int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
                    const float* __restrict__ scale, float* __restrict__ out,
-                   float* __restrict__ partial, int M, int K, int N,
-                   int k_per_split) {
-  extern __shared__ float smem[];
-  float* xs = smem;                      // [kRows][kChunk]
-  float* red = smem + kRows * kChunk;    // [kWarps][kRows][kCols]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kCols + lane * 4;
-  const int m0 = blockIdx.y * kRows;
-  const int split = blockIdx.z;
-  const int k_begin = split * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const bool cols_in = n0 < N;           // N % 4 == 0: all 4 columns or none
+                   int M, int K, int N, int k_per_rank) {
+  using T = Tile<NG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = (blockIdx.x / C) * T::CT, m0 = blockIdx.y * kRows;
+  const int k_begin = min(K, rank * k_per_rank);
+  const int k_end = min(K, k_begin + k_per_rank);
+  const int nst = (k_end - k_begin + kKC - 1) / kKC;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const bool w16 = N % 16 == 0;
+  const bool x16 = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
-  float acc[kRows][4];
+  auto load_stage = [&](int st) {
+    unsigned char* ws = smem + (st % kStages) * T::STAGE;
+    float* xs = reinterpret_cast<float*>(ws + T::W_BYTES);
+    const int k0 = k_begin + st * kKC;
+    if (w16) {
+      constexpr int CPR = T::CT / 16;   // 16-byte chunks per K row
+      for (int i = tid; i < kKC * CPR; i += kThreads) {
+        const int r = i / CPR, c = (i % CPR) * 16;
+        const bool ok = k0 + r < k_end && n0 + c < N;
+        cp16(ws + r * T::WS + c, ok ? w8 + (size_t)(k0 + r) * N + n0 + c : w8,
+             ok ? 16 : 0);
+      }
+    } else {
+      constexpr int CPR = T::CT / 4;
+      for (int i = tid; i < kKC * CPR; i += kThreads) {
+        const int r = i / CPR, c = (i % CPR) * 4;
+        const bool ok = k0 + r < k_end && n0 + c < N;
+        cp4(ws + r * T::WS + c, ok ? w8 + (size_t)(k0 + r) * N + n0 + c : w8,
+            ok ? 4 : 0);
+      }
+    }
+    if (x16) {
+      for (int i = tid; i < kRows * kKC / 4; i += kThreads) {
+        const int r = i / (kKC / 4), c = (i % (kKC / 4)) * 4;
+        const int k = k0 + c;
+        const int bytes = m0 + r < M ? 4 * max(0, min(4, k_end - k)) : 0;
+        cp16(xs + r * kXS + c, bytes ? x + (size_t)(m0 + r) * K + k : x,
+             bytes);
+      }
+    } else {
+      for (int i = tid; i < kRows * kKC; i += kThreads) {
+        const int r = i / kKC, c = i % kKC;
+        const bool ok = m0 + r < M && k0 + c < k_end;
+        cp4(xs + r * kXS + c, ok ? x + (size_t)(m0 + r) * K + k0 + c : x,
+            ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[NG][4][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int i = 0; i < NG; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
   }
 
-  for (int kc = k_begin; kc < k_end; kc += kChunk) {
-    const int kn = min(kChunk, k_end - kc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, c = i % kChunk, m = m0 + r;
-      xs[i] = (m < M && c < kn) ? x[(size_t)m * K + kc + c] : 0.f;
-    }
-    __syncthreads();
-    if (cols_in) {
-      const int8_t* wp = w8 + (size_t)kc * N + n0;
-#pragma unroll 8
-      for (int kk = warp; kk < kn; kk += kWarps) {
-        const char4 w = *reinterpret_cast<const char4*>(wp + (size_t)kk * N);
-        const float w0 = w.x, w1 = w.y, w2 = w.z, w3 = w.w;
+  // the CTA's scales ride with the first stage, so the epilogue reads them
+  // from shared memory
+  float* sc = reinterpret_cast<float*>(smem + T::RING) + kRows * T::CT;
+  for (int i = tid * 4; i < T::CT; i += 4 * kThreads) {
+    const int bytes = 4 * max(0, min(4, N - n0 - i));
+    cp16(sc + i, bytes ? scale + n0 + i : scale, bytes);
+  }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xv = xs[r * kChunk + kk];
-          acc[r][0] += xv * w0;
-          acc[r][1] += xv * w1;
-          acc[r][2] += xv * w2;
-          acc[r][3] += xv * w3;
-        }
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nst) load_stage(st);
+    cp_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_wait<kStages - 2>();
+    __syncthreads();   // stage st landed; the slot of st - 1 is free
+    if (st + kStages - 1 < nst) load_stage(st + kStages - 1);
+    cp_commit();
+    const unsigned char* ws = smem + (st % kStages) * T::STAGE;
+    const float* xs = reinterpret_cast<const float*>(ws + T::W_BYTES);
+    // this warp's 16 K rows: x fragments, three terms
+    const int kw = warp * 16;
+    uint32_t a[3][4];
+    {
+      const float* x0 = xs + g * kXS + kw + 2 * q;
+      const float* x1 = x0 + 8 * kXS;
+      const float2 v0 = *reinterpret_cast<const float2*>(x0);
+      const float2 v1 = *reinterpret_cast<const float2*>(x1);
+      const float2 v2 = *reinterpret_cast<const float2*>(x0 + 8);
+      const float2 v3 = *reinterpret_cast<const float2*>(x1 + 8);
+      split3(v0.x, v0.y, a[0][0], a[1][0], a[2][0]);
+      split3(v1.x, v1.y, a[0][1], a[1][1], a[2][1]);
+      split3(v2.x, v2.y, a[0][2], a[1][2], a[2][2]);
+      split3(v3.x, v3.y, a[0][3], a[1][3], a[2][3]);
+    }
+    const unsigned char* wr = ws + (kw + 2 * q) * T::WS + 4 * g;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      uint32_t r[4];
+      r[0] = *reinterpret_cast<const uint32_t*>(wr + 32 * i) ^ 0x80808080u;
+      r[1] = *reinterpret_cast<const uint32_t*>(wr + T::WS + 32 * i) ^
+             0x80808080u;
+      r[2] = *reinterpret_cast<const uint32_t*>(wr + 8 * T::WS + 32 * i) ^
+             0x80808080u;
+      r[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * T::WS + 32 * i) ^
+             0x80808080u;
+      tile<0>(acc[i][0], a, r);
+      tile<1>(acc[i][1], a, r);
+      tile<2>(acc[i][2], a, r);
+      tile<3>(acc[i][3], a, r);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the warps' partial tiles, added in warp order through the drained ring:
+  // tile j's (row g, column t) is column 32 i + 4 t + j, so a thread's c0 of
+  // tiles 0..3 are columns 32 i + 8 q + 0..3 and its c1 columns + 4..7
+  float* red = reinterpret_cast<float*>(smem);            // [warp][row][RS]
+  float* fin = reinterpret_cast<float*>(smem + T::RING);  // [row][CT]
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    float* r0 = red + (warp * kRows + g) * T::RS + 32 * i + 8 * q;
+    float* r1 = r0 + 8 * T::RS;
+    *reinterpret_cast<float4*>(r0) = make_float4(
+        acc[i][0][0], acc[i][1][0], acc[i][2][0], acc[i][3][0]);
+    *reinterpret_cast<float4*>(r0 + 4) = make_float4(
+        acc[i][0][1], acc[i][1][1], acc[i][2][1], acc[i][3][1]);
+    *reinterpret_cast<float4*>(r1) = make_float4(
+        acc[i][0][2], acc[i][1][2], acc[i][2][2], acc[i][3][2]);
+    *reinterpret_cast<float4*>(r1 + 4) = make_float4(
+        acc[i][0][3], acc[i][1][3], acc[i][2][3], acc[i][3][3]);
+  }
+  __syncthreads();
+  for (int e = tid; e < kRows * T::CT; e += kThreads) {
+    const int off = (e / T::CT) * T::RS + e % T::CT;
+    float s = red[off];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * kRows * T::RS + off];
+    fin[e] = s;
+  }
+
+  // the cluster's ranks added in rank order: rank r finishes a slice
+  cluster.sync();
+  const int total = min(kRows, M - m0) * T::CT;
+  for (int e = rank * kThreads + tid; e < total; e += C * kThreads) {
+    const int n = n0 + e % T::CT;
+    float v[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)   // all loads in flight at once
+      v[r] = r < C ? cluster.map_shared_rank(fin, r)[e] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < C) s += v[r];
+    if (n < N) out[(size_t)(m0 + e / T::CT) * N + n] = s * sc[e % T::CT];
+  }
+  cluster.sync();   // no rank leaves while another reads its tile
+}
+
+// The kernels, by 32-column groups a CTA.
+constexpr int kGroups[] = {8, 4};
+constexpr int kConfigs = 2;
+
+const void* kernel_of(int cfg) {
+  return cfg == 0 ? reinterpret_cast<const void*>(&int8_matmul_kernel<8>)
+                  : reinterpret_cast<const void*>(&int8_matmul_kernel<4>);
+}
+int smem_of(int cfg) { return cfg == 0 ? Tile<8>::SMEM : Tile<4>::SMEM; }
+
+// Clusters of c CTAs of a kernel that the card holds at once (its GPCs
+// decide); asked once and kept.  0 when CUDA cannot say.
+int resident_clusters(int cfg, int c) {
+  static int cache[kConfigs][kMaxCluster + 1] = {};
+  static bool set_up = false;
+  if (!set_up) {
+    for (int k = 0; k < kConfigs; ++k)
+      if (cudaFuncSetAttribute(kernel_of(k),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_of(k)) != cudaSuccess)
+        return 0;
+    set_up = true;
+  }
+  if (cache[cfg][c] == 0) {
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3((unsigned)c, 1, 1);
+    lc.blockDim = dim3(kThreads, 1, 1);
+    lc.dynamicSmemBytes = (size_t)smem_of(cfg);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel_of(cfg), &lc) !=
+            cudaSuccess || n < 1) {
+      cudaGetLastError();
+      return 0;
+    }
+    cache[cfg][c] = n;
+  }
+  return cache[cfg][c];
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+struct Plan {
+  int cfg, cluster, ctas, k_per_rank;
+};
+
+// The plan with the least modelled time.  A wave holds as many clusters as
+// the card can place, and it takes (CTAs on the busiest SM) x (weights a
+// CTA streams).  K is split over c ranks (a cluster) to give idle SMs work;
+// every rank but the last gets whole stages.
+Plan make_plan(int M, int K, int N) {
+  const int R = (M + kRows - 1) / kRows;
+  const int sms = sm_count();
+  const int blocks = (K + kKC - 1) / kKC;
+  Plan best = {0, 0, 0, 0};
+  double best_t = 0.0;
+  for (int cfg = 0; cfg < kConfigs; ++cfg) {
+    const int ct = 32 * kGroups[cfg];
+    const int tiles = (N + ct - 1) / ct * R;
+    for (int c = 1; c <= kMaxCluster; ++c) {
+      if (c > 1 && c > blocks) break;
+      const int cap = resident_clusters(cfg, c);
+      if (cap < 1 || sms < 1) continue;
+      const int per = (blocks + c - 1) / c * kKC;
+      const long waves = (tiles + cap - 1) / cap;
+      const long in_wave = (long)(tiles < cap ? tiles : cap) * c;
+      const long per_sm = (in_wave + sms - 1) / sms;
+      const double t = (double)waves * per_sm * ct * (per > 0 ? per : 1);
+      if (best.cluster == 0 || t < best_t) {
+        best = {cfg, c, tiles * c, per};
+        best_t = t;
       }
     }
   }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      red[(warp * kRows + r) * kCols + lane * 4 + j] = acc[r][j];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols;
-    const int m = m0 + r, n = blockIdx.x * kCols + c;
-    if (m >= M || n >= N) continue;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[(w * kRows + r) * kCols + c];
-    if (partial != nullptr)
-      partial[((size_t)split * M + m) * N + n] = s;
-    else
-      out[(size_t)m * N + n] = s * scale[n];
-  }
+  return best;
 }
 
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     const float* __restrict__ scale,
-                                     float* __restrict__ out, int M, int N,
-                                     int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)M * N;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * total + i];
-  out[i] = s * scale[i % N];
+template <int NG>
+int launch(const Plan& p, const float* x, const int8_t* w8,
+           const float* scale, float* out, int M, int K, int N,
+           cudaStream_t stream) {
+  const int R = (M + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.ctas / R), (unsigned)R, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = Tile<NG>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, int8_matmul_kernel<NG>, x, w8, scale, out, M, K, N,
+      p.k_per_rank);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of K splits the launcher uses for an (M, K, N) product; the caller
-// allocates a (splits, M, N) fp32 scratch when it is above 1.
-int int8_matmul_splits(int M, int K, int N) {
-  const int tiles = ((N + kCols - 1) / kCols) * ((M + kRows - 1) / kRows);
-  int splits = (2 * 132 + tiles - 1) / tiles;         // about two CTAs per SM
-  const int by_bytes = K / (8 * M);                   // partials <= weights / 2
-  if (splits > by_bytes) splits = by_bytes;
-  const int by_chunk = (K + kWarps - 1) / kWarps;     // >= 1 K row per warp
-  if (splits > by_chunk) splits = by_chunk;
-  if (splits < 1) splits = 1;
-  const int per = (K + splits - 1) / splits;
-  return (K + per - 1) / per;
+// The launch plan of an (M, K, N) product: field 0 the cluster size (the K
+// split), 1 the CTAs, 2 the columns a CTA, 3 the K rows a rank; -1 for
+// another field, -2 when CUDA could not place the kernel.
+int int8_matmul_plan(int M, int K, int N, int field) {
+  const Plan p = make_plan(M, K, N);
+  if (p.cluster == 0) return -2;
+  switch (field) {
+    case 0: return p.cluster;
+    case 1: return p.ctas;
+    case 2: return 32 * kGroups[p.cfg];
+    case 3: return p.k_per_rank;
+    default: return -1;
+  }
 }
 
-// Returns a cudaError_t (0 on success).  x (M, K) fp32, w8 (K, N) int8 with
-// N % 4 == 0 and a 4-byte aligned base, scale (N,) fp32, out (M, N) fp32,
-// partial a (splits, M, N) fp32 scratch when splits > 1 (else unused).
+// Returns a cudaError_t (0 on success), or -2 when CUDA could not place the
+// kernel.  x (M, K) fp32 with 1 <= M <= 128, w8 (K, N) int8 with N % 4 == 0
+// and a 16-byte aligned base, scale (N,) fp32, out (M, N) fp32.
 int int8_matmul(const float* x, const int8_t* w8, const float* scale,
-                float* out, float* partial, int M, int K, int N,
-                cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const int splits = int8_matmul_splits(M, K, N);
-  const int per = (K + splits - 1) / splits;
-  const dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows, splits);
-  int8_matmul_kernel<<<grid, kThreads, kSmem, stream>>>(
-      x, w8, scale, out, splits > 1 ? partial : nullptr, M, K, N, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t total = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, scale, out, M, N, splits);
-  return (int)cudaGetLastError();
+                float* out, int M, int K, int N, cudaStream_t stream) {
+  const Plan p = make_plan(M, K, N);
+  if (p.cluster == 0) return -2;
+  return p.cfg == 0 ? launch<8>(p, x, w8, scale, out, M, K, N, stream)
+                    : launch<4>(p, x, w8, scale, out, M, K, N, stream);
 }
 
 }  // extern "C"

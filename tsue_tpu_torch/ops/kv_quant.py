@@ -105,7 +105,23 @@ def _lib():
             ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k8 ks v8 vs mask out
             i32, i32, i32, i32, i32, i32,       # B Tq S Hq Hkv D
             ctypes.c_float, ptr],               # scale stream
-        "attend_int8_kv_max_smem": [], "attend_int8_kv_max_groups": []})
+        "attend_int8_kv_plan": [i32, i32, i32, i32],   # S G D field
+        "attend_int8_kv_max_groups": []})
+
+
+PLAN_FIELDS = ("splits", "keys_per_split", "smem_bytes")
+
+
+def attend_int8_kv_plan(S: int, G: int, D: int) -> Optional[dict]:
+    """The kernel's launch plan for S cache slots, G query heads a KV head
+    and head dim D (builds the kernel): the key splits (one thread block
+    cluster of that many CTAs per (row, query step, KV head)), the keys a
+    split and the shared memory a CTA asks for; None when a split's keys do
+    not fit the shared memory."""
+    lib = _lib()
+    plan = {f: lib.attend_int8_kv_plan(S, G, D, i)
+            for i, f in enumerate(PLAN_FIELDS)}
+    return None if plan["splits"] < 1 else plan
 
 
 def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
@@ -117,7 +133,7 @@ def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
     dev = q.device
     check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32)
     check_tensor("k8", k8, dev, (B, S, Hkv, D), torch.int8, aligned=True)
-    check_tensor("v8", v8, dev, (B, S, Hkv, D), torch.int8)
+    check_tensor("v8", v8, dev, (B, S, Hkv, D), torch.int8, aligned=True)
     check_tensor("ks", ks, dev, (B, S, Hkv), torch.float32)
     check_tensor("vs", vs, dev, (B, S, Hkv), torch.float32)
     if D not in SUPPORTED_HEAD_DIMS:
@@ -127,9 +143,9 @@ def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
     if Hkv == 0 or Hq % Hkv or Hq // Hkv > lib.attend_int8_kv_max_groups():
         raise ValueError(f"Hkv={Hkv} must divide Hq={Hq} in at most "
                          f"{lib.attend_int8_kv_max_groups()} groups")
-    if min(B, Tq, S) == 0 or max(B, Tq) > 65535:
+    if min(B, Tq, S) == 0 or B * Tq > 65535:
         raise ValueError(f"unsupported sizes B={B} Tq={Tq} S={S}")
-    if ((Hq // Hkv) * (D + S) + 64 * D) * 4 > lib.attend_int8_kv_max_smem():
+    if attend_int8_kv_plan(S, Hq // Hkv, D) is None:
         raise ValueError(f"cache length S={S} too long for the kernel's "
                          "shared memory")
     mask_ptr = None

@@ -55,9 +55,21 @@ def int8_matmul_ref(x: torch.Tensor, w8: torch.Tensor,
 def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("int8_matmul", {
-        "int8_matmul": [ptr, ptr, ptr, ptr, ptr,   # x w8 scale out partial
+        "int8_matmul": [ptr, ptr, ptr, ptr,        # x w8 scale out
                         i32, i32, i32, ptr],        # M K N stream
-        "int8_matmul_splits": [i32, i32, i32]})
+        "int8_matmul_plan": [i32, i32, i32, i32]})  # M K N field
+
+
+PLAN_FIELDS = ("cluster", "ctas", "cols_per_cta", "k_rows_per_rank")
+
+
+def int8_matmul_plan(M: int, K: int, N: int) -> Dict[str, int]:
+    """The kernel's launch plan for an (M, K, N) product (builds the
+    kernel): the K split across a thread block cluster, the CTAs, the
+    columns a CTA and the K rows a cluster rank."""
+    lib = _lib()
+    return {f: lib.int8_matmul_plan(M, K, N, i)
+            for i, f in enumerate(PLAN_FIELDS)}
 
 
 def _int8_cuda(x2: torch.Tensor, w8: torch.Tensor,
@@ -81,16 +93,13 @@ def _int8_cuda(x2: torch.Tensor, w8: torch.Tensor,
                          f"N % 4 == 0 (N={N})")
     x2 = x2.contiguous()
     scale = scale.contiguous()
-    lib = _lib()
-    splits = lib.int8_matmul_splits(M, K, N)
+    if scale.data_ptr() % 16:   # the kernel copies 16-byte chunks of it
+        scale = scale.clone()
     out = torch.empty(M, N, device=dev, dtype=torch.float32)
-    partial = (torch.empty(splits, M, N, device=dev, dtype=torch.float32)
-               if splits > 1 else None)
     with torch.cuda.device(dev):
-        err = lib.int8_matmul(
+        err = _lib().int8_matmul(
             x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), M, K, N,
-            torch.cuda.current_stream(dev).cuda_stream)
+            M, K, N, torch.cuda.current_stream(dev).cuda_stream)
     count_launch(int8_matmul, err)
     return out
 
