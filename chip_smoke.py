@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of one PyTorch library call computing the same function where there
      is one; the two decode kernels also with their launch plans (K or key
      splits across a thread block cluster, CTAs) and a repeated call that
-     must give the same bits, the int8 product also at M = 1 and 128;
+     must give the same bits, the int8 product also at M = 1 and 128; the
+     fused head with its layout, a repeated call that must give the same
+     bits and, for its int8 form, the unfused int8 LM-head product's time
+     beside its own (the difference is the selection and merge);
      NLinear, the fused LoRA product and the per-sample ADE/FDE,
      which no path of the JAX package calls, at the shapes where they
      would sit (their launches here are the only ones, and are reported
@@ -389,10 +392,17 @@ def head_inputs(dev, g, exact: bool):
     return h, w, (w8, scale), mask
 
 
-def head_checks(dev, gpu, timer):
+def head_checks(dev, gpu, timer, lm_head_ms):
+    """The fused head at the decode shape (B 16, V 128256), both layouts,
+    on exact inputs (indices and values identical to the plain version)
+    and random ones (values within TOL, index sets equal apart from ties),
+    each with a second call that must give the same bits.  ``lm_head_ms``
+    is the unfused int8 LM-head product's time (int8_checks' lm_head row):
+    the int8 form's time less it is what the selection and merge cost."""
     import torch
     from tsue_tpu_torch.ops.lmhead_topk import (LANES, lmhead_topk,
-                                                lmhead_topk_plain)
+                                                lmhead_topk_plain,
+                                                lmhead_topk_plan)
     g = torch.Generator(device=dev).manual_seed(2)
     penalty = 1.2
     rows = []
@@ -402,10 +412,13 @@ def head_checks(dev, gpu, timer):
             args = ((h, None, mask, penalty, quant) if layout == "int8"
                     else (h, w, mask, penalty, None))
             vals, idx = lmhead_topk(*args)
+            again = lmhead_topk(*args)
             rv, ri = lmhead_topk_plain(*args)
             torch.cuda.synchronize()
             err, rel = errors(vals, rv)
             name = f"{layout} {'exact' if exact else 'random'} B=16 V=128256"
+            same = torch.equal(again[0], vals) and torch.equal(again[1], idx)
+            check(same, f"lmhead_topk {name}: a repeated call differs")
             if exact:
                 check(torch.equal(idx, ri) and torch.equal(vals, rv),
                       f"lmhead_topk {name}: indices or values differ from a "
@@ -437,11 +450,26 @@ def head_checks(dev, gpu, timer):
                               f"differ beyond ties (gap {gap})")
             plain_ms = timer.ms(lambda: lmhead_topk_plain(*args))
             ms = timer.ms(lambda: lmhead_topk(*args))
-            wbytes = nbytes(*quant) if layout == "int8" else nbytes(w)
-            b = bound(wbytes + nbytes(h, mask, vals, idx),
-                      2.0 * h.shape[0] * h.shape[1] * 128256)
+            flops = 2.0 * h.shape[0] * h.shape[1] * 128256
+            extra = {}
+            if layout == "int8":
+                # the int8 form multiplies on the tensor cores in bf16:
+                # three terms of h against each weight, exact products
+                # (csrc/lmhead_topk.cu)
+                b = bound(nbytes(*quant, h, mask, vals, idx), 3 * flops,
+                          BF16_FLOPS)
+                extra = dict(plan=lmhead_topk_plan(),
+                             unfused_product_ms=lm_head_ms,
+                             selection_and_merge_ms=ms - lm_head_ms)
+                print(f"lmhead_topk {name}: {ms:.4f} ms against the unfused "
+                      f"int8 LM-head product's {lm_head_ms:.4f} ms "
+                      f"(int8_matmul lm_head row): selection and merge "
+                      f"~{ms - lm_head_ms:.4f} ms; gpu: {gpu}", flush=True)
+            else:   # fp32 FMAs on the CUDA cores
+                b = bound(nbytes(w, h, mask, vals, idx), flops)
             rows.append(row("lmhead_topk", name, gpu, err, rel, ms, plain_ms,
-                            b, None, layout=layout, exact=exact))
+                            b, None, layout=layout, exact=exact,
+                            repeat_bit_identical=same, **extra))
         del h, w, quant, mask
     return rows
 
@@ -1309,7 +1337,8 @@ def generation_phase(dev, gpu, cfg, state):
         "steps", seconds / chunks3,
         lambda: pred.generate_context(tracks, max_new_tokens=N,
                                       generator=gen(7)),
-        totals=("int8_matmul_kernel", "attend_int8_kernel"))
+        totals=("int8_matmul_kernel", "attend_int8_kernel",
+                "head_tile_topk", "head_merge"))
     del pred
     torch.cuda.empty_cache()
 
@@ -1699,9 +1728,12 @@ def main() -> int:
     tiny = torch.zeros(4, device=dev)
     print(f"timer floor: one 4-element PyTorch add "
           f"{timer.ms(lambda: tiny.add_(1)):.4f} ms; gpu: {gpu}", flush=True)
+    int8_rows = int8_checks(dev, gpu, timer)
+    lm_head_ms = next(x["ms"] for x in int8_rows
+                      if x["shape"].startswith("lm_head M=16"))
     rows = {"flash_attn_fwd": flash_checks(dev, gpu, timer),
-            "int8_matmul": int8_checks(dev, gpu, timer),
-            "lmhead_topk": head_checks(dev, gpu, timer),
+            "int8_matmul": int8_rows,
+            "lmhead_topk": head_checks(dev, gpu, timer, lm_head_ms),
             "attend_int8_kv": attend_checks(dev, gpu, timer),
             **fused_checks(dev, gpu, timer)}
     reset_counts()

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -49,30 +48,13 @@ CHECKED = ("base", "ring3", "wide_4x4")   # variants that compute the function
 
 def build(sources: dict, out_dir: Path) -> dict:
     """nvcc each variant's source into a library, all at once."""
-    from tsue_tpu_torch.ops._build import ARCH_FLAGS, _nvcc
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = out_dir / f"{name}.cu"
-        src.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", str(out_dir / f"{name}.so"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-    libs = {}
+    from tsue_tpu_torch.ops._build import build_variants
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        cs.check(proc.returncode == 0, f"nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.flash_attn_splits.restype = i32
-        lib.flash_attn_splits.argtypes = [i32] * 7
-        lib.flash_attn_fwd.restype = i32
-        lib.flash_attn_fwd.argtypes = ([ptr] * 8 + [i32] * 6
-                                       + [i32, ctypes.c_float, i32, ptr])
-        libs[name] = lib
-    return libs
+    libs = build_variants(sources, out_dir, {
+        "flash_attn_splits": [i32] * 7,
+        "flash_attn_fwd": [ptr] * 8 + [i32] * 6 + [i32, ctypes.c_float,
+                                                  i32, ptr]})
+    return {name: lib for name, (lib, _) in libs.items()}
 
 
 def main() -> int:

@@ -188,30 +188,52 @@ def _exact_head(dev, g, B, D, V, layout):
                             device=dev).float(), None
 
 
+def _tie_runs(w, quant, V, step):
+    """Copy one column over the 16 columns around every multiple of
+    ``step`` (the kernel's tile and warp borders) and over the 80 around
+    V / 2: runs of one logit across the borders."""
+    starts = [(x - 8, min(x + 8, V)) for x in range(step, V, step)]
+    starts.append((V // 2 - 40, min(V // 2 + 40, V)))
+    for lo, hi in starts:
+        if quant is None:
+            w[lo:hi] = w[lo]
+        else:
+            w8, scale = quant
+            w8[:, lo:hi] = w8[:, lo:lo + 1]
+            scale[lo:hi] = scale[lo]
+
+
 @pytest.mark.parametrize("layout", ["tied_fp32", "int8"])
 def test_lmhead_topk_exact_ties_across_tiles(dev, layout):
-    """Tied logits straddling the 1024-column tile borders, a ragged last
-    tile, an all-banned row, penalised rows, and batches of 1, 16 and 20
-    rows (two row groups): indices and values identical to a stable
-    descending sort of the processed logits."""
+    """Tied logits straddling the tile borders and the int8 form's warp
+    borders (read from the kernel's plan), a ragged last tile, an
+    all-banned row, penalised rows, batches of 1, 16, 17 and 20 rows (two
+    row groups past 16), and 131 tiles (two rounds of the per-row merge,
+    which takes 127 tiles a round): indices and values identical to a
+    stable descending sort of the processed logits, and a repeated call
+    bit-identical."""
     g = torch.Generator(device=dev).manual_seed(7)
+    plan = LT.lmhead_topk_plan()
+    assert plan["tile_cols"] == 1024 and plan["tile_cols"] % plan[
+        "warp_cols"] == 0, plan
     D = 64
-    for B, V in ((1, 1024), (16, 3000), (20, 2176), (3, 128)):
+    for B, V in ((1, 1024), (16, 3000), (17, 2176), (20, 2176), (3, 128),
+                 (17, 131 * plan["tile_cols"] - 768)):
         h, w, quant = _exact_head(dev, g, B, D, V, layout)
-        if w is not None:                  # one tied value across a border
-            w[V // 2 - 40:V // 2 + 40] = w[V // 2]
-            if V > 1024:
-                w[1000:1100] = w[1000]
+        _tie_runs(w, quant, V, plan["warp_cols"])
         mask = torch.randint(0, 4, (B, V), generator=g, device=dev).int()
         mask[0] = 2                        # every token banned
         for m, pen in ((None, 1.0), (mask, 2.0), (mask, 1.0)):
             before = LT.lmhead_topk.launches
             vals, idx = LT.lmhead_topk(h, w, m, penalty=pen, quant=quant)
-            assert LT.lmhead_topk.launches == before + 1
+            again = LT.lmhead_topk(h, w, m, penalty=pen, quant=quant)
+            assert LT.lmhead_topk.launches == before + 2
             rv, ri = LT.lmhead_topk_plain(h, w, m, penalty=pen, quant=quant)
             torch.cuda.synchronize()
             assert torch.equal(idx, ri), (B, V, pen)
             assert torch.equal(vals, rv), (B, V, pen)
+            assert torch.equal(again[0], vals) and torch.equal(again[1],
+                                                               idx), (B, V)
         assert (rv[0] == -1e9).all() and torch.equal(
             ri[0], torch.arange(128, device=dev, dtype=torch.int32))
 

@@ -53,6 +53,11 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _nvcc_cmd(src: Path, out: Path) -> list:
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(src)]
+
+
 def build(name: str) -> Tuple[ctypes.CDLL, str]:
     """Compile ``csrc/<name>.cu`` (once per source version) and load it.
 
@@ -77,10 +82,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
             _loaded[name] = (ctypes.CDLL(str(lib_path)), "")
             continue
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        proc = subprocess.Popen(_nvcc_cmd(src, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         pending[name] = (proc, tmp, lib_path)
     failures = []
@@ -96,14 +98,47 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[ctypes.CDLL, str]]:
     return {name: _loaded[name] for name in names}
 
 
-def bind(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
-    """``build(name)`` and declare its C functions: each returns an int (a
-    CUDA error code, or a size) and takes the given ctypes arguments."""
-    lib, _ = build(name)
+def build_variants(sources: Dict[str, str], out_dir: Path,
+                   signatures: Dict[str, Sequence]
+                   ) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Compile text variants of one kernel source (name -> CUDA C++ text)
+    into ``out_dir``, one ``nvcc`` each, all started together, load each
+    and declare ``signatures`` as ``bind`` does.  Returns name -> (library,
+    ptxas report).  For the scripts that time variants side by side;
+    nothing is cached."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            _nvcc_cmd(src, out_dir / f"{name}.so"), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    libs, failures = {}, []
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for variant {name}:\n{err}")
+            continue
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        libs[name] = (_declare(lib, signatures), err)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
+def _declare(lib: ctypes.CDLL, signatures: Dict[str, Sequence]
+             ) -> ctypes.CDLL:
     for fn, argtypes in signatures.items():
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = list(argtypes)
     return lib
+
+
+def bind(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """``build(name)`` and declare its C functions: each returns an int (a
+    CUDA error code, or a size) and takes the given ctypes arguments."""
+    return _declare(build(name)[0], signatures)
 
 
 def uses_kernel(t: torch.Tensor, what: str) -> bool:

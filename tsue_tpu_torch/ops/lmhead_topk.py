@@ -82,7 +82,20 @@ def _lib():
         "lmhead_topk": [ptr, ptr, ptr, ptr, ptr,        # h w w8 scale mask
                         ctypes.c_float, ptr, ptr, ptr,  # penalty cand vals idx
                         i32, i32, i32, ptr],            # B D V stream
-        "lmhead_topk_tile": []})
+        "lmhead_topk_plan": [i32]})                     # field
+
+
+PLAN_FIELDS = ("tile_cols", "warp_cols", "k_rows_per_stage", "stages",
+               "smem_bytes")
+
+
+def lmhead_topk_plan() -> dict:
+    """The kernel's layout (builds the kernel): the vocab columns a CTA
+    (both forms), and for the int8 form the columns a warp owns, the K
+    rows a stage of its cp.async ring, the ring's stages and the shared
+    memory a CTA asks for."""
+    lib = _lib()
+    return {f: lib.lmhead_topk_plan(i) for i, f in enumerate(PLAN_FIELDS)}
 
 
 def _lmhead_cuda(hidden, weight, mask, penalty, quant):
@@ -110,7 +123,7 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         check_tensor("mask", mask, dev, (B, V), torch.int32, True)
         mask_ptr = mask.data_ptr()
     lib = _lib()
-    n_tiles = -(-V // lib.lmhead_topk_tile())
+    n_tiles = -(-V // lib.lmhead_topk_plan(0))
     cand = torch.empty(B, n_tiles, LANES, device=dev, dtype=torch.int64)
     vals = torch.empty(B, LANES, device=dev, dtype=torch.float32)
     idx = torch.empty(B, LANES, device=dev, dtype=torch.int32)
