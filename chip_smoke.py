@@ -15,9 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      is one; the two decode kernels also with their launch plans (K or key
      splits across a thread block cluster, CTAs) and a repeated call that
      must give the same bits, the int8 product also at M = 1 and 128; the
-     fused head with its layout, a repeated call that must give the same
-     bits and, for its int8 form, the unfused int8 LM-head product's time
-     beside its own (the difference is the selection and merge);
+     fused head with each form's layout, a repeated call that must give
+     the same bits and the unfused product's time beside its own (the
+     int8 LM-head product, or cuBLAS fp32 for the tied form; the
+     difference is the selection and merge);
      NLinear, the fused LoRA product and the per-sample ADE/FDE,
      which no path of the JAX package calls, at the shapes where they
      would sit (their launches here are the only ones, and are reported
@@ -44,7 +45,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      repeated request whose ids must be equal, the launch count of each
      kernel against the expected count, a torch.profiler trace of one
      request for the device's busy share and the two decode kernels'
-     device totals, and one greedy request with the three switches off;
+     device totals; the same with the fused head alone (fp32 weights and
+     KV cache, the tied fp32 head: two requests, a repeated one, launch
+     counts, the head's device time in a trace of one chunk); and one
+     greedy request with the three switches off;
   7. training at the same width (fp32, the fused switch on, random weights
      from a seed), for the presets "train_18_30" (frozen_mllm, batch 16)
      and "lora_only_18_18" (batch 8): the launch counts of one step's
@@ -80,6 +84,7 @@ PX_TOL = 1e-2                      # pixels, small-config predict vs the CPU
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet, at 700 W
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores, same sheet
 BF16_FLOPS = 989e12                # bf16 tensor cores, dense, same sheet
+TF32_FLOPS = 495e12                # TF32 tensor cores, dense, same sheet
 KERNELS = {
     "flash_attn_fwd": (
         "tsue_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -396,9 +401,11 @@ def head_checks(dev, gpu, timer, lm_head_ms):
     """The fused head at the decode shape (B 16, V 128256), both layouts,
     on exact inputs (indices and values identical to the plain version)
     and random ones (values within TOL, index sets equal apart from ties),
-    each with a second call that must give the same bits.  ``lm_head_ms``
-    is the unfused int8 LM-head product's time (int8_checks' lm_head row):
-    the int8 form's time less it is what the selection and merge cost."""
+    each with a second call that must give the same bits.  Beside each
+    form, the unfused product's time: for the int8 form ``lm_head_ms``
+    (int8_checks' lm_head row), for the tied form ``h @ w.t()`` in cuBLAS
+    fp32 with TF32 off (timed only, never called by the port); the form's
+    time less it is what the selection and merge cost."""
     import torch
     from tsue_tpu_torch.ops.lmhead_topk import (LANES, lmhead_topk,
                                                 lmhead_topk_plain,
@@ -451,25 +458,32 @@ def head_checks(dev, gpu, timer, lm_head_ms):
             plain_ms = timer.ms(lambda: lmhead_topk_plain(*args))
             ms = timer.ms(lambda: lmhead_topk(*args))
             flops = 2.0 * h.shape[0] * h.shape[1] * 128256
-            extra = {}
             if layout == "int8":
                 # the int8 form multiplies on the tensor cores in bf16:
                 # three terms of h against each weight, exact products
                 # (csrc/lmhead_topk.cu)
                 b = bound(nbytes(*quant, h, mask, vals, idx), 3 * flops,
                           BF16_FLOPS)
-                extra = dict(plan=lmhead_topk_plan(),
-                             unfused_product_ms=lm_head_ms,
-                             selection_and_merge_ms=ms - lm_head_ms)
-                print(f"lmhead_topk {name}: {ms:.4f} ms against the unfused "
-                      f"int8 LM-head product's {lm_head_ms:.4f} ms "
-                      f"(int8_matmul lm_head row): selection and merge "
-                      f"~{ms - lm_head_ms:.4f} ms; gpu: {gpu}", flush=True)
-            else:   # fp32 FMAs on the CUDA cores
-                b = bound(nbytes(w, h, mask, vals, idx), flops)
+                unfused_ms, unfused = lm_head_ms, ("unfused int8 LM-head "
+                                                   "product (int8_matmul "
+                                                   "lm_head row)")
+            else:
+                # the tied form multiplies on the tensor cores in TF32:
+                # three products of big and small terms (csrc/lmhead_topk.cu)
+                b = bound(nbytes(w, h, mask, vals, idx), 3 * flops,
+                          TF32_FLOPS)
+                unfused_ms = timer.ms(lambda: h @ w.t())
+                unfused = "unfused product h @ w.t() (cuBLAS fp32, TF32 off)"
+            print(f"lmhead_topk {name}: {ms:.4f} ms against the {unfused}'s "
+                  f"{unfused_ms:.4f} ms: selection and merge "
+                  f"~{ms - unfused_ms:.4f} ms; bound {b[0]:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; gpu: {gpu}", flush=True)
             rows.append(row("lmhead_topk", name, gpu, err, rel, ms, plain_ms,
                             b, None, layout=layout, exact=exact,
-                            repeat_bit_identical=same, **extra))
+                            repeat_bit_identical=same,
+                            plan=lmhead_topk_plan(layout),
+                            unfused_product_ms=unfused_ms,
+                            selection_and_merge_ms=ms - unfused_ms))
         del h, w, quant, mask
     return rows
 
@@ -1210,13 +1224,14 @@ def read_counts():
 
 
 def profile_device(dev, gpu, what: str, wall_s: float, fn,
-                   totals=()) -> None:
+                   totals=()) -> dict:
     """Run ``fn`` once under torch.profiler and print the device's busy
     time, its busy and idle shares against ``wall_s`` (the unprofiled wall
     time of the same work: the trace's own host cost stretches its wall
     time, so the share under the trace is printed beside it), the ten
     kernels with the most device time and, for each name in ``totals``,
-    the device time and calls of every kernel whose name holds it."""
+    the device time and calls of every kernel whose name holds it.
+    Returns those device times in ms, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1237,12 +1252,13 @@ def profile_device(dev, gpu, what: str, wall_s: float, fn,
                     reverse=True)[:10]:
         print(f"  {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
               f"{e.count} calls", flush=True)
+    out = {}
     for name in totals:
         hits = [e for e in device if name in e.key]
-        print(f"{what}: {name} total "
-              f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
-              f"in {sum(e.count for e in hits)} calls; gpu: {gpu}",
-              flush=True)
+        out[name] = sum(e.self_device_time_total for e in hits) / 1e3
+        print(f"{what}: {name} total {out[name]:.3f} ms in "
+              f"{sum(e.count for e in hits)} calls; gpu: {gpu}", flush=True)
+    return out
 
 
 def request_stats(pred):
@@ -1253,6 +1269,52 @@ def request_stats(pred):
     prefill = [c["prefill_ms"] / 1e3 for c in ch]
     decode_ms = sum(c["decode_ms"] for c in ch) / max(steps, 1)
     return len(ch), steps, prefill, decode_ms
+
+
+def timed_requests(dev, gpu, pred, label: str, seeds):
+    """``generate_context`` on 32 tracks for each seed (64 new tokens, the
+    seed's generator), each printed with its numbers, then the first
+    seed's request again, whose ids must be equal.  Returns (chunks,
+    steps, seconds) of the timed requests and (chunks, steps) with the
+    repeat."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import make_synthetic_tracks
+
+    B, N = 16, GEN_NEW_TOKENS
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    chunks = steps = 0
+    seconds = 0.0
+    first = None
+    for seed in seeds:
+        tracks = make_synthetic_tracks(num_tracks=32, track_len=400, seed=seed)
+        t0 = time.perf_counter()
+        out = pred.generate_context(tracks, max_new_tokens=N,
+                                    generator=gen(seed))
+        dt = time.perf_counter() - t0
+        c, s, prefill, step_ms = request_stats(pred)
+        chunks, steps, seconds = chunks + c, steps + s, seconds + dt
+        ids = pred.last_request["ids"]
+        check(len(out) == 32 and ids.shape == (32, N), f"{label}: shapes")
+        check(all(isinstance(r["context"], str) for r in out),
+              f"{label}: text records")
+        check(len(np.unique(ids)) > 32, f"{label}: degenerate ids")
+        print(f"{label} request seed={seed}: 32 tracks in {dt:.3f}s, "
+              f"{c} chunks, {s} decode steps, prefill "
+              f"{', '.join(f'{p:.4f}' for p in prefill)} s per chunk, "
+              f"{step_ms:.3f} ms per decode step (device events), "
+              f"{B * s / dt:.1f} generated tokens/s; gpu: {gpu}", flush=True)
+        if first is None:
+            first = (tracks, ids.copy())
+    tracks, ids = first
+    pred.generate_context(tracks, max_new_tokens=N, generator=gen(seeds[0]))
+    c, s, _, _ = request_stats(pred)
+    check(np.array_equal(pred.last_request["ids"], ids),
+          f"{label}: a repeated request with an equal generator differs")
+    return chunks, steps, seconds, chunks + c, steps + s
 
 
 def generation_phase(dev, gpu, cfg, state):
@@ -1282,36 +1344,8 @@ def generation_phase(dev, gpu, cfg, state):
           f"{time.time() - t0:.1f}s", flush=True)
 
     reset_counts()
-    chunks = steps = 0
-    seconds = 0.0
-    first = None
-    for seed in (1, 2, 3):
-        tracks = make_synthetic_tracks(num_tracks=32, track_len=400, seed=seed)
-        t0 = time.perf_counter()
-        out = pred.generate_context(tracks, max_new_tokens=N,
-                                    generator=gen(seed))
-        dt = time.perf_counter() - t0
-        c, s, prefill, step_ms = request_stats(pred)
-        chunks, steps, seconds = chunks + c, steps + s, seconds + dt
-        ids = pred.last_request["ids"]
-        check(len(out) == 32 and ids.shape == (32, N), "generate: shapes")
-        check(all(isinstance(r["context"], str) for r in out),
-              "generate: text records")
-        check(len(np.unique(ids)) > 32, "generate: degenerate ids")
-        print(f"generate request seed={seed}: 32 tracks in {dt:.3f}s, "
-              f"{c} chunks, {s} decode steps, prefill "
-              f"{', '.join(f'{p:.4f}' for p in prefill)} s per chunk, "
-              f"{step_ms:.3f} ms per decode step (device events), "
-              f"{B * s / dt:.1f} generated tokens/s; gpu: {gpu}", flush=True)
-        if first is None:
-            first = (tracks, ids.copy())
-    chunks3 = chunks
-    tracks, ids = first
-    pred.generate_context(tracks, max_new_tokens=N, generator=gen(1))
-    c, s, _, _ = request_stats(pred)
-    chunks, steps = chunks + c, steps + s
-    check(np.array_equal(pred.last_request["ids"], ids),
-          "generate: a repeated request with an equal generator differs")
+    chunks3, steps3, seconds, chunks, steps = timed_requests(
+        dev, gpu, pred, "generate", (1, 2, 3))
     counts = read_counts()
     expected = {"flash_attn_fwd": chunks * (L + qformer_calls),
                 "int8_matmul": steps * 7 * L, "lmhead_topk": steps,
@@ -1322,8 +1356,8 @@ def generation_phase(dev, gpu, cfg, state):
           flush=True)
     check(counts == expected, f"generate: launches {counts} != {expected}")
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print(f"generate: 3 requests, {B * (steps - s)} generated tokens in "
-          f"{seconds:.3f}s = {B * (steps - s) / seconds:.1f} tokens/s "
+    print(f"generate: 3 requests, {B * steps3} generated tokens in "
+          f"{seconds:.3f}s = {B * steps3 / seconds:.1f} tokens/s "
           f"(batch {B}, {N} new tokens, int8 weights + fused head + int8 "
           f"KV); peak memory {peak:.2f} GiB; gpu: {gpu}", flush=True)
 
@@ -1341,6 +1375,7 @@ def generation_phase(dev, gpu, cfg, state):
                 "head_tile_topk", "head_merge"))
     del pred
     torch.cuda.empty_cache()
+    head_counts = fused_head_requests(dev, gpu, cfg, state)
 
     # one greedy request with the three switches off
     plain = Predictor(cfg, state, batch_size=B, device=dev)
@@ -1367,7 +1402,67 @@ def generation_phase(dev, gpu, cfg, state):
                           f"{exp_off}")
     del plain
     torch.cuda.empty_cache()
-    return counts, off
+    return counts, head_counts, off
+
+
+def fused_head_requests(dev, gpu, cfg, state):
+    """generate_context with the fused head alone (fp32 decode weights, the
+    fp32 KV cache, the tied fp32 embedding as the head): a warmup, two
+    requests of 32 tracks, a repeated request whose ids must be equal, the
+    launch counts against the expected table, and a torch.profiler trace
+    of one chunk with the head's device time.  Returns the launches."""
+    import torch
+    from tsue_tpu_torch.data import make_synthetic_tracks
+    from tsue_tpu_torch.serve import Predictor
+
+    B, N = 16, GEN_NEW_TOKENS
+    m = cfg.model
+    L = m.llama.num_layers
+    qformer_calls = m.qformer.num_encoder_layers + \
+        2 * m.qformer.num_decoder_layers
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    t0 = time.time()
+    pred = Predictor(cfg, state, batch_size=B, fused_head=True, device=dev)
+    warm = make_synthetic_tracks(num_tracks=B, track_len=400, seed=100)
+    pred.generate_context(warm, max_new_tokens=N, generator=gen(0))
+    torch.cuda.synchronize(dev)
+    print(f"generate, fused head alone: predictor + warmup "
+          f"{time.time() - t0:.1f}s", flush=True)
+    reset_counts()
+    chunks2, steps2, seconds2, chunks, steps = timed_requests(
+        dev, gpu, pred, "generate, fused head alone", (1, 2))
+    counts = read_counts()
+    expected = {"flash_attn_fwd": chunks * (L + qformer_calls) + steps * L,
+                "int8_matmul": 0, "lmhead_topk": steps, "attend_int8_kv": 0,
+                "rmsnorm": 0, "swiglu_matmul": 0,
+                **dict.fromkeys(NO_PATH, 0)}
+    print(f"generate, fused head alone: launches {json.dumps(counts)} over "
+          f"{chunks} chunks and {steps} decode steps, expected "
+          f"{json.dumps(expected)}", flush=True)
+    check(counts == expected, f"generate, fused head alone: launches "
+                              f"{counts} != {expected}")
+    print(f"generate, fused head alone: 2 requests, {B * steps2} "
+          f"generated tokens in {seconds2:.3f}s = "
+          f"{B * steps2 / seconds2:.1f} tokens/s (batch {B}, {N} new "
+          f"tokens, fp32 weights + fused tied fp32 head + fp32 KV); gpu: "
+          f"{gpu}", flush=True)
+    tracks = make_synthetic_tracks(num_tracks=16, track_len=400, seed=7)
+    head = profile_device(
+        dev, gpu, f"generate, fused head alone, profile: one chunk of 16 "
+        f"tracks, {N} decode steps", seconds2 / chunks2,
+        lambda: pred.generate_context(tracks, max_new_tokens=N,
+                                      generator=gen(7)),
+        totals=("head_tile_topk", "head_merge"))
+    print(f"generate, fused head alone: the head's device time "
+          f"{sum(head.values()):.3f} ms per chunk of {N} decode steps "
+          f"({sum(head.values()) / N:.4f} ms a step); gpu: {gpu}",
+          flush=True)
+    del pred
+    torch.cuda.empty_cache()
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1748,7 +1843,8 @@ def main() -> int:
     cfg, state = full_width_state(dev)
     predict_counts, fused_predict_counts = predict_phase(dev, gpu, cfg,
                                                          state)
-    gen_counts, off_counts = generation_phase(dev, gpu, cfg, state)
+    gen_counts, head_counts, off_counts = generation_phase(dev, gpu, cfg,
+                                                           state)
     del state
     torch.cuda.empty_cache()
     train_counts = {preset: train_phase(dev, gpu, preset)
@@ -1788,6 +1884,7 @@ def main() -> int:
         "predict": predict_counts.get(name, 0),
         "predict_fused": fused_predict_counts[name],
         "generate_all_switches": gen_counts[name],
+        "generate_fused_head": head_counts[name],
         "generate_switches_off": off_counts[name],
         **{f"train {p} (3 steps)": train_counts[p][name]
            for p in TRAIN_PRESETS},

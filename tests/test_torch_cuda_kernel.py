@@ -203,22 +203,42 @@ def _tie_runs(w, quant, V, step):
             scale[lo:hi] = scale[lo]
 
 
+def test_lmhead_topk_plan_layouts(dev):
+    """Both forms tile the vocabulary in the same 1024 columns, split the
+    tile evenly across their warps and fit their ring and keys in a
+    block's shared memory; an unknown layout raises."""
+    plans = {layout: LT.lmhead_topk_plan(layout) for layout in LT.LAYOUTS}
+    for layout, plan in plans.items():
+        assert plan["tile_cols"] == 1024, plan
+        assert plan["warp_cols"] * plan["threads"] // 32 == 1024, plan
+        assert plan["stages"] >= 2 and plan["k_rows_per_stage"] % 8 == 0
+        assert 16 * 1024 * 8 <= plan["smem_bytes"] <= 232448, plan
+    with pytest.raises(ValueError, match="layout"):
+        LT.lmhead_topk_plan("bf16")
+
+
 @pytest.mark.parametrize("layout", ["tied_fp32", "int8"])
 def test_lmhead_topk_exact_ties_across_tiles(dev, layout):
-    """Tied logits straddling the tile borders and the int8 form's warp
-    borders (read from the kernel's plan), a ragged last tile, an
-    all-banned row, penalised rows, batches of 1, 16, 17 and 20 rows (two
-    row groups past 16), and 131 tiles (two rounds of the per-row merge,
-    which takes 127 tiles a round): indices and values identical to a
-    stable descending sort of the processed logits, and a repeated call
+    """Tied logits straddling the tile borders and the form's own warp
+    borders (read from its plan), a ragged last tile, an all-banned row,
+    penalised rows, batches of 1, 16, 17 and 20 rows (two row groups past
+    16), and 131 tiles (two rounds of the per-row merge, which takes 127
+    tiles a round) at 17 and 20 rows; D a multiple of the form's stage
+    depth and D = 100, a multiple of 4 but not of the depth (a last stage
+    zero-filled past D): indices and values identical to a stable
+    descending sort of the processed logits, and a repeated call
     bit-identical."""
     g = torch.Generator(device=dev).manual_seed(7)
-    plan = LT.lmhead_topk_plan()
+    plan = LT.lmhead_topk_plan(layout)
     assert plan["tile_cols"] == 1024 and plan["tile_cols"] % plan[
         "warp_cols"] == 0, plan
-    D = 64
-    for B, V in ((1, 1024), (16, 3000), (17, 2176), (20, 2176), (3, 128),
-                 (17, 131 * plan["tile_cols"] - 768)):
+    assert 100 % plan["k_rows_per_stage"], plan
+    n131 = 131 * plan["tile_cols"] - 768
+    for D, (B, V) in itertools.chain(
+            itertools.product([4 * plan["k_rows_per_stage"]],
+                              ((1, 1024), (16, 3000), (17, 2176),
+                               (20, 2176), (3, 128), (17, n131))),
+            itertools.product([100], ((16, 3000), (17, n131), (20, n131)))):
         h, w, quant = _exact_head(dev, g, B, D, V, layout)
         _tie_runs(w, quant, V, plan["warp_cols"])
         mask = torch.randint(0, 4, (B, V), generator=g, device=dev).int()
@@ -230,15 +250,18 @@ def test_lmhead_topk_exact_ties_across_tiles(dev, layout):
             assert LT.lmhead_topk.launches == before + 2
             rv, ri = LT.lmhead_topk_plain(h, w, m, penalty=pen, quant=quant)
             torch.cuda.synchronize()
-            assert torch.equal(idx, ri), (B, V, pen)
-            assert torch.equal(vals, rv), (B, V, pen)
+            assert torch.equal(idx, ri), (D, B, V, pen)
+            assert torch.equal(vals, rv), (D, B, V, pen)
             assert torch.equal(again[0], vals) and torch.equal(again[1],
-                                                               idx), (B, V)
+                                                               idx), (D, B, V)
         assert (rv[0] == -1e9).all() and torch.equal(
             ri[0], torch.arange(128, device=dev, dtype=torch.int32))
 
 
 def test_lmhead_topk_random_close(dev):
+    """Random inputs at the decode shape, both forms: values within TOL of
+    the plain version, nearly all indices equal (the rest ties within
+    TOL), and a repeated call bit-identical."""
     g = torch.Generator(device=dev).manual_seed(8)
     B, D, V = 16, 2048, 128256
     h = torch.randn(B, D, generator=g, device=dev)
@@ -246,10 +269,12 @@ def test_lmhead_topk_random_close(dev):
     w8, s = Q.quantize_weight(w, axis=1)
     for weight, quant in ((w, None), (None, (w8.t().contiguous(), s))):
         vals, idx = LT.lmhead_topk(h, weight, None, quant=quant)
+        again = LT.lmhead_topk(h, weight, None, quant=quant)
         rv, ri = LT.lmhead_topk_plain(h, weight, None, quant=quant)
         torch.cuda.synchronize()
         torch.testing.assert_close(vals, rv, **TOL)
         assert (idx == ri).float().mean() > 0.99
+        assert torch.equal(again[0], vals) and torch.equal(again[1], idx)
 
 
 @pytest.mark.parametrize("D", KV.SUPPORTED_HEAD_DIMS)

@@ -186,3 +186,12 @@ def test_topk_topp_slots_and_greedy_chain_equal():
                                 torch.from_numpy(hlen).long(),
                                 TS.SamplingConfig(**greedy))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_plan_rejects_an_unknown_layout():
+    """The kernel's plan names its two forms and checks the name before it
+    builds anything, so a wrong layout fails the same way with or without
+    a card."""
+    assert TL.LAYOUTS == ("int8", "tied_fp32")
+    with pytest.raises(ValueError, match="layout"):
+        TL.lmhead_topk_plan("bf16")

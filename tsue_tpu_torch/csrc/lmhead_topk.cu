@@ -29,11 +29,12 @@
 //
 // The two forms differ in how a tile's logits are computed.
 //
-// int8 head (head_tile_topk_i8; the form generation runs).  What bounds it
-// on an H100: the weight stream, 263 MB at D 2048, V 128256, over 3.35 TB/s
-// = 0.079 ms, plus the 8.2 MB mask.  In fp32 FMAs on the CUDA cores its 4.2 G
-// multiply-adds would need 0.125 ms, and each FMA group would also pay a
-// conversion and a shared load, so the products run on the tensor cores,
+// int8 head (head_tile_topk_i8; the form generation runs with int8
+// weights).  What bounds it on an H100: the weight stream, 263 MB at D
+// 2048, V 128256, over 3.35 TB/s = 0.079 ms, plus the 8.2 MB mask.  In
+// fp32 FMAs on the CUDA cores its 4.2 G multiply-adds would need 0.125 ms,
+// and each FMA group would also pay a conversion and a shared load, so the
+// products run on the tensor cores,
 // exactly, with the scheme of csrc/int8_matmul.cu (its helpers are copied
 // below, not shared: the build cache keys on this one file):
 //   - an int8 weight is exact in bf16, and h splits by truncation into three
@@ -77,28 +78,60 @@
 // copies (TMA) of the 1 KB rows, instead of the block-wide barrier a stage.
 // head_variants.py times the other shapes tried.
 //
-// fp32 tied head (head_tile_topk_f32, unchanged since it was first
-// written): each thread owns 4 columns and 16 rows of fp32 FMAs, h staged
-// in shared memory, the (V, D) rows staged transposed through shared
-// memory, synchronous loads.  Its bound is the 1.05 GB weight stream.
+// fp32 tied head (head_tile_topk_f32; the form generation runs with the
+// fused head alone).  What bounds it: the weight stream, 1.05 GB of fp32
+// (V, D) rows at D 2048, V 128256, over 3.35 TB/s = 0.316 ms.  The same
+// shape as the int8 form (512 threads, 16 warps each owning 64 columns of
+// the tile for all of D, 32 accumulators a thread, the ring in the keys'
+// space), with:
+//   - the products on the tensor cores in 3xTF32: each factor splits into
+//     big (its leading 11 bits, the rest masked off) and small = x - big,
+//     and mma.sync.m16n8k8 (tf32 in, fp32 accumulate) adds small.big,
+//     big.small and big.big; small.small (2^-22 relative) is dropped.  On
+//     integer inputs small is 0 and every partial sum an exact integer, so
+//     the keys equal the plain version's bit for bit;
+//   - the (V, D) rows staged as they lie, unpadded: a stage is 16 D
+//     positions of the tile's 1024 rows (64 KB) and of h's 16 rows.  An
+//     m16n8k8 B fragment is a column of w, i.e. a row of the tile, so no
+//     transpose is needed: lane (g, q) reads one float4 of its row at 4 q
+//     and one of rows g, g + 8 of h, and uses its floats 2 s, 2 s + 1 as
+//     the slots q, q + 4 of k8 step s in A and B alike (the sum over a
+//     stage's 16 positions is the same in any slot order).  A quarter warp
+//     reads two 64-byte rows: 32 distinct banks, no padding;
+//   - 16-byte cp.async copies with an L2 prefetch of the 128-byte line
+//     around each (.L2::128B): a stage reads 64 bytes of each row, rows
+//     8 KB apart, and without the hint device memory served those pieces
+//     at 1.9 TB/s; the row's next stage finds its half of the line in L2.
+//     3 stages (195 KB), one barrier a stage, rows past V and positions
+//     past D zero-filled.
+// head_variants.py, on an H100 80GB HBM3 at 700 W (L2 flushed, B 16, V
+// 128256, D 2048, min of two rounds, two calls): the whole 0.519-0.523 ms
+// (chip_smoke.py: 0.518-0.522; the FMA form it replaces 0.954-0.967, its
+// plain version 0.80-0.82, cuBLAS's fp32 product alone 0.506-0.510); the
+// tile kernel without its selection 0.392-0.395, its copies alone
+// 0.379-0.381 (2.8 TB/s), its arithmetic alone 0.152-0.154; the selection
+// and merge 0.127-0.128.  Tried and slower: no L2 hint 0.699-0.704
+// (copies alone 0.564), .L2::256B 0.535-0.537, 8 D positions a stage (3
+// or 6 stages) 0.547-0.555, 256 threads with 128 columns a warp
+// 0.600-0.608; 2 stages of 16 took the same 0.519-0.524.
 //
-// On an H100 80GB HBM3 at 700 W (L2 flushed, B 16, V 128256, D 2048): the
-// int8 form 0.288 ms in chip_smoke.py's kernel phase (the FMA form it
-// replaces took 0.547; bytes bound 0.081).  head_variants.py, in the same
-// call, puts 0.157 in the product (its copies alone 0.109, its arithmetic
-// alone 0.114), 0.105 in the tile's selection and 0.028 in head_merge; the
-// unfused int8 product (csrc/int8_matmul.cu) takes 0.152.  With 256
-// threads the product took 0.150 and the whole 0.354.  The tied fp32 form
-// 0.954-0.967 ms (chip_smoke.py; bound 0.316).
+// On the same card the int8 form 0.285-0.288 ms in chip_smoke.py's kernel
+// phase (the FMA form it replaced took 0.547; bytes bound 0.081).
+// head_variants.py puts 0.153-0.157 in its product (its copies alone
+// 0.108, its arithmetic alone 0.113), 0.105 in the tile's selection and
+// 0.028 in head_merge; the unfused int8 product (csrc/int8_matmul.cu) takes
+// 0.151.  With 256 threads the product took 0.147-0.150 and the whole
+// 0.348-0.354.
 //
 // ptxas (nvcc -Xptxas -v, sm_90a), with the dynamic shared memory a launch
 // asks for:
 //   head_tile_topk_i8   122 registers, no spills, 128.0 KB (512 threads)
-//   head_tile_topk_f32  128 registers, no spills, 193.3 KB (256 threads)
+//   head_tile_topk_f32  109 registers, no spills, 195.0 KB (512 threads)
 //   head_merge           32 registers, no spills, 128.0 KB (1024 threads)
 //
 // Plain C interface, loaded with ctypes by tsue_tpu_torch/ops/lmhead_topk.py:
-// lmhead_topk_plan(field) reports the layout, lmhead_topk(...) launches.
+// lmhead_topk_plan(tied, field) reports a form's layout, lmhead_topk(...)
+// launches.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,7 +139,6 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // vocab columns per CTA
 constexpr int kRows = 16;              // batch rows per pass over the tile
 constexpr int kSeg = 128;              // output width = segment length
@@ -115,11 +147,7 @@ constexpr int kMergeSegs = 128;        // segments held by head_merge
 constexpr int kKeyBytes = kRows * kTile * (int)sizeof(u64);   // 128 KB
 constexpr float kBanned = -1e9f;
 
-// fp32 tied form: 4 columns a thread, 16 K rows a stage
-constexpr int kF32DChunk = 16;
-constexpr int kWsStride = kTile + 4;   // padded row of the staged fp32 tile
-constexpr int kF32Smem = kKeyBytes + kRows * kF32DChunk * 4 +
-                         kF32DChunk * kWsStride * 4;
+constexpr int kMaxSmem = 232448;       // a block's limit on the H100
 
 // int8 form: 64 columns a warp, 32 K rows a stage, the ring in the keys'
 // space
@@ -136,6 +164,23 @@ constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kI8Smem = kRingBytes > kKeyBytes ? kRingBytes : kKeyBytes;
 static_assert(kStages >= 3, "the ring holds at least three stages");
 static_assert(kKS % 16 == 0 && kGroups >= 1, "whole k16 steps and groups");
+
+// fp32 tied form: 64 columns a warp (8 n8 tiles), kF32KS D positions a
+// stage, the ring in (and past) the keys' space
+constexpr int kF32Threads = 512;
+constexpr int kF32WarpCols = kTile / (kF32Threads / 32);
+constexpr int kF32NTiles = kF32WarpCols / 8;
+constexpr int kF32KS = 16;              // D positions a stage
+constexpr int kF32Stages = 3;
+constexpr int kF32Vec = kF32KS / 4;     // floats a lane reads of a staged row
+constexpr int kF32Steps = kF32KS / 8;   // k8 steps a stage
+constexpr int kF32StageBytes = (kTile + kRows) * kF32KS * 4;
+constexpr int kF32RingBytes = kF32Stages * kF32StageBytes;
+constexpr int kF32Smem = kF32RingBytes > kKeyBytes ? kF32RingBytes
+                                                   : kKeyBytes;
+static_assert(kF32KS == 8 || kF32KS == 16, "conflict-free reads need 8 or 16");
+static_assert(kF32Stages >= 2 && kF32Smem <= kMaxSmem, "the ring fits");
+static_assert(kF32NTiles >= 1, "whole n8 tiles a warp");
 
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
   if (f == 0.f) f = 0.f;               // -0 and +0 are one value
@@ -436,81 +481,157 @@ head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
 
 // ---- the fp32 tied form -------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+// fp32 -> (big, small) for the tensor cores: big keeps the 11 significant
+// bits a tf32 operand holds (the rest masked off), small = x - big exactly,
+// of which the mma uses the leading bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16-byte copy of a row of w that also asks L2 for the 128-byte line
+// around it: a stage reads kF32KS * 4 = 64 bytes of each of the tile's
+// rows, D * 4 bytes apart, so device memory serves whole lines and the
+// row's next stage finds its half of the line in L2.
+__device__ __forceinline__ void cp16_w(void* dst, const void* src,
+                                       int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// kF32Vec consecutive floats of a staged row (16 or 8 bytes).
+__device__ __forceinline__ void lds_vec(float (&v)[kF32Vec], const float* p) {
+  if constexpr (kF32Vec == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x; v[1] = f.y;
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
 head_tile_topk_f32(const float* __restrict__ h, const float* __restrict__ w,
                    const int32_t* __restrict__ mask, float penalty,
                    u64* __restrict__ cand, int B, int D, int V, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // keys [kRows][kTile], hs [kRows][kF32DChunk], ws [kF32DChunk][kWsStride]
+  // the ring during the product, the keys [kRows][kTile] after it
   u64* keys = reinterpret_cast<u64*>(smem_raw);
-  float* hs = reinterpret_cast<float*>(keys + kRows * kTile);
-  float* ws = hs + kRows * kF32DChunk;
-  const int tile = blockIdx.x;
-  const int v0 = tile * kTile;
-  const int c0 = threadIdx.x * 4;
-  const bool cols_in = v0 + c0 < V;    // V % 4 == 0: all 4 columns or none
+  const int tile = blockIdx.x, v0 = tile * kTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wc = warp * kF32WarpCols;   // the warp's first column
+  const int nst = (D + kF32KS - 1) / kF32KS;
+  constexpr int CPR = kF32KS / 4;       // 16-byte chunks a row a stage
 
   for (int b0 = 0; b0 < B; b0 += kRows) {
-    float acc[kRows][4];
+    // stage st: w[v0 + r, k0:k0 + kF32KS] as row r of the tile (the rows as
+    // they lie, unpadded), then h[b0 + r, k0:k0 + kF32KS]; zero past V, B
+    // and D (D % 4 == 0: a 16-byte chunk is all in or all out)
+    auto load_stage = [&](int st) {
+      float* ws = reinterpret_cast<float*>(smem_raw +
+                                           (st % kF32Stages) * kF32StageBytes);
+      float* xs = ws + kTile * kF32KS;
+      const int k0 = st * kF32KS;
+      for (int i = tid; i < kTile * CPR; i += kF32Threads) {
+        const int r = i / CPR, c = (i % CPR) * 4;
+        const bool ok = v0 + r < V && k0 + c < D;
+        cp16_w(ws + r * kF32KS + c,
+               ok ? w + (size_t)(v0 + r) * D + k0 + c : w, ok ? 16 : 0);
+      }
+      for (int i = tid; i < kRows * CPR; i += kF32Threads) {
+        const int r = i / CPR, c = (i % CPR) * 4;
+        const bool ok = b0 + r < B && k0 + c < D;
+        cp16(xs + r * kF32KS + c, ok ? h + (size_t)(b0 + r) * D + k0 + c : h,
+             ok ? 16 : 0);
+      }
+    };
+
+    float acc[kF32NTiles][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int t = 0; t < kF32NTiles; ++t) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
     }
-    for (int d0 = 0; d0 < D; d0 += kF32DChunk) {
-      const int dn = min(kF32DChunk, D - d0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < kRows * kF32DChunk; i += kThreads) {
-        const int r = i / kF32DChunk, dd = i % kF32DChunk;
-        hs[i] = (b0 + r < B && dd < dn) ? h[(size_t)(b0 + r) * D + d0 + dd]
-                                        : 0.f;
-      }
-      // stage w[v0:v0+kTile, d0:d0+dn] transposed: ws[dd][c]
-      for (int i = threadIdx.x; i < kTile * (kF32DChunk / 4); i += kThreads) {
-        const int c = i / (kF32DChunk / 4), qd = i % (kF32DChunk / 4);
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (v0 + c < V && 4 * qd < dn)
-          f = *reinterpret_cast<const float4*>(w + (size_t)(v0 + c) * D +
-                                               d0 + 4 * qd);
-        ws[(4 * qd + 0) * kWsStride + c] = f.x;
-        ws[(4 * qd + 1) * kWsStride + c] = f.y;
-        ws[(4 * qd + 2) * kWsStride + c] = f.z;
-        ws[(4 * qd + 3) * kWsStride + c] = f.w;
-      }
-      __syncthreads();
-      if (cols_in) {
-        // a shallow unroll keeps the 64 accumulators in registers
-#pragma unroll 2
-        for (int dd = 0; dd < dn; ++dd) {
-          const float4 f =
-              *reinterpret_cast<const float4*>(ws + dd * kWsStride + c0);
+
+    __syncthreads();   // the previous pass's keys were read out
+    for (int st = 0; st < kF32Stages - 1; ++st) {
+      if (st < nst) load_stage(st);
+      cp_commit();
+    }
+    for (int st = 0; st < nst; ++st) {
+      cp_wait<kF32Stages - 2>();
+      __syncthreads();   // stage st landed; the slot of st - 1 is free
+      if (st + kF32Stages - 1 < nst) load_stage(st + kF32Stages - 1);
+      cp_commit();
+      const float* ws = reinterpret_cast<const float*>(
+          smem_raw + (st % kF32Stages) * kF32StageBytes);
+      const float* xs = ws + kTile * kF32KS;
+      // Lane (g, q) reads positions kF32Vec q .. + kF32Vec - 1 of the
+      // stage; k8 step s gives positions kF32Vec q + 2 s and + 1 the
+      // fragment slots q and q + 4 of A (rows g, g + 8 of h) and of B (row
+      // wc + 8 t + g of w: n8 tile t, column g) alike, so each step sums 8
+      // distinct positions and the steps cover the stage.
+      float x0[kF32Vec], x1[kF32Vec];
+      lds_vec(x0, xs + g * kF32KS + kF32Vec * q);
+      lds_vec(x1, xs + (g + 8) * kF32KS + kF32Vec * q);
+      uint32_t ab[kF32Steps][4], as[kF32Steps][4];   // h's big, small terms
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float hv = hs[r * kF32DChunk + dd];
-            acc[r][0] += hv * f.x;
-            acc[r][1] += hv * f.y;
-            acc[r][2] += hv * f.z;
-            acc[r][3] += hv * f.w;
-          }
+      for (int s = 0; s < kF32Steps; ++s) {
+        split_tf32(x0[2 * s], ab[s][0], as[s][0]);
+        split_tf32(x1[2 * s], ab[s][1], as[s][1]);
+        split_tf32(x0[2 * s + 1], ab[s][2], as[s][2]);
+        split_tf32(x1[2 * s + 1], ab[s][3], as[s][3]);
+      }
+      const float* wr = ws + (wc + g) * kF32KS + kF32Vec * q;
+#pragma unroll
+      for (int t = 0; t < kF32NTiles; ++t) {
+        float wv[kF32Vec];
+        lds_vec(wv, wr + 8 * t * kF32KS);
+#pragma unroll
+        for (int s = 0; s < kF32Steps; ++s) {
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(wv[2 * s], bb0, bs0);
+          split_tf32(wv[2 * s + 1], bb1, bs1);
+          mma_tf32(acc[t], as[s], bb0, bb1);   // the small terms first
+          mma_tf32(acc[t], ab[s], bs0, bs1);
+          mma_tf32(acc[t], ab[s], bb0, bb1);
         }
       }
     }
+    cp_wait<0>();
+    __syncthreads();   // the ring drained: its space becomes the keys
 
-    // processed logits -> keys; columns past V and rows past B sort last
+    // processed logits -> keys.  n8 tile t's c0, c1 are columns
+    // wc + 8 t + 2 q, + 1 of row g and c2, c3 the same of row g + 8.
+    // Columns past V and rows past B key to 0 and sort last.
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half, b = b0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int v = v0 + c0 + j;
-        u64 key = 0;
-        if (b < B && v < V)
-          key = make_key(processed(acc[r][j],
-                                   mask != nullptr ? mask[(size_t)b * V + v]
-                                                   : 0,
-                                   penalty),
-                         v);
-        keys[r * kTile + c0 + j] = key;
+      for (int t = 0; t < kF32NTiles; ++t) {
+        const int c = wc + 8 * t + 2 * q, v = v0 + c;
+        const bool in = b < B && v < V;   // V % 4 == 0: both or neither
+        int2 m2 = make_int2(0, 0);
+        if (in && mask != nullptr)
+          m2 = __ldg(reinterpret_cast<const int2*>(mask + (size_t)b * V + v));
+        const float l0 = processed(acc[t][2 * half], m2.x, penalty);
+        const float l1 = processed(acc[t][2 * half + 1], m2.y, penalty);
+        const u64 k0 = in ? make_key(l0, v) : 0ull;
+        const u64 k1 = in ? make_key(l1, v + 1) : 0ull;
+        *reinterpret_cast<ulonglong2*>(keys + r * kTile + c) =
+            make_ulonglong2(k0, k1);
       }
     }
     __syncthreads();
@@ -571,17 +692,20 @@ cudaError_t configure(bool int8) {
 
 extern "C" {
 
-// The layout: field 0 the vocab columns a CTA (the tile), 1 the columns a
-// warp owns in the int8 form, 2 the K rows a stage of its ring, 3 the
-// ring's stages, 4 the int8 form's dynamic shared memory; -1 for another
-// field.
-int lmhead_topk_plan(int field) {
+// The layout of one form (tied = 0: the int8 form, 1: the tied fp32 form):
+// field 0 the vocab columns a CTA (the tile), 1 the columns a warp owns, 2
+// the K (= D) positions a stage of the cp.async ring, 3 the ring's stages,
+// 4 the tile kernel's dynamic shared memory, 5 its threads; -1 for another
+// field or form.
+int lmhead_topk_plan(int tied, int field) {
+  if (tied != 0 && tied != 1) return -1;
   switch (field) {
     case 0: return kTile;
-    case 1: return kWarpCols;
-    case 2: return kKS;
-    case 3: return kStages;
-    case 4: return kI8Smem;
+    case 1: return tied ? kF32WarpCols : kWarpCols;
+    case 2: return tied ? kF32KS : kKS;
+    case 3: return tied ? kF32Stages : kStages;
+    case 4: return tied ? kF32Smem : kI8Smem;
+    case 5: return tied ? kF32Threads : kI8Threads;
     default: return -1;
   }
 }
@@ -604,7 +728,7 @@ int lmhead_topk(const float* h, const float* w, const int8_t* w8,
     head_tile_topk_i8<<<n_tiles, kI8Threads, kI8Smem, stream>>>(
         h, w8, scale, mask, penalty, c, B, D, V, n_tiles);
   else
-    head_tile_topk_f32<<<n_tiles, kThreads, kF32Smem, stream>>>(
+    head_tile_topk_f32<<<n_tiles, kF32Threads, kF32Smem, stream>>>(
         h, w, mask, penalty, c, B, D, V, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

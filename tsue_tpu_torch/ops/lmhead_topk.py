@@ -82,20 +82,25 @@ def _lib():
         "lmhead_topk": [ptr, ptr, ptr, ptr, ptr,        # h w w8 scale mask
                         ctypes.c_float, ptr, ptr, ptr,  # penalty cand vals idx
                         i32, i32, i32, ptr],            # B D V stream
-        "lmhead_topk_plan": [i32]})                     # field
+        "lmhead_topk_plan": [i32, i32]})                # tied field
 
 
+LAYOUTS = ("int8", "tied_fp32")
 PLAN_FIELDS = ("tile_cols", "warp_cols", "k_rows_per_stage", "stages",
-               "smem_bytes")
+               "smem_bytes", "threads")
 
 
-def lmhead_topk_plan() -> dict:
-    """The kernel's layout (builds the kernel): the vocab columns a CTA
-    (both forms), and for the int8 form the columns a warp owns, the K
-    rows a stage of its cp.async ring, the ring's stages and the shared
-    memory a CTA asks for."""
-    lib = _lib()
-    return {f: lib.lmhead_topk_plan(i) for i, f in enumerate(PLAN_FIELDS)}
+def lmhead_topk_plan(layout: str = "int8") -> dict:
+    """The layout of one form of the kernel (builds the kernel): the vocab
+    columns a CTA (the same in both forms), the columns a warp owns, the K
+    (= D) rows a stage of the cp.async ring, the ring's stages, the shared
+    memory and the threads of a CTA.  ``layout`` is "int8" or
+    "tied_fp32"."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    lib, tied = _lib(), LAYOUTS.index(layout)
+    return {f: lib.lmhead_topk_plan(tied, i)
+            for i, f in enumerate(PLAN_FIELDS)}
 
 
 def _lmhead_cuda(hidden, weight, mask, penalty, quant):
@@ -123,7 +128,7 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         check_tensor("mask", mask, dev, (B, V), torch.int32, True)
         mask_ptr = mask.data_ptr()
     lib = _lib()
-    n_tiles = -(-V // lib.lmhead_topk_plan(0))
+    n_tiles = -(-V // lib.lmhead_topk_plan(int(quant is None), 0))
     cand = torch.empty(B, n_tiles, LANES, device=dev, dtype=torch.int64)
     vals = torch.empty(B, LANES, device=dev, dtype=torch.float32)
     idx = torch.empty(B, LANES, device=dev, dtype=torch.int32)
