@@ -19,7 +19,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the same bits and the unfused product's time beside its own (the
      int8 LM-head product, or cuBLAS fp32 for the tied form; the
      difference is the selection and merge);
-     NLinear, the fused LoRA product and the per-sample ADE/FDE,
+     NLinear, the fused LoRA product (fp32 and bf16 at q_proj and v_proj,
+     each with its launch plan) and the per-sample ADE/FDE,
      which no path of the JAX package calls, at the shapes where they
      would sit (their launches here are the only ones, and are reported
      under their own name); then the gradient of each autograd.Function
@@ -625,51 +626,69 @@ LORA_SHAPES = (   # (name, M, K, N): stage-1 batch 16, 16 + 512 tokens
 
 def lora_checks(dev, gpu, timer):
     """The fused LoRA product where it would sit in stage 1 (r = 8, scale
-    32 / 8 = 4), fp32 and, at q_proj, bf16.  fp32: rtol 1e-4, atol 1e-5 of
-    the largest output (K products summed in another order); bf16 (xA
-    rounded to bf16 before the second product, as the Pallas kernel): rtol
-    = atol = 2^-7 of the largest output, two bf16 ulps.  No one PyTorch
-    call computes it; the cuBLAS time of x @ w alone, the floor any fused
-    LoRA product competes with, is printed beside."""
+    32 / 8 = 4), at q_proj and v_proj in fp32 and bf16, each with its launch
+    plan (lora_matmul_plan: the form, tile, ring and CTAs).  fp32: rtol
+    1e-4, atol 1e-5 of the largest output (K products summed in another
+    order, on the tensor cores in 3xTF32); bf16 (xA rounded to bf16 before
+    the second product, as the Pallas kernel): rtol = atol = 2^-7 of the
+    largest output, two bf16 ulps; ``tol_used`` is the largest
+    |out - ref| / (atol + rtol |ref|).  No one PyTorch call computes it; the
+    cuBLAS time of x @ w alone, the floor any fused LoRA product competes
+    with, is printed beside."""
     import torch
-    from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+    from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
     r, scale = 8, 4.0
-    for (name, M, K, N), dtype in ((LORA_SHAPES[0], torch.float32),
-                                   (LORA_SHAPES[1], torch.float32),
-                                   (LORA_SHAPES[0], torch.bfloat16)):
-        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
-        w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
-        a = (torch.randn(K, r, generator=g, device=dev) * K ** -0.5).to(dtype)
-        b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
-        out = lora_matmul(x, w, a, b, scale)
-        ref = lora_ref(x, w, a, b, scale, round_xa=True)
-        torch.cuda.synchronize()
-        err, rel = errors(out.float(), ref.float())
-        big = ref.float().abs().max().item()
-        tol = (dict(rtol=1e-4, atol=1e-5 * big) if dtype == torch.float32
-               else dict(rtol=2 ** -7, atol=2 ** -7 * big))
-        label = f"{name} M={M} K={K} N={N} r={r} {str(dtype)[6:]}"
-        check(torch.allclose(out.float(), ref.float(), **tol),
-              f"lora_matmul disagrees with the plain version at {label}: "
-              f"max abs err {err} ({tol})")
-        check(torch.equal(out, lora_matmul(x, w, a, b, scale)),
-              f"lora_matmul {label}: a repeated call differs")
-        plain_ms = timer.ms(lambda: lora_ref(x, w, a, b, scale,
-                                             round_xa=True))
-        ms = timer.ms(lambda: lora_matmul(x, w, a, b, scale))
-        base_ms = timer.ms(lambda: x @ w)
-        print(f"lora_matmul {label}: cuBLAS x @ w alone {base_ms:.4f} ms; "
-              f"gpu: {gpu}", flush=True)
-        flops = 2.0 * M * N * K + 2.0 * M * K * r + 2.0 * M * r * N
-        # bf16 inputs: the card's bound is the bf16 tensor-core rate, which
-        # this fp32-FMA kernel does not use
-        rate = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        rows.append(row("lora_matmul", label, gpu, err, rel, ms, plain_ms,
-                        bound(nbytes(x, w, a, b, out), flops, rate), None,
-                        cublas_xw_ms=base_ms, dtype=str(dtype)[6:]))
-        del x, w, a, b, out, ref
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, M, K, N in LORA_SHAPES:
+            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+            w = (torch.randn(K, N, generator=g, device=dev)
+                 * K ** -0.5).to(dtype)
+            a = (torch.randn(K, r, generator=g, device=dev)
+                 * K ** -0.5).to(dtype)
+            b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
+            plan = lora_matmul_plan(M, K, N, r, dtype)
+            out = lora_matmul(x, w, a, b, scale)
+            ref = lora_ref(x, w, a, b, scale, round_xa=True)
+            torch.cuda.synchronize()
+            err, rel = errors(out.float(), ref.float())
+            big = ref.float().abs().max().item()
+            tol = (dict(rtol=1e-4, atol=1e-5 * big)
+                   if dtype == torch.float32
+                   else dict(rtol=2 ** -7, atol=2 ** -7 * big))
+            used = ((out.float() - ref.float()).abs()
+                    / (tol["atol"] + tol["rtol"] * ref.float().abs())
+                    ).max().item()
+            label = f"{name} M={M} K={K} N={N} r={r} {str(dtype)[6:]}"
+            print(f"lora_matmul {label}: plan {json.dumps(plan)}",
+                  flush=True)
+            check(torch.allclose(out.float(), ref.float(), **tol),
+                  f"lora_matmul disagrees with the plain version at {label}"
+                  f": max abs err {err} ({tol})")
+            check(torch.equal(out, lora_matmul(x, w, a, b, scale)),
+                  f"lora_matmul {label}: a repeated call differs")
+            plain_ms = timer.ms(lambda: lora_ref(x, w, a, b, scale,
+                                                 round_xa=True))
+            ms = timer.ms(lambda: lora_matmul(x, w, a, b, scale))
+            base_ms = timer.ms(lambda: x @ w)
+            print(f"lora_matmul {label}: cuBLAS x @ w alone {base_ms:.4f} "
+                  f"ms; gpu: {gpu}", flush=True)
+            flops = 2.0 * M * N * K + 2.0 * M * K * r + 2.0 * M * r * N
+            moved = nbytes(x, w, a, b, out)
+            extra = {}
+            if dtype == torch.float32:
+                # the kernel's products run on the tensor cores as three
+                # TF32 products each; the fp32 CUDA-core bound beside
+                b_ = bound(moved, 3 * flops, TF32_FLOPS)
+                extra["fp32_fma_bound_ms"] = bound(moved, flops)[0]
+            else:
+                b_ = bound(moved, flops, BF16_FLOPS)
+            rows.append(row("lora_matmul", label, gpu, err, rel, ms,
+                            plain_ms, b_, None, cublas_xw_ms=base_ms,
+                            dtype=str(dtype)[6:], plan=plan, tol_used=used,
+                            **extra))
+            del x, w, a, b, out, ref
     torch.cuda.empty_cache()
     return rows
 

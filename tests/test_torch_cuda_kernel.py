@@ -27,7 +27,7 @@ from tsue_tpu_torch.ops import fused as FU
 from tsue_tpu_torch.ops import kv_quant as KV
 from tsue_tpu_torch.ops import lmhead_topk as LT
 from tsue_tpu_torch.ops import quant as Q
-from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
 from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
 from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
@@ -476,6 +476,99 @@ def test_lora_matmul_matches_plain_on_ragged_tiles(dev, dtype):
                                    msg=lambda m: f"M={M} K={K} N={N} r={r}: "
                                                  f"{m}")
         assert torch.equal(out, lora_matmul(x, w, a, b, 32.0 / r))
+
+
+def _lora_case(dev, g, M, K, N, r, dtype, scale=None):
+    """One LoRA product against the plain version (tolerances as in
+    ``test_lora_matmul_matches_plain_on_ragged_tiles``), one launch, and a
+    repeated call bit-identical; returns the plan's form."""
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+    a = (torch.randn(K, r, generator=g, device=dev) * K ** -0.5).to(dtype)
+    b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
+    scale = 32.0 / r if scale is None else scale
+    before = lora_matmul.launches
+    out = lora_matmul(x, w, a, b, scale)
+    assert lora_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    ref = lora_ref(x, w, a, b, scale, round_xa=True)
+    torch.cuda.synchronize()
+    big = float(ref.float().abs().max())
+    tol = (dict(rtol=1e-4, atol=1e-5 * big) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=2 ** -7 * big))
+    torch.testing.assert_close(out.float(), ref.float(), **tol,
+                               msg=lambda m: f"M={M} K={K} N={N} r={r}: {m}")
+    assert torch.equal(out, lora_matmul(x, w, a, b, scale))
+    return lora_matmul_plan(M, K, N, r, dtype)["form"]
+
+
+_TC_FORM = {torch.float32: "tf32x3", torch.bfloat16: "wgmma_bf16"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_tensor_core_tile_borders(dev, dtype):
+    """Outputs at the 128 x 256 tile's borders: M of 63, 64, 65 (a
+    warpgroup's 64 rows), 127, 128, 129, N of 248, 256, 264 (tails inside
+    rows that TMA reads: the tensor-core form) and 255, 257 (rows not a
+    multiple of 16 bytes: the SIMT form), K = 72, past a whole k step of
+    either tensor-core form."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    for M, N in itertools.product((63, 64, 65, 127, 128, 129),
+                                  (248, 255, 256, 257, 264)):
+        form = _lora_case(dev, g, M, 72, N, 8, dtype)
+        assert form == ("simt" if N % 8 else _TC_FORM[dtype]), (M, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_k_tails_and_ranks(dev, dtype):
+    """K shorter than a k step (8, 40), not a multiple of it (200: 3 x 64 +
+    8 in bf16, 6 x 32 + 8 in fp32) and long (2056), with ranks 1, 4, 8 and
+    16 (the fp32 form keeps 8 xA sums a thread for r <= 8, 16 above), all
+    through the tensor-core form; several tiles a CTA at the long K."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    for K, r in itertools.product((8, 40, 200, 2056), (1, 4, 8, 16)):
+        assert _lora_case(dev, g, 130, K, 264, r, dtype) == _TC_FORM[dtype]
+    # more tiles than the card holds CTAs: each CTA walks several
+    assert _lora_case(dev, g, 4096, 256, 4096, 8, dtype) == _TC_FORM[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_stage1_shape(dev, dtype):
+    """The stage-1 q_proj shape of chip_smoke.py (M 8448, K 2048, N 2048,
+    r 8, scale 4), once in each dtype."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    assert (_lora_case(dev, g, 16 * 528, 2048, 2048, 8, dtype, 4.0)
+            == _TC_FORM[dtype])
+
+
+def test_lora_matmul_plan_picks_the_form_by_shape(dev):
+    """The plan sends an unaligned stride (K = 37) and a base that is not
+    16-byte aligned to the SIMT form, the stage-1 shapes to the tensor-core
+    forms; the wrapper launches what the plan names, and each is right."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = lora_matmul_plan(300, 37, 520, 8, dtype)
+        assert plan["form"] == "simt" and plan["ctas"] == plan["tiles"] == 15
+        for N in (2048, 512):
+            plan = lora_matmul_plan(16 * 528, 2048, N, 8, dtype)
+            assert plan["form"] == _TC_FORM[dtype]
+            assert plan["tiles"] == 66 * N // 256
+            assert 0 < plan["ctas"] <= plan["tiles"]
+        assert lora_matmul_plan(64, 64, 256, 8, dtype,
+                                aligned=False)["form"] == "simt"
+    g = torch.Generator(device=dev).manual_seed(20)
+    assert _lora_case(dev, g, 200, 37, 300, 8, torch.float32) == "simt"
+    # x one element past an aligned base: contiguous, but not 16-byte aligned
+    M, K, N, r = 130, 64, 256, 8
+    x = torch.randn(M * K + 1, generator=g, device=dev)[1:].view(M, K)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+    a = torch.randn(K, r, generator=g, device=dev) * K ** -0.5
+    b = torch.randn(r, N, generator=g, device=dev) * 0.1
+    out = lora_matmul(x, w, a, b, 4.0)
+    ref = lora_ref(x, w, a, b, 4.0, round_xa=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
 
 
 def test_lora_matmul_rejects_what_it_does_not_take(dev):

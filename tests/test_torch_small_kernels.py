@@ -21,7 +21,7 @@ from tsue_tpu.ops.lora import lora_matmul as jax_lora
 from tsue_tpu.ops.metric_kernels import fused_ade_fde as jax_fused_ade_fde
 from tsue_tpu.ops.nlinear import nlinear_fused as jax_nlinear
 from tsue_tpu_torch.eval.metrics import ade_fde
-from tsue_tpu_torch.ops.lora import lora_matmul, lora_ref
+from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
 from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
 from tsue_tpu_torch.ops.nlinear import nlinear_fused
 
@@ -165,3 +165,32 @@ def test_ade_fde_reads_the_stat_as_xmin_xmax_ymin_ymax():
     ref = np.asarray(jax_fused_ade_fde(*map(jnp.asarray, (pred, gt, stat)),
                                        interpret=True))[0]
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6)
+
+
+def test_lora_plan_picks_the_form_by_shape(monkeypatch):
+    """The kernel's form follows TMA's terms: rows of x and W a multiple of
+    16 bytes and aligned bases take the dtype's tensor-core form, any other
+    shape the SIMT form; an unknown dtype or a rank past 16 raises.  (With
+    no CUDA device, as set here, a tensor-core plan counts one CTA a tile.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = lora_matmul_plan(8448, 2048, 2048, 8, torch.bfloat16)
+    assert plan == dict(form="wgmma_bf16", tile_m=128, tile_n=256, k_step=64,
+                        stages=4, threads=384, tiles=528, ctas=528)
+    plan = lora_matmul_plan(8448, 2048, 512, 8, torch.float32)
+    assert (plan["form"], plan["k_step"], plan["stages"], plan["tiles"]) == (
+        "tf32x3", 32, 2, 132)
+    assert lora_matmul_plan(1, 37, 517, 8, torch.float32) == dict(
+        form="simt", tile_m=128, tile_n=128, k_step=8, stages=2, threads=256,
+        tiles=5, ctas=5)
+    # 16-byte rows: 4 fp32 or 8 bf16 values
+    assert lora_matmul_plan(64, 36, 260, 4, torch.float32)["form"] == "tf32x3"
+    assert lora_matmul_plan(64, 36, 264, 4, torch.bfloat16)["form"] == "simt"
+    assert lora_matmul_plan(64, 64, 260, 4, torch.bfloat16)["form"] == "simt"
+    assert lora_matmul_plan(64, 64, 256, 4, torch.bfloat16,
+                            aligned=False)["form"] == "simt"
+    with pytest.raises(TypeError):
+        lora_matmul_plan(64, 64, 256, 4, torch.float16)
+    with pytest.raises(ValueError, match="r <="):
+        lora_matmul_plan(64, 64, 256, 17, torch.float32)
+    with pytest.raises(ValueError):
+        lora_matmul_plan(0, 64, 256, 4, torch.float32)

@@ -11,7 +11,10 @@ same function.  ``lora_ref(..., round_xa=True)`` is the kernel's function
 calls the kernel: ``models.llama.LoRADense`` keeps its plain products.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(fp32, or bf16 with fp32 sums) or raises.
+(fp32, or bf16 with fp32 sums) or raises.  ``lora_matmul_plan`` names the
+kernel's form for a shape: the tensor-core form of the dtype where TMA can
+read x and W (16-byte rows and bases), the SIMT form elsewhere; the wrapper
+launches that form and no other.
 """
 from __future__ import annotations
 
@@ -25,6 +28,53 @@ from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
 
 MAX_RANK = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forms' launch shapes: the constants of csrc/lora_matmul.cu (SIMT: BM,
+# BN, BK, kThreads; tensor cores: kTM, kTN, Tc<T>::kK and ::kStages,
+# kTcThreads)
+_FORMS = {
+    "simt": dict(tile_m=128, tile_n=128, k_step=8, stages=2, threads=256),
+    "wgmma_bf16": dict(tile_m=128, tile_n=256, k_step=64, stages=4,
+                       threads=384),
+    "tf32x3": dict(tile_m=128, tile_n=256, k_step=32, stages=2,
+                   threads=384),
+}
+
+
+def _form(M: int, K: int, N: int, r: int, dtype: torch.dtype,
+          aligned: bool) -> str:
+    if dtype not in _DTYPES:
+        raise TypeError(f"the lora kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if min(M, K, N) <= 0 or not 0 < r <= MAX_RANK:
+        raise ValueError(f"the lora kernel takes M, K, N > 0 and 0 < r <= "
+                         f"{MAX_RANK} (M={M}, K={K}, N={N}, r={r})")
+    per_16_bytes = 4 if dtype == torch.float32 else 8
+    if aligned and K % per_16_bytes == 0 and N % per_16_bytes == 0:
+        return "tf32x3" if dtype == torch.float32 else "wgmma_bf16"
+    return "simt"
+
+
+def lora_matmul_plan(M: int, K: int, N: int, r: int, dtype: torch.dtype,
+                     aligned: bool = True) -> dict:
+    """The kernel's launch for an (M, K) x (K, N) product of rank r in
+    ``dtype``: its form, output tile, K positions a step, ring stages,
+    threads, output tiles and CTAs.  The tensor-core form of the dtype
+    ("wgmma_bf16", "tf32x3") takes rows of x and W that are multiples of 16
+    bytes and, with ``aligned``, 16-byte aligned bases (TMA's terms); every
+    other shape takes the "simt" form, one CTA a tile.  A tensor-core form
+    runs a persistent grid, each CTA walking its tiles: as many CTAs as the
+    card holds at once (asked of the CUDA device, which builds the kernel;
+    without one, one a tile) or one a tile where there are fewer."""
+    form = _form(M, K, N, r, dtype, aligned)
+    plan = dict(form=form, **_FORMS[form])
+    plan["tiles"] = -(-M // plan["tile_m"]) * -(-N // plan["tile_n"])
+    held = plan["tiles"]
+    if form != "simt" and torch.cuda.is_available():
+        held = _lib().lora_matmul_ctas(_DTYPES[dtype])
+        if held < 1:
+            raise RuntimeError("the lora kernel does not fit on the card")
+    plan["ctas"] = min(plan["tiles"], held)
+    return plan
 
 
 def lora_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -46,28 +96,26 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("lora_matmul", {
         "lora_matmul": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                        ctypes.c_float, i32, ptr]})
+                        ctypes.c_float, i32, i32, ptr],
+        "lora_matmul_ctas": [i32]})
 
 
 def _lora_cuda(x, w, a, b, scale: float) -> torch.Tensor:
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
     dev = x.device
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"the lora kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
+    form = _form(M, K, N, r, x.dtype, aligned=x.data_ptr() % 16 == 0
+                 and w.data_ptr() % 16 == 0)
     check_tensor("x", x, dev, (M, K), x.dtype)
     check_tensor("w", w, dev, (K, N), x.dtype)
     check_tensor("a", a, dev, (K, r), x.dtype)
     check_tensor("b", b, dev, (r, N), x.dtype)
-    if min(M, K, N) == 0 or not 0 < r <= MAX_RANK:
-        raise ValueError(f"the lora kernel takes M, K, N > 0 and 0 < r <= "
-                         f"{MAX_RANK} (M={M}, K={K}, N={N}, r={r})")
     out = torch.empty(M, N, device=dev, dtype=x.dtype)
     with torch.cuda.device(dev):
         err = _lib().lora_matmul(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), M, K, N, r, float(scale), _DTYPES[x.dtype],
+            int(form != "simt"),     # the C side's form code
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(lora_matmul, err)
     return out
