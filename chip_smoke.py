@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      fused head with each form's layout, a repeated call that must give
      the same bits and the unfused product's time beside its own (the
      int8 LM-head product, or cuBLAS fp32 for the tied form; the
-     difference is the selection and merge);
+     difference is the selection and merge); the SwiGLU down-projection
+     with its launch plan, its share of the tolerance, a repeated call that
+     must give the same bits and cuBLAS's fp32 h @ w alone beside;
      NLinear, the fused LoRA product (fp32 and bf16 at q_proj and v_proj,
      each with its launch plan) and the per-sample ADE/FDE,
      which no path of the JAX package calls, at the shapes where they
@@ -535,11 +537,15 @@ def attend_checks(dev, gpu, timer):
 def fused_checks(dev, gpu, timer):
     """RMSNorm (M, 2048) and the SwiGLU down-projection (M, 8192) x (8192,
     2048) at M = B * (16 image + 512 text tokens): training at batch 16
-    (also the predict chunk with the fused switch on) and at batch 8."""
+    (also the predict chunk with the fused switch on) and at batch 8.
+    SwiGLU: rtol 1e-4, atol 1e-5 of the largest output, ``tol_used`` the
+    largest |out - ref| / (atol + rtol |ref|); its launch plan, a repeated
+    call bit-identical, and the cuBLAS time of h @ w alone beside."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
-                                          swiglu_matmul, swiglu_matmul_plain)
+                                          swiglu_matmul, swiglu_matmul_plain,
+                                          swiglu_matmul_plan)
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {"rmsnorm": [], "swiglu_matmul": []}
     D, I = 2048, 8192
@@ -565,22 +571,41 @@ def fused_checks(dev, gpu, timer):
         gate = torch.randn(M, I, generator=g, device=dev)
         up = torch.randn(M, I, generator=g, device=dev)
         w = torch.randn(I, D, generator=g, device=dev) * I ** -0.5
+        plan = swiglu_matmul_plan(M, I, D)
         out = swiglu_matmul(gate, up, w)
         ref = swiglu_matmul_plain(gate, up, w)
         torch.cuda.synchronize()
         err, rel = errors(out, ref)
-        # 8192 products summed in another order: the error scales with the
-        # largest output
+        # 8192 products summed in another order, on the tensor cores in
+        # 3xTF32: the error scales with the largest output
         atol = 1e-5 * ref.abs().max().item()
+        used = ((out - ref).abs() / (atol + 1e-4 * ref.abs())).max().item()
+        label = f"M={M} K={I} N={D}"
+        print(f"swiglu_matmul {label}: plan {json.dumps(plan)}, tol_used "
+              f"{used:.4f}", flush=True)
         check(torch.allclose(out, ref, rtol=1e-4, atol=atol),
               f"swiglu_matmul disagrees with the plain version at M={M}: "
               f"max abs err {err} (rtol 1e-4, atol {atol})")
+        check(torch.equal(out, swiglu_matmul(gate, up, w)),
+              f"swiglu_matmul {label}: a repeated call differs")
         plain_ms = timer.ms(lambda: swiglu_matmul_plain(gate, up, w))
         ms = timer.ms(lambda: swiglu_matmul(gate, up, w))
-        b = bound(nbytes(gate, up, w, out), 2.0 * M * D * I)
+        # the unfused product alone, h formed outside the timer: the floor
+        # the fused kernel competes with (timed here only)
+        h = F.silu(gate) * up
+        hw_ms = timer.ms(lambda: h @ w)
+        del h
+        print(f"swiglu_matmul {label}: cuBLAS h @ w alone {hw_ms:.4f} ms; "
+              f"gpu: {gpu}", flush=True)
+        # the products run on the tensor cores as three TF32 products
+        # each; the fp32 CUDA-core bound beside
+        moved, flops = nbytes(gate, up, w, out), 2.0 * M * D * I
+        b = bound(moved, 3 * flops, TF32_FLOPS)
         rows["swiglu_matmul"].append(row(
-            "swiglu_matmul", f"{paths}: M={M} K={I} N={D}", gpu, err, rel,
-            ms, plain_ms, b, None, batch=B))
+            "swiglu_matmul", f"{paths}: {label}", gpu, err, rel, ms,
+            plain_ms, b, None, batch=B, cublas_hw_ms=hw_ms,
+            fp32_fma_bound_ms=bound(moved, flops)[0], plan=plan,
+            tol_used=used))
         del gate, up, w, out, ref
     torch.cuda.empty_cache()
     return rows

@@ -409,6 +409,79 @@ def test_swiglu_kernel_column_tail_and_rejects(dev):
         FU._swiglu_cuda(gate.double(), up.double(), w.double())
 
 
+def _swiglu_case(dev, g, M, K, N, scale=1.0, gate=None):
+    """One call of the kernel itself (``_swiglu_cuda``: any M and N % 4 ==
+    0) against the plain version, rtol 1e-4 and atol 1e-5 of the largest
+    output (the fp32 sums run in another order, on the tensor cores in
+    3xTF32), one launch, and a repeated call bit-identical."""
+    if gate is None:
+        gate = torch.randn(M, K, generator=g, device=dev) * scale
+    up = torch.randn(M, K, generator=g, device=dev) * scale
+    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+    before = FU.swiglu_matmul.launches
+    out = FU._swiglu_cuda(gate, up, w)
+    assert FU.swiglu_matmul.launches == before + 1
+    ref = FU.swiglu_matmul_plain(gate, up, w)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()),
+        msg=lambda m: f"M={M} K={K} N={N} scale={scale}: {m}")
+    assert torch.equal(out, FU._swiglu_cuda(gate, up, w))
+    return out, ref
+
+
+@pytest.mark.parametrize("K", [128, 8192])
+def test_swiglu_kernel_tile_borders(dev, K):
+    """Rows at the 128 x 256 tile's borders (64, a warpgroup's rows; 65,
+    127, 129; 8448, the training shape's 66 row blocks) against N = 132 (a
+    column tail), 256 and 2048 (8 column tiles), at K = 128 (four 32-deep
+    stages, fewer than a CTA's ring turns) and K = 8192 (the MLP's)."""
+    g = torch.Generator(device=dev).manual_seed(K)
+    for M, N in itertools.product((64, 65, 127, 129, 8448), (132, 256, 2048)):
+        if K == 8192 and M == 8448 and N != 2048:
+            continue                  # the training shape once, below
+        _swiglu_case(dev, g, M, K, N)
+    if K == 8192:
+        _swiglu_case(dev, g, 8448, K, 2048)
+
+
+@pytest.mark.parametrize("scale", [100.0, 1e-3])
+def test_swiglu_kernel_large_and_small_exponents(dev, scale):
+    """g and u scaled to ~100 (h up to ~1e6, the gate saturated) and to
+    ~1e-3 (h ~1e-6): the tf32 split meets large and small exponents; the
+    gate's ends at +-60 give exact 0 and g * u."""
+    g = torch.Generator(device=dev).manual_seed(int(scale * 1000))
+    M, K, N = 256, 1024, 256
+    gate = torch.randn(M, K, generator=g, device=dev) * scale
+    gate[:, :64] = torch.linspace(-60, 60, 64, device=dev)
+    _swiglu_case(dev, g, M, K, N, scale=scale, gate=gate)
+    # the gate's ends alone: W picks single K positions, so out = h exactly
+    gate = torch.full((128, 128), -60.0, device=dev)
+    gate[:, 64:] = 60.0
+    up = torch.randn(128, 128, generator=g, device=dev) * scale
+    out = FU._swiglu_cuda(gate, up, torch.eye(128, device=dev))
+    torch.cuda.synchronize()
+    assert (out[:, :64].abs() < 1e-20).all()
+    torch.testing.assert_close(out[:, 64:], 60.0 * up[:, 64:], rtol=1e-6,
+                               atol=0.0)
+
+
+def test_swiglu_kernel_plan(dev):
+    """The plan names the one form, its tiles and a persistent grid of at
+    most one CTA a tile (one a SM on an H100), and refuses what the kernel
+    does not take."""
+    plan = FU.swiglu_matmul_plan(8448, 8192, 2048)
+    assert plan["form"] == "tf32x3" and plan["tiles"] == 66 * 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["ctas"] == min(528, sms)
+    assert FU.swiglu_matmul_plan(4224, 8192, 2048)["tiles"] == 264
+    small = FU.swiglu_matmul_plan(65, 128, 132)
+    assert small["tiles"] == small["ctas"] == 1
+    with pytest.raises(ValueError, match="K % 128"):
+        FU.swiglu_matmul_plan(128, 200, 256)
+
+
 def _grads(fn, inputs, cot):
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     (fn(*leaves) * cot).sum().backward()

@@ -146,6 +146,25 @@ def test_swiglu_n_not_a_multiple_of_128_is_plain(kernel_calls):
     assert kernel_calls["swiglu"] == 1
 
 
+def test_swiglu_plan_shape_rules(monkeypatch):
+    """The kernel's one form takes every shape the kernel takes (M, N > 0,
+    K % 128 == 0, N % 4 == 0: 16-byte rows for TMA) in 128 x 256 tiles;
+    any other shape raises.  (With no CUDA device, as set here, the plan
+    counts one CTA a tile.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = fused.swiglu_matmul_plan(8448, 8192, 2048)
+    assert plan == dict(form="tf32x3", tile_m=128, tile_n=256, k_step=32,
+                        stages=2, threads=384, tiles=528, ctas=528)
+    assert fused.swiglu_matmul_plan(4224, 8192, 2048)["tiles"] == 264
+    plan = fused.swiglu_matmul_plan(65, 128, 132)      # row and column tails
+    assert (plan["form"], plan["tiles"], plan["ctas"]) == ("tf32x3", 1, 1)
+    assert fused.swiglu_matmul_plan(129, 256, 260)["tiles"] == 4
+    for M, K, N in ((128, 200, 256), (128, 0, 256), (128, 128, 130),
+                    (0, 128, 256), (128, 128, 0)):
+        with pytest.raises(ValueError, match="K % 128 == 0 and N % 4"):
+            fused.swiglu_matmul_plan(M, K, N)
+
+
 def test_switch_semantics(monkeypatch):
     """``auto`` is off; ``fused_scope`` nests and restores; the Llama
     modules consult the switch on every call."""

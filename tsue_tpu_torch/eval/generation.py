@@ -219,7 +219,8 @@ def generate_texts(mllm, tokenizer, vision, prompt_ids, prompt_mask,
                    extract_answer: bool = False) -> List[str]:
     """Ids in, postprocessed strings out, on the device of ``mllm``'s
     parameters (``tsue_tpu/eval/generation.py:210-238``; its speculative
-    form is not ported yet, ROADMAP A.11)."""
+    form is not ported yet, ROADMAP A: per-row sampling, then the continuous
+    batcher and speculative decoding)."""
     cfg = cfg or SamplingConfig()
     dev = next(mllm.parameters()).device
     gen = make_generate_fn(mllm, cfg, max_new_tokens, prompt_ids.shape[1],

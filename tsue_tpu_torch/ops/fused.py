@@ -152,11 +152,41 @@ def swiglu_matmul_plain(gate: torch.Tensor, up: torch.Tensor,
     return (F.silu(gate) * up) @ w
 
 
+# the kernel's launch: the constants of csrc/swiglu_matmul.cu (kTM, kTN,
+# kK, kStages, kThreads)
+_SWIGLU_FORM = dict(form="tf32x3", tile_m=128, tile_n=256, k_step=32,
+                    stages=2, threads=384)
+
+
 @functools.lru_cache(maxsize=None)
 def _swiglu_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("swiglu_matmul", {
-        "swiglu_matmul": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]})
+        "swiglu_matmul": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+        "swiglu_matmul_ctas": []})
+
+
+def swiglu_matmul_plan(M: int, K: int, N: int) -> dict:
+    """The kernel's launch for (M, K) activations and a (K, N) weight: its
+    form, output tile, K positions a step, ring stages, threads, output
+    tiles and CTAs.  One form, "tf32x3" (3xTF32 on the tensor cores), takes
+    every shape the kernel takes: M, N > 0, K > 0 with K % 128 == 0 and
+    N % 4 == 0; any other raises.  It runs a persistent grid, each CTA
+    walking its tiles: as many CTAs as the card holds at once (asked of the
+    CUDA device, which builds the kernel; without one, one a tile) or one
+    a tile where there are fewer."""
+    if min(M, K, N) <= 0 or K % 128 or N % 4:
+        raise ValueError(f"the swiglu kernel takes M > 0, K % 128 == 0 and "
+                         f"N % 4 == 0 (M={M}, K={K}, N={N})")
+    plan = dict(_SWIGLU_FORM)
+    plan["tiles"] = -(-M // plan["tile_m"]) * -(-N // plan["tile_n"])
+    held = plan["tiles"]
+    if torch.cuda.is_available():
+        held = _swiglu_lib().swiglu_matmul_ctas()
+        if held < 1:
+            raise RuntimeError("the swiglu kernel does not fit on the card")
+    plan["ctas"] = min(plan["tiles"], held)
+    return plan
 
 
 def _swiglu_cuda(g: torch.Tensor, u: torch.Tensor,
@@ -167,13 +197,14 @@ def _swiglu_cuda(g: torch.Tensor, u: torch.Tensor,
     check_tensor("gate", g, dev, (M, K), torch.float32, aligned=True)
     check_tensor("up", u, dev, (M, K), torch.float32, aligned=True)
     check_tensor("w", w, dev, (K, N), torch.float32, aligned=True)
-    if M == 0 or K % 128 or N % 4:
-        raise ValueError(f"the swiglu kernel takes M > 0, K % 128 == 0 and "
-                         f"N % 4 == 0 (M={M}, K={K}, N={N})")
+    swiglu_matmul_plan(M, K, N)       # raises for a shape it does not take
+    # W^T's tf32 halves, written by the kernel's pre-pass
+    wt = torch.empty(2, N, K, device=dev, dtype=torch.float32)
     out = torch.empty(M, N, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         err = _swiglu_lib().swiglu_matmul(
-            g.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
+            g.data_ptr(), u.data_ptr(), w.data_ptr(), wt.data_ptr(),
+            out.data_ptr(), M, K, N,
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(swiglu_matmul, err)
     return out

@@ -15,7 +15,8 @@ for ``run_stage2(mllm_ckpt=...)`` and writes a generation dump.
 It runs on the CUDA device unless it is given ``device="cpu"``, and never
 falls back to the CPU on its own.  The ``TSUE_FUSED`` switch
 (``ops.fused``) applies as everywhere in the port.  Not taken yet (ROADMAP
-A.9, A.13): ``restore_ckpt``, ``save_every``/``resume``, ``viz_every`` and
+A: checkpoints on disk, the parity candidate mode, the rest of training,
+parallel): ``restore_ckpt``, ``save_every``/``resume``, ``viz_every`` and
 the per-epoch text sample, ``save_viz``, the parity candidate mode, remat,
 bfloat16 training and stage 1's pipeline parallelism; each raises
 ``NotImplementedError`` when asked for.
@@ -103,7 +104,8 @@ def _refuse_bf16(cfg: ExperimentConfig) -> None:
     if cfg.model.dtype != "float32":
         raise NotImplementedError(
             f"training with ModelConfig.dtype={cfg.model.dtype!r} is not "
-            "ported yet (ROADMAP A.9); the training presets are float32")
+            "ported yet (ROADMAP A: the rest of training); the training "
+            "presets are float32")
 
 
 def _vocab_resized(llama, tokenizer):
@@ -149,7 +151,7 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
                             or not model.cfg.use_llm):
         raise NotImplementedError(
             "only the fast K-candidate rollout of a use_llm model is ported "
-            "(ROADMAP A.7: candidate_rollout)")
+            "(ROADMAP A: the parity candidate mode, candidate_rollout)")
     dev = next(model.parameters()).device
     per_batch = []
     for i, batch in enumerate(_batches(dte, cfg, False)):
@@ -183,11 +185,19 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     return out
 
 
+# the ROADMAP A item that ports each refused option
+_ITEM = dict(restore_ckpt="checkpoints on disk",
+             save_every="checkpoints on disk", resume="checkpoints on disk",
+             viz_every="the rest of training", save_viz="the rest of training",
+             remat="the rest of training")
+
+
 def _refuse(entry: str, **options) -> None:
     for name, value in options.items():
         if value:
             raise NotImplementedError(
-                f"{entry}({name}=...) is not ported yet (ROADMAP A.9)")
+                f"{entry}({name}=...) is not ported yet (ROADMAP A: "
+                f"{_ITEM[name]})")
 
 
 def _train_device(device) -> torch.device:
@@ -275,7 +285,7 @@ def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,
     ``{"final_lm_loss"}`` and, with the dump, ``"generated"``."""
     if cfg.mesh.pipeline_parallel > 1:
         raise NotImplementedError("run_stage1 with pipeline_parallel > 1 is "
-                                  "not ported yet (ROADMAP A.13)")
+                                  "not ported yet (ROADMAP A: parallel)")
     _refuse("run_stage1", remat=cfg.model.llama.remat)
     _refuse_bf16(cfg)
     dev = _train_device(device)
