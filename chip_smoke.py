@@ -21,11 +21,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      difference is the selection and merge); the SwiGLU down-projection
      with its launch plan, its share of the tolerance, a repeated call that
      must give the same bits and cuBLAS's fp32 h @ w alone beside;
-     NLinear, the fused LoRA product (fp32 and bf16 at q_proj and v_proj,
-     each with its launch plan) and the per-sample ADE/FDE,
-     which no path of the JAX package calls, at the shapes where they
-     would sit (their launches here are the only ones, and are reported
-     under their own name); then the gradient of each autograd.Function
+     NLinear (with its launch plan), the fused LoRA product (fp32 and
+     bf16 at q_proj and v_proj, each with its launch plan) and the
+     per-sample ADE/FDE, which no path of the JAX package calls, at the
+     shapes where they would sit (their launches here are the only ones,
+     and are reported under their own name); the timer's launch floor (a
+     one-element zero_) is printed as launch_floor_ms, is the bound of
+     NLinear and ADE/FDE where it exceeds their roofline bound (both
+     printed), and stands beside any other row whose roofline bound is
+     below it; then the gradient of each autograd.Function
      (flash, RMSNorm, SwiGLU, NLinear, LoRA: kernel forward, backward by
      recompute) against autograd through the plain version;
   4. small configuration, on the card against the CPU (plain versions):
@@ -115,6 +119,9 @@ KERNELS = {
 # they are driven by the kernel phase alone, and the port wires them into
 # no path either
 NO_PATH = ("nlinear", "lora_matmul", "ade_fde")
+# kernels whose work takes the card less than a launch: their bound is the
+# larger of the roofline's and the timer's launch floor
+FLOOR_BOUND = ("nlinear", "ade_fde")
 KERNEL_PHASE = "kernel phase (no caller in the JAX package)"
 TRAIN_PRESETS = ("train_18_30", "lora_only_18_18")
 TEXT_TOKENS = 512         # the synthetic prompts fill the 512-token bucket
@@ -139,12 +146,16 @@ class Timer:
     call a 128 MB buffer is written, so weights come from device memory as
     in a decode step, and the device sleeps for about a millisecond while
     the host enqueues the call, so the time is the device's and not the
-    host's launch overhead."""
+    host's launch overhead.  ``floor_ms`` is this timer's time of a launch
+    that does almost nothing (one-element ``zero_``): the least any one
+    kernel launch takes on it."""
 
     def __init__(self, dev):
         import torch
         self.flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
                                  device=dev)
+        one = torch.zeros(1, device=dev)
+        self.floor_ms = self.ms(lambda: one.zero_())
 
     def ms(self, fn, reps: int = 15) -> float:
         import torch
@@ -177,7 +188,18 @@ def nbytes(*tensors) -> int:
 
 
 def row(kernel, shape, gpu, err, rel, ms, plain_ms, b, library_ms=None,
-        **extra):
+        floor_ms=None, **extra):
+    """One kernel check's line.  ``b`` is (roofline bound, what sets it);
+    the timer's launch floor ``floor_ms`` stands beside it where it is
+    larger, and in the bound of the tiny kernels (``FLOOR_BOUND``), as the
+    larger of the two, with ``roofline_bound_ms`` beside."""
+    if kernel in FLOOR_BOUND:
+        extra.update(floor_ms=floor_ms, roofline_bound_ms=b[0],
+                     roofline_bound_by=b[1])
+        if floor_ms > b[0]:
+            b = (floor_ms, "floor")
+    elif floor_ms is not None and floor_ms > b[0]:
+        extra["floor_ms"] = floor_ms
     out = dict(kernel=kernel, shape=shape, max_abs_err=err,
                max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                bound_by=b[1], library_ms=library_ms, gpu=gpu, **extra)
@@ -301,7 +323,7 @@ def flash_checks(dev, gpu, timer):
         extra = [kw.get("mask")] + list(kw.get("rope") or ())
         b = bound(nbytes(kw["q"], kw["k"], kw["v"], out, *extra), flops)
         rows.append(row("flash_attn_fwd", name, gpu, err, rel, ms, plain_ms,
-                        b, lib_ms, q=list(kw["q"].shape),
+                        b, lib_ms, timer.floor_ms, q=list(kw["q"].shape),
                         k=list(kw["k"].shape)))
         check(ok, f"flash_attn_fwd disagrees with the plain version at "
                   f"{name}: max abs err {err} (atol/rtol {TOL})")
@@ -363,7 +385,8 @@ def int8_checks(dev, gpu, timer):
                             f"{lib_err}")
             del wt
         rows.append(row("int8_matmul", f"{name} M={M} K={K} N={N}", gpu, err,
-                        rel, ms, plain_ms, b, lib_ms, per_layer=per_layer,
+                        rel, ms, plain_ms, b, lib_ms, timer.floor_ms,
+                        per_layer=per_layer,
                         library=lib_note, plan=int8_matmul_plan(M, K, N),
                         repeat_bit_identical=bool(torch.equal(out, again))))
         check(ok, f"int8_matmul disagrees with the plain version at {name} "
@@ -482,7 +505,8 @@ def head_checks(dev, gpu, timer, lm_head_ms):
                   f"~{ms - unfused_ms:.4f} ms; bound {b[0]:.4f} ms; plain "
                   f"{plain_ms:.4f} ms; gpu: {gpu}", flush=True)
             rows.append(row("lmhead_topk", name, gpu, err, rel, ms, plain_ms,
-                            b, None, layout=layout, exact=exact,
+                            b, None, timer.floor_ms, layout=layout,
+                            exact=exact,
                             repeat_bit_identical=same,
                             plan=lmhead_topk_plan(layout),
                             unfused_product_ms=unfused_ms,
@@ -523,7 +547,7 @@ def attend_checks(dev, gpu, timer):
         b = bound(nbytes(q, *cache, mask, out), 4.0 * B * Hq * S * D)
         plan = attend_int8_kv_plan(S, Hq // Hkv, D)
         rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq=1", gpu,
-                        err, rel, ms, plain_ms, b, None,
+                        err, rel, ms, plain_ms, b, None, timer.floor_ms,
                         plan={**plan, "ctas": plan["splits"] * B * Hkv},
                         repeat_bit_identical=bool(torch.equal(out, again))))
         check(torch.allclose(out, ref, **TOL),
@@ -566,7 +590,7 @@ def fused_checks(dev, gpu, timer):
         b = bound(nbytes(x, scale, out), 4.0 * M * D)
         rows["rmsnorm"].append(row("rmsnorm", f"{paths}: M={M} K={D}", gpu,
                                    err, rel, ms, plain_ms, b, lib_ms,
-                                   batch=B))
+                                   timer.floor_ms, batch=B))
         del x, out, ref
         gate = torch.randn(M, I, generator=g, device=dev)
         up = torch.randn(M, I, generator=g, device=dev)
@@ -603,7 +627,7 @@ def fused_checks(dev, gpu, timer):
         b = bound(moved, 3 * flops, TF32_FLOPS)
         rows["swiglu_matmul"].append(row(
             "swiglu_matmul", f"{paths}: {label}", gpu, err, rel, ms,
-            plain_ms, b, None, batch=B, cublas_hw_ms=hw_ms,
+            plain_ms, b, None, timer.floor_ms, batch=B, cublas_hw_ms=hw_ms,
             fp32_fma_bound_ms=bound(moved, flops)[0], plan=plan,
             tol_used=used))
         del gate, up, w, out, ref
@@ -614,10 +638,14 @@ def fused_checks(dev, gpu, timer):
 def nlinear_checks(dev, gpu, timer):
     """NLinear where it would sit in the LTSF (C = 64 channels): the
     deterministic forecast at batch 16 (18 -> 18 and 18 -> 30) and the K=10
-    rollout's 160 rows.  No one PyTorch call computes it (the einsum alone
-    omits the last-step subtract and add; its time is printed beside)."""
+    rollout's 160 rows, each with its launch plan (nlinear_plan: the copy
+    form, channels and rows a CTA, CTAs).  Its bound is the larger of the
+    roofline's and the timer's launch floor, both printed.  No one PyTorch
+    call computes it (the einsum alone omits the last-step subtract and
+    add; its time is printed beside)."""
     import torch
-    from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
+    from tsue_tpu_torch.ops.nlinear import (nlinear_fused, nlinear_plan,
+                                            nlinear_ref)
     g = torch.Generator(device=dev).manual_seed(6)
     rows = []
     for B, Ti, To in ((16, 18, 18), (160, 18, 18), (16, 18, 30)):
@@ -636,11 +664,15 @@ def nlinear_checks(dev, gpu, timer):
         ms = timer.ms(lambda: nlinear_fused(x, w, b))
         einsum_ms = timer.ms(lambda: torch.einsum("bct,cto->bco", x, w))
         name = f"B={B} C={C} {Ti}->{To}"
-        print(f"nlinear {name}: torch.einsum alone (no subtract/add, not the "
-              f"same function) {einsum_ms:.4f} ms; gpu: {gpu}", flush=True)
+        plan = nlinear_plan(B, C, Ti, To)
         b_ = bound(nbytes(x, w, b, out), 2.0 * B * C * Ti * To)
+        print(f"nlinear {name}: plan {json.dumps(plan)}; launch floor "
+              f"{timer.floor_ms:.4f} ms, roofline bound {b_[0]:.6f} ms "
+              f"({b_[1]}); torch.einsum alone (no subtract/add, not the "
+              f"same function) {einsum_ms:.4f} ms; gpu: {gpu}", flush=True)
         rows.append(row("nlinear", name, gpu, err, rel, ms, plain_ms, b_,
-                        None, einsum_ms=einsum_ms))
+                        None, timer.floor_ms, einsum_ms=einsum_ms,
+                        plan=plan))
     return rows
 
 
@@ -710,7 +742,8 @@ def lora_checks(dev, gpu, timer):
             else:
                 b_ = bound(moved, flops, BF16_FLOPS)
             rows.append(row("lora_matmul", label, gpu, err, rel, ms,
-                            plain_ms, b_, None, cublas_xw_ms=base_ms,
+                            plain_ms, b_, None, timer.floor_ms,
+                            cublas_xw_ms=base_ms,
                             dtype=str(dtype)[6:], plan=plan, tol_used=used,
                             **extra))
             del x, w, a, b, out, ref
@@ -722,7 +755,8 @@ def ade_fde_checks(dev, gpu, timer):
     """Per-sample ADE/FDE at the evaluation's shapes: a batch of 16 at 18
     and 30 output steps, and the K=10 rollout's 160 candidate rows.  Against
     the plain version (the same arithmetic) atol = rtol = 1e-4; no one
-    PyTorch call computes it."""
+    PyTorch call computes it.  Its bound is the larger of the roofline's and
+    the timer's launch floor."""
     import torch
     from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
     g = torch.Generator(device=dev).manual_seed(8)
@@ -745,7 +779,7 @@ def ade_fde_checks(dev, gpu, timer):
         # per step: 2 differences, 2 scalings, 2 squares, 2 adds, a root
         rows.append(row("ade_fde", f"B={B} T={T}", gpu, err, rel, ms,
                         plain_ms, bound(nbytes(pred, gt, stat, out),
-                                        9.0 * B * T), None))
+                                        9.0 * B * T), None, timer.floor_ms))
     return rows
 
 
@@ -1864,9 +1898,8 @@ def main() -> int:
 
     timer = Timer(dev)
     # the timer's floor: a launch that does almost nothing
-    tiny = torch.zeros(4, device=dev)
-    print(f"timer floor: one 4-element PyTorch add "
-          f"{timer.ms(lambda: tiny.add_(1)):.4f} ms; gpu: {gpu}", flush=True)
+    print(f"launch_floor_ms {timer.floor_ms:.4f} (one-element zero_, this "
+          f"timer); gpu: {gpu}", flush=True)
     int8_rows = int8_checks(dev, gpu, timer)
     lm_head_ms = next(x["ms"] for x in int8_rows
                       if x["shape"].startswith("lm_head M=16"))
@@ -1912,16 +1945,22 @@ def main() -> int:
             pick = [r[0]]      # batch 16 (LoRA: q_proj, fp32)
         else:
             pick = [r[-1]]                     # S = 592
+        # the contract's bound is the roofline's (bytes or operations);
+        # the tiny kernels' floor-inclusive bound stands beside it
+        roof = [(x.get("roofline_bound_ms", x["bound_ms"]),
+                 x.get("roofline_bound_by", x["bound_by"])) for x in pick]
         out = {"ms": sum(x["ms"] for x in pick),
                "plain_ms": sum(x["plain_ms"] for x in pick),
-               "bound_ms": sum(x["bound_ms"] for x in pick),
-               "bound_by": max(pick, key=lambda x: x["bound_ms"])[
-                   "bound_by"],
+               "bound_ms": sum(b for b, _ in roof),
+               "bound_by": max(roof)[1],
                "library_ms": (None if any(x["library_ms"] is None
                                           for x in pick)
                               else sum(x["library_ms"] for x in pick)),
                "shape": (pick[0]["shape"] if len(pick) == 1 else
                          "one decoder layer's 7 projections, M=16")}
+        if name in FLOOR_BOUND:
+            out.update(floor_ms=pick[0]["floor_ms"],
+                       floor_bound_ms=pick[0]["bound_ms"])
         return out
 
     by_path = {name: {

@@ -29,7 +29,8 @@ from tsue_tpu_torch.ops import lmhead_topk as LT
 from tsue_tpu_torch.ops import quant as Q
 from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
 from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
-from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_ref
+from tsue_tpu_torch.ops.nlinear import (nlinear_fused, nlinear_plan,
+                                        nlinear_ref)
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
                                       flash_attention_plain)
 
@@ -678,6 +679,103 @@ def test_nlinear_matches_plain(dev):
                                                  f"To={To}: {m}")
     zero = nlinear_fused(x, torch.zeros_like(w), torch.zeros_like(b))
     assert torch.equal(zero, x[:, :, -1:].expand(-1, -1, w.shape[2]))
+
+
+def _nlinear_case(dev, g, B, C, Ti, To):
+    x = torch.randn(B, C, Ti, generator=g, device=dev)
+    w = torch.randn(C, Ti, To, generator=g, device=dev) * Ti ** -0.5
+    b = torch.randn(C, To, generator=g, device=dev) * 0.1
+    return x, w, b
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: ``flat[1:]`` of a buffer one element longer."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("C,Ti", [(7, 1), (7, 18), (7, 30), (64, 1),
+                                  (64, 18), (64, 30)])
+def test_nlinear_kernel_edge_shapes(dev, C, Ti):
+    """B = 1, 17, 160, 161 (a last block of rows that is not full) and To
+    = 1, 18, 30, 64, at odd C (a last group of one channel; the 4-byte
+    form) and C = 64 (the bulk form where cg * Ti and cg * To are
+    multiples of 4), Ti = 1 (an empty sum): one launch each, against the
+    plain version, atol = rtol = 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(100 * C + Ti)
+    for B, To in itertools.product((1, 17, 160, 161), (1, 18, 30, 64)):
+        x, w, b = _nlinear_case(dev, g, B, C, Ti, To)
+        before = nlinear_fused.launches
+        out = nlinear_fused(x, w, b)
+        assert nlinear_fused.launches == before + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, nlinear_ref(x, w, b), atol=1e-5,
+                                   rtol=1e-5, msg=lambda m: f"B={B} C={C} "
+                                   f"Ti={Ti} To={To} "
+                                   f"{nlinear_plan(B, C, Ti, To)}: {m}")
+
+
+def test_nlinear_misaligned_views_give_the_aligned_bits(dev):
+    """At the three path shapes, x, w and bias as contiguous views 4 bytes
+    off a 16-byte boundary (x[1:] of a longer buffer) take the 4-byte form
+    and give the bulk form's bits: both forms run the same arithmetic in
+    the same order."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    for B, C, Ti, To in ((16, 64, 18, 18), (160, 64, 18, 18),
+                         (16, 64, 18, 30)):
+        x, w, b = _nlinear_case(dev, g, B, C, Ti, To)
+        aligned = nlinear_fused(x, w, b)
+        for which in range(3):
+            args = [x, w, b]
+            args[which] = _misaligned(args[which])
+            out = nlinear_fused(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(out, aligned), (B, To, which)
+        torch.testing.assert_close(aligned, nlinear_ref(x, w, b), **TOL)
+
+
+def test_nlinear_repeats_bit_identical(dev):
+    g = torch.Generator(device=dev).manual_seed(17)
+    for B, C, Ti, To in ((16, 64, 18, 18), (161, 7, 30, 64), (2, 5, 1, 4)):
+        x, w, b = _nlinear_case(dev, g, B, C, Ti, To)
+        assert torch.equal(nlinear_fused(x, w, b), nlinear_fused(x, w, b))
+
+
+def test_nlinear_launch_uses_the_plan(dev, monkeypatch):
+    """The wrapper launches nlinear_plan's form and layout, for aligned
+    and misaligned inputs; the C entry refuses a bulk launch on a
+    misaligned x, and the wrapper a shape whose one channel does not fit
+    in a CTA's shared memory."""
+    import tsue_tpu_torch.ops.nlinear as NL
+    launched = []
+    real = NL._launch
+
+    def spy(x, w, b, out, plan):
+        launched.append(plan)
+        return real(x, w, b, out, plan)
+    monkeypatch.setattr(NL, "_launch", spy)
+    g = torch.Generator(device=dev).manual_seed(18)
+    x, w, b = _nlinear_case(dev, g, 16, 64, 18, 30)
+    nlinear_fused(x, w, b)
+    assert launched[-1] == nlinear_plan(16, 64, 18, 30) == dict(
+        form="bulk", cg=2, bb=4, threads=256, ctas=128, smem_bytes=5152)
+    xm = _misaligned(x)
+    nlinear_fused(xm, w, b)
+    assert launched[-1] == nlinear_plan(16, 64, 18, 30, aligned=False)
+    assert launched[-1]["form"] == "cp4"
+    x7, w7, b7 = _nlinear_case(dev, g, 3, 7, 30, 6)
+    nlinear_fused(x7, w7, b7)
+    assert launched[-1] == nlinear_plan(3, 7, 30, 6)
+    out = torch.empty(16, 64, 30, device=dev)
+    assert real(xm, w, b, out, nlinear_plan(16, 64, 18, 30)) != 0
+    before = nlinear_fused.launches
+    with pytest.raises(ValueError, match="shared"):
+        nlinear_fused(*_nlinear_case(dev, g, 1, 1, 300, 300))
+    assert nlinear_fused.launches == before
 
 
 def test_ade_fde_matches_plain(dev):

@@ -41,13 +41,13 @@ PORT_MODULES = (
     "tsue_tpu_torch.train.checkpoint", "tsue_tpu_torch.ops.nlinear",
     "tsue_tpu_torch.ops.lora", "tsue_tpu_torch.ops.metric_kernels",
     "tsue_tpu_torch.runner", "chip_smoke", "flash_variants",
-    "head_variants", "lora_variants", "swiglu_variants")
+    "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 
 def test_port_imports_no_jax():
     """The port, chip_smoke.py and the kernels' variant scripts
     (flash_variants.py, head_variants.py, lora_variants.py,
-    swiglu_variants.py) import neither JAX nor any module of the JAX
+    swiglu_variants.py, nlinear_variants.py) import neither JAX nor any module of the JAX
     package (``tsue_tpu``, ``tsue_tpu.*``)."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"

@@ -23,7 +23,7 @@ from tsue_tpu.ops.nlinear import nlinear_fused as jax_nlinear
 from tsue_tpu_torch.eval.metrics import ade_fde
 from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
 from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
-from tsue_tpu_torch.ops.nlinear import nlinear_fused
+from tsue_tpu_torch.ops.nlinear import nlinear_fused, nlinear_plan
 
 FWD = dict(atol=1e-5, rtol=1e-5)
 GRAD = dict(atol=1e-4, rtol=1e-4)
@@ -194,3 +194,37 @@ def test_lora_plan_picks_the_form_by_shape(monkeypatch):
         lora_matmul_plan(64, 64, 256, 17, torch.float32)
     with pytest.raises(ValueError):
         lora_matmul_plan(0, 64, 256, 4, torch.float32)
+
+
+def test_nlinear_plan_picks_the_form_by_shape():
+    """The bulk form where every copy is a 16-byte aligned multiple of 16
+    bytes (C % cg == 0, cg * Ti and cg * To multiples of 4, aligned
+    bases), the 4-byte form elsewhere (odd C, Ti = 1 with C = 5, an offset
+    input); a (C / cg, B / bb) grid of 128 CTAs at B = 16 and 1280 at B =
+    160; rows a CTA cut where shared memory asks it; shapes the kernel
+    cannot take raise."""
+    assert nlinear_plan(16, 64, 18, 18) == dict(
+        form="bulk", cg=2, bb=4, threads=160, ctas=128, smem_bytes=3328)
+    assert nlinear_plan(160, 64, 18, 18) == dict(
+        form="bulk", cg=2, bb=4, threads=160, ctas=1280, smem_bytes=3328)
+    assert nlinear_plan(16, 64, 18, 30) == dict(
+        form="bulk", cg=2, bb=4, threads=256, ctas=128, smem_bytes=5152)
+    assert nlinear_plan(16, 64, 18, 18, aligned=False) == dict(
+        form="cp4", cg=2, bb=4, threads=160, ctas=128, smem_bytes=3328)
+    assert nlinear_plan(3, 7, 30, 6) == dict(
+        form="cp4", cg=2, bb=3, threads=64, ctas=4, smem_bytes=2224)
+    assert nlinear_plan(2, 5, 1, 4)["form"] == "cp4"
+    # Ti = 1 at C = 64: four channels make a 16-byte row of x
+    assert (nlinear_plan(161, 64, 1, 64)["form"],
+            nlinear_plan(161, 64, 1, 64)["cg"]) == ("bulk", 4)
+    big = nlinear_plan(4, 3, 200, 240)
+    assert (big["form"], big["cg"], big["bb"]) == ("bulk", 1, 4)
+    assert big["smem_bytes"] <= 232448
+    assert nlinear_plan(8, 2, 120, 400)["bb"] == 4
+    assert nlinear_plan(8, 1, 2000, 26)["bb"] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        nlinear_plan(1, 1, 300, 300)
+    with pytest.raises(ValueError):
+        nlinear_plan(0, 64, 18, 18)
+    with pytest.raises(ValueError):
+        nlinear_plan(4 * 65535 + 1, 64, 18, 18)
