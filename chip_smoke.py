@@ -70,7 +70,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      timed steps (ms per step, stage-1 train windows/s, supervised
      tokens/s, peak memory), a profiled step (idle share), a repeated step
      bit-identical, the same step with loss_chunk=128 (loss within rel
-     1e-5 of the dense one, peak memory), and an eval step.
+     1e-5 of the dense one, peak memory), and an eval step;
+  9. eval from disk at the same width (preset "test_18_18": frozen_mllm,
+     batch 16, 18->18, K=10; fp32, the vocabulary resized to the byte
+     tokenizer's as run_stage2 resizes it, the fused switch on, synthetic
+     tracks, a temporary out_dir removed afterwards): run_stage2 for 2
+     epochs with a train state every epoch; an interrupted twin (1 epoch,
+     then resume=True to 2) whose test metrics, best artifact and train
+     state must be equal; run_stage2(epochs=0, restore_ckpt=<best>) in
+     the fast and the parity mode, whose test_ade and test_fde must be
+     equal (and the fast mode's K-candidate metrics), with the launch
+     count of each kernel against the expected count (parity: K whole
+     stochastic forwards a test batch, the Llama's flash attention in
+     each, plus the deterministic forward); both modes' eval windows/s and
+     peak memory on rebuild_for_eval's model (equal metrics again);
+     Predictor.from_checkpoint against a Predictor over that model (bit
+     for bit); a profiled parity candidate forward; the checkpoint files'
+     sizes and the seconds to save and restore them.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -79,8 +95,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1873,7 +1891,248 @@ def stage1_phase(dev, gpu):
     return counts
 
 
+# --------------------------------------------------------------------------
+# 9. eval from disk at full width
+# --------------------------------------------------------------------------
+
+EVAL_TRACKS = 5     # 15 windows a track: train 45, val 15, test 15
+
+
+def eval_from_disk_phase(dev, gpu):
+    """The reference's train-then-test flow through ``run_stage2``, at full
+    Llama-3.2-1B width: preset "test_18_18" (scripts/test.py: frozen_mllm,
+    batch 16, 18->18, K=10), fp32, the vocabulary resized to the byte
+    tokenizer's as ``run_stage2`` resizes it, random weights from the
+    preset's seed, synthetic tracks, the fused switch on, under a temporary
+    out_dir removed afterwards.  Train 2 epochs with a train state every
+    epoch; an interrupted twin (1 epoch, then resumed to 2) must give the
+    same test metrics, best artifact and final train state; ``restore_ckpt`` of the best
+    artifact with ``epochs=0`` in the fast and the parity mode must give
+    the same test_ade and test_fde (and, fast, the same K-candidate
+    metrics); ``Predictor.from_checkpoint`` must serve, bit for bit, what a
+    Predictor over ``rebuild_for_eval``'s model serves.  Returns the launch
+    counts of the two eval runs."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import BatchIterator, make_synthetic_tracks
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import (evaluate, rebuild_for_eval,
+                                       run_stage2, to_device)
+    from tsue_tpu_torch.serve import Predictor
+    from tsue_tpu_torch.train import checkpoint as ck
+    from tsue_tpu_torch.train.trainer import TrainState, make_optimizer
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = get_preset("test_18_18")
+    m, B, K = cfg.model, cfg.train.batch_size, cfg.train.eval_num_candidates
+    L = m.llama.num_layers
+    det = dict(train_forward_launches(L),
+               flash_attn_fwd=L + m.lane.num_layers
+               + m.qformer.num_encoder_layers
+               + 2 * m.qformer.num_decoder_layers + 2)
+    stochastic = train_forward_launches(L)   # the Llama's flash alone
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="eval_from_disk_", dir=runs)
+    run = dict(synthetic_tracks=EVAL_TRACKS, eval_candidates=K, device=dev)
+
+    def out(name):
+        return os.path.join(tmp, name)
+
+    def timed(what, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics = run_stage2(cfg, **run, **kw)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        print(f"eval_from_disk {what}: {json.dumps(metrics)} in {dt:.2f}s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return metrics
+
+    def artifact(path):
+        return torch.load(os.path.join(path, ck.STATE_FILE),
+                          weights_only=True)
+
+    def same(x, y):
+        """Equal nested artifacts, tensors bit for bit."""
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(x, y)
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return (type(x) is type(y) and len(x) == len(y)
+                    and all(same(a, b) for a, b in zip(x, y)))
+        return x == y
+
+    try:
+        with fused_scope("on"):
+            trained = timed("run_stage2(epochs=2, save_every=1)",
+                            out_dir=out("a"), epochs=2, save_every=1)
+            timed("twin run_stage2(epochs=1, save_every=1)",
+                  out_dir=out("b"), epochs=1, save_every=1)
+            resumed = timed("twin run_stage2(epochs=2, resume=True)",
+                            out_dir=out("b"), epochs=2, resume=True,
+                            save_every=1)
+            check(resumed == trained, f"the resumed run's metrics {resumed} "
+                                      f"!= the uninterrupted run's {trained}")
+            best = os.path.join(out("a"), cfg.name, "ckpt", "best")
+            for what in ("best", "state"):
+                check(same(*(artifact(os.path.join(out(r), cfg.name, "ckpt",
+                                                   what)) for r in "ab")),
+                      f"the resumed run's {what} artifact differs")
+
+            counts, restored = {}, {}
+            for mode in ("fast", "parity"):
+                reset_counts()
+                restored[mode] = timed(
+                    f"run_stage2(epochs=0, restore_ckpt=<best>, "
+                    f"candidate_mode={mode!r})", out_dir=out(f"eval_{mode}"),
+                    epochs=0, restore_ckpt=best, candidate_mode=mode)
+                counts[mode] = read_counts()
+                for key in ("test_ade", "test_fde"):
+                    check(restored[mode][key] == trained[key],
+                          f"restore_ckpt ({mode}): {key} "
+                          f"{restored[mode][key]} != {trained[key]}")
+            check(restored["fast"] == trained,
+                  f"restore_ckpt (fast): {restored['fast']} != {trained}")
+
+            t0 = time.time()
+            model, (dtr, dva, dte) = rebuild_for_eval(
+                cfg, None, out("a"), synthetic_tracks=EVAL_TRACKS,
+                device=dev)
+            n_test = math.ceil(len(dte) / B)
+            print(f"eval_from_disk: windows train={len(dtr)} val={len(dva)} "
+                  f"test={len(dte)} ({math.ceil(len(dtr) / B)} / "
+                  f"{math.ceil(len(dva) / B)} / {n_test} batches of {B}); "
+                  f"rebuild_for_eval {time.time() - t0:.1f}s", flush=True)
+            for mode in ("fast", "parity"):
+                if mode == "fast":
+                    # the deterministic forward, then the rollout's context
+                    # (every attention but the forecaster's two)
+                    per_batch = {k: 2 * v for k, v in det.items()}
+                    per_batch["flash_attn_fwd"] -= 2
+                else:
+                    # the deterministic forward, then K whole stochastic
+                    # forwards (the Llama's attention alone has no dropout)
+                    per_batch = {k: det[k] + K * stochastic[k] for k in det}
+                expected = {k: n_test * v for k, v in per_batch.items()}
+                check(counts[mode] == expected,
+                      f"eval from disk ({mode}): launches {counts[mode]} != "
+                      f"{expected}")
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                again = evaluate(model, dte, cfg, K, mode)
+                torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                check(again == restored[mode],
+                      f"evaluate ({mode}) on rebuild_for_eval's model "
+                      f"{again} != run_stage2's {restored[mode]}")
+                print(f"eval_from_disk {mode} eval: {len(dte)} windows in "
+                      f"{dt:.3f}s = {len(dte) / dt:.3f} windows/s (K={K}, "
+                      f"batch {B}); peak memory {peak:.2f} GiB; launches "
+                      f"{json.dumps(counts[mode])}; gpu: {gpu}", flush=True)
+            print("eval_from_disk fast vs parity (printed, not checked: two "
+                  "epochs from random weights are not a statistic): "
+                  + ", ".join(f"{k} {restored['fast'][k]:.4f} / "
+                              f"{restored['parity'][k]:.4f}"
+                              for k in ("min_ade", "min_fde", "min_rmse")),
+                  flush=True)
+
+            tracks = make_synthetic_tracks(num_tracks=2, track_len=400,
+                                           seed=11)
+            served = []
+            for build in (lambda: Predictor.from_checkpoint(
+                              cfg, best, batch_size=B, num_candidates=K,
+                              device=dev),
+                          lambda: Predictor(
+                              cfg.replace(model=model.cfg),
+                              model.state_dict(), batch_size=B,
+                              num_candidates=K, device=dev)):
+                pred = build()
+                served.append(pred.predict(
+                    tracks, torch.Generator(device=dev).manual_seed(3)))
+                del pred
+                gc.collect()
+                torch.cuda.empty_cache()
+            check(len(served[0]) == len(served[1]) > 0
+                  and all(np.array_equal(a[key], b[key])
+                          for a, b in zip(*served)
+                          for key in ("pred_pixel_xy",
+                                      "candidates_pixel_xy")),
+                  "Predictor.from_checkpoint differs from a Predictor over "
+                  "rebuild_for_eval's model")
+            print(f"eval_from_disk: Predictor.from_checkpoint == Predictor "
+                  f"over rebuild_for_eval's model, bit for bit "
+                  f"({len(served[0])} windows, K={K})", flush=True)
+
+            # where a parity candidate's time goes: one stochastic forward
+            b = to_device(next(iter(BatchIterator(
+                dte, B, shuffle=False,
+                length_buckets=cfg.data.length_buckets))), dev)
+
+            @torch.no_grad()
+            def candidate():
+                model(b, deterministic=False,
+                      generator=step_generator(1000, 0, dev))
+            candidate()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            candidate()
+            torch.cuda.synchronize(dev)
+            profile_device(dev, gpu, f"eval_from_disk profile: one parity "
+                           f"candidate forward (B{B}, "
+                           f"T{m.qformer.num_query_tokens + b['input_ids'].shape[1]})",
+                           time.perf_counter() - t0, candidate)
+
+        # the checkpoint files: sizes, and the seconds to save and restore
+        state_dir = os.path.join(out("a"), cfg.name, "ckpt", "state")
+        tfilter = ck.trainable_filter(model, cfg.train.freeze_regime)
+        state = TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
+        t0 = time.perf_counter()
+        _, extra = ck.restore_train_state(state_dir, state,
+                                          trainable_filter=tfilter)
+        torch.cuda.synchronize(dev)
+        t_restore = time.perf_counter() - t0
+        steps = 2 * math.ceil(len(dtr) / B)
+        check(state.step == steps and extra["epoch"] == 2,
+              f"restored train state: step {state.step} (expected {steps}), "
+              f"{extra}")
+        t0 = time.perf_counter()
+        ck.save_train_state(out("state_copy"), state, trainable_filter=tfilter,
+                            **extra)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.restore_merge(best, model)
+        torch.cuda.synchronize(dev)
+        t_merge = time.perf_counter() - t0
+        mb = {name: os.path.getsize(os.path.join(path, ck.STATE_FILE)) / 1e6
+              for name, path in (("trainable subset", best),
+                                 ("train state", state_dir))}
+        n_sub = sum(t.numel() for t in artifact(best).values())
+        print(f"eval_from_disk checkpoints: trainable subset "
+              f"{mb['trainable subset']:.2f} MB ({n_sub / 1e6:.2f}M "
+              f"parameters), train state {mb['train state']:.2f} MB; "
+              f"save_train_state {t_save:.3f}s, restore_train_state "
+              f"{t_restore:.3f}s, restore_merge of the subset {t_merge:.3f}s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one",
@@ -1927,6 +2186,7 @@ def main() -> int:
     train_counts = {preset: train_phase(dev, gpu, preset)
                     for preset in TRAIN_PRESETS}
     stage1_counts = stage1_phase(dev, gpu)
+    eval_counts = eval_from_disk_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
@@ -1971,7 +2231,9 @@ def main() -> int:
         "generate_switches_off": off_counts[name],
         **{f"train {p} (3 steps)": train_counts[p][name]
            for p in TRAIN_PRESETS},
-        "stage1 train_18_30 (3 steps)": stage1_counts[name]}
+        "stage1 train_18_30 (3 steps)": stage1_counts[name],
+        **{f"eval from disk, {mode} (K=10)": eval_counts[mode][name]
+           for mode in ("fast", "parity")}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:
@@ -1997,6 +2259,8 @@ def main() -> int:
         if name in grad_errs:
             entry["grad_max_abs_err"] = grad_errs[name]
         kernels.append(entry)
+    print(f"chip_smoke: {time.time() - t_start:.1f}s in all, the build "
+          f"included; gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -296,11 +296,12 @@ def test_training_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("option", [
-    "restore_ckpt", "save_every", "resume", "viz_every", "save_viz", "remat",
-    "bfloat16", "stage1_remat", "stage1_bfloat16", "stage1_pipeline"])
+    "viz_every", "save_viz", "remat", "bfloat16", "stage1_remat",
+    "stage1_bfloat16", "stage1_pipeline"])
 def test_options_not_ported_yet_raise(option, tmp_path):
     """What the runners do not take yet raises NotImplementedError before
-    any work (``mllm_ckpt`` is taken since stage 1 landed)."""
+    any work (``mllm_ckpt`` is taken since stage 1 landed, ``restore_ckpt``,
+    ``save_every`` and ``resume`` since checkpoints on disk did)."""
     import dataclasses
     from tsue_tpu_torch.config import ModelConfig, get_preset
     from tsue_tpu_torch.runner import run_stage1, run_stage2
@@ -318,6 +319,6 @@ def test_options_not_ported_yet_raise(option, tmp_path):
         cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
                                                    pipeline_parallel=2))
     else:
-        kw[what] = "x" if what == "restore_ckpt" else True
+        kw[what] = True
     with pytest.raises(NotImplementedError):
         fn(cfg, out_dir=str(tmp_path), epochs=0, device="cpu", **kw)

@@ -2,7 +2,10 @@
 
 Counterpart of ``tsue_tpu/eval/metrics.py``.  The K MC-dropout candidates
 of the fast rollout are a written-out batch dimension: the forecaster runs
-once over K*B rows, with its dropout masks drawn from one generator.
+once over K*B rows, with its dropout masks drawn from one generator.  The
+parity rollout runs the whole stochastic model K times in a loop, as the
+reference does (ref scripts/test.py:1327-1339), each candidate from a
+generator of its own, so its peak memory is one forward's.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tsue_tpu_torch.train.losses import denorm
+from tsue_tpu_torch.utils.random import step_generator
 
 
 def ade_fde(pred: torch.Tensor, target: torch.Tensor,
@@ -27,6 +31,21 @@ def ade_fde(pred: torch.Tensor, target: torch.Tensor,
     w = valid.float()
     n = w.sum().clamp_min(1.0)
     return (per_ade * w).sum() / n, (per_fde * w).sum() / n
+
+
+def candidate_rollout(model, batch: Dict[str, torch.Tensor],
+                      num_candidates: int, seed: int) -> torch.Tensor:
+    """Parity mode: K stochastic forwards of the whole model (dropout in
+    the lane encoder, the Q-Former, the LoRA adapters and the forecaster),
+    the reference's ``model.train()``-inside-``no_grad`` sampling (ref
+    scripts/test.py:1308-1309).  Candidate k drops from
+    ``step_generator(seed, k)``, so it is reproducible and does not depend
+    on K.  Returns (B, K, 2, T_out)."""
+    dev = batch["traj_in"].device
+    preds = [model(batch, deterministic=False,
+                   generator=step_generator(seed, k, dev))
+             for k in range(num_candidates)]
+    return torch.stack(preds, dim=1)
 
 
 def fast_candidate_rollout(model, batch: Dict[str, torch.Tensor],

@@ -1,30 +1,32 @@
 """Experiment runners: stage-1 MLLM fine-tuning and the stage-2 pipeline
-(data, model, train loop, best-val restore, test metrics).
+(data, model, train loop, best-val checkpoint, test metrics).
 
 Counterpart of ``tsue_tpu/runner.py`` (``prepare_data``,
-``build_model_and_params``, ``evaluate``, ``run_stage2``, ``run_stage1``;
-ref scripts/train.py:1044-1328 ``train_ddp`` and
-scripts/check_generation.py): a seeded split, windows built once, epochs
-of train steps over shuffled fixed-size batches, the mean validation loss
-per epoch.  Stage 2 restores the best epoch's trainable parameters before
-the test (kept in memory), then reports deterministic ADE/FDE and, with
-``eval_candidates`` K > 0, the fast K-candidate metrics.  Stage 1 trains
-the MLLM's causal-LM loss, exports it (``train.checkpoint.export_mllm``)
-for ``run_stage2(mllm_ckpt=...)`` and writes a generation dump.
+``build_model_and_params``, ``rebuild_for_eval``, ``evaluate``,
+``run_stage2``, ``run_stage1``; ref scripts/train.py:1044-1328
+``train_ddp``, scripts/test.py and scripts/check_generation.py): a seeded
+split, windows built once, epochs of train steps over shuffled fixed-size
+batches, the mean validation loss per epoch.  Stage 2 keeps the best
+epoch's trainable parameters on disk (``train.checkpoint.BestCheckpointer``)
+and restores them before the test, checkpoints the full train state every
+``save_every`` epochs for an exact ``resume``, and evaluates a checkpoint
+given as ``restore_ckpt``; it reports deterministic ADE/FDE and, with
+``eval_candidates`` K > 0, the K-candidate metrics of the fast or the
+parity rollout.  Stage 1 trains the MLLM's causal-LM loss, exports it
+(``train.checkpoint.export_mllm``) for ``run_stage2(mllm_ckpt=...)`` and
+writes a generation dump.
 
 It runs on the CUDA device unless it is given ``device="cpu"``, and never
 falls back to the CPU on its own.  The ``TSUE_FUSED`` switch
 (``ops.fused``) applies as everywhere in the port.  Not taken yet (ROADMAP
-A: checkpoints on disk, the parity candidate mode, the rest of training,
-parallel): ``restore_ckpt``, ``save_every``/``resume``, ``viz_every`` and
-the per-epoch text sample, ``save_viz``, the parity candidate mode, remat,
-bfloat16 training and stage 1's pipeline parallelism; each raises
-``NotImplementedError`` when asked for.
+A: the rest of training, parallel): ``viz_every`` and the per-epoch text
+sample, ``save_viz``, remat, bfloat16 training and stage 1's pipeline
+parallelism; each raises ``NotImplementedError`` when asked for.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
+import json
 import os
 from typing import Dict, Optional
 
@@ -36,16 +38,23 @@ from tsue_tpu_torch.data import (BatchIterator, build_windows,
                                  check_data_sanity, get_tokenizer,
                                  load_tracks, make_synthetic_tracks,
                                  split_tracks)
-from tsue_tpu_torch.eval.metrics import (ade_fde, fast_candidate_rollout,
+from tsue_tpu_torch.eval.metrics import (ade_fde, candidate_rollout,
+                                         fast_candidate_rollout,
                                          min_ade_fde_rmse)
 from tsue_tpu_torch.models.fusion import MultiModalLLM
 from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
-from tsue_tpu_torch.train.checkpoint import export_mllm, import_mllm
+from tsue_tpu_torch.train.checkpoint import (BestCheckpointer, export_mllm,
+                                             import_mllm, restore_merge,
+                                             restore_train_state,
+                                             save_train_state,
+                                             train_state_path,
+                                             trainable_filter)
 from tsue_tpu_torch.train.stage1 import (make_stage1_eval_step,
                                          make_stage1_optimizer,
                                          make_stage1_train_step)
 from tsue_tpu_torch.train.trainer import (TrainState, make_eval_step,
-                                          make_optimizer, make_train_step)
+                                          make_optimizer, make_train_step,
+                                          set_trainable)
 from tsue_tpu_torch.utils import MetricLogger, seed_everything
 from tsue_tpu_torch.utils.random import step_generator
 
@@ -137,6 +146,55 @@ def build_model_and_params(cfg: ExperimentConfig, tokenizer,
     return model
 
 
+def _check_restore_meta(restore_ckpt: str, mllm_ckpt: Optional[str]):
+    """Fail fast when a checkpoint whose training imported a stage-1 MLLM
+    is evaluated without one.  Frozen-regime artifacts hold only the
+    trainable subset; the frozen MLLM is rebuilt from the seed and the
+    ``mllm_ckpt`` import, so without that import the restore would succeed
+    and score a random-init LLM.  ``run_stage2`` writes ``meta.json``
+    beside the artifact at train time (``tsue_tpu/runner.py:80-109``)."""
+    meta_path = os.path.join(os.path.dirname(os.path.abspath(restore_ckpt)),
+                             "meta.json")
+    if not os.path.exists(meta_path):
+        return
+    with open(meta_path) as f:
+        trained_with = json.load(f).get("mllm_ckpt")
+    if trained_with and not mllm_ckpt:
+        raise RuntimeError(
+            f"checkpoint {restore_ckpt} was trained with a stage-1 MLLM "
+            f"import ({trained_with}) but this eval run passes no "
+            "mllm_ckpt; the frozen MLLM would be re-initialized randomly "
+            "and the metrics would be silently wrong.  Pass "
+            f"mllm_ckpt={trained_with!r} (or the equivalent artifact).")
+    if trained_with and mllm_ckpt and \
+            os.path.abspath(mllm_ckpt) != os.path.abspath(trained_with):
+        print(f"[warn] eval mllm_ckpt {mllm_ckpt} differs from the one "
+              f"recorded at train time ({trained_with})")
+
+
+def rebuild_for_eval(cfg: ExperimentConfig, data_path: Optional[str],
+                     out_dir: str, tokenizer_path: Optional[str] = None,
+                     synthetic_tracks: int = 40,
+                     mllm_ckpt: Optional[str] = None, device="cuda"):
+    """Rebuild the model and data as ``run_stage2`` did and restore its
+    best-val artifact (``<out_dir>/<cfg.name>/ckpt/best``), through the one
+    shared ``build_model_and_params``: a frozen-regime artifact holds only
+    the trainable subset, so the frozen one must be rebuilt bit for bit.
+    The parameters' ``requires_grad`` follows the freeze regime, as in
+    ``run_stage2``, so ``evaluate`` gives its metrics bit for bit.
+    Returns ``(model, (dtr, dva, dte))``."""
+    dev = _train_device(device)
+    seed_everything(cfg.train.seed)
+    tokenizer = get_tokenizer(tokenizer_path)
+    splits = prepare_data(cfg, data_path, tokenizer, synthetic_tracks)
+    model = build_model_and_params(cfg, tokenizer, dev, mllm_ckpt)
+    set_trainable(model, cfg.train.freeze_regime)
+    BestCheckpointer(
+        os.path.join(out_dir, cfg.name, "ckpt"),
+        trainable_filter(model, cfg.train.freeze_regime)).restore_best(model)
+    return model, splits
+
+
 @torch.no_grad()
 def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
              eval_candidates: int = 0, candidate_mode: str = "fast",
@@ -144,14 +202,13 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     """Test loop (ref train.py:1256-1328 / test.py:1279-1396): the
     sample-weighted mean of the deterministic ADE/FDE over the test windows
     (wrap-padded rows excluded) and, with K = ``eval_candidates``, the
-    min-over-K ADE/FDE/RMSE of the fast rollout (the MLLM context once per
-    batch, K dropout forecasts from a generator seeded ``eval_seed + i``
-    for batch i), on the model's device."""
-    if eval_candidates and (candidate_mode != "fast"
-                            or not model.cfg.use_llm):
-        raise NotImplementedError(
-            "only the fast K-candidate rollout of a use_llm model is ported "
-            "(ROADMAP A: the parity candidate mode, candidate_rollout)")
+    min-over-K ADE/FDE/RMSE, on the model's device.  The candidates of
+    batch i come from seed ``eval_seed + i``, routed as the JAX package's
+    ``evaluate`` routes them: ``candidate_mode == "fast"`` on a ``use_llm``
+    model takes the fast rollout (the MLLM context once, K dropout
+    forecasts), every other case the parity rollout (K whole stochastic
+    forwards)."""
+    fast = candidate_mode == "fast" and model.cfg.use_llm
     dev = next(model.parameters()).device
     per_batch = []
     for i, batch in enumerate(_batches(dte, cfg, False)):
@@ -160,8 +217,12 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
         a, f = ade_fde(pred, b["traj_out"], b["norm_stat"], b["valid"])
         entry = [a, f, b["valid"].sum()]
         if eval_candidates:
-            gen = torch.Generator(device=dev).manual_seed(eval_seed + i)
-            cands = fast_candidate_rollout(model, b, eval_candidates, gen)
+            if fast:
+                gen = torch.Generator(device=dev).manual_seed(eval_seed + i)
+                cands = fast_candidate_rollout(model, b, eval_candidates, gen)
+            else:
+                cands = candidate_rollout(model, b, eval_candidates,
+                                          eval_seed + i)
             entry.extend(min_ade_fde_rmse(cands, b["traj_out"],
                                           b["norm_stat"], b["valid"]))
         per_batch.append(entry)
@@ -185,19 +246,12 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     return out
 
 
-# the ROADMAP A item that ports each refused option
-_ITEM = dict(restore_ckpt="checkpoints on disk",
-             save_every="checkpoints on disk", resume="checkpoints on disk",
-             viz_every="the rest of training", save_viz="the rest of training",
-             remat="the rest of training")
-
-
 def _refuse(entry: str, **options) -> None:
     for name, value in options.items():
         if value:
             raise NotImplementedError(
-                f"{entry}({name}=...) is not ported yet (ROADMAP A: "
-                f"{_ITEM[name]})")
+                f"{entry}({name}=...) is not ported yet (ROADMAP A: the "
+                "rest of training)")
 
 
 def _train_device(device) -> torch.device:
@@ -220,24 +274,64 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     """Stage-2 pipeline; returns the test metrics dict (``test_ade``,
     ``test_fde`` and, with ``eval_candidates``, ``min_ade``, ``min_fde``,
     ``min_rmse``, ``K``), as the JAX package's ``run_stage2``.  Metrics
-    go to ``<out_dir>/<cfg.name>/metrics.jsonl``."""
-    _refuse("run_stage2", restore_ckpt=restore_ckpt, save_every=save_every,
-            resume=resume, viz_every=viz_every, save_viz=save_viz,
+    go to ``<out_dir>/<cfg.name>/metrics.jsonl``, the best epoch's
+    trainable parameters to ``<out_dir>/<cfg.name>/ckpt/best``.
+
+    ``restore_ckpt``: an artifact (full, or the trainable subset) merged
+    over the model before anything else; with ``epochs=0`` this is the
+    reference's eval flow (ref scripts/test.py:1273-1276).
+    ``save_every=N`` writes the full train state (``ckpt/state``: step,
+    trainable parameters, optimizer, epoch, best val loss) every N epochs;
+    ``resume=True`` restores it and continues, so an interrupted run
+    equals the uninterrupted one exactly (a step's dropout draws from
+    ``step_generator(seed, step)``, an epoch's shuffle from the epoch)."""
+    _refuse("run_stage2", viz_every=viz_every, save_viz=save_viz,
             remat=cfg.model.llama.remat)
+    if restore_ckpt:
+        _check_restore_meta(restore_ckpt, mllm_ckpt)
     dev = _train_device(device)
     seed_everything(cfg.train.seed)
-    logger = MetricLogger(os.path.join(out_dir, cfg.name))
+    run_dir = os.path.join(out_dir, cfg.name)
+    logger = MetricLogger(run_dir)
     tokenizer = get_tokenizer(tokenizer_path)
     dtr, dva, dte = prepare_data(cfg, data_path, tokenizer, synthetic_tracks)
     print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
 
     model = build_model_and_params(cfg, tokenizer, dev, mllm_ckpt)
+    if restore_ckpt:
+        restore_merge(restore_ckpt, model)
     state = TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
-    best_val, best = float("inf"), None
+    tfilter = trainable_filter(model, cfg.train.freeze_regime)
+    ckpt = BestCheckpointer(os.path.join(run_dir, "ckpt"), tfilter)
     n_epochs = epochs if epochs is not None else cfg.train.epochs
-    for epoch in range(n_epochs):
+    if n_epochs > 0:
+        # provenance for _check_restore_meta: which stage-1 artifact, if
+        # any, rebuilt the frozen subtree
+        with open(os.path.join(ckpt.directory, "meta.json"), "w") as f:
+            json.dump({"name": cfg.name,
+                       "freeze_regime": cfg.train.freeze_regime,
+                       "use_llm": cfg.model.use_llm,
+                       "seq_len": cfg.data.seq_len,
+                       "out_len": cfg.data.out_len,
+                       "mllm_ckpt": (os.path.abspath(mllm_ckpt)
+                                     if mllm_ckpt else None)}, f)
+    state_dir = os.path.join(ckpt.directory, "state")
+    start_epoch = 0
+    if resume:
+        if train_state_path(state_dir):
+            _, extra = restore_train_state(state_dir, state,
+                                           trainable_filter=tfilter)
+            start_epoch, ckpt.best_val = extra["epoch"], extra["best_val"]
+            print(f"[resume] epoch {start_epoch}, step {state.step}, "
+                  f"best_val {ckpt.best_val:.6g}")
+        else:
+            # loud: a mistyped out_dir or a crash before the first save
+            # would otherwise restart at epoch 0 over old artifacts
+            print(f"[resume] nothing to resume at {state_dir}; training "
+                  "from scratch")
+    for epoch in range(start_epoch, n_epochs):
         # per-step losses stay on the device until the epoch ends
         step_losses = [train_step(state, to_device(b, dev))["loss"]
                        for b in _batches(dtr, cfg, True, epoch)]
@@ -249,18 +343,16 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
         val_loss = (sum(float(x) for x in val_losses) / len(val_losses)
                     if val_losses else float("nan"))
         logger.log(epoch, train_loss=train_loss, val_loss=val_loss)
-        if math.isfinite(val_loss) and val_loss < best_val:
-            best_val = val_loss
-            best = {n: p.detach().clone()
-                    for n, p in model.named_parameters() if p.requires_grad}
+        ckpt.maybe_save(val_loss, model)
+        if save_every and (epoch + 1) % save_every == 0:
+            save_train_state(state_dir, state, epoch=epoch + 1,
+                             best_val=ckpt.best_val,
+                             trainable_filter=tfilter)
 
     # restore the best epoch's trainable parameters before the test (ref
     # train.py:1249-1252); frozen ones never changed
-    if best is not None:
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                if n in best:
-                    p.copy_(best[n])
+    if n_epochs > 0 and ckpt.best_val < float("inf"):
+        ckpt.restore_best(model)
     metrics = evaluate(model, dte, cfg, eval_candidates, candidate_mode)
     logger.log(n_epochs, **metrics)
     logger.close()

@@ -10,11 +10,14 @@ tracks go through the port's copy of the windowing and text dataset
 serves exactly the batches the JAX package serves.
 
 The predictor runs on the CUDA device unless it is given ``device="cpu"``.
-Speculative decoding, the continuous batcher, meshes and checkpoint
-restore are not ported yet, so the methods do not take those options.
+``Predictor.from_checkpoint`` serves an artifact that ``run_stage2``
+wrote.  Speculative decoding, the continuous batcher and meshes are not
+ported yet, so the methods do not take those options.
 
 Usage:
     p = Predictor(cfg, state_dict, num_candidates=10)
+    p = Predictor.from_checkpoint(cfg, "runs/test_18_18/ckpt/best",
+                                  num_candidates=10)
     out = p.warmup().predict(raw_tracks_px)
     texts = p.generate_context(raw_tracks_px, max_new_tokens=64)
 """
@@ -87,6 +90,34 @@ class Predictor:
                                          cfg.data.out_len)
         self.model.load_state_dict(params, strict=True)
         self.model.eval()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: ExperimentConfig, ckpt_dir: str,
+                        mllm_ckpt: Optional[str] = None,
+                        **kw) -> "Predictor":
+        """A predictor over a ``run_stage2`` artifact (full, or the
+        trainable subset of a frozen regime), merged by
+        ``train.checkpoint.restore_merge`` over the model that
+        ``runner.build_model_and_params`` builds: the vocabulary resized to
+        the tokenizer's, random weights from ``cfg.train.seed`` and, with
+        ``mllm_ckpt``, the stage-1 artifact the training imported (a
+        checkpoint whose ``meta.json`` records one raises without it).  So
+        the frozen parameters are the ones the checkpoint was trained
+        with.  The JAX package's method initialises from ``key(0)`` where
+        its training initialises from ``cfg.train.seed``, and serves a
+        frozen-regime artifact over another frozen MLLM than it was trained
+        with (ROADMAP C, defects of the reference); the port does not copy
+        that.  ``kw`` goes to ``Predictor``."""
+        from tsue_tpu_torch.runner import (_check_restore_meta,
+                                           build_model_and_params)
+        from tsue_tpu_torch.train.checkpoint import restore_merge
+        _check_restore_meta(ckpt_dir, mllm_ckpt)
+        tokenizer = kw.pop("tokenizer", None) or get_tokenizer()
+        device = kw.pop("device", "cuda")
+        model = build_model_and_params(cfg, tokenizer, device, mllm_ckpt)
+        restore_merge(ckpt_dir, model)
+        return cls(cfg.replace(model=model.cfg), model.state_dict(),
+                   tokenizer=tokenizer, device=device, **kw)
 
     @staticmethod
     def _resolve_cap(compile_cap: Optional[int], max_new_tokens: int) -> int:

@@ -23,7 +23,7 @@ cannot reproduce JAX's masks, so parity is tested with dropout at 0.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 from torch import nn
@@ -128,19 +128,29 @@ class GuardedAdamW:
         self.notfinite_count = state["notfinite_count"]
 
 
-def make_optimizer(cfg: ExperimentConfig, model: nn.Module) -> GuardedAdamW:
-    """Label every parameter under ``cfg.train.freeze_regime``, set
-    ``requires_grad`` from the label, and return AdamW(lr, weight_decay)
-    with clip and guard over the trainable ones."""
-    tcfg = cfg.train
-    labels = param_labels(model, tcfg.freeze_regime)
+def set_trainable(model: nn.Module, regime: str) -> List[nn.Parameter]:
+    """Label every parameter under ``regime``, set ``requires_grad`` from
+    the label and return the trainable parameters.  The flags also decide
+    the last bits of an fp32 forward, with or without grad mode:
+    ``torch.matmul`` of a batch of rows by a weight that requires grad
+    folds the batch into one product, by one that does not it may run a
+    batched product."""
+    labels = param_labels(model, regime)
     trainable = []
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] == "train")
         if labels[name] == "train":
             trainable.append(p)
-    return GuardedAdamW(trainable, tcfg.lr, tcfg.weight_decay,
-                        tcfg.grad_clip, tcfg.nan_guard)
+    return trainable
+
+
+def make_optimizer(cfg: ExperimentConfig, model: nn.Module) -> GuardedAdamW:
+    """``set_trainable`` under ``cfg.train.freeze_regime``, then
+    AdamW(lr, weight_decay) with clip and guard over the trainable
+    parameters."""
+    tcfg = cfg.train
+    return GuardedAdamW(set_trainable(model, tcfg.freeze_regime), tcfg.lr,
+                        tcfg.weight_decay, tcfg.grad_clip, tcfg.nan_guard)
 
 
 # ---------------------------------------------------------------------------

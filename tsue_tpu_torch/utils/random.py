@@ -26,8 +26,23 @@ def dropout(x: torch.Tensor, p: float,
                                                         device=x.device))
 
 
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """SplitMix64's finaliser: every output bit depends on every input
+    bit."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
 def step_generator(seed: int, step: int, device=None) -> torch.Generator:
     """The generator of training step ``step`` of a run seeded ``seed``: a
-    fresh stream per (seed, step), so a step can be repeated exactly."""
+    fresh stream per (seed, step), so a step can be repeated exactly.  The
+    pair is mixed into one 64-bit seed: the CPU generator (mt19937) keeps
+    only a seed's low 32 bits, the CUDA one (Philox) all 64."""
     g = torch.Generator(device=device)
-    return g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return g.manual_seed(_mix64(((seed & 0xFFFFFFFF) << 32)
+                                | (step & 0xFFFFFFFF)))
