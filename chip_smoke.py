@@ -86,7 +86,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory on rebuild_for_eval's model (equal metrics again);
      Predictor.from_checkpoint against a Predictor over that model (bit
      for bit); a profiled parity candidate forward; the checkpoint files'
-     sizes and the seconds to save and restore them.
+     sizes and the seconds to save and restore them;
+ 10. the serving entry points at the width of phase 6 (run right after it,
+     over the same weights, one Predictor with int8 weights and the int8
+     KV cache): the continuous batcher (16 slots, chunk 8, greedy) on 48
+     tracks with caps from seed 0 in 8-64, every request at its cap,
+     launches as the path implies, three requests alone in a pool of one
+     slot and a sampled request alone and among 16 others with the same
+     ids, tokens/s, ms per tick, mean live slots, admission prefill ms, a
+     profiled run's idle share, and the static batcher on the same tracks
+     for comparison; the small configuration's pool (greedy and sampled,
+     int8 switches and the fp32 cache) on the card against the CPU; and
+     the serve command's HTTP API (make_server, in threads on free ports):
+     /healthz, /predict bit for bit against Predictor.predict, /generate
+     through both batchers, a dropped track and an unknown path, each
+     request's latency.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -236,9 +250,10 @@ def errors(out, ref):
 
 def attention_cases(dev):
     """(name, kwargs of flash_attention) at the shapes of the predict path
-    (batch 16, text 512 tokens + 16 image tokens) and of generation (the
+    (batch 16, text 512 tokens + 16 image tokens), of generation (the
     no-RoPE causal prefill, the Q-Former over 64 frames, and the decode
-    step over an fp32 cache of 592 slots)."""
+    step over an fp32 cache of 592 slots) and of the continuous batcher's
+    admission (the prefill and the Q-Former at batch 1)."""
     import numpy as np
     import torch
     from tsue_tpu_torch.config import LlamaConfig
@@ -293,6 +308,16 @@ def attention_cases(dev):
         ("gen_decode_fp32_cache", dict(
             q=randn(B, 1, 32, 64), k=randn(B, S, 8, 64), v=randn(B, S, 8, 64),
             mask=decode_mask)),
+        # the continuous batcher's admission: one request's prefill
+        ("admit_prefill", dict(
+            q=randn(1, T, 32, 64), k=randn(1, T, 8, 64), v=randn(1, T, 8, 64),
+            mask=llama_mask[-1:], is_causal=True)),
+        ("admit_qformer_self", dict(
+            q=randn(1, 64, 8, 96), k=randn(1, 64, 8, 96),
+            v=randn(1, 64, 8, 96))),
+        ("admit_qformer_cross", dict(
+            q=randn(1, 16, 8, 96), k=randn(1, 64, 8, 96),
+            v=randn(1, 64, 8, 96))),
     ]
 
 
@@ -535,8 +560,9 @@ def head_checks(dev, gpu, timer, lm_head_ms):
 
 def attend_checks(dev, gpu, timer):
     """The decode step's int8-KV attention at the three cache lengths of
-    generation, each row with its launch plan and a second call that must
-    give the same bits."""
+    generation (and at 592 slots with a decode step per row, the
+    continuous batcher's tick), each row with its launch plan and a second
+    call that must give the same bits."""
     import torch
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
                                              attend_int8_kv_plain,
@@ -545,13 +571,17 @@ def attend_checks(dev, gpu, timer):
     g = torch.Generator(device=dev).manual_seed(3)
     B, Hq, Hkv, D = 16, 32, 8, 64
     rows = []
-    for S in (336, 464, 592):
+    for S, per_row in ((336, False), (464, False), (592, True),
+                       (592, False)):
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         cache = quantize_cache([(k, v)])[0]
         q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
         prefix = torch.randint(S // 2, S - 64, (B,), generator=g, device=dev)
-        step = 40
+        # the static path's rows share a step; the continuous batcher's
+        # each have their own
+        step = (torch.randint(0, 64, (B, 1), generator=g, device=dev)
+                if per_row else 40)
         s_idx = torch.arange(S, device=dev)[None, :]
         mask = ((s_idx < prefix[:, None])
                 | ((s_idx >= S - 64) & (s_idx <= S - 64 + step))).int()
@@ -564,7 +594,8 @@ def attend_checks(dev, gpu, timer):
         ms = timer.ms(lambda: attend_int8_kv(q, cache, mask))
         b = bound(nbytes(q, *cache, mask, out), 4.0 * B * Hq * S * D)
         plan = attend_int8_kv_plan(S, Hq // Hkv, D)
-        rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq=1", gpu,
+        rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq=1"
+                        + (" per-row steps" if per_row else ""), gpu,
                         err, rel, ms, plain_ms, b, None, timer.floor_ms,
                         plan={**plan, "ctas": plan["splits"] * B * Hkv},
                         repeat_bit_identical=bool(torch.equal(out, again))))
@@ -1562,6 +1593,302 @@ def fused_head_requests(dev, gpu, cfg, state):
 
 
 # --------------------------------------------------------------------------
+# 10. the serving entry points at full width
+# --------------------------------------------------------------------------
+
+POOL_SLOTS, POOL_CHUNK, POOL_TRACKS = 16, 8, 48
+
+
+def pool_expected(m, run) -> dict:
+    """The launches of a continuous-batcher run with int8 weights and the
+    int8 KV cache: each admission prefills one request (flash in every
+    Llama layer and Q-Former call, the int8 LM head once for its first
+    logits); each tick is one decode step over all slots (seven int8
+    products a layer and the int8 head, one int8-KV attention a layer)."""
+    L = m.llama.num_layers
+    qformer_calls = m.qformer.num_encoder_layers + \
+        2 * m.qformer.num_decoder_layers
+    A, T = run["admissions"], run["ticks"]
+    return {"flash_attn_fwd": A * (L + qformer_calls),
+            "int8_matmul": T * (7 * L + 1) + A, "lmhead_topk": 0,
+            "attend_int8_kv": T * L, "rmsnorm": 0, "swiglu_matmul": 0,
+            **dict.fromkeys(NO_PATH, 0)}
+
+
+def pool_run(batcher, reqs):
+    """(ids, wall s) of one run, synchronised."""
+    import torch
+    t0 = time.perf_counter()
+    out = batcher.run(reqs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pool_stats(run, tokens: int, wall: float) -> str:
+    ticks = run["ticks"]
+    admit = run["admit_ms"]
+    return (f"{tokens} generated tokens in {wall:.3f}s = "
+            f"{tokens / wall:.1f} tokens/s, {ticks} ticks ({run['chunks']} "
+            f"chunks of {ticks // run['chunks']}), {wall * 1e3 / ticks:.3f} "
+            f"ms per tick wall, {sum(run['decode_ms']) / ticks:.3f} ms per "
+            f"tick device events (admissions included in the wall only), "
+            f"mean live slots per tick {run['mean_live_slots']:.3f}, "
+            f"{run['admissions']} admissions, admission prefill "
+            f"{sum(admit) / len(admit):.3f} ms each (device events; "
+            f"{min(admit):.3f}-{max(admit):.3f})")
+
+
+def serving_phase(dev, gpu, cfg, state):
+    """Phase 10: the continuous batcher, the small configuration's pool on
+    the card against the CPU, and the HTTP API, over one Predictor of the
+    full-width weights.  Returns the launches of the pool run and of the
+    HTTP requests."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import make_synthetic_tracks
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    from tsue_tpu_torch.serve import Predictor
+
+    t_phase = time.time()
+    greedy = SamplingConfig(do_sample=False)
+    m = cfg.model
+    pred = Predictor(cfg, state, batch_size=POOL_SLOTS, num_candidates=10,
+                     quantize_decode=True, quantize_kv=True, device=dev)
+    tracks = make_synthetic_tracks(num_tracks=POOL_TRACKS, track_len=400,
+                                   seed=11)
+    caps = np.random.default_rng(0).integers(8, 65, POOL_TRACKS)
+    reqs, _, width, errs = pred.generation_requests(tracks)
+    check(len(reqs) == POOL_TRACKS and not errs, "pool: requests")
+    reqs = [dict(r, max_new=int(c)) for r, c in zip(reqs, caps)]
+    pool = pred.continuous_batcher(num_slots=POOL_SLOTS, prompt_len=width,
+                                   max_new_tokens=64, chunk=POOL_CHUNK,
+                                   sampling=greedy)
+    t0 = time.time()
+    pool_run(pool, reqs[:2])
+    print(f"serve pool: predictor + int8 tables + warmup "
+          f"{time.time() - t0:.1f}s; prompt width {width}, cache "
+          f"{pool.cache_len} slots", flush=True)
+
+    # (a) 48 requests through 16 slots
+    reset_counts()
+    out, wall = pool_run(pool, reqs)
+    counts = read_counts()
+    run = dict(pool.last_run)
+    lens = [len(o) for o in out]
+    check(lens == [int(c) for c in caps], "serve pool: a request did not "
+          f"reach its cap: {lens} against {caps.tolist()}")
+    expected = pool_expected(m, run)
+    print(f"serve pool (greedy, {POOL_SLOTS} slots, chunk {POOL_CHUNK}, "
+          f"{POOL_TRACKS} requests, caps 8-64 from seed 0, int8 weights + "
+          f"int8 KV): {pool_stats(run, sum(lens), wall)}; gpu: {gpu}",
+          flush=True)
+    print(f"serve pool: launches {json.dumps(counts)}, expected "
+          f"{json.dumps(expected)} (flash = admissions x (L + Q-Former "
+          f"calls), int8 = ticks x (7L + 1) + admissions, int8-KV = ticks "
+          f"x L)", flush=True)
+    check(counts == expected, f"serve pool: launches {counts} != "
+                              f"{expected}")
+    # three requests alone in a pool of one slot: the same tokens
+    solo_pool = pred.continuous_batcher(num_slots=1, prompt_len=width,
+                                        max_new_tokens=64, chunk=POOL_CHUNK,
+                                        sampling=greedy)
+    for i in (0, 17, 40):
+        alone, dt = pool_run(solo_pool, [reqs[i]])
+        same = np.array_equal(alone[0], out[i])
+        print(f"serve pool: request {i} (cap {caps[i]}) alone in one slot "
+              f"in {dt:.3f}s, equal to the pool's: {same}", flush=True)
+        check(same, f"serve pool: request {i} alone differs from the pool")
+    # a sampled request: with its co-traffic in 16 slots and alone
+    sampled = SamplingConfig()
+    target = dict(reqs[5], generator=torch.Generator().manual_seed(77))
+    spool = pred.continuous_batcher(num_slots=POOL_SLOTS, prompt_len=width,
+                                    max_new_tokens=64, chunk=POOL_CHUNK,
+                                    sampling=sampled)
+    traffic = reqs[16:32]
+    mixed, dt = pool_run(spool, traffic[:7] + [target] + traffic[7:])
+    target["generator"] = torch.Generator().manual_seed(77)
+    alone, _ = pool_run(pred.continuous_batcher(
+        num_slots=1, prompt_len=width, max_new_tokens=64, chunk=POOL_CHUNK,
+        sampling=sampled), [target])
+    same = np.array_equal(alone[0], mixed[7])
+    print(f"serve pool, sampled (default SamplingConfig, own generator "
+          f"seeded 77): 17 requests in {dt:.3f}s; the request alone equal "
+          f"to it among 16 others: {same} ({len(alone[0])} tokens, "
+          f"{len(np.unique(alone[0]))} distinct)", flush=True)
+    check(same, "serve pool: a sampled request alone differs from the "
+                "same request among co-traffic")
+    # the device's idle share over one admission wave (16 requests)
+    _, wall16 = pool_run(pool, reqs[:16])
+    profile_device(dev, gpu, "serve pool profile: 16 requests, greedy",
+                   wall16, lambda: pool.run(reqs[:16]),
+                   totals=("int8_matmul_kernel", "attend_int8_kernel"))
+    # the same 48 tracks through the static batcher, trimmed to the caps
+    t0 = time.perf_counter()
+    pred.generate_context(tracks, max_new_tokens=64, sampling=greedy)
+    torch.cuda.synchronize(dev)
+    swall = time.perf_counter() - t0
+    ids = pred.last_request["ids"]
+    c, s, prefill, step_ms = request_stats(pred)
+    agree = sum(np.array_equal(ids[i][:caps[i]], out[i])
+                for i in range(POOL_TRACKS))
+    print(f"serve static (comparison, not a claim): the 48 tracks in "
+          f"{c} chunks of {POOL_SLOTS}, {s} decode steps in {swall:.3f}s: "
+          f"{sum(lens) / swall:.1f} tokens/s trimmed to the caps "
+          f"({POOL_SLOTS * s / swall:.1f} decoded), {step_ms:.3f} ms per "
+          f"step, prefill {', '.join(f'{p:.4f}' for p in prefill)} s per "
+          f"chunk; {agree} of {POOL_TRACKS} requests' ids equal to the "
+          f"pool's; pool / static tokens/s {sum(lens) / wall:.1f} / "
+          f"{sum(lens) / swall:.1f}; gpu: {gpu}", flush=True)
+
+    small_pool_phase(dev)
+    http_counts = http_phase(dev, gpu, pred)
+    del pred, pool, solo_pool, spool
+    torch.cuda.empty_cache()
+    print(f"serve phase: {time.time() - t_phase:.1f}s in all; gpu: {gpu}",
+          flush=True)
+    return counts, http_counts
+
+
+def small_pool_phase(dev):
+    """(b) The small configuration's pool, greedy and sampled, with the
+    int8 switches and with the fp32 cache: the card's ids equal the CPU's
+    (the sampled draws come from the requests' CPU generators on both)."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import make_synthetic_tracks
+    from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    from tsue_tpu_torch.serve import Predictor
+
+    cfg = small_cfg()
+    model = TrajectoryModel(cfg.model, 18, 18)
+    init_params(model, torch.Generator().manual_seed(1))
+    state = model.state_dict()
+    tracks = make_synthetic_tracks(num_tracks=6, track_len=400, seed=4)
+    for flags in (dict(quantize_decode=True, quantize_kv=True), {}):
+        preds = [Predictor(cfg, state, batch_size=4, device=d, **flags)
+                 for d in ("cpu", dev)]
+        for sampling in (SamplingConfig(do_sample=False), SamplingConfig()):
+            ids = []
+            for p in preds:
+                p.generate_context_batched(tracks, max_new_tokens=16,
+                                           seed=3, sampling=sampling,
+                                           num_slots=4, chunk=4)
+                ids.append(p.last_request["ids"])
+            same = all(np.array_equal(a, b) for a, b in zip(*ids))
+            what = "sampled" if sampling.do_sample else "greedy"
+            print(f"small_pool {sorted(flags) or 'fp32 cache'} {what}: 6 "
+                  f"requests through 4 slots, cuda == cpu: {same}",
+                  flush=True)
+            check(same, f"small pool ({what}, {flags}): the card's ids "
+                        "differ from the CPU's")
+
+
+def http_phase(dev, gpu, pred) -> dict:
+    """(c) The serve command's HTTP API (``make_server``) in threads on
+    free ports over ``pred``: /healthz, /predict (bit for bit against
+    Predictor.predict), /generate through both batchers, a dropped track,
+    an unknown path.  Returns the launches of the requests."""
+    import argparse
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.cli import serve
+    from tsue_tpu_torch.data import make_synthetic_tracks
+
+    args = serve.parser().parse_args([
+        "--preset", "test_18_18", "--serve-batch-size", "16",
+        "--candidates", "10", "--quantize-decode", "--quantize-kv",
+        "--max-new-tokens", "16", "--port", "0"])
+    t0 = time.time()
+    pred.warmup()
+    pred.prepare_generation(args.max_new_tokens)
+    pred.prepare_generation(args.max_new_tokens, batched=True)
+    print(f"serve http: warmup + prepare_generation (static and continuous, "
+          f"widths {pred._serving_widths()}) {time.time() - t0:.1f}s",
+          flush=True)
+    servers, threads = {}, []
+    for batcher in ("static", "continuous"):
+        srv = serve.make_server(pred, argparse.Namespace(
+            **{**vars(args), "batcher": batcher}))
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        servers[batcher], threads = srv, threads + [th]
+
+    def call(batcher, path, payload=None):
+        port = servers[batcher].server_address[1]
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                code, body = resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        dt = time.perf_counter() - t0
+        print(f"serve http {batcher} {'POST' if data else 'GET'} {path}: "
+              f"{code} in {dt * 1e3:.1f} ms; gpu: {gpu}", flush=True)
+        return code, body
+
+    def wire(ts):
+        return [{k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                 for k, v in t.items()} for t in ts]
+
+    tracks = make_synthetic_tracks(num_tracks=4, track_len=400, seed=21)
+    short = dict(make_synthetic_tracks(num_tracks=1, seed=22)[0],
+                 track_id=99)
+    short["raw_trajectory"] = short["raw_trajectory"][:10]
+    short["vision_embeddings"] = short["vision_embeddings"][:10]
+    ref = pred.predict(tracks)          # what /predict must give
+    try:
+        reset_counts()
+        code, body = call("static", "/healthz")
+        check(code == 200 and body["status"] == "ok"
+              and body["candidates"] == 10, f"/healthz: {code} {body}")
+        code, body = call("static", "/predict", {"tracks": wire(tracks)})
+        check(code == 200 and len(body["results"]) == len(ref) > 0,
+              f"/predict: {code}, {len(body.get('results', []))} results")
+        for got, want in zip(body["results"], ref):
+            for key in ("pred_pixel_xy", "candidates_pixel_xy"):
+                check(np.array_equal(np.asarray(got[key], np.float32),
+                                     want[key]),
+                      f"/predict differs from Predictor.predict in {key}")
+        print(f"serve http: /predict's {len(ref)} windows equal "
+              "Predictor.predict bit for bit", flush=True)
+        for batcher in ("static", "continuous"):
+            code, body = call(batcher, "/generate",
+                              {"tracks": wire(tracks), "max_new_tokens": 16})
+            check(code == 200 and len(body["results"]) == 4
+                  and all(isinstance(r["context"], str)
+                          for r in body["results"]),
+                  f"/generate ({batcher}): {code}")
+        code, body = call("static", "/predict",
+                          {"tracks": wire(tracks[:1] + [short])})
+        check(code == 200 and body.get("dropped_track_ids") == [99],
+              f"dropped track: {code} {body.get('dropped_track_ids')}")
+        code, _ = call("static", "/nope", {})
+        check(code == 404, f"unknown path: {code}")
+        counts = read_counts()
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+            srv.server_close()
+        for th in threads:
+            th.join(timeout=60)
+    check(not any(th.is_alive() for th in threads), "a server thread lives")
+    print(f"serve http: launches {json.dumps(counts)}", flush=True)
+    check(counts["flash_attn_fwd"] > 0 and counts["int8_matmul"] > 0
+          and counts["attend_int8_kv"] > 0 and counts["lmhead_topk"] == 0,
+          f"serve http: launches {counts}")
+    torch.cuda.synchronize(dev)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # 7. training at full width
 # --------------------------------------------------------------------------
 
@@ -2181,6 +2508,7 @@ def main() -> int:
                                                          state)
     gen_counts, head_counts, off_counts = generation_phase(dev, gpu, cfg,
                                                            state)
+    pool_counts, http_counts = serving_phase(dev, gpu, cfg, state)
     del state
     torch.cuda.empty_cache()
     train_counts = {preset: train_phase(dev, gpu, preset)
@@ -2229,6 +2557,8 @@ def main() -> int:
         "generate_all_switches": gen_counts[name],
         "generate_fused_head": head_counts[name],
         "generate_switches_off": off_counts[name],
+        f"serve pool ({POOL_TRACKS} requests)": pool_counts[name],
+        "serve http": http_counts[name],
         **{f"train {p} (3 steps)": train_counts[p][name]
            for p in TRAIN_PRESETS},
         "stage1 train_18_30 (3 steps)": stage1_counts[name],

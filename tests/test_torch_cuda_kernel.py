@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: flash attention, the int8 matrix product, the fused LM head + top-128,
+card: flash attention (also at batch 1, the continuous batcher's
+admission), the int8 matrix product, the fused LM head + top-128,
 the int8-KV decode attention, the one-pass RMSNorm, the fused SwiGLU
 down-projection, NLinear, the fused LoRA product and the per-sample
 ADE/FDE, and the gradients of the kernels in autograd Functions (flash,
@@ -114,6 +115,35 @@ def test_kernel_repeats_bit_identical(dev, B, Tq, Tk, Hq, Hkv, D, causal,
     assert torch.equal(first, second)
     torch.testing.assert_close(
         first, flash_attention_plain(q, k, v, mask, causal, None, cs), **TOL)
+
+
+@pytest.mark.parametrize("case", ["llama_rope", "llama_prefill",
+                                  "qformer"])
+def test_kernel_at_batch_one(dev, case):
+    """The continuous batcher's admission prefills one request at a time:
+    batch 1 at the Llama's 32/8 heads of 64 over the prompt buckets plus
+    16 image tokens (Tq = Tk = 272, 400, 528), causal with a padded tail,
+    with RoPE in the kernel (the predict path's form) and without (the
+    cached prefill's, the keys roped before), and the Q-Former's D = 96
+    self- and cross-attention over 64 frames."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    if case == "qformer":
+        calls = [_inputs(dev, g, 1, 64, 64, 8, 8, 96, "none", False),
+                 _inputs(dev, g, 1, 16, 64, 8, 8, 96, "none", False)]
+        calls = [(c, False) for c in calls]
+    else:
+        calls = [(_inputs(dev, g, 1, T, T, 32, 8, 64, "pad",
+                          case == "llama_rope"), True)
+                 for T in (272, 400, 528)]
+    for (q, k, v, mask, cs), causal in calls:
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, mask, causal, None, cs)
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_plain(q, k, v, mask, causal, None, cs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, **TOL, msg=lambda m: (
+            f"{case} Tq={q.shape[1]} Tk={k.shape[1]}: {m}"))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -343,6 +373,61 @@ def test_decode_kernels_repeat_bit_identical(dev, kernel):
     assert torch.equal(first, second)
     torch.testing.assert_close(first, KV.attend_int8_kv_plain(q, cache, mask),
                                **TOL)
+
+
+def test_attend_int8_kv_rows_at_their_own_fill_levels(dev):
+    """The continuous batcher's pool tick: B = 16 rows over S = 592 slots,
+    each with its own valid prefix and its own decode step (the (B, S) mask
+    of ``MultiModalLLM.decode_hidden`` with per-row steps), some rows with
+    none (an empty slot riding along)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, S, Hq, Hkv, D, P = 16, 592, 32, 8, 64, 528
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    cache = KV.quantize_cache([(k, v)])[0]
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
+    prefix = torch.randint(16, P + 1, (B,), generator=g, device=dev)
+    step = torch.randint(0, S - P, (B,), generator=g, device=dev)
+    slots = torch.arange(S, device=dev)[None]
+    mask = ((slots < prefix[:, None])
+            | ((slots >= P) & (slots <= P + step[:, None]))).int()
+    mask[3] = 0
+    out = KV.attend_int8_kv(q, cache, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, KV.attend_int8_kv_plain(q, cache, mask),
+                               **TOL)
+
+
+@pytest.mark.parametrize("kernel", ["int8_matmul", "attend_int8_kv"])
+def test_decode_kernels_rows_independent(dev, kernel):
+    """A row's bits do not depend on the other rows of the call: row b of
+    a 16-row call equals the same row called alone (a pool of 16 slots
+    against a pool of one)."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    B = 16
+    if kernel == "int8_matmul":
+        for K, N in ((2048, 2048), (8192, 2048), (2048, 128256)):
+            x = torch.randn(B, K, generator=g, device=dev)
+            w8, s = Q.quantize_weight(torch.randn(K, N, generator=g,
+                                                  device=dev))
+            full = Q.int8_matmul(x, w8, s)
+            for b in (0, 7, 15):
+                assert torch.equal(full[b:b + 1],
+                                   Q.int8_matmul(x[b:b + 1], w8, s)), (K, N)
+        return
+    S, Hq, Hkv, D = 592, 32, 8, 64
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    cache = KV.quantize_cache([(k, v)])[0]
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
+    lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+    full = KV.attend_int8_kv(q, cache, mask)
+    for b in (0, 7, 15):
+        one = KV.attend_int8_kv(q[b:b + 1],
+                                tuple(c[b:b + 1] for c in cache),
+                                mask[b:b + 1])
+        assert torch.equal(full[b:b + 1], one), b
 
 
 @pytest.mark.parametrize("M", [128, 129, 8448])

@@ -1,6 +1,6 @@
 """Package-level properties of the port: no JAX and nothing of the JAX
-package, a strict weight bridge, the CUDA device by default (serving,
-stage-1 and stage-2 training), no kernel launch on CPU tensors, no decode
+package, a strict weight bridge, the CUDA device by default (serving, the
+continuous batcher, the CLI, stage-1 and stage-2 training), no kernel launch on CPU tensors, no decode
 kernel (nor the ADE/FDE kernel) under autograd, and the options not ported
 yet raising."""
 import os
@@ -40,7 +40,11 @@ PORT_MODULES = (
     "tsue_tpu_torch.train.trainer", "tsue_tpu_torch.train.stage1",
     "tsue_tpu_torch.train.checkpoint", "tsue_tpu_torch.ops.nlinear",
     "tsue_tpu_torch.ops.lora", "tsue_tpu_torch.ops.metric_kernels",
-    "tsue_tpu_torch.runner", "chip_smoke", "flash_variants",
+    "tsue_tpu_torch.runner", "tsue_tpu_torch.serve_batching",
+    "tsue_tpu_torch.cli", "tsue_tpu_torch.cli.__main__",
+    "tsue_tpu_torch.cli._common", "tsue_tpu_torch.cli.train",
+    "tsue_tpu_torch.cli.stage1", "tsue_tpu_torch.cli.test",
+    "tsue_tpu_torch.cli.serve", "chip_smoke", "flash_variants",
     "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 
@@ -84,6 +88,34 @@ def test_predictor_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Predictor(cfg, state)
     assert Predictor(cfg, state, device="cpu").device.type == "cpu"
+
+
+def test_batcher_and_serve_cli_default_to_cuda():
+    """The continuous batcher and every command of the CLI want the CUDA
+    device unless given the CPU; on a host without one they raise instead
+    of running on the CPU."""
+    import inspect
+    from tsue_tpu_torch.cli import serve
+    from tsue_tpu_torch.cli._common import base_parser
+    from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    from tsue_tpu_torch.serve_batching import ContinuousBatcher
+    assert inspect.signature(ContinuousBatcher).parameters[
+        "device"].default == "cuda"
+    assert base_parser("t").parse_args([]).device == "cuda"
+    assert serve.parser().parse_args([]).device == "cuda"
+    mllm = MultiModalLLM(LlamaConfig.tiny(), QFormerConfig(
+        num_encoder_layers=1, num_decoder_layers=1, num_query_tokens=4))
+    kw = dict(num_slots=2, prompt_len=4, max_new_tokens=4, eos_id=1)
+    assert ContinuousBatcher(mllm, SamplingConfig(), device="cpu",
+                             **kw).device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatcher(mllm, SamplingConfig(), **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--tiny"])
 
 
 @pytest.fixture(scope="module")

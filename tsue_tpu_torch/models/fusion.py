@@ -108,30 +108,34 @@ class MultiModalLLM(nn.Module):
         last_hidden = hidden[rows, valid_len - 1]
         return caches, last_hidden, valid_len.to(torch.int32), fmask
 
-    def decode_hidden(self, token: torch.Tensor, step_index: int,
+    def decode_hidden(self, token: torch.Tensor, step_index,
                       prefix_len: torch.Tensor, caches,
                       fused_mask: torch.Tensor, cache_len: int,
                       quant_ok: bool = True) -> torch.Tensor:
         """One cached decode step without the LM head: token (B,) at
-        decode step ``step_index`` (an int) -> hidden (B, D); the caches
-        are written in place at slot P + step_index.  Generated tokens are
-        embedded without the text modality embedding (the reference's
-        patched embedding) at positions ``prefix_len + step_index``; they
-        see the valid prefix and the decode slots up to their own."""
+        decode step ``step_index`` -> hidden (B, D); the caches are written
+        in place at slot P + step_index.  ``step_index`` is an int, or a
+        (B,) tensor of per-row steps (continuous batching: every slot
+        advances on its own clock, ``tsue_tpu/models/fusion.py:142-161``).
+        Generated tokens are embedded without the text modality embedding
+        (the reference's patched embedding) at positions ``prefix_len +
+        step_index``; row b sees its valid prefix and the decode slots up
+        to its own (a (B, S) key mask)."""
         P = fused_mask.shape[1]
         dev = token.device
         emb = self.llama.embed(token[:, None])
         pos = (prefix_len.long() + step_index)[:, None]
         slot = P + step_index
+        upper = slot[:, None] if isinstance(slot, torch.Tensor) else slot
         k_idx = torch.arange(cache_len, device=dev)[None, :]
         prefix_ok = torch.nn.functional.pad(fused_mask, (0, cache_len - P)) > 0
-        kv_mask = ((k_idx < P) & prefix_ok) | ((k_idx >= P) & (k_idx <= slot))
+        kv_mask = ((k_idx < P) & prefix_ok) | ((k_idx >= P) & (k_idx <= upper))
         hidden = self.llama.model(emb, positions=pos, kv_caches=caches,
                                   cache_index=slot, kv_mask=kv_mask,
                                   quant_ok=quant_ok)
         return hidden[:, 0]
 
-    def decode_step(self, token: torch.Tensor, step_index: int,
+    def decode_step(self, token: torch.Tensor, step_index,
                     prefix_len: torch.Tensor, caches,
                     fused_mask: torch.Tensor, cache_len: int) -> torch.Tensor:
         """``decode_hidden`` followed by the LM head: (B, V) fp32 logits."""

@@ -38,7 +38,8 @@ from tsue_tpu_torch.ops.attention import dot_product_attention
 from tsue_tpu_torch.ops.flash import rope_bthd
 from tsue_tpu_torch.ops.fused import (fused_enabled, fused_rmsnorm,
                                       rmsnorm_plain, swiglu_matmul)
-from tsue_tpu_torch.ops.kv_quant import attend_int8_kv, update_kv_int8
+from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv, update_kv_int8,
+                                         write_rows)
 from tsue_tpu_torch.ops.quant import int8_matmul
 from tsue_tpu_torch.utils.random import dropout
 
@@ -159,7 +160,9 @@ class LlamaAttention(nn.Module):
         key validity, the rope applied in the kernel.
 
         With a cache, q and k are roped first and the new k/v rows are
-        written at ``cache_index`` (an int).  Prefill form (``kv_mask`` is
+        written at ``cache_index``, an int or (B,) per-row slots
+        (continuous batching, ``tsue_tpu/models/llama.py:214-227``).
+        Prefill form (``kv_mask`` is
         None): the rows are the whole valid cache (``cache_index`` 0), so
         attention runs over the new keys themselves, causally with the
         (B, T) ``mask`` — the JAX package's (B, 1, T, S) prefill mask
@@ -191,10 +194,10 @@ class LlamaAttention(nn.Module):
                 out = attend_int8_kv(q, kv_cache, kv_mask)
             else:
                 ck, cv = kv_cache
-                ck[:, cache_index:cache_index + T] = k
-                cv[:, cache_index:cache_index + T] = v
+                write_rows(ck, k, cache_index)
+                write_rows(cv, v, cache_index)
                 if kv_mask is None:
-                    if cache_index != 0:
+                    if not isinstance(cache_index, int) or cache_index != 0:
                         raise ValueError("prefill writes from slot 0")
                     out = dot_product_attention(q, k, v, mask=mask,
                                                 is_causal=True)
@@ -257,7 +260,7 @@ class LlamaModel(nn.Module):
     def forward(self, inputs_embeds: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                kv_caches: Optional[List] = None, cache_index: int = 0,
+                kv_caches: Optional[List] = None, cache_index=0,
                 kv_mask: Optional[torch.Tensor] = None,
                 quant_ok: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -265,7 +268,7 @@ class LlamaModel(nn.Module):
         Returns the final-normed hidden states (B, T, D).
 
         ``kv_caches`` (per layer, see the module docstring) are written in
-        place at ``cache_index``: without ``kv_mask`` this is the prefill
+        place at ``cache_index`` (an int, or (B,) per-row slots): without ``kv_mask`` this is the prefill
         (the T rows are the whole valid cache), with ``kv_mask`` (B, S) a
         decode step over the whole cache.  ``positions`` (B, T) default to
         the cumulative count of ``attention_mask`` (or 0..T-1).

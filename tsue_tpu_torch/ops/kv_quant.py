@@ -58,18 +58,31 @@ def quantize_cache(caches: List[Tuple[torch.Tensor, torch.Tensor]]
     return out
 
 
+def write_rows(cache: torch.Tensor, rows: torch.Tensor, cache_index
+               ) -> None:
+    """Write ``rows`` (B, T, ...) into ``cache`` (B, S, ...) in place from
+    slot ``cache_index``: an int (every row at the same slots) or a (B,)
+    tensor (row b from its own slot, one ``index_put_``)."""
+    T = rows.shape[1]
+    if isinstance(cache_index, torch.Tensor):
+        B = rows.shape[0]
+        b = torch.arange(B, device=cache.device)[:, None]
+        cols = cache_index.to(cache.device, torch.long)[:, None] + \
+            torch.arange(T, device=cache.device)[None, :]
+        cache.index_put_((b, cols), rows.to(cache.dtype))
+    else:
+        cache[:, cache_index:cache_index + T] = rows
+
+
 def update_kv_int8(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
-                   cache_index: int) -> LayerCache:
-    """Quantise new (B, T, Hkv, Dh) rows and write them at the shared slot
-    ``cache_index`` (in place); returns the layer cache."""
-    k8, ks, v8, vs = layer_cache
-    T = k.shape[1]
+                   cache_index) -> LayerCache:
+    """Quantise new (B, T, Hkv, Dh) rows and write them in place at
+    ``cache_index``, an int or (B,) per-row slots (``write_rows``); returns
+    the layer cache."""
     k8n, ksn = quantize_kv(k)
     v8n, vsn = quantize_kv(v)
-    k8[:, cache_index:cache_index + T] = k8n
-    ks[:, cache_index:cache_index + T] = ksn
-    v8[:, cache_index:cache_index + T] = v8n
-    vs[:, cache_index:cache_index + T] = vsn
+    for cache, rows in zip(layer_cache, (k8n, ksn, v8n, vsn)):
+        write_rows(cache, rows, cache_index)
     return layer_cache
 
 

@@ -10,18 +10,21 @@ the reference: temperature 0.9, top-k 40, top-p 0.9, repetition penalty
   (``NEG_INF``);
 - top-k then top-p filtering, then the draw, through the tie-exact
   (B, k+1)-slot sampler of the JAX package (``_topk_topp_slots``,
-  ``_tie_blocks``, ``_draw_sliced``), shared-generator form only.
+  ``_tie_blocks``, ``_draw_sliced``), with one generator for the batch
+  (``process_and_sample``) or one per row (``process_and_sample_per_row``).
 
 Draws come from an explicit ``torch.Generator``: the categorical draw is a
 Gumbel-max over ``torch.rand`` noise, then one uniform per row for the tie
 pick.  The JAX package draws from threefry keys, so sampled tokens agree
 with it in distribution, not bit for bit; greedy decoding agrees exactly.
-Every operation is a tensor op on the logits' device: nothing here waits
-for the device.
+In the shared form every operation is a tensor op on the logits' device:
+nothing there waits for the device.  The per-row form draws each row's
+uniforms on the host from that row's CPU generator and sends them in one
+copy (``row_uniforms``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -124,12 +127,18 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
                        torch.full_like(logits, NEG_INF))
 
 
+def gumbel_pick(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The categorical draw per row from uniforms ``u`` of the logits'
+    shape: argmax of logits plus Gumbel noise."""
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 def gumbel_argmax(logits: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     """A categorical draw per row: argmax of logits plus Gumbel noise."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    return gumbel_pick(logits, torch.rand(logits.shape, generator=generator,
+                                          device=logits.device))
 
 
 def process_and_sample(logits: torch.Tensor,
@@ -219,9 +228,14 @@ def _topk_topp_slots(logits: torch.Tensor, k: int, p: float):
 def tie_target(t_keep: torch.Tensor,
                generator: Optional[torch.Generator]) -> torch.Tensor:
     """Which kept tied token a tie-slot draw picks (0-based, in ascending
-    token order): floor(u * t_keep), clamped to t_keep - 1 so an f32
-    round-up never reaches a tied token beyond the kept top-p prefix."""
-    u = torch.rand(t_keep.shape, generator=generator, device=t_keep.device)
+    token order), from one uniform per row (``tie_pick``)."""
+    return tie_pick(t_keep, torch.rand(t_keep.shape, generator=generator,
+                                       device=t_keep.device))
+
+
+def tie_pick(t_keep: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """floor(u * t_keep), clamped to t_keep - 1 so an f32 round-up never
+    reaches a tied token beyond the kept top-p prefix."""
     return torch.minimum((u * t_keep).to(torch.int64),
                          (t_keep.to(torch.int64) - 1).clamp_min(0))
 
@@ -230,11 +244,18 @@ def _draw_sliced(slot_logits, idx, t_keep, tie_blocks, k: int,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
     """Draw next tokens from the (B, k+1) slots and the tie blocks: the
     categorical noise first, then one uniform per row for the tie pick."""
-    B = slot_logits.shape[0]
+    return _slot_tokens(idx, tie_blocks, k, gumbel_argmax(slot_logits,
+                                                          generator),
+                        tie_target(t_keep, generator))
+
+
+def _slot_tokens(idx, tie_blocks, k: int, choice: torch.Tensor,
+                 target: torch.Tensor) -> torch.Tensor:
+    """The token ids of drawn slots: slot ``choice`` < k is the slice's
+    entry, slot k the ``target``-th kept tied token in ascending order."""
+    B = idx.shape[0]
     mb, bs = tie_blocks
-    choice = gumbel_argmax(slot_logits, generator)
-    target = tie_target(t_keep, generator)
-    rows = torch.arange(B, device=slot_logits.device)
+    rows = torch.arange(B, device=idx.device)
     cum_b = torch.cumsum(bs, dim=-1)
     blk = torch.argmax((cum_b > target[:, None]).to(torch.int32), dim=-1)
     before = cum_b[rows, blk] - bs[rows, blk]
@@ -245,3 +266,66 @@ def _draw_sliced(slot_logits, idx, t_keep, tie_blocks, k: int,
     tie_tok = blk * mb.shape[-1] + off
     from_slice = idx.gather(1, choice.clamp_max(k - 1)[:, None])[:, 0]
     return torch.where(choice == k, tie_tok.to(idx.dtype), from_slice)
+
+
+def row_uniforms(generators: Sequence[Optional[torch.Generator]],
+                 widths: Sequence[int], device) -> torch.Tensor:
+    """(B, sum(widths)) uniforms on ``device``: row b holds, in turn, the
+    draws ``torch.rand((1, w), generator=generators[b])`` for each w of
+    ``widths``, made on the host from that row's CPU generator; a row
+    whose generator is None draws nothing and gets 0.5.  One
+    host-to-device copy for the batch (from pinned memory, not waiting for
+    the device, when ``device`` is a CUDA device)."""
+    u = torch.full((len(generators), sum(widths)), 0.5)
+    for b, g in enumerate(generators):
+        if g is not None:
+            u[b] = torch.cat([torch.rand((1, w), generator=g)[0]
+                              for w in widths])
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return u.pin_memory().to(dev, non_blocking=True)
+    return u.to(dev)
+
+
+def process_and_sample_per_row(logits: torch.Tensor,
+                               generators: Sequence[
+                                   Optional[torch.Generator]],
+                               token_history: torch.Tensor,
+                               history_len: torch.Tensor,
+                               cfg: SamplingConfig) -> torch.Tensor:
+    """``process_and_sample`` with a generator per row (the JAX package's
+    ``process_and_sample_per_row``, ``tsue_tpu/ops/sampling.py:194-240``).
+
+    Every key-free stage runs batched over all rows: the repetition
+    penalty, the n-gram ban and the (k+1)-slot top-k/top-p machinery.  Only
+    the draw is per row, and row b consumes from ``generators[b]`` (a CPU
+    generator) exactly what a one-row ``process_and_sample(logits[b:b+1],
+    generators[b], ...)`` on CPU logits consumes: ``(1, k+1)`` uniforms for
+    the slot draw, then one for the tie pick (with ``top_k`` 0 or >= V,
+    ``(1, V)`` uniforms for the full-vocabulary draw).  So a row's token
+    depends on its logits, its history and its own stream only, never on
+    the other rows, and the same generators give the same tokens on the
+    CPU and on a CUDA device.  The uniforms are drawn on the host and sent
+    in one copy (``row_uniforms``).  A row whose generator is None draws
+    nothing; its token is meaningless.  Greedy (``do_sample=False``) draws
+    nothing."""
+    logits = logits.float()
+    logits = apply_repetition_penalty(logits, token_history, history_len,
+                                      cfg.repetition_penalty)
+    logits = apply_no_repeat_ngram(logits, token_history, history_len,
+                                   cfg.no_repeat_ngram_size)
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    if cfg.temperature != 1.0:
+        logits = logits / cfg.temperature
+    if 0 < cfg.top_k < logits.shape[-1]:
+        k = cfg.top_k
+        slot_logits, idx, t_keep, tie_blocks = _topk_topp_slots(
+            logits, k, cfg.top_p)
+        u = row_uniforms(generators, (k + 1, 1), logits.device)
+        return _slot_tokens(idx, tie_blocks, k,
+                            gumbel_pick(slot_logits, u[:, :k + 1]),
+                            tie_pick(t_keep, u[:, k + 1]))
+    logits = apply_top_p(logits, cfg.top_p)
+    return gumbel_pick(logits, row_uniforms(generators, (logits.shape[-1],),
+                                            logits.device))

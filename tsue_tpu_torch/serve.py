@@ -4,15 +4,18 @@ Counterpart of ``tsue_tpu/serve.py``: ``Predictor`` with ``warmup``,
 ``predict`` (the deterministic forward and, with ``num_candidates`` K > 0,
 the fast K-candidate rollout, per fixed-size chunk of windows) and
 ``generate_context`` (the stage-1 traffic-context text per track, with the
-int8 decode weights, fused LM head and int8 KV cache switches).  Raw pixel
+int8 decode weights, fused LM head and int8 KV cache switches) and
+``generate_context_batched`` (the same requests through the continuous
+slot-pool batcher of ``serve_batching.py``, with ``prepare_generation`` to
+run every serving width once at startup).  Raw pixel
 tracks go through the port's copy of the windowing and text dataset
 (``tsue_tpu_torch.data``), which equals the JAX package's, so the port
 serves exactly the batches the JAX package serves.
 
 The predictor runs on the CUDA device unless it is given ``device="cpu"``.
 ``Predictor.from_checkpoint`` serves an artifact that ``run_stage2``
-wrote.  Speculative decoding, the continuous batcher and meshes are not
-ported yet, so the methods do not take those options.
+wrote.  Speculative decoding and meshes are not ported yet: the methods
+do not take a mesh, and ``speculative=True`` raises.
 
 Usage:
     p = Predictor(cfg, state_dict, num_candidates=10)
@@ -20,9 +23,12 @@ Usage:
                                   num_candidates=10)
     out = p.warmup().predict(raw_tracks_px)
     texts = p.generate_context(raw_tracks_px, max_new_tokens=64)
+    texts = p.generate_context_batched(raw_tracks_px, max_new_tokens=64,
+                                       seed=0)
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -79,6 +85,10 @@ class Predictor:
                 "size")
         self._quant = None
         self.last_request: Optional[Dict] = None
+        # one continuous batcher per pool shape, least recently used first;
+        # bounded because the keys hold request-controlled values
+        self._batchers: OrderedDict = OrderedDict()
+        self._cache_max = max(4, len(cfg.data.length_buckets) + 2)
         if self.device.type == "cuda":
             # fp32 products stay fp32, as in the JAX package: TF32 keeps
             # about three decimal digits
@@ -259,6 +269,177 @@ class Predictor:
         texts = [trim_and_decode(row, self.tokenizer) for row in ids]
         return [{"track_id": int(t), "context": txt}
                 for t, txt in zip(ds.track_id, texts)] + errs
+
+    def _serving_widths(self):
+        """Prompt widths the length bucketing can emit at serving time: the
+        configured buckets below ``max_length`` plus the full width (the
+        fallback when a prompt exceeds every bucket)."""
+        full = self.cfg.data.max_length
+        below = sorted({int(b) for b in self.cfg.data.length_buckets
+                        if 1 < b < full})
+        return tuple(below) + (full,)
+
+    @torch.inference_mode()
+    def prepare_generation(self, max_new_tokens: int = 64, sampling=None,
+                           batched: bool = False,
+                           num_slots: Optional[int] = None,
+                           chunk: int = 8) -> "Predictor":
+        """Run the generation path once per prompt width the request path
+        can pick (``_serving_widths``) on a dummy prompt, so that the first
+        real request at any width pays no kernel build and no cuBLAS
+        set-up (HTTP serving).  One dummy track goes through the request
+        path first (ingest and the smallest width).  ``batched``: the
+        continuous batcher's path (``num_slots`` slots, default
+        ``batch_size``), else the static one."""
+        if not self.cfg.model.use_llm:
+            raise ValueError("prepare_generation needs a use_llm=True model")
+        d = self.cfg.data
+        track = {"track_id": 0, "context_str": "warmup",
+                 "vision_embeddings": np.zeros((d.downsample, d.vision_dim),
+                                               np.float32)}
+        if batched:
+            self.generate_context_batched(
+                [track], max_new_tokens=max_new_tokens, sampling=sampling,
+                num_slots=num_slots, chunk=chunk)
+        else:
+            self.generate_context([track], max_new_tokens=max_new_tokens,
+                                  sampling=sampling)
+        for w in self._serving_widths():
+            ids = np.zeros((1, w), np.int32)
+            mask = np.zeros((1, w), np.int32)
+            ids[0, :4] = 5
+            mask[0, :4] = 1
+            vis = np.zeros((1, d.downsample, d.vision_dim), np.float32)
+            if batched:
+                req = {"prompt_ids": ids[0], "prompt_mask": mask[0]}
+                if self.cfg.model.use_vision:
+                    req["vision"] = vis[0]
+                self._batcher(num_slots or self.batch_size, w,
+                              max_new_tokens, chunk, sampling).run([req])
+            else:
+                reps = (self.batch_size, 1)
+                gen = self.generation_program(max_new_tokens, w, sampling)
+                gen(torch.from_numpy(np.tile(vis, reps + (1,))).to(self.device)
+                    if self.cfg.model.use_vision else None,
+                    torch.from_numpy(np.tile(ids, reps)).to(self.device),
+                    torch.from_numpy(np.tile(mask, reps)).to(self.device),
+                    self._generator(0))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _batcher(self, num_slots: int, prompt_len: int, max_new_tokens: int,
+                 chunk: int, sampling):
+        """The cached continuous batcher of this pool shape."""
+        key = (num_slots, prompt_len, max_new_tokens, chunk, repr(sampling))
+        if key in self._batchers:
+            self._batchers.move_to_end(key)
+            return self._batchers[key]
+        batcher = self._batchers[key] = self.continuous_batcher(
+            num_slots=num_slots, prompt_len=prompt_len,
+            max_new_tokens=max_new_tokens, chunk=chunk, sampling=sampling)
+        while len(self._batchers) > self._cache_max:
+            self._batchers.popitem(last=False)
+        return batcher
+
+    def continuous_batcher(self, num_slots: int = 16,
+                           prompt_len: Optional[int] = None,
+                           max_new_tokens: int = 64, chunk: int = 8,
+                           sampling=None, window: int = 1):
+        """A ``serve_batching.ContinuousBatcher`` over this predictor's MLLM
+        (with its int8 tables when ``quantize_decode``, and an int8 pool
+        cache when ``quantize_kv``).  The batcher samples from the full
+        logits, so it refuses ``fused_head``: the JAX package's method
+        drops that switch without a word (``tsue_tpu/serve.py:573-603``).
+        ``window >= 2`` (speculative decoding) is not ported yet and
+        raises."""
+        if not self.cfg.model.use_llm:
+            raise ValueError("continuous_batcher needs a use_llm=True model")
+        if self.fused_head:
+            raise ValueError(
+                "the continuous batcher does not take fused_head=True: it "
+                "samples from the full logits; build the Predictor without "
+                "fused_head, or serve with the static batcher")
+        from tsue_tpu_torch.ops.sampling import SamplingConfig
+        from tsue_tpu_torch.serve_batching import ContinuousBatcher
+        return ContinuousBatcher(
+            self._mllm(), sampling or SamplingConfig(), num_slots=num_slots,
+            prompt_len=(prompt_len if prompt_len is not None
+                        else self.cfg.data.max_length),
+            max_new_tokens=max_new_tokens, eos_id=self.tokenizer.eos_id,
+            pad_id=self.tokenizer.pad_id, chunk=chunk, window=window,
+            quantize_kv=self.quantize_kv, device=self.device)
+
+    @torch.inference_mode()
+    def generate_context_batched(self, tracks: Sequence[dict],
+                                 max_new_tokens: int = 64, seed: int = 0,
+                                 sampling=None,
+                                 num_slots: Optional[int] = None,
+                                 chunk: int = 8,
+                                 compile_cap: Optional[int] = None,
+                                 speculative: bool = False) -> List[Dict]:
+        """``generate_context`` through the continuous batcher's slot pool
+        (``num_slots`` slots, default ``batch_size``; harvested every
+        ``chunk`` ticks): the same request semantics (prompt-only
+        conditioning, length buckets, ``compile_cap``, error records for
+        tracks a vision-conditioned model cannot condition), scheduled with
+        continuous refill.  Track i draws from its own CPU generator,
+        ``utils.random.step_generator(seed, i)`` (the JAX package's
+        ``fold_in(key(seed), i)``), so its text does not depend on what
+        shares the pool.  ``speculative=True`` is not ported yet (ROADMAP
+        A: speculative decoding) and raises.
+
+        ``self.last_request`` keeps the request's generated ids (one array
+        per track), its prompt width and the pool's ``last_run``."""
+        if speculative:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP A: "
+                "speculative decoding)")
+        if not self.cfg.model.use_llm:
+            raise ValueError("generate_context_batched needs a use_llm=True "
+                             "model")
+        from tsue_tpu_torch.eval.generation import postprocess_text
+        reqs, track_ids, width, errs = self.generation_requests(tracks, seed)
+        if not reqs:
+            return errs
+        cap = self._resolve_cap(compile_cap, max_new_tokens)
+        batcher = self._batcher(num_slots or self.batch_size, width, cap,
+                                chunk, sampling)
+        rows = [row[:max_new_tokens] for row in batcher.run(reqs)]
+        self.last_request = {"ids": rows, "width": width,
+                             "pool": batcher.last_run}
+        pad = self.tokenizer.pad_id
+        texts = [postprocess_text(self.tokenizer.decode(
+            [int(t) for t in row if t != pad])) for row in rows]
+        return [{"track_id": int(t), "context": txt}
+                for t, txt in zip(track_ids, texts)] + errs
+
+    def generation_requests(self, tracks: Sequence[dict], seed: int = 0):
+        """The continuous batcher's requests for ``tracks``: (requests,
+        track ids, prompt width, error records).  Prompt-only conditioning
+        over the smallest covering length bucket, as ``generate_context``;
+        request i draws from ``utils.random.step_generator(seed, i)``."""
+        from tsue_tpu_torch.data.text_dataset import build_track_text_dataset
+        from tsue_tpu_torch.utils.random import step_generator
+        tracks, errs = self._generation_tracks(tracks)
+        ds = build_track_text_dataset(tracks, self.cfg.data, self.tokenizer,
+                                      require_context=False,
+                                      require_vision=False)
+        if len(ds) == 0:
+            return [], [], 0, errs
+        prompt_mask = np.asarray(ds.attention_mask * (ds.labels == -100),
+                                 np.int32)
+        prompt_ids = np.asarray(ds.input_ids, np.int32) * prompt_mask
+        prompt_ids, prompt_mask, width = self._bucket_prompts(
+            prompt_ids, prompt_mask)
+        reqs = []
+        for i in range(len(ds)):
+            r = {"prompt_ids": prompt_ids[i], "prompt_mask": prompt_mask[i],
+                 "generator": step_generator(seed, i)}
+            if self.cfg.model.use_vision:
+                r["vision"] = ds.vision[i]
+            reqs.append(r)
+        return reqs, list(ds.track_id), width, errs
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
