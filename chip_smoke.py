@@ -100,7 +100,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the serve command's HTTP API (make_server, in threads on free ports):
      /healthz, /predict bit for bit against Predictor.predict, /generate
      through both batchers, a dropped track and an unknown path, each
-     request's latency.
+     request's latency;
+ 11. speculative decoding at the width of phase 6 (over its weights, 16
+     tracks, 64 new tokens): generate_context(speculative=True), greedy,
+     window 8, with int8 weights and the int8 KV cache (ids equal to the
+     plain greedy request's: every product on that path computes a row
+     alone) and with fp32 weights and cache (the share of equal tokens
+     printed: the fp32 products sum a window's rows in other orders), and
+     the continuous batcher at window 4, sampled, on phase 10's 48 tracks
+     against the same pool at window 1 (equal ids), then at window 4 with
+     oracle drafts (equal ids in fewer ticks: the accept path, where rows
+     advance several positions a tick); for each run the plain
+     run's tokens/s beside its own, forwards per token, ms per window
+     forward (CUDA events) and the launch counts against the expected
+     table.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -276,6 +289,14 @@ def attention_cases(dev):
     ang = pos[..., None] * inv
     lane_lens = [0, 5, 64, 0, 12, 30, 0, 64, 1, 2, 40, 0, 64, 7, 9, 0]
     decode_mask = key_mask(B, S, lens + 1)
+
+    def window(W):
+        """A speculative window of W queries over the fp32 cache of
+        P + 64 + W slots, each row at its own step (a (B, W, S) mask)."""
+        Sw = T + GEN_NEW_TOKENS + W
+        return dict(q=randn(B, W, 32, 64), k=randn(B, Sw, 8, 64),
+                    v=randn(B, Sw, 8, 64),
+                    mask=window_mask(dev, g, lens, T, W, Sw))
     return [
         ("llama_self", dict(
             q=randn(B, T, 32, 64), k=randn(B, T, 8, 64), v=randn(B, T, 8, 64),
@@ -318,7 +339,24 @@ def attention_cases(dev):
         ("admit_qformer_cross", dict(
             q=randn(1, 16, 8, 96), k=randn(1, 64, 8, 96),
             v=randn(1, 64, 8, 96))),
+        # speculative windows over the fp32 cache: greedy (W 8, the tiled
+        # form) and sampled (W 4, the split-KV form)
+        ("spec_window_w8", window(8)),
+        ("spec_window_w4", window(4)),
     ]
+
+
+def window_mask(dev, g, lens, P, W, S):
+    """(B, W, S) int32: query j of row b sees its valid prefix (lens[b]
+    of P slots) and the decode slots P .. P + step[b] + j, a step per row
+    drawn from ``g``."""
+    import torch
+    B = len(lens)
+    step = torch.randint(0, S - P - W + 1, (B,), generator=g, device=dev)
+    k = torch.arange(S, device=dev)[None, None]
+    upper = (P + step[:, None] + torch.arange(W, device=dev)[None])[..., None]
+    valid = torch.as_tensor(lens, device=dev)[:, None, None]
+    return ((k < valid) | ((k >= P) & (k <= upper))).to(torch.int32)
 
 
 def attended(kw):
@@ -328,7 +366,7 @@ def attended(kw):
     B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
     pairs = torch.ones(B, Tq, Tk, dtype=torch.bool, device=q.device)
     if mask is not None:
-        pairs &= mask.bool()[:, None, :]
+        pairs &= mask.bool()[:, None, :] if mask.dim() == 2 else mask.bool()
     if kw.get("is_causal"):
         pairs &= torch.ones(Tq, Tk, dtype=torch.bool,
                             device=q.device).tril(Tk - Tq)
@@ -338,7 +376,7 @@ def attended(kw):
 def flash_checks(dev, gpu, timer):
     import torch
     import torch.nn.functional as F
-    from tsue_tpu_torch.ops.flash import (flash_attention,
+    from tsue_tpu_torch.ops.flash import (_lib, flash_attention,
                                           flash_attention_plain, rope_bthd)
     rows = []
     for name, kw in attention_cases(dev):
@@ -365,9 +403,18 @@ def flash_checks(dev, gpu, timer):
         flops = 4.0 * D * Hq * pairs.sum().item()
         extra = [kw.get("mask")] + list(kw.get("rope") or ())
         b = bound(nbytes(kw["q"], kw["k"], kw["v"], out, *extra), flops)
+        (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
+        mask = kw.get("mask")
+        splits = _lib().flash_attn_splits(
+            B, Tq, Tk, Hq, Hkv, D, int(kw.get("rope") is not None),
+            int(mask is not None and mask.dim() == 3))
         rows.append(row("flash_attn_fwd", name, gpu, err, rel, ms, plain_ms,
                         b, lib_ms, timer.floor_ms, q=list(kw["q"].shape),
-                        k=list(kw["k"].shape)))
+                        k=list(kw["k"].shape),
+                        mask=None if kw.get("mask") is None
+                        else list(kw["mask"].shape),
+                        form="split-KV" if splits > 1 else "tiled",
+                        splits=splits))
         check(ok, f"flash_attn_fwd disagrees with the plain version at "
                   f"{name}: max abs err {err} (atol/rtol {TOL})")
     return rows
@@ -561,8 +608,10 @@ def head_checks(dev, gpu, timer, lm_head_ms):
 def attend_checks(dev, gpu, timer):
     """The decode step's int8-KV attention at the three cache lengths of
     generation (and at 592 slots with a decode step per row, the
-    continuous batcher's tick), each row with its launch plan and a second
-    call that must give the same bits."""
+    continuous batcher's tick), and a speculative window's (W 8 over 600
+    slots, greedy; W 4 over 596, the sampled pool's) with its (B, W, S)
+    per-query mask, each row with its launch plan and a second call that
+    must give the same bits."""
     import torch
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
                                              attend_int8_kv_plain,
@@ -571,20 +620,24 @@ def attend_checks(dev, gpu, timer):
     g = torch.Generator(device=dev).manual_seed(3)
     B, Hq, Hkv, D = 16, 32, 8, 64
     rows = []
-    for S, per_row in ((336, False), (464, False), (592, True),
-                       (592, False)):
+    for S, per_row, W in ((336, False, 1), (464, False, 1), (592, True, 1),
+                          (600, True, 8), (596, True, 4), (592, False, 1)):
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         cache = quantize_cache([(k, v)])[0]
-        q = torch.randn(B, 1, Hq, D, generator=g, device=dev)
+        q = torch.randn(B, W, Hq, D, generator=g, device=dev)
         prefix = torch.randint(S // 2, S - 64, (B,), generator=g, device=dev)
         # the static path's rows share a step; the continuous batcher's
         # each have their own
         step = (torch.randint(0, 64, (B, 1), generator=g, device=dev)
                 if per_row else 40)
         s_idx = torch.arange(S, device=dev)[None, :]
-        mask = ((s_idx < prefix[:, None])
-                | ((s_idx >= S - 64) & (s_idx <= S - 64 + step))).int()
+        if W > 1:
+            mask = window_mask(dev, g, prefix.clamp_max(S - 64 - W).tolist(),
+                               S - 64 - W, W, S)
+        else:
+            mask = ((s_idx < prefix[:, None])
+                    | ((s_idx >= S - 64) & (s_idx <= S - 64 + step))).int()
         out = attend_int8_kv(q, cache, mask)
         again = attend_int8_kv(q, cache, mask)
         ref = attend_int8_kv_plain(q, cache, mask)
@@ -592,12 +645,16 @@ def attend_checks(dev, gpu, timer):
         err, rel = errors(out, ref)
         plain_ms = timer.ms(lambda: attend_int8_kv_plain(q, cache, mask))
         ms = timer.ms(lambda: attend_int8_kv(q, cache, mask))
-        b = bound(nbytes(q, *cache, mask, out), 4.0 * B * Hq * S * D)
+        # the (query, key) pairs the call attends: a key mask's row sums
+        # times W, a per-query mask's sum
+        pairs = mask.bool().sum().item() * (W if mask.dim() == 2 else 1)
+        b = bound(nbytes(q, *cache, mask, out), 4.0 * D * Hq * pairs)
         plan = attend_int8_kv_plan(S, Hq // Hkv, D)
-        rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq=1"
-                        + (" per-row steps" if per_row else ""), gpu,
+        rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq={W}"
+                        + (" per-row steps" if per_row else "")
+                        + (" (B, W, S) mask" if W > 1 else ""), gpu,
                         err, rel, ms, plain_ms, b, None, timer.floor_ms,
-                        plan={**plan, "ctas": plan["splits"] * B * Hkv},
+                        plan={**plan, "ctas": plan["splits"] * B * W * Hkv},
                         repeat_bit_identical=bool(torch.equal(out, again))))
         check(torch.allclose(out, ref, **TOL),
               f"attend_int8_kv disagrees with the plain version at S={S}: "
@@ -1889,6 +1946,251 @@ def http_phase(dev, gpu, pred) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 11. speculative decoding at full width
+# --------------------------------------------------------------------------
+
+SPEC_WINDOW = 8          # the static greedy window (Predictor default)
+POOL_SPEC_WINDOW = 4     # the sampled pool's (Predictor._spec_window)
+
+
+def spec_expected(m, chunks: int, forwards: int, int8: bool) -> dict:
+    """The launches of a static speculative request: each chunk's prefill
+    (flash in every Llama layer and Q-Former call) and first logits (the
+    int8 head under int8 weights), then one window forward each (seven
+    products a layer and the head: one int8 launch each, B * W <= 128
+    rows; the attention over the cache: int8-KV, or flash with the fp32
+    cache)."""
+    L = m.llama.num_layers
+    qformer_calls = m.qformer.num_encoder_layers + \
+        2 * m.qformer.num_decoder_layers
+    return {"flash_attn_fwd": chunks * (L + qformer_calls)
+            + (0 if int8 else forwards * L),
+            "int8_matmul": chunks + forwards * (7 * L + 1) if int8 else 0,
+            "lmhead_topk": 0, "attend_int8_kv": forwards * L if int8 else 0,
+            "rmsnorm": 0, "swiglu_matmul": 0, **dict.fromkeys(NO_PATH, 0)}
+
+
+def oracle_drafts(ref_ids, prompt_mask, dev):
+    """An ``ngram_draft`` stand-in whose drafts are the plain request's own
+    ids (``ref_ids`` (B, N), the rows' prompts ``prompt_mask``): every
+    draft is right, so every window is accepted whole.  It drives the
+    accept path at full width and bounds the speculation win from above."""
+    import torch
+    ref = torch.as_tensor(ref_ids, device=dev).long()
+    plen = torch.as_tensor(prompt_mask, device=dev).sum(1).long()
+
+    def draft(history, history_len, n, width):
+        # the window's committed token sits at output position hlen - 1 -
+        # plen, its drafts after it
+        pos = (history_len - plen)[:, None] + torch.arange(width,
+                                                           device=dev)
+        return ref.gather(1, pos.clamp_max(ref.shape[1] - 1))
+    return draft
+
+
+def pool_oracle_drafts(pool, reqs, outs, dev):
+    """The pool's ``oracle_drafts``: each slot's request, recorded as the
+    pool admits it (``pool._admit`` wrapped on the instance; the prompts
+    alone may not tell requests apart), proposes its ids from an earlier
+    run (``outs``, EOS-trimmed, so EOS follows them).  Returns (draft,
+    undo)."""
+    import numpy as np
+    import torch
+    index = {id(r): i for i, r in enumerate(reqs)}
+    slot_req = torch.zeros(pool.B, dtype=torch.long, device=dev)
+    plen = torch.as_tensor(np.stack([r["prompt_mask"] for r in reqs]),
+                           device=dev).sum(1).long()
+    ref = np.full((len(outs), max(len(o) for o in outs) + 1), pool.eos_id)
+    for i, o in enumerate(outs):
+        ref[i, :len(o)] = o
+    ref = torch.as_tensor(ref, device=dev).long()
+    admit = pool._admit
+
+    def recording_admit(st, slot, req, max_new):
+        slot_req[slot] = index[id(req)]
+        admit(st, slot, req, max_new)
+    pool._admit = recording_admit
+
+    def draft(history, history_len, n, width):
+        pos = (history_len - plen[slot_req])[:, None] + torch.arange(
+            width, device=dev)
+        return ref[slot_req].gather(1, pos.clamp(0, ref.shape[1] - 1))
+    return draft, lambda: pool.__dict__.pop("_admit")
+
+
+def speculative_phase(dev, gpu, cfg, state):
+    """Phase 11: static speculative greedy decoding (window 8) with int8
+    weights and KV (and, once more, with oracle drafts: every window
+    accepted whole) and with fp32 weights and cache, each against the
+    plain greedy request on the same 16 tracks, then the sampled pool at
+    window 4 against window 1 on phase 10's tracks (and, once more, with
+    oracle drafts: the window mode's accept path, where rows advance
+    several positions a tick).  Returns the launches of the speculative
+    runs."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import make_synthetic_tracks
+    from tsue_tpu_torch.eval import speculative as SP
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    from tsue_tpu_torch.serve import Predictor
+
+    t_phase = time.time()
+    B, N = 16, GEN_NEW_TOKENS
+    m = cfg.model
+    greedy = SamplingConfig(do_sample=False)
+    tracks = make_synthetic_tracks(num_tracks=B, track_len=400, seed=1)
+    counts = {}
+    int8_pred = None
+    for what, flags in (("int8 weights + int8 KV",
+                         dict(quantize_decode=True, quantize_kv=True)),
+                        ("fp32 weights and cache", {})):
+        int8 = bool(flags)
+        pred = Predictor(cfg, state, batch_size=B, device=dev, **flags)
+        # warm both programs (cuBLAS picks, the int8 tables)
+        pred.generate_context(tracks, max_new_tokens=8, sampling=greedy)
+        pred.generate_context(tracks, max_new_tokens=8, speculative=True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        pred.generate_context(tracks, max_new_tokens=N, sampling=greedy)
+        plain_s = time.perf_counter() - t0
+        plain_ids = pred.last_request["ids"].copy()
+        _, steps, _, step_ms = request_stats(pred)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pred.generate_context(tracks, max_new_tokens=N,
+                                    speculative=True)
+        spec_s = time.perf_counter() - t0
+        got = read_counts()
+        ids = pred.last_request["ids"]
+        chunk = pred.last_request["chunks"][0]
+        fwd = chunk["forwards"]
+        expected = spec_expected(m, 1, fwd, int8)
+        same = float((ids == plain_ids).mean())
+        check(len(out) == B and ids.shape == (B, N)
+              and len(np.unique(ids)) > B, f"speculative ({what}): output")
+        print(f"speculative static, greedy, window {SPEC_WINDOW}, {what}: "
+              f"16 tracks x {N} tokens in {spec_s:.3f}s = "
+              f"{B * N / spec_s:.1f} tokens/s (plain greedy "
+              f"{B * N / plain_s:.1f} tokens/s, {plain_s:.3f}s, {steps} "
+              f"steps of {step_ms:.3f} ms); {fwd} window forwards = "
+              f"{fwd / N:.3f} forwards per token, "
+              f"{chunk['decode_ms'] / fwd:.3f} ms per window forward, "
+              f"prefill {chunk['prefill_ms']:.1f} ms (device events); "
+              f"share of tokens equal to the plain greedy request's "
+              f"{same:.4f}; launches {json.dumps(got)}, expected "
+              f"{json.dumps(expected)}; gpu: {gpu}", flush=True)
+        check(got == expected, f"speculative ({what}): launches {got} != "
+                               f"{expected}")
+        if int8:
+            # every product on this path computes a row alone
+            check(same == 1.0, "speculative (int8): ids differ from the "
+                               "plain greedy decode's")
+            counts["speculative static, int8 (W8)"] = got
+            int8_pred = pred
+            # oracle drafts: the accept path, and the win's ceiling
+            reqs, _, _, _ = pred.generation_requests(tracks)
+            saved = SP.ngram_draft
+            SP.ngram_draft = oracle_drafts(
+                plain_ids, np.stack([r["prompt_mask"] for r in reqs]), dev)
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                pred.generate_context(tracks, max_new_tokens=N,
+                                      speculative=True)
+                oracle_s = time.perf_counter() - t0
+                got = read_counts()
+            finally:
+                SP.ngram_draft = saved
+            chunk = pred.last_request["chunks"][0]
+            fwd = chunk["forwards"]
+            expected = spec_expected(m, 1, fwd, True)
+            same = bool(np.array_equal(pred.last_request["ids"], plain_ids))
+            print(f"speculative static, greedy, window {SPEC_WINDOW}, "
+                  f"{what}, oracle drafts: {B * N / oracle_s:.1f} tokens/s "
+                  f"({oracle_s:.3f}s), {fwd} window forwards = "
+                  f"{fwd / N:.3f} forwards per token, "
+                  f"{chunk['decode_ms'] / fwd:.3f} ms per window forward; "
+                  f"ids equal to the plain greedy request's: {same}; "
+                  f"launches {json.dumps(got)}, expected "
+                  f"{json.dumps(expected)}; gpu: {gpu}", flush=True)
+            check(same and fwd == -(-N // SPEC_WINDOW),
+                  "speculative (oracle drafts): ids or forwards wrong")
+            check(got == expected, f"speculative (oracle): launches {got} "
+                                   f"!= {expected}")
+            counts["speculative static, int8, oracle drafts (W8)"] = got
+        else:
+            counts["speculative static, fp32 (W8)"] = got
+            del pred
+    # the sampled pool at window 4 against window 1 on phase 10's tracks
+    pred = int8_pred
+    sampled = SamplingConfig()
+    ptracks = make_synthetic_tracks(num_tracks=POOL_TRACKS, track_len=400,
+                                    seed=11)
+    caps = np.random.default_rng(0).integers(8, 65, POOL_TRACKS)
+    runs, ticks = {}, {}
+    for window, oracle in ((1, False), (POOL_SPEC_WINDOW, False),
+                           (POOL_SPEC_WINDOW, True)):
+        what = f"window {window}" + (", oracle drafts" if oracle else "")
+        reqs, _, width, _ = pred.generation_requests(ptracks)
+        reqs = [dict(r, max_new=int(c)) for r, c in zip(reqs, caps)]
+        pool = pred.continuous_batcher(num_slots=POOL_SLOTS,
+                                       prompt_len=width, max_new_tokens=64,
+                                       chunk=POOL_CHUNK, sampling=sampled,
+                                       window=window)
+        if not oracle:
+            pool_run(pool, reqs[:2])
+        reqs, _, _, _ = pred.generation_requests(ptracks)
+        reqs = [dict(r, max_new=int(c)) for r, c in zip(reqs, caps)]
+        saved, undo = SP.ngram_draft, None
+        if oracle:
+            SP.ngram_draft, undo = pool_oracle_drafts(pool, reqs, runs[1],
+                                                      dev)
+        try:
+            reset_counts()
+            out, wall = pool_run(pool, reqs)
+            got = read_counts()
+        finally:
+            SP.ngram_draft = saved
+            if undo is not None:
+                undo()
+        run = dict(pool.last_run)
+        tokens = sum(len(o) for o in out)
+        expected = pool_expected(m, run)
+        slot_ticks = run["mean_live_slots"] * run["ticks"]
+        same = sum(np.array_equal(a, b) for a, b in zip(out, runs.get(1,
+                                                                      out)))
+        print(f"speculative pool, sampled, {what} ({POOL_SLOTS} "
+              f"slots, chunk {POOL_CHUNK}, {POOL_TRACKS} requests, caps "
+              f"8-64 from seed 0, int8 weights + int8 KV): "
+              f"{pool_stats(run, tokens, wall)}; "
+              f"{slot_ticks / tokens:.3f} live slot-forwards per token; "
+              f"{same} of {POOL_TRACKS} requests' ids equal to window 1's; "
+              f"launches {json.dumps(got)}, expected {json.dumps(expected)};"
+              f" gpu: {gpu}", flush=True)
+        check(got == expected, f"speculative pool ({what}): launches {got} "
+                               f"!= {expected}")
+        check(same == POOL_TRACKS, f"speculative pool ({what}): ids differ "
+                                   "from the window-1 pool's")
+        if oracle:
+            # every draft is right: rows advance several positions a tick
+            check(slot_ticks < tokens and run["ticks"] < ticks[1],
+                  f"speculative pool ({what}): {slot_ticks} live "
+                  f"slot-forwards for {tokens} tokens, {run['ticks']} "
+                  f"ticks against window 1's {ticks[1]}")
+            counts[f"speculative pool, sampled, oracle drafts "
+                   f"(W{window})"] = got
+        else:
+            runs[window], ticks[window] = out, run["ticks"]
+            if window > 1:
+                counts[f"speculative pool, sampled (W{window})"] = got
+    del pred, pool, int8_pred
+    torch.cuda.empty_cache()
+    print(f"speculative phase: {time.time() - t_phase:.1f}s in all; gpu: "
+          f"{gpu}", flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # 7. training at full width
 # --------------------------------------------------------------------------
 
@@ -2509,6 +2811,7 @@ def main() -> int:
     gen_counts, head_counts, off_counts = generation_phase(dev, gpu, cfg,
                                                            state)
     pool_counts, http_counts = serving_phase(dev, gpu, cfg, state)
+    spec_counts = speculative_phase(dev, gpu, cfg, state)
     del state
     torch.cuda.empty_cache()
     train_counts = {preset: train_phase(dev, gpu, preset)
@@ -2531,8 +2834,9 @@ def main() -> int:
         elif name in ("rmsnorm", "swiglu_matmul", "nlinear", "lora_matmul",
                       "ade_fde"):
             pick = [r[0]]      # batch 16 (LoRA: q_proj, fp32)
-        else:
-            pick = [r[-1]]                     # S = 592
+        else:                                  # S = 592, a decode step
+            pick = [x for x in r
+                    if x["shape"] == "S=592 B=16 32/8x64 Tq=1"]
         # the contract's bound is the roofline's (bytes or operations);
         # the tiny kernels' floor-inclusive bound stands beside it
         roof = [(x.get("roofline_bound_ms", x["bound_ms"]),
@@ -2559,6 +2863,7 @@ def main() -> int:
         "generate_switches_off": off_counts[name],
         f"serve pool ({POOL_TRACKS} requests)": pool_counts[name],
         "serve http": http_counts[name],
+        **{run: c[name] for run, c in spec_counts.items()},
         **{f"train {p} (3 steps)": train_counts[p][name]
            for p in TRAIN_PRESETS},
         "stage1 train_18_30 (3 steps)": stage1_counts[name],

@@ -238,7 +238,6 @@ def test_http_unknown_path_is_404(http, method):
     ("train", ["--viz-every", "1"], NotImplementedError),
     ("test", ["--remat"], NotImplementedError),
     ("stage1", ["--pipeline-parallel", "2"], NotImplementedError),
-    ("serve", ["--speculative"], NotImplementedError),
     ("serve", ["--model-parallel", "2"], NotImplementedError),
     ("serve", ["--fsdp"], NotImplementedError),
     ("serve", ["--batcher", "continuous", "--fused-head"], ValueError),
@@ -270,8 +269,8 @@ def test_module_dispatches_to_the_commands(capsys):
         main(["predict"])
     with pytest.raises(SystemExit, match="usage"):
         main([])
-    with pytest.raises(NotImplementedError, match="--speculative"):
-        main(["serve", "--speculative"])
+    with pytest.raises(NotImplementedError, match="--fsdp"):
+        main(["serve", "--fsdp"])
     assert main(["serve"] + CPU + ["--synthetic-tracks", "1",
                                    "--serve-batch-size", "2"])["results"] > 0
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["mode"] == \

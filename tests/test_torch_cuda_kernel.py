@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: flash attention (also at batch 1, the continuous batcher's
-admission), the int8 matrix product, the fused LM head + top-128,
-the int8-KV decode attention, the one-pass RMSNorm, the fused SwiGLU
+admission, and with the per-query masks of a speculative window), the int8
+matrix product (also above one launch's 128 rows), the fused LM head +
+top-128, the int8-KV decode attention (also with per-query masks), the one-pass RMSNorm, the fused SwiGLU
 down-projection, NLinear, the fused LoRA product and the per-sample
 ADE/FDE, and the gradients of the kernels in autograd Functions (flash,
 RMSNorm, SwiGLU, NLinear, LoRA) against autograd through their plain
@@ -156,8 +157,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         t = q.transpose(1, 2).contiguous().transpose(1, 2)
         flash_attention(t, t, t)
-    with pytest.raises(ValueError, match="key mask"):
-        flash_attention(q, q, q, torch.ones(2, 1, 8, 8, device=dev))
+    with pytest.raises(ValueError, match="mask must have shape"):
+        flash_attention(q, q, q, torch.ones(2, 9, 8, device=dev))
+    with pytest.raises(ValueError, match="the kernel takes a"):
+        flash_attention(q, q, q, torch.ones(2, 4, 8, 8, device=dev))
     with pytest.raises(ValueError, match="Hkv"):
         k = q[:, :, :3].contiguous()
         flash_attention(q, k, k)
@@ -199,7 +202,7 @@ def test_int8_matmul_matches_plain(dev, M):
 def test_int8_matmul_rejects_what_it_does_not_take(dev):
     w8, s = Q.quantize_weight(torch.randn(64, 8, device=dev))
     with pytest.raises(ValueError, match="rows"):
-        Q.int8_matmul(torch.randn(129, 64, device=dev), w8, s)
+        Q.int8_matmul(torch.randn(0, 64, device=dev), w8, s)
     w8o, so = Q.quantize_weight(torch.randn(64, 6, device=dev))
     with pytest.raises(ValueError, match="N % 4"):
         Q.int8_matmul(torch.randn(2, 64, device=dev), w8o, so)
@@ -921,3 +924,102 @@ def test_nlinear_and_lora_gradients_match_plain_autograd(dev):
     assert lora_matmul.launches == before + 1
     for o, r in zip(ours, _grads(lambda *t: lora_ref(*t, 4.0), inputs, cot)):
         torch.testing.assert_close(o, r, **TOL)
+
+
+def _window_mask(dev, g, B, W, S, P):
+    """(B, W, S) masks of a speculative window at per-row steps: query j of
+    row b sees its valid prefix and the decode slots P .. P + step[b] + j.
+    Query 0 of row 0 sees nothing, and with B > 1 row 1 sees nothing."""
+    plen = torch.randint(1, P + 1, (B,), generator=g, device=dev)
+    step = torch.randint(0, S - P - W + 1, (B,), generator=g, device=dev)
+    k = torch.arange(S, device=dev)[None, None]
+    upper = (P + step[:, None] + torch.arange(W, device=dev)[None])[..., None]
+    m = (k < plen[:, None, None]) | ((k >= P) & (k <= upper))
+    m[0, 0] = False
+    if B > 1:
+        m[1] = False
+    return m.int()
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_attention_kernels_take_per_query_masks(dev, B):
+    """A speculative window's attention over the decode cache: W = 1..8
+    queries of 32/8 heads of 64 over S = 600 slots, a (B, W, S) mask and
+    the same as (B, 1, W, S), through the flash kernel (its split-KV form
+    up to 16 items per (row, KV head), W <= 4, and its tiled form above)
+    and the int8-KV kernel: one launch each, within 1e-4 of the plain
+    versions, all-masked query rows the uniform mean of V."""
+    from tsue_tpu_torch.ops.flash import _lib
+    g = torch.Generator(device=dev).manual_seed(31 + B)
+    S, P, Hq, Hkv, D = 600, 528, 32, 8, 64
+    split_forms = set()
+    for W in range(1, 9):
+        q = torch.randn(B, W, Hq, D, generator=g, device=dev)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        cache = KV.quantize_cache([(k, v)])[0]
+        m = _window_mask(dev, g, B, W, S, P)
+        split_forms.add(_lib().flash_attn_splits(B, W, S, Hq, Hkv, D, 0, 1)
+                        > 1)
+        for mask in (m, m[:, None]):
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, mask)
+            assert flash_attention.launches == before + 1
+            ref = flash_attention_plain(q, k, v, mask)
+            before = KV.attend_int8_kv.launches
+            out8 = KV.attend_int8_kv(q, cache, mask)
+            assert KV.attend_int8_kv.launches == before + 1
+            ref8 = KV.attend_int8_kv_plain(q, cache, mask)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, **TOL, msg=lambda e: (
+                f"flash W={W} {tuple(mask.shape)}: {e}"))
+            torch.testing.assert_close(out8, ref8, **TOL, msg=lambda e: (
+                f"int8-KV W={W} {tuple(mask.shape)}: {e}"))
+            mean_v = v[0].mean(0).repeat_interleave(Hq // Hkv, 0)
+            torch.testing.assert_close(out[0, 0], mean_v, **TOL)
+    assert split_forms == {True, False}
+
+
+@pytest.mark.parametrize("kernel", ["flash", "attend_int8_kv"])
+def test_repeated_key_mask_gives_the_key_mask_bits(dev, kernel):
+    """A (B, W, S) mask whose rows repeat a (B, S) key mask gives the bits
+    of the key-mask call (the same loads and arithmetic, another stride),
+    in both flash forms (W = 4 split-KV, W = 8 tiled)."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    B, S, Hq, Hkv, D = 16, 600, 32, 8, 64
+    for W in (1, 4, 8):
+        q = torch.randn(B, W, Hq, D, generator=g, device=dev)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+        lens = torch.randint(0, S + 1, (B,), generator=g, device=dev)
+        key = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        rep = key[:, None].expand(B, W, S).contiguous()
+        if kernel == "flash":
+            a, b = flash_attention(q, k, v, key), flash_attention(q, k, v, rep)
+        else:
+            cache = KV.quantize_cache([(k, v)])[0]
+            a, b = (KV.attend_int8_kv(q, cache, key),
+                    KV.attend_int8_kv(q, cache, rep))
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), W
+
+
+def test_int8_matmul_above_one_launch(dev):
+    """M = 256 rows (a speculative window of 16 rows by 16 positions) run
+    as two launches of 128 rows, bit for bit two 128-row calls; M = 200
+    as 128 + 72."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    for M, K, N in ((256, 2048, 2048), (256, 2048, 128256),
+                    (200, 8192, 2048)):
+        x = torch.randn(M, K, generator=g, device=dev)
+        w8, s = Q.quantize_weight(torch.randn(K, N, generator=g, device=dev))
+        before = Q.int8_matmul.launches
+        out = Q.int8_matmul(x, w8, s)
+        assert Q.int8_matmul.launches == before + 2
+        parts = torch.cat([Q.int8_matmul(x[:128], w8, s),
+                           Q.int8_matmul(x[128:], w8, s)])
+        torch.cuda.synchronize()
+        assert torch.equal(out, parts), (M, K, N)
+        ref = Q.int8_matmul_ref(x, w8, s)
+        torch.testing.assert_close(out, ref, rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()))

@@ -33,7 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = (
     "tsue_tpu_torch", "tsue_tpu_torch.config", "tsue_tpu_torch.data",
     "tsue_tpu_torch.serve", "tsue_tpu_torch.convert",
-    "tsue_tpu_torch.eval.generation", "tsue_tpu_torch.ops.sampling",
+    "tsue_tpu_torch.eval.generation", "tsue_tpu_torch.eval.speculative",
+    "tsue_tpu_torch.ops.sampling",
     "tsue_tpu_torch.ops.quant", "tsue_tpu_torch.ops.kv_quant",
     "tsue_tpu_torch.ops.lmhead_topk", "tsue_tpu_torch.ops.fused",
     "tsue_tpu_torch.data.dataset", "tsue_tpu_torch.utils.logging",

@@ -53,7 +53,7 @@ def _stacks(use_vision: bool):
     vision = jnp.asarray(rng.standard_normal((1, T_VIS, 512)), jnp.float32)
     ids = jnp.asarray(rng.integers(3, VOCAB - 1, (1, PROMPT_LEN)), jnp.int32)
     mask = jnp.ones((1, PROMPT_LEN), jnp.int32)
-    params = jax.device_get(jm.init(
+    params = jax.device_get(jax.jit(jm.init, static_argnums=4)(
         {"params": jax.random.key(0)}, vision if use_vision else None, ids,
         mask, True)["params"])
     # flax inits lora_b = 0; give the adapters mass
@@ -113,6 +113,12 @@ def _same(a, b):
         np.testing.assert_array_equal(x, y, err_msg=f"request {i}")
 
 
+def _jit(jm, method, cache_len):
+    """A jitted JAX MLLM method whose last argument is ``cache_len``."""
+    fn = getattr(jm, method)
+    return jax.jit(lambda v, *a: jm.apply(v, *a, cache_len, method=fn))
+
+
 def _prefilled(jm, jv, port, B=3, seed=3):
     rng = np.random.default_rng(seed)
     vision = rng.standard_normal((B, T_VIS, 512)).astype(np.float32)
@@ -120,9 +126,8 @@ def _prefilled(jm, jv, port, B=3, seed=3):
     mask = np.ones((B, PROMPT_LEN), np.int32)
     mask[1, 4:] = 0
     cache_len = QF["num_query_tokens"] + PROMPT_LEN + MAX_NEW
-    jc, _, jplen, jfmask = jm.apply(jv, jnp.asarray(vision), jnp.asarray(ids),
-                                    jnp.asarray(mask), cache_len,
-                                    method=jm.prefill)
+    jc, _, jplen, jfmask = _jit(jm, "prefill", cache_len)(
+        jv, jnp.asarray(vision), jnp.asarray(ids), jnp.asarray(mask))
     pc, _, pplen, pfmask = port.prefill(torch.from_numpy(vision),
                                         torch.from_numpy(ids),
                                         torch.from_numpy(mask), cache_len)
@@ -137,10 +142,11 @@ def test_vector_decode_step_matches_jax(stacks):
     jm, jv, port = stacks[True]
     (jc, jplen, jfmask), (pc, pplen, pfmask), tok, cache_len = _prefilled(
         jm, jv, port)
+    step = _jit(jm, "decode_step", cache_len)
     for t in range(3):
         steps = np.array([t, 2 * t + 1, t + 3], np.int32)
-        jl, jc = jm.apply(jv, jnp.asarray(tok), jnp.asarray(steps), jplen,
-                          jc, jfmask, cache_len, method=jm.decode_step)
+        jl, jc = step(jv, jnp.asarray(tok), jnp.asarray(steps), jplen, jc,
+                      jfmask)
         pl = port.decode_step(torch.from_numpy(tok).long(),
                               torch.from_numpy(steps).long(), pplen, pc,
                               pfmask, cache_len)
@@ -385,28 +391,19 @@ def _predictor(fused_head=False):
                      device="cpu")
 
 
-@pytest.mark.parametrize("what", ["window", "mesh", "fused_head",
-                                  "speculative"])
+@pytest.mark.parametrize("what", ["mesh", "fused_head"])
 def test_not_taken_raises(stacks, what):
-    """What the batcher does not take raises: the speculative window mode
-    and a mesh (not ported yet), and the fused head (the JAX package drops
-    it without a word; the port refuses it)."""
+    """What the batcher does not take raises: a mesh (not ported yet), and
+    the fused head (the JAX package drops it without a word; the port
+    refuses it)."""
     _, _, port = stacks[True]
     greedy = SamplingConfig(do_sample=False)
-    if what == "window":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A: speculative decoding"):
-            _pool(port, greedy, window=2)
-    elif what == "mesh":
+    if what == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP A: parallel"):
             _pool(port, greedy, mesh=object())
-    elif what == "fused_head":
+    else:
         with pytest.raises(ValueError, match="fused_head"):
             _predictor(fused_head=True).continuous_batcher(num_slots=2)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A: speculative decoding"):
-            _predictor().generate_context_batched([], speculative=True)
 
 
 def _exp_cfg(c):

@@ -15,7 +15,6 @@ import dataclasses
 import json
 
 NOT_PORTED = (   # (flag, its dest, whether a value asks for the work, item)
-    ("--speculative", "speculative", bool, "speculative decoding"),
     ("--model-parallel", "model_parallel", bool, "parallel"),
     ("--fsdp", "fsdp", bool, "parallel"),
     ("--pipeline-parallel", "pipeline_parallel", lambda v: v > 1,

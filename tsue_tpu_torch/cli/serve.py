@@ -33,8 +33,12 @@ Without --ckpt the predictor serves the random weights that
 ``runner.build_model_and_params`` makes from the preset's seed (the JAX
 script initialises from key 0; see ROADMAP C).  --batcher continuous
 serves /generate through the continuous slot-pool batcher
-(``serve_batching.py``), which refuses --fused-head.  --speculative,
---model-parallel and --fsdp are not ported yet and raise.
+(``serve_batching.py``), which refuses --fused-head.  --speculative
+decodes /generate and --generate with prompt-lookup speculative decoding
+(``eval/speculative.py``) through either batcher: greedy on the static one
+(the plain head), the window mode of the continuous one (a request's ids
+are the plain pool's).  --model-parallel and --fsdp are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -171,7 +175,8 @@ def make_server(predictor, args) -> ThreadingHTTPServer:
                                if args.batcher == "continuous"
                                else predictor.generate_context)
                         res = gen(tracks, max_new_tokens=mnt,
-                                  compile_cap=args.max_new_tokens)
+                                  compile_cap=args.max_new_tokens,
+                                  speculative=args.speculative)
                 payload = {"results": [_jsonable(r) for r in res]}
                 dropped = _dropped(tracks, res)
                 if dropped:
@@ -205,8 +210,9 @@ def parser():
                         "LM-head + top-k kernel (the continuous batcher "
                         "refuses it)")
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported "
-                        "yet: raises)")
+                   help="prompt-lookup speculative decoding for /generate "
+                        "and --generate; composes with --batcher "
+                        "continuous (window mode, the plain pool's ids)")
     p.add_argument("--batcher", default="static",
                    choices=("static", "continuous"),
                    help="generation scheduling: static batches or the "
@@ -243,7 +249,8 @@ def main(argv=None) -> dict:
         predictor.warmup()
         if cfg.model.use_llm:
             predictor.prepare_generation(
-                args.max_new_tokens, batched=(args.batcher == "continuous"))
+                args.max_new_tokens, speculative=args.speculative,
+                batched=(args.batcher == "continuous"))
         srv = make_server(predictor, args)
         # tests and supervisors sync on this line
         print(f"SERVING port={srv.server_address[1]}", flush=True)
@@ -259,7 +266,8 @@ def main(argv=None) -> dict:
     if args.generate:
         gen = (predictor.generate_context_batched
                if args.batcher == "continuous" else predictor.generate_context)
-        results = gen(tracks, max_new_tokens=args.max_new_tokens)
+        results = gen(tracks, max_new_tokens=args.max_new_tokens,
+                      speculative=args.speculative)
     else:
         results = predictor.predict(tracks)
     lines = [json.dumps(_jsonable(r)) for r in results]

@@ -4,12 +4,17 @@
 // launched by _attend_int8_impl at :186).  For each batch row b, query step t
 // and query head j (KV head h = j / G):
 //   k = k8[b, s, h] * ks[b, s, h],  v = v8[b, s, h] * vs[b, s, h]   (fp32)
-//   logit[s] = (q . k) * scale, or -1e30 where mask[b, s] == 0
+//   logit[s] = (q . k) * scale, or -1e30 where the mask hides s from (b, t)
 //   p = exp(logit - max) / max(sum exp(logit - max), 1e-30)
 //   out[b, t, j] = sum_s p[s] * v
 // so a row with no valid key is the uniform average of v, as in the Pallas
 // kernel.  q and out are (B, Tq, Hq, D) fp32; k8/v8 (B, S, Hkv, D) int8;
-// ks/vs (B, S, Hkv) fp32; mask (B, S) int32 (or null: every key valid).
+// ks/vs (B, S, Hkv) fp32; mask int32 (or null: every key valid), read at
+// mask[b * (mq ? Tq * mq : S) + t * mq + s] with mq, its query stride, 0
+// for a (B, S) key mask (decode steps) and S for a (B, Tq, S) per-query
+// mask (the Pallas kernel's (1, Tq, S) mask block; a speculative window's
+// in-window causality).  A key mask gives the bits it gave before the
+// stride existed: the same loads, the same arithmetic.
 //
 // What bounds it on an H100: one decode step reads the int8 cache once,
 // 2 * S * Hkv * D bytes a row plus the scales, with a few flops a byte: at
@@ -50,10 +55,12 @@
 // B = 16, 32/8 heads of 64): 0.016 / 0.018 / 0.021 ms at S = 336 / 464 /
 // 592 (the CTA-per-(row, KV head) kernel it replaces took 0.049 / 0.063 /
 // 0.078; bytes bound 0.002-0.003), of which ~5.5 us is the timer's floor
-// (chip_smoke.py prints it).
+// (chip_smoke.py prints it).  A speculative window with a (B, W, S) mask
+// runs a cluster per query step, each re-reading its slice: 0.068 ms at W =
+// 8, S = 600 and 0.042 at W = 4, S = 596 (operations bound 0.009 / 0.005).
 //
 // ptxas (nvcc -Xptxas -v, sm_90a), no spills: attend_int8_kernel<D> uses
-// 55 / 64 / 62 / 62 registers at D = 16 / 32 / 64 / 128.  Its dynamic
+// 55 / 56 / 56 / 64 registers at D = 16 / 32 / 64 / 128.  Its dynamic
 // shared memory follows the slice (attend_int8_kv_plan): 30.9 KB at S =
 // 592, D = 64, G = 4.
 //
@@ -140,13 +147,16 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
                    const int8_t* __restrict__ v8,
                    const float* __restrict__ vs,
                    const int32_t* __restrict__ mask, float* __restrict__ out,
-                   int Tq, int S, int Hq, int Hkv, int per, float scale) {
+                   int Tq, int S, int Hq, int Hkv, int per, int mq,
+                   float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int G = Hq / Hkv;
   const int h = blockIdx.y, bt = blockIdx.z, b = bt / Tq;
+  // this (row, query step)'s mask row: row b's key mask, or its own
+  const size_t m_off = mq ? (size_t)bt * mq : (size_t)b * S;
   const int s0 = min(S, rank * per);
   const int n = min(S, s0 + per) - s0;
   const Layout L(G, D, per);
@@ -175,7 +185,7 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
     cp4(ksc + i, ks + row);
     cp4(vsc + i, vs + row);
     if (mask != nullptr)
-      cp4(valid + i, mask + (size_t)b * S + s0 + i);
+      cp4(valid + i, mask + m_off + s0 + i);
     else
       valid[i] = 1;
   }
@@ -329,8 +339,8 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
 template <int D>
 int launch(const float* q, const int8_t* k8, const float* ks,
            const int8_t* v8, const float* vs, const int32_t* mask,
-           float* out, int B, int Tq, int S, int Hq, int Hkv, float scale,
-           cudaStream_t stream) {
+           float* out, int B, int Tq, int S, int Hq, int Hkv, int mq,
+           float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -355,7 +365,7 @@ int launch(const float* q, const int8_t* k8, const float* ks,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, attend_int8_kernel<D>, q, k8, ks, v8, vs, mask, out, Tq, S, Hq,
-      Hkv, p.per, scale);
+      Hkv, p.per, mq, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -383,16 +393,18 @@ int attend_int8_kv_plan(int S, int G, int D, int field) {
 
 // Returns a cudaError_t (0 on success), or -1 for a shape it does not take.
 // Needs D in {16, 32, 64, 128}, Hkv dividing Hq with Hq / Hkv <= 8, B * Tq
-// <= 65535, 16-byte aligned k8 and v8.
+// <= 65535, 16-byte aligned k8 and v8, and mq (the mask's query stride) 0
+// or S.
 int attend_int8_kv(const float* q, const int8_t* k8, const float* ks,
                    const int8_t* v8, const float* vs, const int32_t* mask,
                    float* out, int B, int Tq, int S, int Hq, int Hkv, int D,
-                   float scale, cudaStream_t stream) {
+                   int mq, float scale, cudaStream_t stream) {
+  if (mq != 0 && mq != S) return -1;
   switch (D) {
-    case 16: return launch<16>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, scale, stream);
-    case 32: return launch<32>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, scale, stream);
-    case 64: return launch<64>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, scale, stream);
-    case 128: return launch<128>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, scale, stream);
+    case 16: return launch<16>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 32: return launch<32>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 64: return launch<64>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 128: return launch<128>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
     default: return -1;
   }
 }

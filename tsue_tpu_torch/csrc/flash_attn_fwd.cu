@@ -11,10 +11,16 @@
 // repetition, so one source covers all three.
 //
 // Semantics (tsue_tpu/ops/flash.py:_softmax_attend and the three bodies):
-// fp32 logits q.k * scale; a key is valid when mask[b, j] != 0 and, if causal,
-// j <= row + (Tk - Tq) (jnp.tril(k=Tk-Tq)); invalid logits become the finite
-// -1e30, so a row with no valid key gives the uniform mean of V over all Tk
-// keys (not NaN); softmax in fp32; out = P.V / max(sum P, 1e-30).  RoPE is
+// fp32 logits q.k * scale; a key is valid when the mask lets row i see key j
+// and, if causal, j <= i + (Tk - Tq) (jnp.tril(k=Tk-Tq)).  The mask is
+// int32, read at mask[b * (mq ? Tq * mq : Tk) + i * mq + j] with mq, its
+// query stride, 0 for a (B, Tk) key mask (every row reads it) and Tk for a
+// (B, Tq, Tk) per-query mask (a speculative window over the decode cache:
+// in-window causality); null lets every key through.  A key mask takes the
+// same loads and arithmetic as before the stride existed: the same bits.
+// Invalid logits become the finite -1e30, so a row with no valid key gives
+// the uniform mean of V over all Tk keys (not NaN); softmax in fp32; out =
+// P.V / max(sum P, 1e-30).  RoPE is
 // rotate-half in fp32 on q and k (self-attention, D <= 128).  Activations
 // are fp32 and products are fp32 FMAs on the CUDA cores (no TF32).
 //
@@ -70,34 +76,46 @@
 //     skipped), so a split whose keys are all invalid for an item reports
 //     m = -1e30 with l = its key count, and an item with no valid key
 //     anywhere gets the uniform mean over all Tk keys, as the reference.
+// Speculative windows (B 16, Tq = W queries, 32/8 heads of 64, Tk = P + 64
+// + W slots of the fp32 cache, a (B, W, Tk) mask): the plan picks the form
+// by the items of a (b, KV head), W * G.  At W = 8 that is 32, above the 16
+// a split-KV block holds, so the window takes the tiled form: 128 blocks,
+// one per (b, KV head), each with 32 of its 64 item slots empty and all
+// ~10 key tiles in one block.  At W <= 4 (16 items or fewer) it takes the
+// split-KV form.  The per-query mask is read per item in the softmax step
+// and changes neither plan.
 //
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py's kernel phase, L2 flushed):
 // Llama self-attention 0.81 ms (a warp-per-item design took 2.53), LTSF
 // cross 0.14 ms (0.42), decode over a 592-slot fp32 cache 0.048 ms (0.082),
-// Q-Former self-attention at 64 frames 0.021 ms (0.043).
+// Q-Former self-attention at 64 frames 0.021 ms (0.043), a speculative
+// window over a 600-slot fp32 cache 0.059 ms at W = 8 (tiled) and 0.049 at
+// W = 4 (split-KV, 596 slots).
 //
 // ptxas (nvcc -Xptxas -v, sm_90a; chip_smoke.py's build phase prints it),
-// with the dynamic shared memory each launch asks for:
-//   kernel <D, TY, RPT>  registers  spill st/ld bytes  shared memory
-//   tiled  <16, 16, 4>   128        28 / 40            32 KB (40 KB roped)
-//          <32, 16, 4>   128        76 / 72            44 KB (60 KB)
-//          <64, 16, 4>   128        12 / 24            68 KB (100 KB)
-//          <96, 16, 4>   202        0                  92 KB (140 KB)
-//          <128, 16, 4>  198        0                  116 KB (180 KB)
-//   few    <16, 16, 1>   120        0                  21 KB
-//          <32, 16, 1>   123        0                  34 KB
-//          <64, 16, 1>   128        12 / 36            60 KB
-//          <96, 16, 1>   156        0                  86 KB
-//          <128, 16, 1>  152        0                  112 KB
-//   wide   <1024, 16, 2> 124        0                  108 KB
-//   merge_kernel         32         0                  0
+// with the dynamic shared memory each launch asks for, for the key-mask
+// kernel (PQ false) and its per-query twin (PQ true):
+//   kernel <D, TY, RPT>  registers  spill st/ld bytes  PQ: regs, spills  smem
+//   tiled  <16, 16, 4>   128        28 / 40            128, 0         32 KB (40 KB roped)
+//          <32, 16, 4>   128        76 / 72            128, 12 / 24   44 KB (60 KB)
+//          <64, 16, 4>   128        12 / 24            128, 12 / 12   68 KB (100 KB)
+//          <96, 16, 4>   202        0                  200, 0         92 KB (140 KB)
+//          <128, 16, 4>  198        0                  196, 0         116 KB (180 KB)
+//   few    <16, 16, 1>   120        0                  124, 0         21 KB
+//          <32, 16, 1>   123        0                  126, 0         34 KB
+//          <64, 16, 1>   128        12 / 36            127, 0         60 KB
+//          <96, 16, 1>   156        0                  156, 0         86 KB
+//          <128, 16, 1>  152        0                  151, 0         112 KB
+//   wide   <1024, 16, 2> 124        0                  128, 0         108 KB
+//   merge_kernel         32         0                                 0
 // The spills come from the 128-register cap of two 256-thread blocks an SM.
 //
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/flash.py):
 //   flash_attn_splits(...) is the number of key splits a call will use (the
 //   caller allocates a scratch of splits * B*Tq*Hq * (D + 2) floats when it
-//   is above 1); flash_attn_fwd(...) returns cudaGetLastError() after the
-//   launches, or -1 for what it does not take.
+//   is above 1; pq: the call passes a per-query mask); flash_attn_fwd(...)
+//   returns cudaGetLastError() after the launches, or -1 for what it does
+//   not take.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -150,12 +168,13 @@ struct Args {
   const float* q;
   const float* k;
   const float* v;
-  const int* mask;     // (B, Tk) or nullptr
+  const int* mask;     // (B, Tk), (B, Tq, Tk) or nullptr
   const float* cos;    // (B, T, D/2) or nullptr
   const float* sin;
   float* out;
   float* part;         // splits > 1: (splits, NI, D) acc then (splits, NI, 2)
   int B, Tq, Tk, Hq, Hkv, causal, splits, tps;   // tps: tiles per split
+  int mq;              // the mask's query stride: 0 (key mask) or Tk
   float scale;
 };
 
@@ -192,7 +211,10 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int D, int TY, int RPT>
+// PQ: the mask is per query (mq == Tk).  A template parameter, so that the
+// key-mask kernels compile to what they were before per-query masks existed
+// (a runtime flag raised the tiled D = 64 kernel's spills and cost it ~10%).
+template <int D, int TY, int RPT, bool PQ>
 __global__ void __launch_bounds__(Cfg<D, TY, RPT>::NT, Cfg<D, TY, RPT>::MINB)
 attn_kernel(const Args a) {
   using C = Cfg<D, TY, RPT>;
@@ -364,6 +386,8 @@ attn_kernel(const Args a) {
 
   // K slice s of tile t: S += Q_s K_s^T; after the last slice, the online
   // softmax of the tile and P into shared memory.
+  // a per-query mask: each item reads its own row's mask below
+  constexpr bool pq = PQ;
   auto k_stage = [&](int t, int s, const float* buf) {
     const int c0 = t * BN;
     int mk[KPT];                       // -1 past Tk, 0 masked, 1 valid
@@ -372,7 +396,8 @@ attn_kernel(const Args a) {
       for (int j = 0; j < KPT; ++j) {
         const int key = c0 + tx + 16 * j;
         mk[j] = key >= a.Tk ? -1
-                : (a.mask == nullptr || __ldg(a.mask + (size_t)b * a.Tk + key) != 0);
+                : (a.mask == nullptr || pq ||
+                   __ldg(a.mask + (size_t)b * a.Tk + key) != 0);
       }
     }
     if (s == 0) {
@@ -405,11 +430,17 @@ attn_kernel(const Args a) {
     float p[RPT][KPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int last = (i0 + ty * RPT + i) / G + off;   // last visible key
+      const int qrow = (i0 + ty * RPT + i) / G;
+      const int last = qrow + off;                      // last visible key
+      // the item's mask row (rows past the last item read the last row)
+      const int* mrow =
+          pq ? a.mask + ((size_t)b * a.Tq + min(qrow, a.Tq - 1)) * a.mq
+             : nullptr;
       float sv[KPT], mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const bool ok = mk[j] > 0 && (!diag || c0 + tx + 16 * j <= last);
+        const bool ok = mk[j] > 0 && (!diag || c0 + tx + 16 * j <= last) &&
+                        (!pq || __ldg(mrow + c0 + tx + 16 * j) != 0);
         sv[j] = mk[j] < 0 ? -INFINITY : (ok ? sacc[i][j] * a.scale : kNegInf);
         mx = fmaxf(mx, sv[j]);
       }
@@ -588,7 +619,7 @@ __global__ void merge_kernel(const float* __restrict__ part,
                                       acc.w * inv));
 }
 
-template <int D, int TY, int RPT>
+template <int D, int TY, int RPT, bool PQ>
 struct Kern {
   using C = Cfg<D, TY, RPT>;
   static constexpr int BM = C::BM;
@@ -596,20 +627,21 @@ struct Kern {
   static int per_sm() {
     static int n = -1;
     if (n < 0) {
-      if (cudaFuncSetAttribute(attn_kernel<D, TY, RPT>,
+      if (cudaFuncSetAttribute(attn_kernel<D, TY, RPT, PQ>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::smem(true)) != cudaSuccess)
         return 0;
       int k = 0;
       if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &k, attn_kernel<D, TY, RPT>, C::NT, C::smem(false)) != cudaSuccess)
+              &k, attn_kernel<D, TY, RPT, PQ>, C::NT, C::smem(false)) !=
+          cudaSuccess)
         return 0;
       n = k;
     }
     return n;
   }
   static void launch(const Args& a, dim3 grid, bool rope, cudaStream_t st) {
-    attn_kernel<D, TY, RPT><<<grid, C::NT, C::smem(rope), st>>>(a);
+    attn_kernel<D, TY, RPT, PQ><<<grid, C::NT, C::smem(rope), st>>>(a);
   }
 };
 
@@ -617,23 +649,30 @@ struct Plan {
   int kind, bm, nib, splits, tps, per_sm;
 };
 
-// Calls f(Kern<...>{}) for the kernel of (kind, D); false for a D it lacks.
-template <typename F>
-bool dispatch(int kind, int D, F&& f) {
+// Calls f(Kern<...>{}) for the kernel of (kind, D, PQ); false for a D it
+// lacks.
+template <bool PQ, typename F>
+bool dispatch_pq(int kind, int D, F&& f) {
   if (kind == kWide) {
     if (D != 1024) return false;
-    f(Kern<1024, 16, 2>{});
+    f(Kern<1024, 16, 2, PQ>{});
     return true;
   }
   switch (D) {
 #define FLASH_CASE(DD)                                               \
     case DD:                                                         \
-      if (kind == kTiled) f(Kern<DD, 16, 4>{}); else f(Kern<DD, 16, 1>{}); \
+      if (kind == kTiled) f(Kern<DD, 16, 4, PQ>{});                  \
+      else f(Kern<DD, 16, 1, PQ>{});                                 \
       return true;
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(96) FLASH_CASE(128)
 #undef FLASH_CASE
     default: return false;
   }
+}
+
+template <typename F>
+bool dispatch(int kind, int D, bool pq, F&& f) {
+  return pq ? dispatch_pq<true>(kind, D, f) : dispatch_pq<false>(kind, D, f);
 }
 
 int sm_count() {
@@ -651,14 +690,14 @@ int sm_count() {
 // The form and the key splits of a call: -1 for what the kernel does not
 // take, -2 when CUDA refused the kernel's set-up.
 int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
-              Plan* p) {
+              bool pq, Plan* p) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || Hq % Hkv) return -1;
   if (rope && (D > 128 || Tq != Tk)) return -1;
   const int G = Hq / Hkv;
   const long items = (long)Tq * G;
   const int ntiles = (Tk + BN - 1) / BN;
   p->kind = D > 128 ? kWide : (!rope && items <= 16 ? kSmall : kTiled);
-  bool known = dispatch(p->kind, D, [&](auto k) {
+  bool known = dispatch(p->kind, D, pq, [&](auto k) {
     p->bm = decltype(k)::BM;
     p->per_sm = decltype(k)::per_sm();
   });
@@ -684,9 +723,9 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
 }  // namespace
 
 extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
-                                 int D, int rope) {
+                                 int D, int rope, int pq) {
   Plan p;
-  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, &p);
+  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, &p);
   return err != 0 ? err : p.splits;
 }
 
@@ -694,17 +733,20 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                               const int* mask, const float* cos,
                               const float* sin, float* out, float* part,
                               int B, int Tq, int Tk, int Hq, int Hkv, int D,
-                              int causal, float scale, int splits,
+                              int causal, float scale, int splits, int mq,
                               void* stream) {
   Plan p;
   const bool rope = cos != nullptr;
-  if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, &p) != 0) return -1;
+  if (mq != 0 && mq != Tk) return -1;
+  const bool pq = mask != nullptr && mq != 0;
+  if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, pq, &p) != 0) return -1;
   if (p.splits != splits || (splits > 1 && part == nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, mask, cos, sin, out, part, B, Tq, Tk, Hq, Hkv,
-               causal, p.splits, p.tps, scale};
+               causal, p.splits, p.tps, mq, scale};
   const dim3 grid(B * Hkv, p.nib, p.splits);
-  dispatch(p.kind, D, [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
+  dispatch(p.kind, D, pq,
+           [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const size_t NI = (size_t)B * Tq * Hq;

@@ -213,18 +213,30 @@ def trim_and_decode(row, tokenizer, extract_answer: bool = False) -> str:
 
 
 def generate_texts(mllm, tokenizer, vision, prompt_ids, prompt_mask,
-                   generator: Optional[torch.Generator],
-                   max_new_tokens: int = 128,
+                   generator, max_new_tokens: int = 128,
                    cfg: Optional[SamplingConfig] = None,
-                   extract_answer: bool = False) -> List[str]:
+                   extract_answer: bool = False,
+                   speculative: bool = False) -> List[str]:
     """Ids in, postprocessed strings out, on the device of ``mllm``'s
-    parameters (``tsue_tpu/eval/generation.py:210-238``; its speculative
-    form is not ported yet, ROADMAP A: per-row sampling, then the continuous
-    batcher and speculative decoding)."""
+    parameters (``tsue_tpu/eval/generation.py:210-238``).
+    ``speculative=True`` decodes with prompt-lookup speculative decoding
+    (``eval/speculative.py``): ``cfg=None`` becomes greedy (the plain
+    greedy decode's tokens); a sampled ``cfg`` samples and matches, and
+    ``generator`` is then a CPU generator per row."""
+    if speculative and cfg is None:
+        cfg = SamplingConfig(do_sample=False)
     cfg = cfg or SamplingConfig()
     dev = next(mllm.parameters()).device
-    gen = make_generate_fn(mllm, cfg, max_new_tokens, prompt_ids.shape[1],
-                           tokenizer.eos_id, tokenizer.pad_id)
+    if speculative:
+        from tsue_tpu_torch.eval.speculative import \
+            make_speculative_generate_fn
+        gen = make_speculative_generate_fn(
+            mllm, cfg, max_new_tokens, prompt_ids.shape[1],
+            tokenizer.eos_id, tokenizer.pad_id)
+    else:
+        gen = make_generate_fn(mllm, cfg, max_new_tokens,
+                               prompt_ids.shape[1], tokenizer.eos_id,
+                               tokenizer.pad_id)
     out = gen(None if vision is None else torch.as_tensor(vision).to(dev),
               torch.as_tensor(prompt_ids).to(dev),
               torch.as_tensor(prompt_mask).to(dev), generator)

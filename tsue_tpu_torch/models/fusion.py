@@ -6,7 +6,8 @@ LLM width plus learned vision/text modality embeddings, input-level concat
 [img || text], the extended attention mask, the Llama forward returning
 the last hidden states, the stage-1 LM loss (``lm_loss``: -100 over the
 image-token span), and generation support: the soft-prefix prefill into a
-KV cache and the cached decode step (``fusion.py:87-161``).  The blocks
+KV cache, the cached decode step and the speculative window forward
+(``fusion.py:87-194``).  The blocks
 drop (Q-Former, LoRA) when a ``generator`` is passed, and only then.
 """
 from __future__ import annotations
@@ -141,4 +142,40 @@ class MultiModalLLM(nn.Module):
         """``decode_hidden`` followed by the LM head: (B, V) fp32 logits."""
         hidden = self.decode_hidden(token, step_index, prefix_len, caches,
                                     fused_mask, cache_len)
+        return self.llama.logits_from_hidden(hidden, quant_ok=True)
+
+    def decode_window(self, tokens: torch.Tensor, step_index,
+                      prefix_len: torch.Tensor, caches,
+                      fused_mask: torch.Tensor, cache_len: int
+                      ) -> torch.Tensor:
+        """Cached decode over a W-token window (speculative decoding,
+        ``tsue_tpu/models/fusion.py:163-194``): tokens (B, W) at decode
+        steps ``step_index`` .. + W - 1 (an int, or (B,) per-row steps) ->
+        (B, W, V) fp32 logits.  The caches are written in place at slots P
+        + step .. P + step + W - 1 of each row.  Position j of row b sees
+        the valid prefix and the decode slots P .. P + step[b] + j (its own
+        slot included: causality inside the window), a (B, W, S)
+        per-query mask; so logits[:, j] conditions on tokens[:, :j + 1],
+        and one forward, one pass over the weights, scores every draft.
+        At W = 1 it computes what ``decode_step`` computes."""
+        B, W = tokens.shape
+        P = fused_mask.shape[1]
+        dev = tokens.device
+        step = (step_index.to(dev, torch.long)
+                if isinstance(step_index, torch.Tensor)
+                else torch.full((B,), step_index, dtype=torch.long,
+                                device=dev))
+        emb = self.llama.embed(tokens)
+        offs = torch.arange(W, device=dev)[None, :]
+        pos = prefix_len.long()[:, None] + step[:, None] + offs
+        slot = P + step
+        k_idx = torch.arange(cache_len, device=dev)[None, None, :]
+        prefix_ok = torch.nn.functional.pad(fused_mask,
+                                            (0, cache_len - P)) > 0
+        upper = (slot[:, None] + offs)[..., None]            # (B, W, 1)
+        kv_mask = (((k_idx < P) & prefix_ok[:, None, :])
+                   | ((k_idx >= P) & (k_idx <= upper)))      # (B, W, S)
+        hidden = self.llama.model(emb, positions=pos, kv_caches=caches,
+                                  cache_index=slot, kv_mask=kv_mask,
+                                  quant_ok=True)
         return self.llama.logits_from_hidden(hidden, quant_ok=True)

@@ -168,8 +168,10 @@ class LlamaAttention(nn.Module):
         (B, T) ``mask`` — the JAX package's (B, 1, T, S) prefill mask
         (``tsue_tpu/models/fusion.py:109-117``) is that function, since
         the slots past T are masked.  Decode form: attention runs over the
-        whole cache with the (B, S) ``kv_mask``, not causal; an int8 cache
-        goes to ``attend_int8_kv``."""
+        whole cache, not causal, with ``kv_mask`` (B, S) key validity or a
+        per-query (B, T, S) mask (a T-wide speculative window, each row
+        writing T consecutive slots from its own, ``tsue_tpu/models/
+        llama.py:208-229``); an int8 cache goes to ``attend_int8_kv``."""
         c = self.cfg
         B, T, _ = x.shape
         q = self.q_proj(x, quant_ok, generator=generator).reshape(
@@ -269,8 +271,9 @@ class LlamaModel(nn.Module):
 
         ``kv_caches`` (per layer, see the module docstring) are written in
         place at ``cache_index`` (an int, or (B,) per-row slots): without ``kv_mask`` this is the prefill
-        (the T rows are the whole valid cache), with ``kv_mask`` (B, S) a
-        decode step over the whole cache.  ``positions`` (B, T) default to
+        (the T rows are the whole valid cache), with ``kv_mask`` a decode
+        step over the whole cache: (B, S), or (B, T, S) per query for a
+        T-wide window.  ``positions`` (B, T) default to
         the cumulative count of ``attention_mask`` (or 0..T-1).
         ``quant_ok=True`` (decode only) lets the projections use attached
         int8 tables.  ``generator``: the LoRA dropout's draws (training)."""

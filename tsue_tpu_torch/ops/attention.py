@@ -27,10 +27,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Scaled dot-product attention.
 
     q: (B, Tq, H, D); k, v: (B, Tk, Hkv, D) with Hkv dividing H (GQA).
-    mask: boolean or integer (B, Tk) key validity (or (B, 1|H, Tq, Tk) on
-    the CPU), True = attend.  ``dropout_p``/``generator``: dropout on the
-    softmax probabilities, active only when both are set.  ``rope``: (cos,
-    sin), each (B, T, D/2) fp32, applied to q and k (self-attention).
+    mask: boolean or integer, True = attend: (B, Tk) key validity, or
+    per query (B, Tq, Tk) or (B, 1, Tq, Tk) (and (B, H, Tq, Tk) on the
+    CPU).  ``dropout_p``/``generator``: dropout on the softmax
+    probabilities, active only when both are set.  ``rope``: (cos, sin),
+    each (B, T, D/2) fp32, applied to q and k (self-attention).
     Returns (B, Tq, H, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -68,6 +69,8 @@ def _finish_attention(logits, mask, is_causal, dropout_p, generator):
     if mask is not None:
         if mask.dim() == 2:                       # (B, Tk) key validity
             mask = mask[:, None, None, :]
+        elif mask.dim() == 3:                     # (B, Tq, Tk) per query
+            mask = mask[:, None]
         logits = logits.masked_fill(~mask.bool(), neg)
     if is_causal:
         causal = torch.ones(Tq, Tk, dtype=torch.bool,

@@ -9,6 +9,9 @@ head) items per (batch, KV head), and a split-KV one for few items over
 many keys (decode, the LTSF cross-attention), which writes per-split
 partials to a scratch allocated here and merges them in a second launch.
 ``flash_attention.launches`` counts calls, one per call in either form.
+The mask is a (B, Tk) key mask or a per-query (B, Tq, Tk) one (a
+speculative window's in-window causality), passed to the kernel with its
+query stride (0 or Tk).
 
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only there.  On a CUDA tensor it launches the kernel or raises: there is
@@ -57,12 +60,13 @@ def flash_attention_plain(q, k, v, mask=None, is_causal=False, scale=None,
 def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("flash_attn_fwd", {
-        "flash_attn_splits": [i32] * 7,     # B Tq Tk Hq Hkv D rope
+        "flash_attn_splits": [i32] * 8,     # B Tq Tk Hq Hkv D rope pq
         "flash_attn_fwd": [
             ptr, ptr, ptr, ptr, ptr, ptr,   # q k v mask cos sin
             ptr, ptr,                       # out, split scratch
             i32, i32, i32, i32, i32, i32,   # B Tq Tk Hq Hkv D
-            i32, ctypes.c_float, i32, ptr]})  # causal scale splits stream
+            i32, ctypes.c_float, i32,       # causal scale splits
+            i32, ptr]})                     # mask query stride, stream
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
@@ -81,12 +85,19 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
         raise ValueError(f"Hkv={Hkv} must divide Hq={Hq}")
     if min(B, Tq, Tk) == 0 or max(B, Hq) > 65535:
         raise ValueError(f"unsupported sizes B={B} Tq={Tq} Tk={Tk} Hq={Hq}")
-    mask_ptr = None
+    mask_ptr, mq = None, 0
     if mask is not None:
-        if mask.dim() != 2:
-            raise ValueError("the kernel takes a (B, Tk) key mask only")
+        if mask.dim() == 4:
+            if mask.shape[1] != 1:
+                raise ValueError("the kernel takes a (B, Tk), (B, Tq, Tk) "
+                                 "or (B, 1, Tq, Tk) mask")
+            mask = mask[:, 0]
+        # a key mask is read by every row (stride 0), a per-query mask row
+        # by row (stride Tk)
         mask = mask.to(torch.int32).contiguous()
-        check_tensor("mask", mask, dev, (B, Tk), torch.int32)
+        mq = 0 if mask.dim() == 2 else Tk
+        check_tensor("mask", mask, dev, (B, Tk) if mq == 0 else (B, Tq, Tk),
+                     torch.int32)
         mask_ptr = mask.data_ptr()
     cos_ptr = sin_ptr = None
     if rope is not None:
@@ -103,7 +114,7 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     with torch.cuda.device(dev):
         lib = _lib()
         splits = lib.flash_attn_splits(B, Tq, Tk, Hq, Hkv, D,
-                                       int(rope is not None))
+                                       int(rope is not None), int(mq != 0))
         if splits == -2:
             raise RuntimeError("CUDA refused the attention kernel's "
                                "shared-memory or occupancy set-up")
@@ -118,7 +129,7 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos_ptr,
             sin_ptr, out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), B, Tq, Tk, Hq,
-            Hkv, D, int(bool(is_causal)), float(scale), splits,
+            Hkv, D, int(bool(is_causal)), float(scale), splits, mq,
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(flash_attention, err)
     return out
@@ -155,7 +166,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, T, H, D) tensors, GQA-native (Hkv
-    divides Hq).  ``mask``: (B, Tk) key validity; ``is_causal`` adds
+    divides Hq).  ``mask``: (B, Tk) key validity, or a per-query (B, Tq,
+    Tk) mask, also given as (B, 1, Tq, Tk) (a speculative window's
+    in-window causality over the decode cache); ``is_causal`` adds
     ``tril(k=Tk-Tq)``; ``rope=(cos, sin)``, each (B, T, D/2) fp32, applies
     the rotary embedding to q and k (self-attention only).
 
@@ -163,7 +176,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel (fp32, contiguous, D in ``SUPPORTED_HEAD_DIMS``) or raise.  Both
     are differentiable in q, k and v, through a backward that recomputes
     with the plain version.  ``flash_attention.launches`` counts kernel
-    launches."""
+    launches.
+
+    A mask with a head axis, (B, H, Tq, Tk) with H > 1, is taken by the
+    plain version on the CPU and refused on a CUDA tensor (the kernel has no
+    head stride for the mask).  No path of the port passes one."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     cos, sin = rope if rope is not None else (None, None)

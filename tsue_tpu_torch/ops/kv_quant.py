@@ -86,6 +86,22 @@ def update_kv_int8(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
     return layer_cache
 
 
+def mask3(mask: Optional[torch.Tensor], B: int, Tq: int, S: int
+          ) -> Optional[torch.Tensor]:
+    """The decode masks as the kernel reads them (``_mask3`` of
+    ``tsue_tpu/ops/kv_quant.py:255-264``): None, a (B, S) key mask kept as
+    it is (every query step reads it), or a per-query (B, Tq, S) mask, also
+    from (B, 1|H, Tq, S), read as ``mask[:, 0]``."""
+    if mask is None or mask.dim() == 2:
+        return mask
+    if mask.dim() == 4:
+        mask = mask[:, 0]
+    if mask.dim() != 3:
+        raise ValueError(f"a decode mask is (B, S), (B, Tq, S) or (B, 1|H, "
+                         f"Tq, S), got shape {tuple(mask.shape)}")
+    return mask.expand(B, Tq, S)
+
+
 def attend_int8_kv_plain(q: torch.Tensor, layer_cache: LayerCache,
                          mask: Optional[torch.Tensor],
                          scale: Optional[float] = None) -> torch.Tensor:
@@ -100,8 +116,11 @@ def attend_int8_kv_plain(q: torch.Tensor, layer_cache: LayerCache,
     v = dequantize_kv(v8, vs)
     qg = q.float().reshape(B, Tq, Hkv, G, D)
     logits = torch.einsum("bthgd,bshd->bhgts", qg, k) * scale
+    mask = mask3(mask, B, Tq, S)
     if mask is not None:
-        valid = mask.bool()[:, None, None, None, :]
+        valid = mask.bool()
+        valid = (valid[:, None, None, None, :] if valid.dim() == 2
+                 else valid[:, None, None])
         logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -117,7 +136,8 @@ def _lib():
         "attend_int8_kv": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k8 ks v8 vs mask out
             i32, i32, i32, i32, i32, i32,       # B Tq S Hq Hkv D
-            ctypes.c_float, ptr],               # scale stream
+            i32, ctypes.c_float, ptr],          # mask query stride, scale,
+                                                # stream
         "attend_int8_kv_plan": [i32, i32, i32, i32],   # S G D field
         "attend_int8_kv_max_groups": []})
 
@@ -161,19 +181,22 @@ def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
     if attend_int8_kv_plan(S, Hq // Hkv, D) is None:
         raise ValueError(f"cache length S={S} too long for the kernel's "
                          "shared memory")
-    mask_ptr = None
+    mask_ptr, mq = None, 0
+    mask = mask3(mask, B, Tq, S)
     if mask is not None:
-        if mask.dim() != 2:
-            raise ValueError("the kernel takes a (B, S) key mask only")
+        # a key mask is read by every query step (stride 0), a per-query
+        # mask row by row (stride S)
         mask = mask.to(torch.int32).contiguous()
-        check_tensor("mask", mask, dev, (B, S), torch.int32)
+        mq = 0 if mask.dim() == 2 else S
+        check_tensor("mask", mask, dev, (B, S) if mq == 0 else (B, Tq, S),
+                     torch.int32)
         mask_ptr = mask.data_ptr()
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = lib.attend_int8_kv(
             q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
             vs.data_ptr(), mask_ptr, out.data_ptr(), B, Tq, S, Hq, Hkv, D,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            mq, float(scale), torch.cuda.current_stream(dev).cuda_stream)
     count_launch(attend_int8_kv, err)
     return out
 
@@ -183,9 +206,11 @@ def attend_int8_kv(q: torch.Tensor, layer_cache: LayerCache,
                    scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over an int8 layer cache.
 
-    q: (B, Tq, Hq, Dh) roped queries; layer_cache: (k8, ks, v8, vs) with
-    k8/v8 (B, S, Hkv, Dh) and ks/vs (B, S, Hkv); mask: (B, S) key validity
-    or None.  Returns (B, Tq, Hq, Dh) fp32.  CPU tensors take
+    q: (B, Tq, Hq, Dh) roped queries (Tq = 1, or a speculative window);
+    layer_cache: (k8, ks, v8, vs) with k8/v8 (B, S, Hkv, Dh) and ks/vs (B,
+    S, Hkv); mask: None, (B, S) key validity (every query step), or a
+    per-query (B, Tq, S) mask, also given as (B, 1|H, Tq, S) and read as
+    ``mask[:, 0]`` (``mask3``).  Returns (B, Tq, Hq, Dh) fp32.  CPU tensors take
     ``attend_int8_kv_plain``; CUDA tensors launch the kernel or raise (also
     under grad mode when an input requires a gradient: the kernel has no
     backward).  ``attend_int8_kv.launches`` counts kernel launches."""

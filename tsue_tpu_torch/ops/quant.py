@@ -27,8 +27,9 @@ from tsue_tpu_torch.ops._build import (bind, count_launch, refuse_grad,
 
 PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
         "down_proj")
-MAX_ROWS = 128       # the kernel takes decode batches; the JAX path falls
-                     # back to XLA above this (quant.py:226-234)
+MAX_ROWS = 128       # rows a launch takes; more rows go in launches of at
+                     # most this many (the JAX path sends them to XLA,
+                     # quant.py:226-234)
 
 
 def quantize_weight(w: torch.Tensor, axis: int = 0
@@ -87,7 +88,7 @@ def _int8_cuda(x2: torch.Tensor, w8: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x2.shape)}, w8 {tuple(w8.shape)}, "
                          f"scale {tuple(scale.shape)} do not match")
     if not 0 < M <= MAX_ROWS:
-        raise ValueError(f"the int8 kernel takes 1..{MAX_ROWS} rows, got {M}")
+        raise ValueError(f"a launch takes 1..{MAX_ROWS} rows, got {M}")
     if N % 4 or not w8.is_contiguous() or w8.data_ptr() % 16:
         raise ValueError("w8 must be contiguous, 16-byte aligned, with "
                          f"N % 4 == 0 (N={N})")
@@ -109,15 +110,22 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor,
     """``x @ (w8 * scale)`` with w8 streamed as int8.  x: (..., K) fp32;
     w8: (K, N) int8; scale: (N,) fp32.  Returns (..., N) fp32.
 
-    CPU tensors take ``int8_matmul_ref``; CUDA tensors launch the kernel
-    (at most ``MAX_ROWS`` rows) or raise, and raise under grad mode when x
-    or scale requires a gradient (the kernel has no backward).
-    ``int8_matmul.launches`` counts kernel launches."""
+    CPU tensors take ``int8_matmul_ref``; CUDA tensors launch the kernel or
+    raise, and raise under grad mode when x or scale requires a gradient
+    (the kernel has no backward).  More than ``MAX_ROWS`` rows (a
+    speculative window's B * W) go in consecutive launches of at most
+    ``MAX_ROWS`` rows: the kernel computes each row alone, so a row's bits
+    do not depend on the row count.  ``int8_matmul.launches`` counts kernel
+    launches."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if uses_kernel(x, "int8 kernel"):
         refuse_grad("int8_matmul", x, scale)
-        out = _int8_cuda(x2, w8, scale)
+        if x2.shape[0] <= MAX_ROWS:
+            out = _int8_cuda(x2, w8, scale)
+        else:
+            out = torch.cat([_int8_cuda(x2[i:i + MAX_ROWS], w8, scale)
+                             for i in range(0, x2.shape[0], MAX_ROWS)])
     else:
         out = int8_matmul_ref(x2, w8, scale)
     return out.reshape(*lead, w8.shape[1])

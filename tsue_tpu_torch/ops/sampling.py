@@ -11,7 +11,8 @@ the reference: temperature 0.9, top-k 40, top-p 0.9, repetition penalty
 - top-k then top-p filtering, then the draw, through the tie-exact
   (B, k+1)-slot sampler of the JAX package (``_topk_topp_slots``,
   ``_tie_blocks``, ``_draw_sliced``), with one generator for the batch
-  (``process_and_sample``) or one per row (``process_and_sample_per_row``).
+  (``process_and_sample``) or one per row (``process_and_sample_per_row``,
+  or ``sample_from_uniforms`` from uniforms drawn beforehand).
 
 Draws come from an explicit ``torch.Generator``: the categorical draw is a
 Gumbel-max over ``torch.rand`` noise, then one uniform per row for the tie
@@ -24,7 +25,7 @@ copy (``row_uniforms``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -268,23 +269,81 @@ def _slot_tokens(idx, tie_blocks, k: int, choice: torch.Tensor,
     return torch.where(choice == k, tie_tok.to(idx.dtype), from_slice)
 
 
-def row_uniforms(generators: Sequence[Optional[torch.Generator]],
-                 widths: Sequence[int], device) -> torch.Tensor:
-    """(B, sum(widths)) uniforms on ``device``: row b holds, in turn, the
-    draws ``torch.rand((1, w), generator=generators[b])`` for each w of
-    ``widths``, made on the host from that row's CPU generator; a row
-    whose generator is None draws nothing and gets 0.5.  One
-    host-to-device copy for the batch (from pinned memory, not waiting for
-    the device, when ``device`` is a CUDA device)."""
-    u = torch.full((len(generators), sum(widths)), 0.5)
+def uniform_widths(cfg: SamplingConfig, vocab_size: int) -> Tuple[int, ...]:
+    """The uniforms one token's draw consumes from its row's stream, in
+    order: (k + 1, 1) under top-k (the slot draw, then the tie pick), (V,)
+    without it (the full-vocabulary draw), none when greedy.  Their sum is
+    the width of a token's block."""
+    if not cfg.do_sample:
+        return ()
+    if 0 < cfg.top_k < vocab_size:
+        return (cfg.top_k + 1, 1)
+    return (vocab_size,)
+
+
+def row_uniform_blocks(generators: Sequence[Optional[torch.Generator]],
+                       widths: Sequence[int], n: int, device
+                       ) -> torch.Tensor:
+    """(B, n, sum(widths)) uniforms on ``device``: block j of row b holds,
+    in turn, the draws ``torch.rand((1, w), generator=generators[b])`` for
+    each w of ``widths``, the blocks drawn in order from that row's CPU
+    generator on the host; a row whose generator is None draws nothing and
+    gets 0.5.  One host-to-device copy for the batch (from pinned memory,
+    not waiting for the device, when ``device`` is a CUDA device)."""
+    u = torch.full((len(generators), n, sum(widths)), 0.5)
     for b, g in enumerate(generators):
         if g is not None:
-            u[b] = torch.cat([torch.rand((1, w), generator=g)[0]
-                              for w in widths])
+            for j in range(n):
+                u[b, j] = torch.cat([torch.rand((1, w), generator=g)[0]
+                                     for w in widths])
+    return host_to_device(u, device)
+
+
+def host_to_device(u: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``: from pinned memory, without waiting
+    for the device, when it is a CUDA device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         return u.pin_memory().to(dev, non_blocking=True)
     return u.to(dev)
+
+
+def row_uniforms(generators: Sequence[Optional[torch.Generator]],
+                 widths: Sequence[int], device) -> torch.Tensor:
+    """(B, sum(widths)) uniforms on ``device``: one block a row
+    (``row_uniform_blocks``)."""
+    return row_uniform_blocks(generators, widths, 1, device)[:, 0]
+
+
+def sample_from_uniforms(logits: torch.Tensor, u: Optional[torch.Tensor],
+                         token_history: torch.Tensor,
+                         history_len: torch.Tensor,
+                         cfg: SamplingConfig) -> torch.Tensor:
+    """The processor chain and the draw of ``process_and_sample_per_row``
+    from given uniforms: row b's draw reads ``u[b]``, the (B, n) block of
+    ``uniform_widths(cfg, V)`` (n their sum; ``u`` is unused, and may be
+    None, when greedy).  Every stage runs batched over the rows, so a
+    row's token depends on its logits, its history and its block only.
+    Speculative decoding scores window position j of a row with the row's
+    block for that output position (``eval/speculative.py``)."""
+    logits = logits.float()
+    logits = apply_repetition_penalty(logits, token_history, history_len,
+                                      cfg.repetition_penalty)
+    logits = apply_no_repeat_ngram(logits, token_history, history_len,
+                                   cfg.no_repeat_ngram_size)
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    if cfg.temperature != 1.0:
+        logits = logits / cfg.temperature
+    if 0 < cfg.top_k < logits.shape[-1]:
+        k = cfg.top_k
+        slot_logits, idx, t_keep, tie_blocks = _topk_topp_slots(
+            logits, k, cfg.top_p)
+        return _slot_tokens(idx, tie_blocks, k,
+                            gumbel_pick(slot_logits, u[:, :k + 1]),
+                            tie_pick(t_keep, u[:, k + 1]))
+    logits = apply_top_p(logits, cfg.top_p)
+    return gumbel_pick(logits, u[:, :logits.shape[-1]])
 
 
 def process_and_sample_per_row(logits: torch.Tensor,
@@ -306,26 +365,9 @@ def process_and_sample_per_row(logits: torch.Tensor,
     depends on its logits, its history and its own stream only, never on
     the other rows, and the same generators give the same tokens on the
     CPU and on a CUDA device.  The uniforms are drawn on the host and sent
-    in one copy (``row_uniforms``).  A row whose generator is None draws
-    nothing; its token is meaningless.  Greedy (``do_sample=False``) draws
-    nothing."""
-    logits = logits.float()
-    logits = apply_repetition_penalty(logits, token_history, history_len,
-                                      cfg.repetition_penalty)
-    logits = apply_no_repeat_ngram(logits, token_history, history_len,
-                                   cfg.no_repeat_ngram_size)
-    if not cfg.do_sample:
-        return torch.argmax(logits, dim=-1)
-    if cfg.temperature != 1.0:
-        logits = logits / cfg.temperature
-    if 0 < cfg.top_k < logits.shape[-1]:
-        k = cfg.top_k
-        slot_logits, idx, t_keep, tie_blocks = _topk_topp_slots(
-            logits, k, cfg.top_p)
-        u = row_uniforms(generators, (k + 1, 1), logits.device)
-        return _slot_tokens(idx, tie_blocks, k,
-                            gumbel_pick(slot_logits, u[:, :k + 1]),
-                            tie_pick(t_keep, u[:, k + 1]))
-    logits = apply_top_p(logits, cfg.top_p)
-    return gumbel_pick(logits, row_uniforms(generators, (logits.shape[-1],),
-                                            logits.device))
+    in one copy (``row_uniforms``), then ``sample_from_uniforms`` draws
+    from them.  A row whose generator is None draws nothing; its token is
+    meaningless.  Greedy (``do_sample=False``) draws nothing."""
+    widths = uniform_widths(cfg, logits.shape[-1])
+    u = row_uniforms(generators, widths, logits.device) if widths else None
+    return sample_from_uniforms(logits, u, token_history, history_len, cfg)

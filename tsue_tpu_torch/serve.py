@@ -4,9 +4,10 @@ Counterpart of ``tsue_tpu/serve.py``: ``Predictor`` with ``warmup``,
 ``predict`` (the deterministic forward and, with ``num_candidates`` K > 0,
 the fast K-candidate rollout, per fixed-size chunk of windows) and
 ``generate_context`` (the stage-1 traffic-context text per track, with the
-int8 decode weights, fused LM head and int8 KV cache switches) and
-``generate_context_batched`` (the same requests through the continuous
-slot-pool batcher of ``serve_batching.py``, with ``prepare_generation`` to
+int8 decode weights, fused LM head and int8 KV cache switches, and
+prompt-lookup speculative decoding) and ``generate_context_batched`` (the
+same requests through the continuous slot-pool batcher of
+``serve_batching.py``, speculative or not, with ``prepare_generation`` to
 run every serving width once at startup).  Raw pixel
 tracks go through the port's copy of the windowing and text dataset
 (``tsue_tpu_torch.data``), which equals the JAX package's, so the port
@@ -14,8 +15,7 @@ serves exactly the batches the JAX package serves.
 
 The predictor runs on the CUDA device unless it is given ``device="cpu"``.
 ``Predictor.from_checkpoint`` serves an artifact that ``run_stage2``
-wrote.  Speculative decoding and meshes are not ported yet: the methods
-do not take a mesh, and ``speculative=True`` raises.
+wrote.  Meshes are not ported yet: the methods do not take one.
 
 Usage:
     p = Predictor(cfg, state_dict, num_candidates=10)
@@ -23,8 +23,9 @@ Usage:
                                   num_candidates=10)
     out = p.warmup().predict(raw_tracks_px)
     texts = p.generate_context(raw_tracks_px, max_new_tokens=64)
+    texts = p.generate_context(raw_tracks_px, speculative=True)
     texts = p.generate_context_batched(raw_tracks_px, max_new_tokens=64,
-                                       seed=0)
+                                       seed=0, speculative=True)
 """
 from __future__ import annotations
 
@@ -61,9 +62,13 @@ class Predictor:
         (``ops/quant.py``), built once from the fp32 parameters.
         ``fused_head``: decode through the fused LM-head + top-k kernel
         (``ops/lmhead_topk.py``), which never materialises the (B, V)
-        logits; composes with ``quantize_decode``.  ``quantize_kv``: an
-        int8 KV cache for generation (``ops/kv_quant.py``; prefill stays
-        exact).  Prediction is unaffected by all three."""
+        logits; composes with ``quantize_decode``; the static
+        ``generate_context`` path only: the speculative and the batched
+        paths keep the plain head (the int8 head under
+        ``quantize_decode``), as the JAX package's do.  ``quantize_kv``:
+        an int8 KV cache for every generation path, static, speculative
+        and batched (``ops/kv_quant.py``; prefill stays exact).
+        Prediction is unaffected by all three."""
         self.cfg = cfg
         self.batch_size = batch_size
         self.num_candidates = num_candidates
@@ -194,11 +199,20 @@ class Predictor:
         return mllm
 
     def generation_program(self, max_new_tokens: int, prompt_len: int,
-                           sampling=None):
+                           sampling=None, speculative: bool = False):
         """The decode program ``generate_context`` runs for prompts of
-        width ``prompt_len`` (``eval.generation.make_generate_fn``)."""
+        width ``prompt_len``: ``eval.generation.make_generate_fn``, or
+        with ``speculative`` ``eval.speculative.make_speculative_generate_fn``
+        (greedy when ``sampling`` is None, the plain head)."""
         from tsue_tpu_torch.eval.generation import make_generate_fn
         from tsue_tpu_torch.ops.sampling import SamplingConfig
+        if speculative:
+            from tsue_tpu_torch.eval.speculative import \
+                make_speculative_generate_fn
+            return make_speculative_generate_fn(
+                self._mllm(), sampling or SamplingConfig(do_sample=False),
+                max_new_tokens, prompt_len, self.tokenizer.eos_id,
+                self.tokenizer.pad_id, quantize_kv=self.quantize_kv)
         return make_generate_fn(
             self._mllm(), sampling or SamplingConfig(), max_new_tokens,
             prompt_len, self.tokenizer.eos_id, self.tokenizer.pad_id,
@@ -208,7 +222,7 @@ class Predictor:
     def generate_context(self, tracks: Sequence[dict],
                          max_new_tokens: int = 64,
                          generator: Optional[torch.Generator] = None,
-                         sampling=None,
+                         sampling=None, speculative: bool = False,
                          compile_cap: Optional[int] = None) -> List[Dict]:
         """Generate traffic-context text per track (stage-1 capability).
 
@@ -220,14 +234,20 @@ class Predictor:
         settings); its draws come from ``generator`` (a generator on the
         predictor's device; seed 0 when None), consumed chunk by chunk, so
         a request repeated with an equal generator gives equal text.
-        ``compile_cap``: decode every request for that many steps and trim
-        to ``max_new_tokens`` (a request above the cap raises).  Tracks a
-        vision-conditioned model cannot condition come back as
-        ``{"track_id", "error"}`` records after the others.
+        ``speculative=True``: prompt-lookup speculative decoding
+        (``eval/speculative.py``; fewer forwards on templated text) with
+        the plain head, greedy when ``sampling`` is None (the plain path's
+        ids); a sampled config samples and matches, row i of a chunk
+        drawing from a CPU generator seeded from ``generator``
+        (``_draws``).  ``compile_cap``: decode every request for
+        that many steps and trim to ``max_new_tokens`` (a request above the
+        cap raises).  Tracks a vision-conditioned model cannot condition
+        come back as ``{"track_id", "error"}`` records after the others.
 
         ``self.last_request`` keeps the request's generated ids (n,
         max_new_tokens), its prompt width and, per chunk, the decode steps
-        run and (on CUDA) the prefill and decode device times in ms."""
+        (or, speculative, the window forwards) run and (on CUDA) the
+        prefill and decode device times in ms."""
         if not self.cfg.model.use_llm:
             raise ValueError("generate_context needs a use_llm=True model")
         from tsue_tpu_torch.data.text_dataset import build_track_text_dataset
@@ -246,7 +266,7 @@ class Predictor:
         prompt_ids = np.asarray(ds.input_ids, np.int32) * prompt_mask
         prompt_ids, prompt_mask, width = self._bucket_prompts(
             prompt_ids, prompt_mask)
-        gen = self.generation_program(cap, width, sampling)
+        gen = self.generation_program(cap, width, sampling, speculative)
         B = self.batch_size
         rows = []
         chunks = []
@@ -258,9 +278,11 @@ class Predictor:
             out = gen(vision,
                       torch.from_numpy(prompt_ids[sel]).to(self.device),
                       torch.from_numpy(prompt_mask[sel]).to(self.device),
-                      generator)
+                      self._draws(gen, generator))
             rows.append(out.cpu().numpy()[:len(idx), :max_new_tokens])
-            chunks.append({"steps": gen.steps, "batch": B})
+            chunks.append({"forwards": gen.forwards} if speculative
+                          else {"steps": gen.steps})
+            chunks[-1]["batch"] = B
             if self.device.type == "cuda":
                 chunks[-1]["prefill_ms"], chunks[-1]["decode_ms"] = \
                     gen.timing_ms()
@@ -269,6 +291,19 @@ class Predictor:
         texts = [trim_and_decode(row, self.tokenizer) for row in ids]
         return [{"track_id": int(t), "context": txt}
                 for t, txt in zip(ds.track_id, texts)] + errs
+
+    def _draws(self, gen, generator: torch.Generator):
+        """What decode program ``gen`` draws from: ``generator``, or for a
+        sampled speculative program ``batch_size`` CPU generators, one a
+        row, seeded from draws of ``generator`` (on any device), so an
+        equal generator gives equal rows."""
+        from tsue_tpu_torch.eval.speculative import SpeculativeProgram
+        if not (isinstance(gen, SpeculativeProgram) and gen.cfg.do_sample):
+            return generator
+        seeds = torch.randint(2 ** 62, (self.batch_size,),
+                              generator=generator,
+                              device=generator.device).tolist()
+        return [torch.Generator().manual_seed(s) for s in seeds]
 
     def _serving_widths(self):
         """Prompt widths the length bucketing can emit at serving time: the
@@ -280,7 +315,8 @@ class Predictor:
         return tuple(below) + (full,)
 
     @torch.inference_mode()
-    def prepare_generation(self, max_new_tokens: int = 64, sampling=None,
+    def prepare_generation(self, max_new_tokens: int = 64,
+                           speculative: bool = False, sampling=None,
                            batched: bool = False,
                            num_slots: Optional[int] = None,
                            chunk: int = 8) -> "Predictor":
@@ -290,7 +326,8 @@ class Predictor:
         set-up (HTTP serving).  One dummy track goes through the request
         path first (ingest and the smallest width).  ``batched``: the
         continuous batcher's path (``num_slots`` slots, default
-        ``batch_size``), else the static one."""
+        ``batch_size``), else the static one; ``speculative``: their
+        speculative forms (``_spec_window`` in the pool)."""
         if not self.cfg.model.use_llm:
             raise ValueError("prepare_generation needs a use_llm=True model")
         d = self.cfg.data
@@ -300,10 +337,10 @@ class Predictor:
         if batched:
             self.generate_context_batched(
                 [track], max_new_tokens=max_new_tokens, sampling=sampling,
-                num_slots=num_slots, chunk=chunk)
+                num_slots=num_slots, chunk=chunk, speculative=speculative)
         else:
             self.generate_context([track], max_new_tokens=max_new_tokens,
-                                  sampling=sampling)
+                                  sampling=sampling, speculative=speculative)
         for w in self._serving_widths():
             ids = np.zeros((1, w), np.int32)
             mask = np.zeros((1, w), np.int32)
@@ -315,29 +352,34 @@ class Predictor:
                 if self.cfg.model.use_vision:
                     req["vision"] = vis[0]
                 self._batcher(num_slots or self.batch_size, w,
-                              max_new_tokens, chunk, sampling).run([req])
+                              max_new_tokens, chunk, sampling,
+                              self._spec_window(speculative, None,
+                                                sampling)).run([req])
             else:
                 reps = (self.batch_size, 1)
-                gen = self.generation_program(max_new_tokens, w, sampling)
+                gen = self.generation_program(max_new_tokens, w, sampling,
+                                              speculative)
                 gen(torch.from_numpy(np.tile(vis, reps + (1,))).to(self.device)
                     if self.cfg.model.use_vision else None,
                     torch.from_numpy(np.tile(ids, reps)).to(self.device),
                     torch.from_numpy(np.tile(mask, reps)).to(self.device),
-                    self._generator(0))
+                    self._draws(gen, self._generator(0)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
 
     def _batcher(self, num_slots: int, prompt_len: int, max_new_tokens: int,
-                 chunk: int, sampling):
+                 chunk: int, sampling, window: int = 1):
         """The cached continuous batcher of this pool shape."""
-        key = (num_slots, prompt_len, max_new_tokens, chunk, repr(sampling))
+        key = (num_slots, prompt_len, max_new_tokens, chunk, repr(sampling),
+               window)
         if key in self._batchers:
             self._batchers.move_to_end(key)
             return self._batchers[key]
         batcher = self._batchers[key] = self.continuous_batcher(
             num_slots=num_slots, prompt_len=prompt_len,
-            max_new_tokens=max_new_tokens, chunk=chunk, sampling=sampling)
+            max_new_tokens=max_new_tokens, chunk=chunk, sampling=sampling,
+            window=window)
         while len(self._batchers) > self._cache_max:
             self._batchers.popitem(last=False)
         return batcher
@@ -351,8 +393,8 @@ class Predictor:
         cache when ``quantize_kv``).  The batcher samples from the full
         logits, so it refuses ``fused_head``: the JAX package's method
         drops that switch without a word (``tsue_tpu/serve.py:573-603``).
-        ``window >= 2`` (speculative decoding) is not ported yet and
-        raises."""
+        ``window >= 2``: the speculative window mode, whose ids are the
+        window-1 pool's."""
         if not self.cfg.model.use_llm:
             raise ValueError("continuous_batcher needs a use_llm=True model")
         if self.fused_head:
@@ -377,7 +419,9 @@ class Predictor:
                                  num_slots: Optional[int] = None,
                                  chunk: int = 8,
                                  compile_cap: Optional[int] = None,
-                                 speculative: bool = False) -> List[Dict]:
+                                 speculative: bool = False,
+                                 spec_window: Optional[int] = None
+                                 ) -> List[Dict]:
         """``generate_context`` through the continuous batcher's slot pool
         (``num_slots`` slots, default ``batch_size``; harvested every
         ``chunk`` ticks): the same request semantics (prompt-only
@@ -386,15 +430,12 @@ class Predictor:
         continuous refill.  Track i draws from its own CPU generator,
         ``utils.random.step_generator(seed, i)`` (the JAX package's
         ``fold_in(key(seed), i)``), so its text does not depend on what
-        shares the pool.  ``speculative=True`` is not ported yet (ROADMAP
-        A: speculative decoding) and raises.
+        shares the pool.  ``speculative=True`` runs the pool's window mode,
+        ``spec_window`` tokens a tick (``_spec_window``): the same ids,
+        fewer forwards on templated text.
 
         ``self.last_request`` keeps the request's generated ids (one array
         per track), its prompt width and the pool's ``last_run``."""
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A: "
-                "speculative decoding)")
         if not self.cfg.model.use_llm:
             raise ValueError("generate_context_batched needs a use_llm=True "
                              "model")
@@ -403,8 +444,9 @@ class Predictor:
         if not reqs:
             return errs
         cap = self._resolve_cap(compile_cap, max_new_tokens)
+        window = self._spec_window(speculative, spec_window, sampling)
         batcher = self._batcher(num_slots or self.batch_size, width, cap,
-                                chunk, sampling)
+                                chunk, sampling, window)
         rows = [row[:max_new_tokens] for row in batcher.run(reqs)]
         self.last_request = {"ids": rows, "width": width,
                              "pool": batcher.last_run}
@@ -413,6 +455,20 @@ class Predictor:
             [int(t) for t in row if t != pad])) for row in rows]
         return [{"track_id": int(t), "context": txt}
                 for t, txt in zip(track_ids, texts)] + errs
+
+    @staticmethod
+    def _spec_window(speculative: bool, spec_window: Optional[int],
+                     sampling) -> int:
+        """The pool's window: 1 (off) unless ``speculative``, then
+        ``spec_window`` or the JAX package's measured defaults, 8 greedy
+        and 4 sampled (``tsue_tpu/serve.py:560-571``)."""
+        if not speculative:
+            if spec_window not in (None, 1):
+                raise ValueError("spec_window requires speculative=True")
+            return 1
+        if spec_window is not None:
+            return spec_window
+        return 4 if (sampling is not None and sampling.do_sample) else 8
 
     def generation_requests(self, tracks: Sequence[dict], seed: int = 0):
         """The continuous batcher's requests for ``tracks``: (requests,

@@ -27,8 +27,21 @@ Mechanics:
 Each request draws from its own CPU ``torch.Generator``
 (``ops.sampling.process_and_sample_per_row``), so its tokens depend on its
 prompt, its cap and its stream only, never on its slot, the pool size, the
-chunk or co-batched traffic.  The speculative window mode (``window >= 2``)
-and meshes are not ported yet and raise.
+chunk or co-batched traffic.
+
+Speculative window mode (``window >= 2``, ``tsue_tpu/serve_batching.py:
+267-355``): each tick is one ``MultiModalLLM.decode_window`` forward over
+all slots, the committed token and ``window - 1`` prompt-lookup drafts a
+row (``eval.speculative.ngram_draft``), and each row keeps the longest
+prefix its own sampler would have produced, so rows advance 1..W tokens a
+tick on their own clocks.  Token position j of a request reads the j-th
+block of uniforms its generator gives (``ops.sampling.uniform_widths``),
+as the window-1 pool does one tick at a time: the host draws the blocks a
+chunk can reach before the chunk and sends them in one copy, so a
+request's ids equal the window-1 pool's.  The caches, the history and the
+output buffer carry ``window`` slots of slack, so a finished or empty
+row's window writes stay inside its own row.  Meshes are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -39,9 +52,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from tsue_tpu_torch.eval.speculative import window_step
 from tsue_tpu_torch.ops.kv_quant import quantize_cache
-from tsue_tpu_torch.ops.sampling import (SamplingConfig,
-                                         process_and_sample_per_row)
+from tsue_tpu_torch.ops.sampling import (SamplingConfig, host_to_device,
+                                         process_and_sample_per_row,
+                                         row_uniform_blocks, uniform_widths)
 from tsue_tpu_torch.utils.random import step_generator
 
 
@@ -51,13 +66,13 @@ class PoolState:
     the slot axis."""
     caches: list               # per layer: (k, v) each (B, cache_len, Hkv,
                                # Dh) fp32, or (k8, ks, v8, vs) (quantize_kv)
-    history: torch.Tensor      # (B, prompt_len + max_new) sampler history
+    history: torch.Tensor      # (B, prompt_len + max_new [+ W]) history
     hlen: torch.Tensor         # (B,) valid history length
     logits: torch.Tensor       # (B, V) fp32 last logits per slot
     prefix_len: torch.Tensor   # (B,) fused prefix valid length
     fmask: torch.Tensor        # (B, P) fused prefix mask
     step: torch.Tensor         # (B,) decode step per slot
-    out: torch.Tensor          # (B, max_new) generated tokens
+    out: torch.Tensor          # (B, max_new [+ W]) generated tokens
     max_new: torch.Tensor      # (B,) per-request new-token cap
     active: torch.Tensor       # (B,) slot holds an unharvested request
     finished: torch.Tensor     # (B,) request done (EOS or cap)
@@ -71,19 +86,19 @@ class ContinuousBatcher:
     pool's caches in int8 (``ops.kv_quant``): admission prefills exactly in
     fp32 and quantises the new rows once on their way into the pool.  The
     fp32 cache holds the activations' dtype, as the port's static path
-    does.  ``device``: the CUDA device by default, the CPU only when asked
-    for; the MLLM must be on it."""
+    does.  ``window``: 1 decodes a token a tick; >= 2 is the speculative
+    window mode (module docstring), ``draft_ngram`` the n of its suffix
+    lookup; a request's ids are the window-1 pool's.  ``device``: the CUDA
+    device by default, the CPU only when asked for; the MLLM must be on
+    it."""
 
     def __init__(self, mllm, sampling: SamplingConfig, num_slots: int,
                  prompt_len: int, max_new_tokens: int, eos_id: int,
                  pad_id: int = 0, chunk: int = 8, window: int = 1,
-                 quantize_kv: bool = False, device="cuda", mesh=None):
+                 draft_ngram: int = 3, quantize_kv: bool = False,
+                 device="cuda", mesh=None):
         if window < 1:
             raise ValueError("window must be >= 1")
-        if window > 1:
-            raise NotImplementedError(
-                "the speculative window mode (window >= 2) is not ported "
-                "yet (ROADMAP A: speculative decoding)")
         if mesh is not None:
             raise NotImplementedError("a mesh-sharded slot pool is not "
                                       "ported yet (ROADMAP A: parallel)")
@@ -95,6 +110,8 @@ class ContinuousBatcher:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.chunk = max(1, min(chunk, max_new_tokens))
+        self.window = window
+        self.draft_ngram = draft_ngram
         self.quantize_kv = quantize_kv
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -106,8 +123,12 @@ class ContinuousBatcher:
                              f"{self.device}")
         n_img = mllm.qformer.cfg.num_query_tokens if mllm.use_vision else 0
         self.P = n_img + prompt_len
-        self.cache_len = self.P + max_new_tokens
-        self._hist_len = prompt_len + max_new_tokens
+        # a window's writes reach W - 1 slots past the nominal lengths
+        slack = window if window > 1 else 0
+        self.cache_len = self.P + max_new_tokens + slack
+        self._hist_len = prompt_len + max_new_tokens + slack
+        self._out_len = max_new_tokens + slack
+        self._widths = uniform_widths(sampling, mllm.llama.cfg.vocab_size)
         self.last_run: Optional[Dict] = None
 
     def _init_state(self) -> PoolState:
@@ -135,7 +156,7 @@ class ContinuousBatcher:
             prefix_len=full((B,), 0, torch.int32),
             fmask=full((B, self.P), 0, torch.int32),
             step=full((B,), 0),
-            out=full((B, self.max_new_tokens), self.pad_id),
+            out=full((B, self._out_len), self.pad_id),
             max_new=full((B,), 0),
             active=full((B,), False, torch.bool),
             finished=full((B,), False, torch.bool))
@@ -207,6 +228,63 @@ class ContinuousBatcher:
             st.step += live
             live_ticks += live.sum()
 
+    def _chunk_uniforms(self, blocks: List[Optional[torch.Tensor]],
+                        generators: Sequence[Optional[torch.Generator]],
+                        steps: np.ndarray, caps: Sequence[int]):
+        """The (B, chunk * W, n) uniforms a window chunk can read: row b's
+        blocks for output positions steps[b] .. steps[b] + chunk * W - 1
+        (a tick advances a row by at most W), drawn on the host from
+        ``generators[b]`` as far as the request's cap and kept in
+        ``blocks[b]``, so that position j reads the generator's j-th block
+        however many ticks reach it; positions past the cap repeat the
+        last block (they are never emitted).  None when greedy."""
+        if not self._widths:
+            return None
+        width = self.chunk * self.window
+        n = sum(self._widths)
+        table = torch.full((self.B, width, n), 0.5)
+        for b, g in enumerate(generators):
+            if g is None:
+                continue
+            need = min(int(caps[b]), int(steps[b]) + width) - (
+                0 if blocks[b] is None else blocks[b].shape[0])
+            if need > 0:
+                new = row_uniform_blocks([g], self._widths, need, "cpu")[0]
+                blocks[b] = new if blocks[b] is None else torch.cat(
+                    [blocks[b], new])
+            pos = torch.arange(width) + int(steps[b])
+            table[b] = blocks[b][pos.clamp_max(blocks[b].shape[0] - 1)]
+        return host_to_device(table, self.device)
+
+    def _decode_chunk_window(self, st: PoolState,
+                             u: Optional[torch.Tensor],
+                             live_ticks: torch.Tensor) -> None:
+        """``chunk`` speculative ticks over the whole pool, in place (JAX
+        ``_decode_chunk_window``, ``serve_batching.py:267-355``): draw the
+        committed token at every row's step from its block (the window-1
+        tick's draw), propose W - 1 drafts, score the window in one
+        ``decode_window`` forward, and accept drafts while they equal the
+        row's own draw at their position.  ``u``: the chunk's uniforms
+        (``_chunk_uniforms``), indexed from each row's step at the chunk's
+        start."""
+        rows = torch.arange(self.B, device=self.device)[:, None]
+        offs = torch.arange(self.window, device=self.device)[None, :]
+        step0 = st.step.clone()
+        for _ in range(self.chunk):
+            live = st.active & ~st.finished
+            uw = None if u is None else u[rows, (st.step - step0)[:, None]
+                                          + offs]
+            # a finished or empty row's step is frozen at most at its cap,
+            # so its window writes land inside the row's own W slots of
+            # slack
+            st.logits, eos_hit = window_step(
+                self.mllm, self.sampling, self.draft_ngram, st.logits, uw,
+                live, st.step, st.hlen, st.history, st.out, st.caches,
+                st.prefix_len, st.fmask, self.cache_len, st.max_new,
+                self.window, self.eos_id, self.pad_id)
+            st.finished |= eos_hit | (live & (st.step >= st.max_new))
+            live_ticks += live.sum()
+
     @torch.inference_mode()
     def run(self, requests: Sequence[Dict], seed: int = 0,
             refill: bool = True) -> List[np.ndarray]:
@@ -259,6 +337,10 @@ class ContinuousBatcher:
         live_ticks = torch.zeros((), dtype=torch.int64, device=self.device)
         slot_req: List[Optional[int]] = [None] * self.B
         gens: List[Optional[torch.Generator]] = [None] * self.B
+        # window mode: each slot's drawn uniform blocks, its step and cap
+        blocks: List[Optional[torch.Tensor]] = [None] * self.B
+        steps = np.zeros(self.B, np.int64)
+        caps = [0] * self.B
         chunks = admissions = 0
         while queue or any(s is not None for s in slot_req):
             pool_empty = all(s is None for s in slot_req)
@@ -270,17 +352,26 @@ class ContinuousBatcher:
                 slot_req[s] = rid
                 g = req.get("generator")
                 gens[s] = g if g is not None else step_generator(seed, rid)
+                blocks[s], steps[s], caps[s] = None, 0, mn
                 timed("admit", self._admit, st, s, req, mn)
                 admissions += 1
-            timed("decode", self._decode_chunk, st, gens, live_ticks)
+            if self.window > 1:
+                u = self._chunk_uniforms(blocks, gens, steps, caps)
+                timed("decode", self._decode_chunk_window, st, u,
+                      live_ticks)
+            else:
+                timed("decode", self._decode_chunk, st, gens, live_ticks)
             chunks += 1
-            harvest = (st.active & st.finished).cpu().numpy()
+            # one read of the device a chunk: the harvest flags and steps
+            flags = torch.stack([(st.active & st.finished).long(),
+                                 st.step]).cpu().numpy()
+            harvest, steps = flags[0] > 0, flags[1]
             if not harvest.any():
                 continue
             out = st.out.cpu().numpy()
-            steps = st.step.cpu().numpy()
             for s in np.nonzero(harvest)[0]:
                 rid, slot_req[s], gens[s] = slot_req[s], None, None
+                blocks[s] = None
                 row = out[s, :steps[s]].astype(np.int32)
                 eos = np.nonzero(row == self.eos_id)[0]
                 results[rid] = row[:eos[0]] if eos.size else row
