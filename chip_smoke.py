@@ -21,8 +21,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      difference is the selection and merge); the SwiGLU down-projection
      with its launch plan, its share of the tolerance, a repeated call that
      must give the same bits and cuBLAS's fp32 h @ w alone beside;
+     the bf16 forms at the training shapes of a bf16 model (flash: the
+     Llama's self-attention, the LTSF cross-attention's fp32 queries over
+     bf16 keys, a bf16 decode step; RMSNorm; SwiGLU), against their plain
+     versions, bounds at bf16's rate and bytes, SDPA / F.rms_norm / cuBLAS
+     in bf16 beside;
      NLinear (with its launch plan), the fused LoRA product (fp32 and
-     bf16 at q_proj and v_proj, each with its launch plan) and the
+     bf16 at q_proj and v_proj, and ranks 24 and 64 at q_proj, which take
+     the SIMT form, each with its launch plan) and the
      per-sample ADE/FDE, which no path of the JAX package calls, at the
      shapes where they would sit (their launches here are the only ones,
      and are reported under their own name); the timer's launch floor (a
@@ -113,7 +119,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      advance several positions a tick); for each run the plain
      run's tokens/s beside its own, forwards per token, ms per window
      forward (CUDA events) and the launch counts against the expected
-     table.
+     table;
+ 12. bfloat16 training and remat at full width: "train_18_30" under a
+     "bfloat16" ModelConfig (parameters cast to bf16, the fused switch on:
+     the bf16 flash, RMSNorm and SwiGLU kernels), as phase 7 runs it
+     without the profile, its windows/s and peak memory beside phase 7's
+     fp32 numbers; "lora_only_18_18" without remat and under the policies
+     "full", "dots" and "dots_no_batch" (LoRA dropout 0.1): one step's loss
+     and gradients equal to the no-remat step's bit for bit, the kernels
+     launched again in the backward's recompute, ms per step and peak
+     memory; stage 1 of "train_18_30" under "full" (peak memory beside
+     phase 8's); run_stage2 of "test_18_18" in bf16 for one epoch and a
+     K=10 request through Predictor.from_checkpoint of its bf16 artifact,
+     bit for bit a Predictor over the merged state; the small
+     configuration's per-epoch text sample (a bf16 MLLM's decode) twice,
+     equal.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -376,7 +396,7 @@ def attended(kw):
 def flash_checks(dev, gpu, timer):
     import torch
     import torch.nn.functional as F
-    from tsue_tpu_torch.ops.flash import (_lib, flash_attention,
+    from tsue_tpu_torch.ops.flash import (_DT, _lib, flash_attention,
                                           flash_attention_plain, rope_bthd)
     rows = []
     for name, kw in attention_cases(dev):
@@ -407,7 +427,8 @@ def flash_checks(dev, gpu, timer):
         mask = kw.get("mask")
         splits = _lib().flash_attn_splits(
             B, Tq, Tk, Hq, Hkv, D, int(kw.get("rope") is not None),
-            int(mask is not None and mask.dim() == 3))
+            int(mask is not None and mask.dim() == 3),
+            _DT.get((kw["q"].dtype, kw["k"].dtype), 0))
         rows.append(row("flash_attn_fwd", name, gpu, err, rel, ms, plain_ms,
                         b, lib_ms, timer.floor_ms, q=list(kw["q"].shape),
                         k=list(kw["k"].shape),
@@ -741,6 +762,121 @@ def fused_checks(dev, gpu, timer):
     return rows
 
 
+BF_TOL = dict(atol=2 ** -6, rtol=2 ** -7)   # bf16 outputs: a few ulps
+
+
+def bf16_checks(dev, gpu, timer):
+    """The bf16 forms at the training shapes of a bf16 model: flash
+    attention (the Llama's self-attention, B16 T528 32/8 x 64, RoPE,
+    causal; the LTSF cross-attention's fp32 queries over bf16 keys, D =
+    1024; a decode step of bf16 queries over a bf16 cache), RMSNorm (8448,
+    2048) and the SwiGLU product (8448, 8192) x (8192, 2048), each against
+    its plain version (flash, RMSNorm: atol 2^-6, rtol 2^-7; SwiGLU: rtol
+    2^-7, atol 2^-7 of the largest output), a repeated call bit-identical,
+    the bound at bf16's 2 bytes an element and 989 TFLOP/s, and the library
+    call in bf16: SDPA, ``F.rms_norm``, cuBLAS ``h @ w``.  Returns rows by
+    kernel."""
+    import torch
+    import torch.nn.functional as F
+    from tsue_tpu_torch.ops.flash import (flash_attention,
+                                          flash_attention_plain, rope_bthd)
+    from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
+                                          swiglu_matmul, swiglu_matmul_plain,
+                                          swiglu_matmul_plan)
+    bf = torch.bfloat16
+    rows = {"flash_attn_fwd": [], "rmsnorm": [], "swiglu_matmul": []}
+    cases = dict(attention_cases(dev))
+
+    def cast(kw, q_dtype, kv_dtype):
+        return dict(kw, q=kw["q"].to(q_dtype), k=kw["k"].to(kv_dtype),
+                    v=kw["v"].to(kv_dtype))
+    for name, kw in (
+            ("llama_self bf16", cast(cases["llama_self"], bf, bf)),
+            ("ltsf_cross fp32 q, bf16 k/v",
+             cast(cases["ltsf_cross"], torch.float32, bf)),
+            ("decode bf16, Tq1 S592",
+             cast(cases["gen_decode_fp32_cache"], bf, bf))):
+        out = flash_attention(**kw)
+        ref = flash_attention_plain(**kw)
+        torch.cuda.synchronize()
+        err, rel = errors(out.float(), ref.float())
+        check(out.dtype == kw["q"].dtype and bool(
+            torch.isfinite(out.float()).all()) and torch.allclose(
+                out.float(), ref.float(), **BF_TOL),
+              f"flash_attn_fwd {name}: max abs err {err} ({BF_TOL})")
+        check(torch.equal(out, flash_attention(**kw)),
+              f"flash_attn_fwd {name}: a repeated call differs")
+        plain_ms = timer.ms(lambda: flash_attention_plain(**kw))
+        ms = timer.ms(lambda: flash_attention(**kw))
+        q, k, v = kw["q"], kw["k"], kw["v"]
+        if kw.get("rope") is not None:
+            q, k = rope_bthd(q, *kw["rope"]), rope_bthd(k, *kw["rope"])
+        pairs = attended(kw)
+        dt = torch.promote_types(q.dtype, k.dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().to(dt)
+                      for t in (q, k, v))
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=pairs[:, None], enable_gqa=True))
+        D, Hq = q.shape[3], q.shape[2]
+        extra = [kw.get("mask")] + list(kw.get("rope") or ())
+        b = bound(nbytes(kw["q"], kw["k"], kw["v"], out, *extra),
+                  4.0 * D * Hq * pairs.sum().item(), BF16_FLOPS)
+        rows["flash_attn_fwd"].append(row(
+            "flash_attn_fwd", name, gpu, err, rel, ms, plain_ms, b, lib_ms,
+            timer.floor_ms, q=list(q.shape), k=list(k.shape),
+            dtypes=[str(kw["q"].dtype)[6:], str(kw["k"].dtype)[6:]]))
+        del out, ref, qt, kt, vt
+    del cases
+    g = torch.Generator(device=dev).manual_seed(12)
+    D, I, M = 2048, 8192, 16 * (16 + TEXT_TOKENS)
+    x = torch.randn(M, D, generator=g, device=dev).to(bf)
+    scale = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(bf)
+    out = fused_rmsnorm(x, scale, 1e-5)
+    ref = rmsnorm_plain(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    err, rel = errors(out.float(), ref.float())
+    check(out.dtype == bf and torch.allclose(out.float(), ref.float(),
+                                             **BF_TOL),
+          f"rmsnorm bf16 disagrees with the plain version: {err}")
+    check(torch.equal(out, fused_rmsnorm(x, scale, 1e-5)),
+          "rmsnorm bf16: a repeated call differs")
+    plain_ms = timer.ms(lambda: rmsnorm_plain(x, scale, 1e-5))
+    ms = timer.ms(lambda: fused_rmsnorm(x, scale, 1e-5))
+    lib_ms = timer.ms(lambda: F.rms_norm(x, (D,), scale, 1e-5))
+    rows["rmsnorm"].append(row(
+        "rmsnorm", f"bf16 x and scale: M={M} K={D}", gpu, err, rel, ms,
+        plain_ms, bound(nbytes(x, scale, out), 4.0 * M * D, BF16_FLOPS),
+        lib_ms, timer.floor_ms, dtype="bfloat16"))
+    del x, out, ref
+    gate = (torch.randn(M, I, generator=g, device=dev)).to(bf)
+    up = torch.randn(M, I, generator=g, device=dev).to(bf)
+    w = (torch.randn(I, D, generator=g, device=dev) * I ** -0.5).to(bf)
+    plan = swiglu_matmul_plan(M, I, D, bf)
+    out = swiglu_matmul(gate, up, w)
+    ref = swiglu_matmul_plain(gate, up, w)
+    torch.cuda.synchronize()
+    err, rel = errors(out.float(), ref.float())
+    big = ref.float().abs().max().item()
+    check(out.dtype == bf and torch.allclose(
+        out.float(), ref.float(), rtol=2 ** -7, atol=2 ** -7 * big),
+          f"swiglu_matmul bf16 disagrees with the plain version: {err}")
+    check(torch.equal(out, swiglu_matmul(gate, up, w)),
+          "swiglu_matmul bf16: a repeated call differs")
+    plain_ms = timer.ms(lambda: swiglu_matmul_plain(gate, up, w))
+    ms = timer.ms(lambda: swiglu_matmul(gate, up, w))
+    h = (F.silu(gate.float()).to(bf) * up)
+    lib_ms = timer.ms(lambda: h @ w)
+    del h
+    rows["swiglu_matmul"].append(row(
+        "swiglu_matmul", f"bf16: M={M} K={I} N={D}", gpu, err, rel, ms,
+        plain_ms, bound(nbytes(gate, up, w, out), 2.0 * M * D * I,
+                        BF16_FLOPS), lib_ms, timer.floor_ms, plan=plan,
+        dtype="bfloat16"))
+    del gate, up, w, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
 def nlinear_checks(dev, gpu, timer):
     """NLinear where it would sit in the LTSF (C = 64 channels): the
     deterministic forecast at batch 16 (18 -> 18 and 18 -> 30) and the K=10
@@ -789,8 +925,9 @@ LORA_SHAPES = (   # (name, M, K, N): stage-1 batch 16, 16 + 512 tokens
 
 def lora_checks(dev, gpu, timer):
     """The fused LoRA product where it would sit in stage 1 (r = 8, scale
-    32 / 8 = 4), at q_proj and v_proj in fp32 and bf16, each with its launch
-    plan (lora_matmul_plan: the form, tile, ring and CTAs).  fp32: rtol
+    32 / 8 = 4), at q_proj and v_proj in fp32 and bf16, and ranks 24 and 64
+    at q_proj (the SIMT form), each with its launch plan
+    (lora_matmul_plan: the form, tile, ring and CTAs).  fp32: rtol
     1e-4, atol 1e-5 of the largest output (K products summed in another
     order, on the tensor cores in 3xTF32); bf16 (xA rounded to bf16 before
     the second product, as the Pallas kernel): rtol = atol = 2^-7 of the
@@ -802,57 +939,62 @@ def lora_checks(dev, gpu, timer):
     from tsue_tpu_torch.ops.lora import lora_matmul, lora_matmul_plan, lora_ref
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
-    r, scale = 8, 4.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, M, K, N in LORA_SHAPES:
-            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
-            w = (torch.randn(K, N, generator=g, device=dev)
-                 * K ** -0.5).to(dtype)
-            a = (torch.randn(K, r, generator=g, device=dev)
-                 * K ** -0.5).to(dtype)
-            b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
-            plan = lora_matmul_plan(M, K, N, r, dtype)
-            out = lora_matmul(x, w, a, b, scale)
-            ref = lora_ref(x, w, a, b, scale, round_xa=True)
-            torch.cuda.synchronize()
-            err, rel = errors(out.float(), ref.float())
-            big = ref.float().abs().max().item()
-            tol = (dict(rtol=1e-4, atol=1e-5 * big)
-                   if dtype == torch.float32
-                   else dict(rtol=2 ** -7, atol=2 ** -7 * big))
-            used = ((out.float() - ref.float()).abs()
-                    / (tol["atol"] + tol["rtol"] * ref.float().abs())
-                    ).max().item()
-            label = f"{name} M={M} K={K} N={N} r={r} {str(dtype)[6:]}"
-            print(f"lora_matmul {label}: plan {json.dumps(plan)}",
-                  flush=True)
-            check(torch.allclose(out.float(), ref.float(), **tol),
-                  f"lora_matmul disagrees with the plain version at {label}"
-                  f": max abs err {err} ({tol})")
-            check(torch.equal(out, lora_matmul(x, w, a, b, scale)),
-                  f"lora_matmul {label}: a repeated call differs")
-            plain_ms = timer.ms(lambda: lora_ref(x, w, a, b, scale,
-                                                 round_xa=True))
-            ms = timer.ms(lambda: lora_matmul(x, w, a, b, scale))
-            base_ms = timer.ms(lambda: x @ w)
-            print(f"lora_matmul {label}: cuBLAS x @ w alone {base_ms:.4f} "
-                  f"ms; gpu: {gpu}", flush=True)
-            flops = 2.0 * M * N * K + 2.0 * M * K * r + 2.0 * M * r * N
-            moved = nbytes(x, w, a, b, out)
-            extra = {}
-            if dtype == torch.float32:
-                # the kernel's products run on the tensor cores as three
-                # TF32 products each; the fp32 CUDA-core bound beside
-                b_ = bound(moved, 3 * flops, TF32_FLOPS)
-                extra["fp32_fma_bound_ms"] = bound(moved, flops)[0]
-            else:
-                b_ = bound(moved, flops, BF16_FLOPS)
-            rows.append(row("lora_matmul", label, gpu, err, rel, ms,
-                            plain_ms, b_, None, timer.floor_ms,
-                            cublas_xw_ms=base_ms,
-                            dtype=str(dtype)[6:], plan=plan, tol_used=used,
-                            **extra))
-            del x, w, a, b, out, ref
+    scale = 4.0
+    # rank 8 at both shapes; ranks 24 and 64 (the SIMT form's walks of 16
+    # ranks, above the tensor-core forms' 16) at q_proj
+    cases = [(dtype, shape, 8) for dtype in (torch.float32, torch.bfloat16)
+             for shape in LORA_SHAPES]
+    cases += [(dtype, LORA_SHAPES[0], r) for r in (24, 64)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for dtype, (name, M, K, N), r in cases:
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        w = (torch.randn(K, N, generator=g, device=dev)
+             * K ** -0.5).to(dtype)
+        a = (torch.randn(K, r, generator=g, device=dev)
+             * K ** -0.5).to(dtype)
+        b = (torch.randn(r, N, generator=g, device=dev) * 0.1).to(dtype)
+        plan = lora_matmul_plan(M, K, N, r, dtype)
+        out = lora_matmul(x, w, a, b, scale)
+        ref = lora_ref(x, w, a, b, scale, round_xa=True)
+        torch.cuda.synchronize()
+        err, rel = errors(out.float(), ref.float())
+        big = ref.float().abs().max().item()
+        tol = (dict(rtol=1e-4, atol=1e-5 * big)
+               if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=2 ** -7 * big))
+        used = ((out.float() - ref.float()).abs()
+                / (tol["atol"] + tol["rtol"] * ref.float().abs())
+                ).max().item()
+        label = f"{name} M={M} K={K} N={N} r={r} {str(dtype)[6:]}"
+        print(f"lora_matmul {label}: plan {json.dumps(plan)}",
+              flush=True)
+        check(torch.allclose(out.float(), ref.float(), **tol),
+              f"lora_matmul disagrees with the plain version at {label}"
+              f": max abs err {err} ({tol})")
+        check(torch.equal(out, lora_matmul(x, w, a, b, scale)),
+              f"lora_matmul {label}: a repeated call differs")
+        plain_ms = timer.ms(lambda: lora_ref(x, w, a, b, scale,
+                                             round_xa=True))
+        ms = timer.ms(lambda: lora_matmul(x, w, a, b, scale))
+        base_ms = timer.ms(lambda: x @ w)
+        print(f"lora_matmul {label}: cuBLAS x @ w alone {base_ms:.4f} "
+              f"ms; gpu: {gpu}", flush=True)
+        flops = 2.0 * M * N * K + 2.0 * M * K * r + 2.0 * M * r * N
+        moved = nbytes(x, w, a, b, out)
+        extra = {}
+        if dtype == torch.float32:
+            # the kernel's products run on the tensor cores as three
+            # TF32 products each; the fp32 CUDA-core bound beside
+            b_ = bound(moved, 3 * flops, TF32_FLOPS)
+            extra["fp32_fma_bound_ms"] = bound(moved, flops)[0]
+        else:
+            b_ = bound(moved, flops, BF16_FLOPS)
+        rows.append(row("lora_matmul", label, gpu, err, rel, ms,
+                        plain_ms, b_, None, timer.floor_ms,
+                        cublas_xw_ms=base_ms,
+                        dtype=str(dtype)[6:], plan=plan, tol_used=used,
+                        **extra))
+        del x, w, a, b, out, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -2203,13 +2345,23 @@ def train_forward_launches(L: int):
             **dict.fromkeys(NO_PATH, 0)}
 
 
-def train_phase(dev, gpu, preset: str):
+TRAIN_STATS: dict = {}     # run label -> ms per step, windows/s, peak GiB
+
+
+def train_phase(dev, gpu, preset: str, bf16: bool = False,
+                profile: bool = True):
     """A stage-2 trainer of the preset at full Llama-3.2-1B width (fp32, the
     vocabulary of the preset, random weights from the preset's seed) with
     the fused switch on, through the port's entry points: ``make_optimizer``,
-    ``make_train_step``, ``make_eval_step``."""
+    ``make_train_step``, ``make_eval_step``.  ``bf16``: the preset under a
+    "bfloat16" ``ModelConfig`` with its parameters cast to bf16, as
+    ``runner.build_model_and_params`` casts them; Adam's first step is then
+    below half an ulp of most weights, so a trainable tensor may keep its
+    bits (its moments must not be zero)."""
+    import dataclasses
     import torch
     from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.utils.precision import cast_params
     from tsue_tpu_torch.data import (BatchIterator, build_windows,
                                      get_tokenizer, make_synthetic_tracks)
     from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
@@ -2222,6 +2374,11 @@ def train_phase(dev, gpu, preset: str):
     from tsue_tpu_torch.utils.random import step_generator
 
     cfg = get_preset(preset)
+    label = preset
+    if bf16:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    dtype="bfloat16"))
+        label = f"{preset} bf16"
     m, regime, B = cfg.model, cfg.train.freeze_regime, cfg.train.batch_size
     L = m.llama.num_layers
     tracks = make_synthetic_tracks(num_tracks=8, track_len=600, seed=5)
@@ -2236,6 +2393,9 @@ def train_phase(dev, gpu, preset: str):
         model = TrajectoryModel(m, cfg.data.seq_len, cfg.data.out_len)
     init_params(model, torch.Generator(device=dev).manual_seed(
         cfg.train.seed))
+    if bf16:
+        cast_params(model)
+    preset = label
     state = TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
     params = dict(model.named_parameters())
@@ -2280,9 +2440,10 @@ def train_phase(dev, gpu, preset: str):
             times.append(time.perf_counter() - t0)
         counts = read_counts()
         expected = {k: 3 * v for k, v in per_forward.items()}
-        profile_device(dev, gpu, f"train {preset} profile: one step",
-                       sum(times) / len(times),
-                       lambda: train_step(state, batches[3]))
+        if profile:
+            profile_device(dev, gpu, f"train {preset} profile: one step",
+                           sum(times) / len(times),
+                           lambda: train_step(state, batches[3]))
         check(counts == expected, f"{preset}: launches in 3 steps {counts} "
                                   f"!= {expected}")
         check(all(math.isfinite(x) for x in losses),
@@ -2292,18 +2453,22 @@ def train_phase(dev, gpu, preset: str):
         # q/k saturate on raw pixel polygons at random init), so that the
         # step and the decay lr * wd are below fp32 resolution
         adam = state.optimizer.adamw.state
-        unreached = []
+        unreached, no_grad = [], 0
         for n, p in params.items():
             same = torch.equal(p.detach(), start[n])
             if n not in trainable:
                 check(same, f"{preset}: frozen {n} changed")
             elif same:
                 unreached.append(n)
-                check(adam[p]["exp_avg"].abs().max().item() < 1e-8,
+                moved = adam[p]["exp_avg"].abs().max().item()
+                check(moved < 1e-8 or bf16,
                       f"{preset}: trainable {n} got a gradient but did not "
                       "change")
-        check(len(unreached) < len(trainable) // 2,
+                no_grad += moved == 0
+        check(len(unreached) < len(trainable) // 2 or bf16,
               f"{preset}: most trainable tensors did not change")
+        check(no_grad < len(trainable) // 2,
+              f"{preset}: most trainable tensors got no gradient")
         del start
 
         # a repeated step from the same state and seed
@@ -2338,12 +2503,16 @@ def train_phase(dev, gpu, preset: str):
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     step_s = sum(times) / len(times)
+    TRAIN_STATS[preset] = dict(ms=[t * 1e3 for t in times],
+                               windows_s=B / step_s, peak_gib=peak)
     print(f"train {preset}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms "
           f"per step = {B / step_s:.3f} train windows/s (batch {B}); losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; eval loss "
           f"{float(ev['loss']):.4f}; {len(trainable) - len(unreached)} of "
-          f"{len(trainable)} trainable tensors changed (gradients below 1e-8: "
-          f"{unreached}); repeated step bit-identical; peak memory "
+          f"{len(trainable)} trainable tensors changed (unchanged: "
+          f"{unreached if len(unreached) <= 8 else len(unreached)}; "
+          f"{no_grad} with a zero gradient); "
+          f"repeated step bit-identical; peak memory "
           f"{peak:.2f} GiB; launches per step {json.dumps(per_forward)}; eval "
           f"launches {json.dumps(ev_counts)}; gpu: {gpu}", flush=True)
     del state, model, params, batches, ev
@@ -2447,6 +2616,8 @@ def stage1_phase(dev, gpu):
               f"stage1: losses {losses}")
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         step_s = sum(times) / len(times)
+        TRAIN_STATS["stage1"] = dict(ms=[t * 1e3 for t in times],
+                                     windows_s=B / step_s, peak_gib=peak)
         profile_device(dev, gpu, "stage1 profile: one step", step_s,
                        lambda: train_step(state, batches[3], gen(3)))
         for n, before in start.items():
@@ -2760,6 +2931,330 @@ def eval_from_disk_phase(dev, gpu):
     return counts
 
 
+# --------------------------------------------------------------------------
+# 12. bfloat16 training, remat, the per-epoch text sample
+# --------------------------------------------------------------------------
+
+def remat_runs(dev, gpu):
+    """``lora_only_18_18`` (batch 8, a backward through every layer, LoRA
+    dropout 0.1) at full width, fp32, the fused switch on, without remat and
+    under the three policies: one step's loss and gradients, which must
+    equal the no-remat step's bit for bit (the recompute replays the
+    dropout generator), the launches of its forward and backward (a
+    rematerialised layer launches its kernels again in the backward), then
+    a warmup and three timed train steps with their peak memory.  Returns
+    the launch counts of each run's three steps."""
+    import dataclasses
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import to_device
+    from tsue_tpu_torch.train.losses import denorm_mse_loss
+    from tsue_tpu_torch.train.trainer import (TrainState, make_optimizer,
+                                              make_train_step)
+    from tsue_tpu_torch.utils.random import step_generator
+
+    base = get_preset("lora_only_18_18")
+    B, seed = base.train.batch_size, base.train.seed
+    L = base.model.llama.num_layers
+    ds = build_windows(make_synthetic_tracks(num_tracks=8, track_len=600,
+                                             seed=5), base.data,
+                       get_tokenizer())
+    batches = [to_device(b, dev) for _, b in zip(range(5), BatchIterator(
+        ds, B, seed=seed, length_buckets=base.data.length_buckets))]
+    check(len(batches) == 5, f"remat: too few windows ({len(ds)})")
+    per_forward = train_forward_launches(L)
+    recompute = dict.fromkeys(per_forward, 0)
+    recompute.update(flash_attn_fwd=L, rmsnorm=2 * L, swiglu_matmul=L)
+    ref, out, summary = None, {}, []
+    for policy in (None, "full", "dots", "dots_no_batch"):
+        name = policy or "none"
+        llama = dataclasses.replace(base.model.llama,
+                                    remat=policy is not None,
+                                    remat_policy=policy or "full")
+        cfg = base.replace(model=dataclasses.replace(base.model,
+                                                     llama=llama))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.device(dev):
+            model = TrajectoryModel(cfg.model, cfg.data.seq_len,
+                                    cfg.data.out_len)
+        init_params(model, torch.Generator(device=dev).manual_seed(seed))
+        state = TrainState(model, make_optimizer(cfg, model), seed)
+        step = make_train_step(cfg)
+        with fused_scope("on"):
+            reset_counts()
+            b = batches[0]
+            pred = model(b, deterministic=False,
+                         generator=step_generator(seed, 0, dev))
+            loss = denorm_mse_loss(pred, b["traj_out"], b["norm_stat"],
+                                   b["valid"])
+            fwd = read_counts()
+            loss.backward()
+            torch.cuda.synchronize(dev)
+            bwd = {k: v - fwd[k] for k, v in read_counts().items()}
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            state.optimizer.zero_grad()
+            del pred
+            check(fwd == per_forward, f"remat {name}: forward launches "
+                                      f"{fwd} != {per_forward}")
+            want = recompute if policy else dict.fromkeys(per_forward, 0)
+            check(bwd == want, f"remat {name}: backward launches {bwd} != "
+                               f"{want}")
+            if ref is None:
+                ref = (loss.detach(), grads)
+            else:
+                check(torch.equal(loss.detach(), ref[0]),
+                      f"remat {name}: loss {float(loss)} != {float(ref[0])}")
+                check(grads.keys() == ref[1].keys() and all(
+                    torch.equal(g, ref[1][n]) for n, g in grads.items()),
+                      f"remat {name}: gradients differ from the plain step's")
+            del loss, grads
+            step(state, batches[1])                           # warmup
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            times = []
+            for b in batches[2:5]:
+                t0 = time.perf_counter()
+                step(state, b)
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        ms = [t * 1e3 for t in times]
+        summary.append((name, sum(ms) / 3, peak))
+        print(f"remat lora_only_18_18 {name}: {', '.join(f'{t:.1f}' for t in ms)}"
+              f" ms per step = {3 * B / sum(times):.3f} train windows/s; "
+              f"peak memory {peak:.2f} GiB; flash launches a step "
+              f"{fwd['flash_attn_fwd'] + bwd['flash_attn_fwd']} (forward "
+              f"{fwd['flash_attn_fwd']}); loss and gradients "
+              f"{'the reference' if policy is None else 'equal to no remat'}"
+              f"; gpu: {gpu}", flush=True)
+        out[f"train lora_only_18_18 remat {name} (3 steps)"] = counts
+        del state, model, step
+    print("remat summary (policy, ms per step, peak GiB): "
+          + json.dumps(summary) + f"; gpu: {gpu}", flush=True)
+    del ref, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage1_remat_run(dev, gpu):
+    """Stage-1 steps of "train_18_30" (lora_only, batch 16, vocabulary
+    128256, fp32, the fused switch on) with the Llama rematerialised,
+    policy "full": a warmup and two timed steps, their peak memory against
+    phase 8's.  Returns the two steps' launch counts."""
+    import dataclasses
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import to_device
+    from tsue_tpu_torch.train.stage1 import (make_stage1_optimizer,
+                                             make_stage1_train_step)
+    from tsue_tpu_torch.train.trainer import TrainState
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = get_preset("train_18_30")
+    m, B = cfg.model, cfg.train.batch_size
+    L = m.llama.num_layers
+    ds = build_windows(make_synthetic_tracks(num_tracks=8, track_len=600,
+                                             seed=5), cfg.data,
+                       get_tokenizer())
+    batches = [to_device(b, dev) for _, b in zip(range(3), BatchIterator(
+        ds, B, seed=cfg.train.seed, length_buckets=cfg.data.length_buckets))]
+    llama = dataclasses.replace(m.llama, remat=True, remat_policy="full")
+    with torch.device(dev):
+        mllm = MultiModalLLM(llama, m.qformer, m.use_vision)
+    init_params(mllm, torch.Generator(device=dev).manual_seed(cfg.train.seed))
+    state = TrainState(mllm, make_stage1_optimizer(cfg, mllm), cfg.train.seed)
+    step = make_stage1_train_step()
+    with fused_scope("on"):
+        step(state, batches[0], step_generator(0, 0, dev))    # warmup
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        times, losses = [], []
+        for i, b in enumerate(batches[1:3], 1):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, b, step_generator(0, i, dev))
+                                ["lm_loss"]))
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = {k: 2 * v for k, v in train_forward_launches(L).items()}
+    for k in ("flash_attn_fwd", "swiglu_matmul"):
+        want[k] += 2 * L
+    want["rmsnorm"] += 2 * 2 * L
+    check(counts == want, f"stage1 remat: launches {counts} != {want}")
+    check(all(math.isfinite(x) and x > 0 for x in losses),
+          f"stage1 remat: losses {losses}")
+    dense = TRAIN_STATS.get("stage1", {})
+    print(f"stage1 train_18_30 remat full: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per step "
+          f"(phase 8 without remat: "
+          f"{', '.join(f'{t:.1f}' for t in dense.get('ms', []))}); peak "
+          f"memory {peak:.2f} GiB (phase 8: {dense.get('peak_gib', 0):.2f} "
+          f"GiB); losses {losses}; launches in 2 steps {json.dumps(counts)};"
+          f" gpu: {gpu}", flush=True)
+    del state, mllm, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_checkpoint_request(dev, gpu):
+    """``run_stage2`` of "test_18_18" under a "bfloat16" ``ModelConfig`` at
+    full width (bf16 parameters and moments; the vocabulary resized to the
+    byte tokenizer's; 5 synthetic tracks, one epoch), its best artifact
+    (bf16 leaves) served by ``Predictor.from_checkpoint`` for a K=10
+    request, which must equal, bit for bit, a ``Predictor`` over the same
+    merged state.  Returns the request's launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import get_tokenizer, make_synthetic_tracks
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import build_model_and_params, run_stage2
+    from tsue_tpu_torch.serve import Predictor
+    from tsue_tpu_torch.train.checkpoint import STATE_FILE, restore_merge
+
+    cfg = get_preset("test_18_18")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="bf16_ckpt_", dir=runs)
+    try:
+        t0 = time.perf_counter()
+        with fused_scope("on"):
+            metrics = run_stage2(cfg, out_dir=tmp, epochs=1,
+                                 synthetic_tracks=EVAL_TRACKS, device=dev)
+        train_s = time.perf_counter() - t0
+        best = os.path.join(tmp, cfg.name, "ckpt", "best")
+        stored = torch.load(os.path.join(best, STATE_FILE),
+                            weights_only=True)
+        check(stored and {v.dtype for v in stored.values()}
+              == {torch.bfloat16}, "bf16 checkpoint: artifact dtypes")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tracks = make_synthetic_tracks(num_tracks=2, track_len=600, seed=9)
+        kw = dict(device=dev, batch_size=16, num_candidates=10)
+        served = Predictor.from_checkpoint(cfg, best, **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = served.predict(tracks)
+        torch.cuda.synchronize(dev)
+        req_s = time.perf_counter() - t0
+        counts = read_counts()
+        del served
+        gc.collect()
+        model = build_model_and_params(cfg, get_tokenizer(), dev)
+        check({p.dtype for p in model.parameters()} == {torch.bfloat16},
+              "bf16 checkpoint: build_model_and_params dtypes")
+        restore_merge(best, model)
+        state = model.state_dict()
+        model_cfg = model.cfg
+        del model
+        gc.collect()
+        direct = Predictor(cfg.replace(model=model_cfg), state, **kw)
+        want = direct.predict(tracks)
+        del direct, state
+        check(len(got) == len(want) > 0 and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(got, want)
+            for k in ("pred_pixel_xy", "candidates_pixel_xy")),
+              "bf16 checkpoint: from_checkpoint differs from Predictor over "
+              "the merged state")
+        print(f"bf16 checkpoint: run_stage2 test_18_18 bf16 1 epoch "
+              f"{json.dumps(metrics)} in {train_s:.1f}s; from_checkpoint "
+              f"request of {len(got)} windows (K=10) in {req_s:.2f}s, equal "
+              f"to Predictor(cfg, state); launches {json.dumps(counts)}; "
+              f"gpu: {gpu}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def text_sample_run(dev, gpu):
+    """The per-epoch text sample (``runner._epoch_text_sample``) of the
+    small configuration built as ``run_stage2`` builds it (bf16
+    parameters): the MLLM's sampled decode in bf16, twice from
+    ``step_generator(777, 0)``, equal texts.  Returns its launch
+    counts."""
+    import torch
+    from tsue_tpu_torch.data import get_tokenizer
+    from tsue_tpu_torch.runner import (_batches, _epoch_text_sample,
+                                       build_model_and_params, prepare_data,
+                                       to_device)
+    from tsue_tpu_torch.utils.random import step_generator
+    cfg = small_cfg()
+    tok = get_tokenizer()
+    _, dva, _ = prepare_data(cfg, None, tok, synthetic_tracks=6)
+    model = build_model_and_params(cfg, tok, dev)
+    check({p.dtype for p in model.parameters()} == {torch.bfloat16},
+          "text sample: parameters not bf16")
+    vb = to_device(next(iter(_batches(dva, cfg, False))), dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = [_epoch_text_sample(model, tok, vb, step_generator(777, 0, dev))
+             for _ in range(2)]
+    dt = (time.perf_counter() - t0) / 2
+    counts = read_counts()
+    check(texts[0] == texts[1], "text sample: a repeated sample differs")
+    check(counts["flash_attn_fwd"] > 0, "text sample: no flash launch")
+    print(f"text sample (small config, bf16 MLLM, 48 new tokens): "
+          f"{dt:.2f}s a sample, repeat equal, {len(texts[0])} characters; "
+          f"launches in two samples {json.dumps(counts)}; gpu: {gpu}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_remat_phase(dev, gpu):
+    """Phase 12: bf16 training of "train_18_30" beside phase 7's fp32
+    numbers, remat of "lora_only_18_18" under each policy, stage 1 with
+    remat, a bf16 checkpoint served, the text sample.  Returns launch
+    counts by run."""
+    import torch
+    t_phase = time.time()
+    counts = {"train train_18_30 bf16 (3 steps)": train_phase(
+        dev, gpu, "train_18_30", bf16=True, profile=False)}
+    f32 = TRAIN_STATS.get("train_18_30", dict(windows_s=float("nan"),
+                                              peak_gib=float("nan")))
+    b16 = TRAIN_STATS["train_18_30 bf16"]
+    print(f"train_18_30 bf16 against fp32 (phase 7): "
+          f"{b16['windows_s']:.3f} against {f32['windows_s']:.3f} train "
+          f"windows/s ({b16['windows_s'] / f32['windows_s']:.3f}x); peak "
+          f"memory {b16['peak_gib']:.2f} against {f32['peak_gib']:.2f} GiB; "
+          f"gpu: {gpu}", flush=True)
+    torch.cuda.empty_cache()
+    counts.update(remat_runs(dev, gpu))
+    counts["stage1 train_18_30 remat full (2 steps)"] = stage1_remat_run(
+        dev, gpu)
+    counts["predict from a bf16 checkpoint (K=10)"] = \
+        bf16_checkpoint_request(dev, gpu)
+    counts["epoch text sample (small, bf16)"] = text_sample_run(dev, gpu)
+    print(f"bf16 and remat phase: {time.time() - t_phase:.1f}s in all; "
+          f"gpu: {gpu}", flush=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2796,6 +3291,8 @@ def main() -> int:
             "lmhead_topk": head_checks(dev, gpu, timer, lm_head_ms),
             "attend_int8_kv": attend_checks(dev, gpu, timer),
             **fused_checks(dev, gpu, timer)}
+    for name, extra in bf16_checks(dev, gpu, timer).items():
+        rows[name] += extra
     reset_counts()
     rows.update(nlinear=nlinear_checks(dev, gpu, timer),
                 lora_matmul=lora_checks(dev, gpu, timer),
@@ -2813,11 +3310,15 @@ def main() -> int:
     pool_counts, http_counts = serving_phase(dev, gpu, cfg, state)
     spec_counts = speculative_phase(dev, gpu, cfg, state)
     del state
+    # the serving phases' objects hold device memory through reference
+    # cycles: collect them, or the training phases' peaks include them
+    gc.collect()
     torch.cuda.empty_cache()
     train_counts = {preset: train_phase(dev, gpu, preset)
                     for preset in TRAIN_PRESETS}
     stage1_counts = stage1_phase(dev, gpu)
     eval_counts = eval_from_disk_phase(dev, gpu)
+    p12_counts = bf16_remat_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
@@ -2868,7 +3369,8 @@ def main() -> int:
            for p in TRAIN_PRESETS},
         "stage1 train_18_30 (3 steps)": stage1_counts[name],
         **{f"eval from disk, {mode} (K=10)": eval_counts[mode][name]
-           for mode in ("fast", "parity")}}
+           for mode in ("fast", "parity")},
+        **{run: c[name] for run, c in p12_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:

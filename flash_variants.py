@@ -41,7 +41,8 @@ EDITS = {   # variant: (text in the source, its replacement)
                   "  (void)s; (void)src; (void)ok;"),
     "ring3": ("  static constexpr int NBUF = (SPLIT && QRES) ? 3 : 2;",
               "  static constexpr int NBUF = 3;"),
-    "wide_4x4": ("f(Kern<1024, 16, 2, PQ>{});", "f(Kern<1024, 8, 4, PQ>{});"),
+    "wide_4x4": ("f(Kern<1024, 16, 2, PQ, QT, KT>{});",
+                 "f(Kern<1024, 8, 4, PQ, QT, KT>{});"),
 }
 CHECKED = ("base", "ring3", "wide_4x4")   # variants that compute the function
 
@@ -51,9 +52,9 @@ def build(sources: dict, out_dir: Path) -> dict:
     from tsue_tpu_torch.ops._build import build_variants
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = build_variants(sources, out_dir, {
-        "flash_attn_splits": [i32] * 8,
+        "flash_attn_splits": [i32] * 9,
         "flash_attn_fwd": [ptr] * 8 + [i32] * 6 + [i32, ctypes.c_float,
-                                                  i32, i32, ptr]})
+                                                  i32, i32, i32, ptr]})
     return {name: lib for name, (lib, _) in libs.items()}
 
 

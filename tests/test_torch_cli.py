@@ -233,10 +233,6 @@ def test_http_unknown_path_is_404(http, method):
 
 
 @pytest.mark.parametrize("command,argv,error", [
-    ("train", ["--remat"], NotImplementedError),
-    ("train", ["--remat-policy", "dots"], NotImplementedError),
-    ("train", ["--viz-every", "1"], NotImplementedError),
-    ("test", ["--remat"], NotImplementedError),
     ("stage1", ["--pipeline-parallel", "2"], NotImplementedError),
     ("serve", ["--model-parallel", "2"], NotImplementedError),
     ("serve", ["--fsdp"], NotImplementedError),

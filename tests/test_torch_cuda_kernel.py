@@ -735,9 +735,9 @@ def test_lora_matmul_plan_picks_the_form_by_shape(dev):
 
 def test_lora_matmul_rejects_what_it_does_not_take(dev):
     x, w = torch.randn(8, 16, device=dev), torch.randn(16, 8, device=dev)
-    with pytest.raises(ValueError, match="r <="):
-        lora_matmul(x, w, torch.randn(16, 17, device=dev),
-                    torch.randn(17, 8, device=dev), 1.0)
+    with pytest.raises(ValueError, match="r > 0"):
+        lora_matmul(x, w, torch.randn(16, 0, device=dev),
+                    torch.randn(0, 8, device=dev), 1.0)
     with pytest.raises(TypeError):
         lora_matmul(x.double(), w.double(), torch.randn(16, 4, device=dev,
                                                         dtype=torch.float64),
@@ -959,7 +959,7 @@ def test_attention_kernels_take_per_query_masks(dev, B):
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         cache = KV.quantize_cache([(k, v)])[0]
         m = _window_mask(dev, g, B, W, S, P)
-        split_forms.add(_lib().flash_attn_splits(B, W, S, Hq, Hkv, D, 0, 1)
+        split_forms.add(_lib().flash_attn_splits(B, W, S, Hq, Hkv, D, 0, 1, 0)
                         > 1)
         for mask in (m, m[:, None]):
             before = flash_attention.launches
@@ -1023,3 +1023,174 @@ def test_int8_matmul_above_one_launch(dev):
         ref = Q.int8_matmul_ref(x, w8, s)
         torch.testing.assert_close(out, ref, rtol=1e-4,
                                    atol=1e-5 * float(ref.abs().max()))
+
+
+# --------------------------------------------------------------------------
+# bf16 forms (a model whose parameters are bf16) and LoRA above rank 16
+# --------------------------------------------------------------------------
+
+# The bf16 kernels round where their plain versions round, not always the
+# same value: flash rounds the unnormalised probabilities to bf16 (the plain
+# version the normalised ones), and a bf16 output can land on the other side
+# of a rounding boundary from a sum in another order.  Both are a few bf16
+# ulps (2^-8 relative): atol 2^-6, rtol 2^-7 against outputs of order 1.
+BF_TOL = dict(atol=2 ** -6, rtol=2 ** -7)
+BF = torch.bfloat16
+# (q dtype, k/v dtype): all bf16 (the Llama, the Q-Former's self-attention),
+# fp32 q over bf16 k/v (the LTSF cross-attention), bf16 q over fp32 k/v
+# (the Q-Former's cross-attention; the wrapper widens q)
+MIXED = {"bf16": (BF, BF), "f32_q": (torch.float32, BF),
+         "bf16_q": (BF, torch.float32)}
+
+
+@pytest.mark.parametrize("dtypes", list(MIXED))
+def test_kernel_bf16_matches_plain(dev, dtypes):
+    """Each dtype combination in the three forms of the kernel: tiled
+    (GQA 32/8 x 64, 200 rows, causal, with RoPE where the combination takes
+    it; D = 16, 32 and 96 of the small encoders), split-KV (one query over
+    592 keys; 18 queries of the LTSF cross-attention, D = 1024, over 600),
+    with padded and all-masked key rows: one launch, the output in q's
+    dtype, within BF_TOL of the plain version, a repeat bit-identical."""
+    qd, kd = MIXED[dtypes]
+    g = torch.Generator(device=dev).manual_seed(41)
+    shapes = [(2, 200, 200, 32, 8, 64, True, True),
+              (3, 70, 70, 8, 8, 16, False, False),
+              (3, 18, 18, 2, 2, 32, False, True),
+              (3, 33, 64, 8, 8, 96, False, False),
+              (3, 1, 592, 8, 2, 64, False, False),
+              (3, 18, 600, 2, 2, 1024, False, False)]
+    for (B, Tq, Tk, Hq, Hkv, D, causal, rope), masked in itertools.product(
+            shapes, ("pad", "empty_rows")):
+        rope = rope and dtypes != "bf16_q"
+        q, k, v, mask, cs = _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, masked,
+                                    rope)
+        q, k, v = q.to(qd), k.to(kd), v.to(kd)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, mask, causal, None, cs)
+        assert flash_attention.launches == before + 1
+        assert out.dtype == qd
+        ref = flash_attention_plain(q, k, v, mask, causal, None, cs)
+        again = flash_attention(q, k, v, mask, causal, None, cs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        torch.testing.assert_close(out.float(), ref.float(), **BF_TOL,
+                                   msg=lambda m: (
+            f"{dtypes} B={B} Tq={Tq} Tk={Tk} D={D} causal={causal} "
+            f"mask={masked} rope={rope}: {m}"))
+        assert torch.equal(out, again)
+
+
+def test_kernel_bf16_rejects_what_it_does_not_take(dev):
+    """A per-query mask is taken in fp32 only; a bf16 q over fp32 k/v
+    with RoPE has no exact widening; fp16 is not taken."""
+    q = torch.randn(2, 8, 4, 64, device=dev, dtype=BF)
+    with pytest.raises(ValueError, match="per-query mask"):
+        flash_attention(q, q, q, torch.ones(2, 8, 8, device=dev))
+    cs = (torch.ones(2, 8, 32, device=dev), torch.zeros(2, 8, 32, device=dev))
+    with pytest.raises(ValueError, match="without RoPE"):
+        flash_attention(q, q.float(), q.float(), rope=cs)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtypes", ["bf16_bf16", "bf16_f32", "f32_bf16"])
+def test_rmsnorm_bf16_matches_plain(dev, dtypes):
+    """bf16 x and/or bf16 scale (x's dtype out), rows of 2048 and 8192, a
+    zero row, large rows: one launch, within one bf16 ulp of the plain
+    version (rtol 2^-7), a repeat bit-identical."""
+    xd, sd = (BF if t == "bf16" else torch.float32
+              for t in dtypes.split("_"))
+    g = torch.Generator(device=dev).manual_seed(43)
+    for M, K in ((129, 2048), (8448, 2048), (256, 8192)):
+        x = torch.randn(M, K, generator=g, device=dev)
+        x[0] = 0.0
+        x[-1] *= 1e3
+        x = x.to(xd)
+        scale = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(sd)
+        before = FU.fused_rmsnorm.launches
+        out = FU.fused_rmsnorm(x, scale, 1e-5)
+        assert FU.fused_rmsnorm.launches == before + 1
+        assert out.dtype == xd
+        ref = FU.rmsnorm_plain(x, scale, 1e-5)
+        again = FU.fused_rmsnorm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
+                                   rtol=2 ** -7, msg=lambda m: (
+                                       f"{dtypes} M={M} K={K}: {m}"))
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("M", [128, 129, 8448])
+def test_swiglu_matmul_bf16_matches_plain(dev, M):
+    """The bf16 form: K = 128 and 8192, N = 128 and 2048, a row tail, the
+    gate up to +-60: one launch of the plan's form "bf16_mma", within
+    BF_TOL-like bounds of the plain version (rtol 2^-7, atol 2^-7 of the
+    largest output: sums in another order, one output rounding), a
+    repeat bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(M + 5)
+    for K, N in ((128, 128), (8192, 2048)):
+        gate = torch.randn(M, K, generator=g, device=dev) * 3
+        gate[:, :64] = torch.linspace(-60, 60, 64, device=dev)
+        gate = gate.to(BF)
+        up = torch.randn(M, K, generator=g, device=dev).to(BF)
+        w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(BF)
+        assert FU.swiglu_matmul_plan(M, K, N, BF)["form"] == "bf16_mma"
+        before = FU.swiglu_matmul.launches
+        out = FU.swiglu_matmul(gate, up, w)
+        assert FU.swiglu_matmul.launches == before + 1
+        assert out.dtype == BF
+        ref = FU.swiglu_matmul_plain(gate, up, w)
+        again = FU.swiglu_matmul(gate, up, w)
+        torch.cuda.synchronize()
+        big = float(ref.float().abs().max())
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * big,
+                                   msg=lambda m: f"M={M} K={K} N={N}: {m}")
+        assert torch.equal(out, again)
+
+
+def test_bf16_function_gradients_match_plain_autograd(dev):
+    """The flash, RMSNorm and SwiGLU Functions on bf16 tensors: the kernel
+    forward, the backward by recompute through the plain version, gradients
+    in the inputs' dtypes, equal to autograd through the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(47)
+
+    def randn(*shape, dtype=BF):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    q, k, v, mask, cs = _inputs(dev, g, 2, 40, 40, 8, 2, 64, "pad", True)
+    q, k, v = q.to(BF), k.to(BF), v.to(BF)
+    cot = randn(2, 40, 8, 64)
+    ours = _grads(lambda a, b, c: flash_attention(a, b, c, mask, True, None,
+                                                  cs), (q, k, v), cot)
+    ref = _grads(lambda a, b, c: flash_attention_plain(a, b, c, mask, True,
+                                                       None, cs),
+                 (q, k, v), cot)
+    for a, b in zip(ours, ref):
+        assert a.dtype == BF
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    x, s, cot = randn(256, 2048), 1.0 + 0.1 * randn(2048), randn(256, 2048)
+    ours = _grads(FU.fused_rmsnorm, (x, s), cot)
+    ref = _grads(lambda a, b: FU.rmsnorm_plain(a, b, 1e-5), (x, s), cot)
+    for a, b in zip(ours, ref):
+        assert a.dtype == BF
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    gate, up, w = randn(256, 1024), randn(256, 1024), randn(1024, 256) * 0.03
+    cot = randn(256, 256)
+    ours = _grads(FU.swiglu_matmul, (gate, up, w), cot)
+    ref = _grads(FU.swiglu_matmul_plain, (gate, up, w), cot)
+    for a, b in zip(ours, ref):
+        assert a.dtype == BF
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_above_rank_16(dev, dtype):
+    """Ranks 17, 24 and 64 (one, two and four walks of 16 ranks) on ragged
+    and stage-1 shapes: the SIMT form, one launch, within the tolerances
+    of ``test_lora_matmul_matches_plain_on_ragged_tiles``, a repeat
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    for (M, K, N), r in itertools.product(
+            ((129, 256, 132), (200, 37, 300), (8448, 2048, 512)),
+            (17, 24, 64)):
+        assert _lora_case(dev, g, M, K, N, r, dtype) == "simt"

@@ -328,30 +328,18 @@ def test_training_defaults_to_cuda():
         build_model_and_params(cfg, ByteTokenizer())
 
 
-@pytest.mark.parametrize("option", [
-    "viz_every", "save_viz", "remat", "bfloat16", "stage1_remat",
-    "stage1_bfloat16", "stage1_pipeline"])
+@pytest.mark.parametrize("option", ["stage1_pipeline"])
 def test_options_not_ported_yet_raise(option, tmp_path):
     """What the runners do not take yet raises NotImplementedError before
-    any work (``mllm_ckpt`` is taken since stage 1 landed, ``restore_ckpt``,
-    ``save_every`` and ``resume`` since checkpoints on disk did)."""
+    any work: stage 1's pipeline parallelism.  (Taken since: ``mllm_ckpt``
+    with stage 1; ``restore_ckpt``, ``save_every`` and ``resume`` with
+    checkpoints on disk; ``viz_every``, ``save_viz``, remat and bfloat16
+    with the rest of training, tested in ``test_torch_viz.py``,
+    ``test_torch_remat.py`` and ``test_torch_bf16.py``.)"""
     import dataclasses
-    from tsue_tpu_torch.config import ModelConfig, get_preset
-    from tsue_tpu_torch.runner import run_stage1, run_stage2
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.runner import run_stage1
     cfg = get_preset("train_18_30")
-    kw = {}
-    fn = run_stage1 if option.startswith("stage1") else run_stage2
-    what = option.replace("stage1_", "")
-    if what == "remat":
-        cfg = cfg.replace(model=dataclasses.replace(
-            cfg.model, llama=dataclasses.replace(cfg.model.llama,
-                                                 remat=True)))
-    elif what == "bfloat16":
-        cfg = cfg.replace(model=ModelConfig(dtype="bfloat16"))
-    elif what == "pipeline":
-        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
-                                                   pipeline_parallel=2))
-    else:
-        kw[what] = True
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pipeline_parallel=2))
     with pytest.raises(NotImplementedError):
-        fn(cfg, out_dir=str(tmp_path), epochs=0, device="cpu", **kw)
+        run_stage1(cfg, out_dir=str(tmp_path), epochs=0, device="cpu")

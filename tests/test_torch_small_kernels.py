@@ -170,8 +170,9 @@ def test_ade_fde_reads_the_stat_as_xmin_xmax_ymin_ymax():
 def test_lora_plan_picks_the_form_by_shape(monkeypatch):
     """The kernel's form follows TMA's terms: rows of x and W a multiple of
     16 bytes and aligned bases take the dtype's tensor-core form, any other
-    shape the SIMT form; an unknown dtype or a rank past 16 raises.  (With
-    no CUDA device, as set here, a tensor-core plan counts one CTA a tile.)"""
+    shape the SIMT form, and so does a rank past 16, which only the SIMT
+    form takes; an unknown dtype or a rank below 1 raises.  (With no CUDA
+    device, as set here, a tensor-core plan counts one CTA a tile.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan = lora_matmul_plan(8448, 2048, 2048, 8, torch.bfloat16)
     assert plan == dict(form="wgmma_bf16", tile_m=128, tile_n=256, k_step=64,
@@ -190,8 +191,14 @@ def test_lora_plan_picks_the_form_by_shape(monkeypatch):
                             aligned=False)["form"] == "simt"
     with pytest.raises(TypeError):
         lora_matmul_plan(64, 64, 256, 4, torch.float16)
-    with pytest.raises(ValueError, match="r <="):
-        lora_matmul_plan(64, 64, 256, 17, torch.float32)
+    for r in (17, 24, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert lora_matmul_plan(8448, 2048, 2048, r, dtype) == dict(
+                form="simt", tile_m=128, tile_n=128, k_step=8, stages=2,
+                threads=256, tiles=1056, ctas=1056)
+    assert lora_matmul_plan(64, 64, 256, 16, torch.float32)["form"] == "tf32x3"
+    with pytest.raises(ValueError, match="r > 0"):
+        lora_matmul_plan(64, 64, 256, 0, torch.float32)
     with pytest.raises(ValueError):
         lora_matmul_plan(0, 64, 256, 4, torch.float32)
 

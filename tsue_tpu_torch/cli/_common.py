@@ -19,9 +19,6 @@ NOT_PORTED = (   # (flag, its dest, whether a value asks for the work, item)
     ("--fsdp", "fsdp", bool, "parallel"),
     ("--pipeline-parallel", "pipeline_parallel", lambda v: v > 1,
      "parallel"),
-    ("--remat", "remat", bool, "the rest of training"),
-    ("--remat-policy", "remat_policy", bool, "the rest of training"),
-    ("--viz-every", "viz_every", lambda v: v > 0, "the rest of training"),
 )
 
 
@@ -47,12 +44,13 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="compute the LM loss in sequence chunks of this "
                         "size (no (B, T, V) logits; same numerics)")
     p.add_argument("--remat", action="store_true",
-                   help="per-layer Llama rematerialization (not ported "
-                        "yet: raises)")
+                   help="per-layer Llama rematerialization (activation "
+                        "memory for a recompute in the backward)")
     p.add_argument("--remat-policy", default=None,
                    choices=("full", "dots", "dots_no_batch"),
-                   help="checkpoint policy under remat (implies --remat; "
-                        "not ported yet: raises)")
+                   help="checkpoint policy under remat (implies --remat): "
+                        "full recomputes the layer, dots saves every "
+                        "matrix product, dots_no_batch the 2-D ones")
     p.add_argument("--length-buckets", default=None,
                    help="comma-separated static text-length buckets (e.g. "
                         "256,384,512, the preset default); 'none' disables "

@@ -14,8 +14,8 @@ def main(argv=None) -> dict:
                         "--export)")
     p.add_argument("--viz-every", type=int, default=0,
                    help="every N epochs: one val-sample plot and one "
-                        "generated context paragraph (not ported yet: "
-                        "raises when > 0)")
+                        "generated context paragraph (matplotlib for the "
+                        "plot)")
     p.add_argument("--save-every", type=int, default=0,
                    help="checkpoint the full train state every N epochs "
                         "(enables --resume)")

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), fp32, GQA-native, optional RoPE.
+// Flash-attention forward for Hopper (sm_90a), fp32 or bf16, GQA-native,
+// optional RoPE.
 //
 // Replaces three Pallas TPU bodies of tsue_tpu/ops/flash.py:
 //   - _gqa_rope_kernel (:103)  Llama self-attention, RoPE applied in the kernel
@@ -23,6 +24,20 @@
 // P.V / max(sum P, 1e-30).  RoPE is
 // rotate-half in fp32 on q and k (self-attention, D <= 128).  Activations
 // are fp32 and products are fp32 FMAs on the CUDA cores (no TF32).
+//
+// bf16 (a model whose parameters are bf16): Q, K and V all bf16, or
+// fp32 Q over bf16 K and V (the template parameters QT, KT; the wrapper
+// widens a bf16 Q over fp32 K and V, which is exact).  It computes the
+// Pallas function of those dtypes: the operands are widened to fp32 as
+// they are staged, QK^T and the softmax stay fp32, the roped q and k are
+// rounded to their own dtype (_rope_2d's astype), P is rounded to V's dtype
+// before P V (p.astype(v.dtype)), the sums are fp32 and the output takes
+// Q's dtype.  The Pallas kernel rounds the normalised P, this kernel the
+// unnormalised one (online softmax): the same rounding error, not the same
+// bits.  bf16 operands are loaded, widened and stored to the fp32 stages
+// by the copying thread (8-byte loads) instead of by cp.async; the ring and
+// its barriers are the fp32 kernel's.  fp32 calls compile to the kernels
+// they were (QT = KT = float).
 //
 // What bounds it on an H100 (67 TFLOP/s fp32, 3.35 TB/s):
 //   - Llama self-attention (B 16, T 528, 32/8 heads of 64, causal, key
@@ -113,10 +128,12 @@
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/flash.py):
 //   flash_attn_splits(...) is the number of key splits a call will use (the
 //   caller allocates a scratch of splits * B*Tq*Hq * (D + 2) floats when it
-//   is above 1; pq: the call passes a per-query mask); flash_attn_fwd(...)
-//   returns cudaGetLastError() after the launches, or -1 for what it does
-//   not take.
+//   is above 1; pq: the call passes a per-query mask; dt: the Dtypes code,
+//   0 fp32, 1 bf16, 2 fp32 Q over bf16 K and V; a per-query mask takes 0
+//   only); flash_attn_fwd(...) returns cudaGetLastError() after the
+//   launches, or -1 for what it does not take.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -165,13 +182,13 @@ struct Cfg {
 };
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;       // QT
+  const void* k;       // KT
+  const void* v;       // KT
   const int* mask;     // (B, Tk), (B, Tq, Tk) or nullptr
   const float* cos;    // (B, T, D/2) or nullptr
   const float* sin;
-  float* out;
+  void* out;           // QT
   float* part;         // splits > 1: (splits, NI, D) acc then (splits, NI, 2)
   int B, Tq, Tk, Hq, Hkv, causal, splits, tps;   // tps: tiles per split
   int mq;              // the mask's query stride: 0 (key mask) or Tk
@@ -203,6 +220,46 @@ __device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
 }
+
+// bf16 operands: four elements (8 bytes) widened to fp32 on the way in.
+using bf16 = __nv_bfloat16;
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// Four elements of a Q, K or V row into the fp32 stage: an async copy for
+// fp32, a load, widening and store for bf16 (visible to the block after the
+// ring's barrier, as the async copies are after their wait).
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  cp16(dst, src, ok);
+}
+__device__ __forceinline__ void cp4(float* dst, const bf16* src, bool ok) {
+  st4(dst, ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f));
+}
+// a value of the operand type T, as fp32: RoPE's output is rounded to its
+// operand's dtype (tsue_tpu/ops/flash.py:_rope_2d), P to V's before P V
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(x));
+  return x;
+}
+template <typename T>
+__device__ __forceinline__ float4 rnd4(float4 x) {
+  return make_float4(rnd<T>(x.x), rnd<T>(x.y), rnd<T>(x.z), rnd<T>(x.w));
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put4(float* p, float4 v) { st4(p, v); }
+__device__ __forceinline__ void put4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -214,7 +271,9 @@ __device__ __forceinline__ void cp_wait() {
 // PQ: the mask is per query (mq == Tk).  A template parameter, so that the
 // key-mask kernels compile to what they were before per-query masks existed
 // (a runtime flag raised the tiled D = 64 kernel's spills and cost it ~10%).
-template <int D, int TY, int RPT, bool PQ>
+// QT, KT: the element types of Q (and of the output) and of K and V, float
+// or bf16; the stages, the sums and the softmax are fp32 in every case.
+template <int D, int TY, int RPT, bool PQ, typename QT, typename KT>
 __global__ void __launch_bounds__(Cfg<D, TY, RPT>::NT, Cfg<D, TY, RPT>::MINB)
 attn_kernel(const Args a) {
   using C = Cfg<D, TY, RPT>;
@@ -239,9 +298,12 @@ attn_kernel(const Args a) {
   const bool busy = i0 + (tid / 32) * 2 * RPT < items;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
+  const QT* aq = static_cast<const QT*>(a.q);
+  const KT* ak = static_cast<const KT*>(a.k);
+  const KT* av = static_cast<const KT*>(a.v);
   auto qrow = [&](int it) {            // q row of item it (it < items)
     const int row = it / G, hq = hkv * G + it % G;
-    return a.q + (((size_t)b * a.Tq + row) * a.Hq + hq) * D;
+    return aq + (((size_t)b * a.Tq + row) * a.Hq + hq) * D;
   };
 
   if constexpr (C::QRES) {             // Q block, roped once as it loads
@@ -251,12 +313,12 @@ attn_kernel(const Args a) {
         const int r = e / H4, d = (e % H4) * 4, it = i0 + r;
         float4 lo = zero, hi = zero;
         if (it < items) {
-          const float* qr = qrow(it);
+          const QT* qr = qrow(it);
           const size_t cr = ((size_t)b * a.Tq + it / G) * half + d;
           const float4 x1 = ld4(qr + d), x2 = ld4(qr + half + d);
           const float4 c = ld4(a.cos + cr), s = ld4(a.sin + cr);
-          lo = rot_lo(x1, x2, c, s);
-          hi = rot_hi(x1, x2, c, s);
+          lo = rnd4<QT>(rot_lo(x1, x2, c, s));
+          hi = rnd4<QT>(rot_hi(x1, x2, c, s));
         }
         st4(qs + r * P + d, lo);
         st4(qs + r * P + half + d, hi);
@@ -270,7 +332,7 @@ attn_kernel(const Args a) {
     constexpr int C4 = D / 4;
     for (int e = tid; e < C::BM * C4; e += C::NT) {
       const int r = e / C4, d = (e % C4) * 4, it = i0 + r;
-      cp16(qs + r * P + d, qrow(it < items ? it : 0) + d, it < items);
+      cp4(qs + r * P + d, qrow(it < items ? it : 0) + d, it < items);
     }
   };
 
@@ -288,9 +350,9 @@ attn_kernel(const Args a) {
           const int j = e / H4, d = (e % H4) * 4;
           const bool ok = c0 + j < a.Tk;
           const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
-          const float* kr = a.k + (key * a.Hkv + hkv) * D;
-          cp16(dst + j * P + d, kr + d, ok);
-          cp16(dst + j * P + half + d, kr + half + d, ok);
+          const KT* kr = ak + (key * a.Hkv + hkv) * D;
+          cp4(dst + j * P + d, kr + d, ok);
+          cp4(dst + j * P + half + d, kr + half + d, ok);
           cp16(cb + j * half + d, a.cos + key * half + d, ok);
           cp16(cb + BN * half + j * half + d, a.sin + key * half + d, ok);
         }
@@ -299,14 +361,14 @@ attn_kernel(const Args a) {
           const int j = e / C4, d = (e % C4) * 4;
           const bool ok = c0 + j < a.Tk;
           const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
-          cp16(dst + j * P + d, a.k + (key * a.Hkv + hkv) * D + s * DS + d, ok);
+          cp4(dst + j * P + d, ak + (key * a.Hkv + hkv) * D + s * DS + d, ok);
         }
         if (!C::QRES) {
           float* qd = dst + C::K_F;
           for (int e = tid; e < C::BM * C4; e += C::NT) {
             const int r = e / C4, d = (e % C4) * 4, it = i0 + r;
             const bool ok = it < items;
-            cp16(qd + r * P + d, qrow(ok ? it : 0) + s * DS + d, ok);
+            cp4(qd + r * P + d, qrow(ok ? it : 0) + s * DS + d, ok);
           }
         }
       }
@@ -316,7 +378,7 @@ attn_kernel(const Args a) {
         const int j = e / C4, d = (e % C4) * 4;
         const bool ok = c0 + j < a.Tk;
         const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
-        cp16(dst + j * DS + d, a.v + (key * a.Hkv + hkv) * D + sl * DS + d, ok);
+        cp4(dst + j * DS + d, av + (key * a.Hkv + hkv) * D + sl * DS + d, ok);
       }
     }
     cp_commit();
@@ -333,8 +395,8 @@ attn_kernel(const Args a) {
         const float4 x1 = sm4(kb + j * P + d), x2 = sm4(kb + j * P + half + d);
         const float4 c = sm4(cb + j * half + d);
         const float4 s = sm4(cb + BN * half + j * half + d);
-        st4(kb + j * P + d, rot_lo(x1, x2, c, s));
-        st4(kb + j * P + half + d, rot_hi(x1, x2, c, s));
+        st4(kb + j * P + d, rnd4<KT>(rot_lo(x1, x2, c, s)));
+        st4(kb + j * P + half + d, rnd4<KT>(rot_hi(x1, x2, c, s)));
       }
     }
   };
@@ -360,27 +422,25 @@ attn_kernel(const Args a) {
       const int it = i0 + ty * RPT + i;
       if (it >= items) continue;
       const size_t flat = ((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G;
-      float* dst;
-      float f = 1.f;
-      if (a.splits == 1) {
-        dst = a.out + flat * D;
-        f = 1.f / fmaxf(l[i], 1e-30f);
-      } else {
-        dst = a.part + ((size_t)split * NI + flat) * D;
-      }
+      auto store = [&](auto* dst, float f) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const int col = h * 64 + tx * VEC;
-        if (col >= DS) continue;
-        float* dp = dst + sl * DS + col;
-        if constexpr (VEC == 4) {
-          st4(dp, make_float4(o[i][h][0] * f, o[i][h][1] * f,
-                              o[i][h][2] * f, o[i][h][3] * f));
-        } else {
+        for (int h = 0; h < NH; ++h) {
+          const int col = h * 64 + tx * VEC;
+          if (col >= DS) continue;
+          auto* dp = dst + sl * DS + col;
+          if constexpr (VEC == 4) {
+            put4(dp, make_float4(o[i][h][0] * f, o[i][h][1] * f,
+                                 o[i][h][2] * f, o[i][h][3] * f));
+          } else {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) dp[e] = o[i][h][e] * f;
+            for (int e = 0; e < VEC; ++e) put(dp + e, o[i][h][e] * f);
+          }
         }
-      }
+      };
+      if (a.splits == 1)
+        store(static_cast<QT*>(a.out) + flat * D, 1.f / fmaxf(l[i], 1e-30f));
+      else
+        store(a.part + ((size_t)split * NI + flat) * D, 1.f);
     }
   };
 
@@ -467,10 +527,10 @@ attn_kernel(const Args a) {
     for (int j = 0; j < KPT; ++j) {
       float* pr = ps + (tx + 16 * j) * C::PS + ty * RPT;
       if constexpr (RPT == 4) {
-        st4(pr, make_float4(p[0][j], p[1][j], p[2][j], p[3][j]));
+        st4(pr, rnd4<KT>(make_float4(p[0][j], p[1][j], p[2][j], p[3][j])));
       } else {
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) pr[i] = p[i][j];
+        for (int i = 0; i < RPT; ++i) pr[i] = rnd<KT>(p[i][j]);
       }
     }
   };
@@ -591,8 +651,9 @@ attn_kernel(const Args a) {
 
 // Merge of the splits' partials, in split order: out = sum_s w_s acc_s /
 // max(sum_s w_s l_s, 1e-30) with w_s = exp(m_s - max_s m_s).
+template <typename OT>
 __global__ void merge_kernel(const float* __restrict__ part,
-                             float* __restrict__ out, size_t NI, int D,
+                             OT* __restrict__ out, size_t NI, int D,
                              int splits) {
   const int D4 = D / 4;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -615,11 +676,11 @@ __global__ void merge_kernel(const float* __restrict__ part,
     acc.w = fmaf(x.w, w, acc.w);
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  st4(out + item * D + d, make_float4(acc.x * inv, acc.y * inv, acc.z * inv,
-                                      acc.w * inv));
+  put4(out + item * D + d, make_float4(acc.x * inv, acc.y * inv, acc.z * inv,
+                                       acc.w * inv));
 }
 
-template <int D, int TY, int RPT, bool PQ>
+template <int D, int TY, int RPT, bool PQ, typename QT, typename KT>
 struct Kern {
   using C = Cfg<D, TY, RPT>;
   static constexpr int BM = C::BM;
@@ -627,13 +688,13 @@ struct Kern {
   static int per_sm() {
     static int n = -1;
     if (n < 0) {
-      if (cudaFuncSetAttribute(attn_kernel<D, TY, RPT, PQ>,
+      if (cudaFuncSetAttribute(attn_kernel<D, TY, RPT, PQ, QT, KT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::smem(true)) != cudaSuccess)
         return 0;
       int k = 0;
       if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &k, attn_kernel<D, TY, RPT, PQ>, C::NT, C::smem(false)) !=
+              &k, attn_kernel<D, TY, RPT, PQ, QT, KT>, C::NT, C::smem(false)) !=
           cudaSuccess)
         return 0;
       n = k;
@@ -641,7 +702,7 @@ struct Kern {
     return n;
   }
   static void launch(const Args& a, dim3 grid, bool rope, cudaStream_t st) {
-    attn_kernel<D, TY, RPT, PQ><<<grid, C::NT, C::smem(rope), st>>>(a);
+    attn_kernel<D, TY, RPT, PQ, QT, KT><<<grid, C::NT, C::smem(rope), st>>>(a);
   }
 };
 
@@ -649,20 +710,25 @@ struct Plan {
   int kind, bm, nib, splits, tps, per_sm;
 };
 
-// Calls f(Kern<...>{}) for the kernel of (kind, D, PQ); false for a D it
-// lacks.
-template <bool PQ, typename F>
+// The operands' dtypes: fp32 Q, K and V; bf16 Q, K and V; fp32 Q over bf16
+// K and V (the LTSF cross-attention of a bf16 model).  The wrapper widens a
+// bf16 Q over fp32 K and V to fp32 (exact), so no kernel takes that one.
+enum Dtypes { kF32 = 0, kBf16 = 1, kF32Bf16 = 2 };
+
+// Calls f(Kern<...>{}) for the kernel of (kind, D, PQ, dtypes); false for a
+// D it lacks.
+template <bool PQ, typename QT, typename KT, typename F>
 bool dispatch_pq(int kind, int D, F&& f) {
   if (kind == kWide) {
     if (D != 1024) return false;
-    f(Kern<1024, 16, 2, PQ>{});
+    f(Kern<1024, 16, 2, PQ, QT, KT>{});
     return true;
   }
   switch (D) {
 #define FLASH_CASE(DD)                                               \
     case DD:                                                         \
-      if (kind == kTiled) f(Kern<DD, 16, 4, PQ>{});                  \
-      else f(Kern<DD, 16, 1, PQ>{});                                 \
+      if (kind == kTiled) f(Kern<DD, 16, 4, PQ, QT, KT>{});          \
+      else f(Kern<DD, 16, 1, PQ, QT, KT>{});                         \
       return true;
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(96) FLASH_CASE(128)
 #undef FLASH_CASE
@@ -670,9 +736,17 @@ bool dispatch_pq(int kind, int D, F&& f) {
   }
 }
 
+// a per-query mask is taken in fp32 only (the speculative window over the
+// fp32 decode cache)
 template <typename F>
-bool dispatch(int kind, int D, bool pq, F&& f) {
-  return pq ? dispatch_pq<true>(kind, D, f) : dispatch_pq<false>(kind, D, f);
+bool dispatch(int kind, int D, bool pq, int dt, F&& f) {
+  if (dt == kF32)
+    return pq ? dispatch_pq<true, float, float>(kind, D, f)
+              : dispatch_pq<false, float, float>(kind, D, f);
+  if (pq) return false;
+  if (dt == kBf16) return dispatch_pq<false, bf16, bf16>(kind, D, f);
+  if (dt == kF32Bf16) return dispatch_pq<false, float, bf16>(kind, D, f);
+  return false;
 }
 
 int sm_count() {
@@ -690,14 +764,14 @@ int sm_count() {
 // The form and the key splits of a call: -1 for what the kernel does not
 // take, -2 when CUDA refused the kernel's set-up.
 int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
-              bool pq, Plan* p) {
+              bool pq, int dt, Plan* p) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || Hq % Hkv) return -1;
   if (rope && (D > 128 || Tq != Tk)) return -1;
   const int G = Hq / Hkv;
   const long items = (long)Tq * G;
   const int ntiles = (Tk + BN - 1) / BN;
   p->kind = D > 128 ? kWide : (!rope && items <= 16 ? kSmall : kTiled);
-  bool known = dispatch(p->kind, D, pq, [&](auto k) {
+  bool known = dispatch(p->kind, D, pq, dt, [&](auto k) {
     p->bm = decltype(k)::BM;
     p->per_sm = decltype(k)::per_sm();
   });
@@ -723,35 +797,40 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
 }  // namespace
 
 extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
-                                 int D, int rope, int pq) {
+                                 int D, int rope, int pq, int dt) {
   Plan p;
-  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, &p);
+  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
   return err != 0 ? err : p.splits;
 }
 
-extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const int* mask, const float* cos,
-                              const float* sin, float* out, float* part,
+                              const float* sin, void* out, float* part,
                               int B, int Tq, int Tk, int Hq, int Hkv, int D,
                               int causal, float scale, int splits, int mq,
-                              void* stream) {
+                              int dt, void* stream) {
   Plan p;
   const bool rope = cos != nullptr;
   if (mq != 0 && mq != Tk) return -1;
   const bool pq = mask != nullptr && mq != 0;
-  if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, pq, &p) != 0) return -1;
+  if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, pq, dt, &p) != 0) return -1;
   if (p.splits != splits || (splits > 1 && part == nullptr)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, mask, cos, sin, out, part, B, Tq, Tk, Hq, Hkv,
                causal, p.splits, p.tps, mq, scale};
   const dim3 grid(B * Hkv, p.nib, p.splits);
-  dispatch(p.kind, D, pq,
+  dispatch(p.kind, D, pq, dt,
            [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const size_t NI = (size_t)B * Tq * Hq;
   const size_t n = NI * (D / 4);
-  merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, out, NI, D,
-                                                           p.splits);
+  const unsigned nb = (unsigned)((n + 255) / 256);
+  if (dt == kBf16)
+    merge_kernel<<<nb, 256, 0, s>>>(part, static_cast<bf16*>(out), NI, D,
+                                    p.splits);
+  else
+    merge_kernel<<<nb, 256, 0, s>>>(part, static_cast<float*>(out), NI, D,
+                                    p.splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernel tsue_tpu/ops/lora.py:32 (_lora_kernel,
 // launched by lora_matmul at :49).  x (M, K), W (K, N), A (K, r), B (r, N)
-// and out (M, N), all fp32 or all bf16, 0 < r <= 16; every product sums in
+// and out (M, N), all fp32 or all bf16, any r >= 1; every product sums in
 // fp32, and round() takes xA to x's dtype before the second product, as the
 // Pallas kernel does (lora.py:36; the identity in fp32).  The output is the
 // sum plus scale * delta, rounded to x's dtype.  K is walked in one fixed
@@ -53,6 +53,12 @@
 //     fp32 FMA sums; each step also stages A's rows and adds the step's
 //     terms of the tile's xA from the x tile in shared memory; the epilogue
 //     rounds xA and adds scale * xA @ B.  M, N and K tails are predicated.
+//     It takes any rank: the ranks go in blocks of 16, the first with the
+//     x @ W walk, each further one in one more walk over x and A alone (W
+//     is not read again); the tile's sums stay in registers throughout and
+//     gain scale * round(xA_block) @ B_block after each walk, so a call of
+//     rank 16 or less computes what it did.  Ranks above 16 take this form
+//     (lora_matmul_plan); the tensor-core forms take 16 or less.
 //
 // In the tensor-core forms, M, N and K tails are TMA's zero fill (reads past
 // the tensor arrive as zeros) and masked stores.  xA is recomputed by each of
@@ -63,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -115,9 +123,9 @@ lora_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    float scale) {
   __shared__ __align__(16) float As[2][BK][kLdA];   // x tile, transposed
   __shared__ __align__(16) float Bs[2][BK][BN];     // W tile
-  __shared__ float Ls[2][BK][kMaxR];                // A[k0:k0+8, :r]
+  __shared__ float Ls[2][BK][kMaxR];                // A[k0:k0+8, j0:j0+rb]
   __shared__ float XA[BM][kMaxR + 1];               // round(x @ A) of the tile
-  __shared__ float Rs[kMaxR][BN];                   // B[:r, n0:n0+128]
+  __shared__ float Rs[kMaxR][BN];                   // B[j0:j0+rb, n0:n0+128]
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -130,10 +138,12 @@ lora_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int b_k = tid >> 5, b_n = (tid & 31) * 4;
   const int n_rem = N - (n0 + b_n);
   const T* wp = w + (size_t)b_k * N + (n_rem > 0 ? n0 + b_n : 0);
-  // A loads: thread tid < 8 * r takes A[k0 + tid / r, tid % r]
-  const bool l_ok = tid < BK * r;
-  const int l_k = l_ok ? tid / r : 0, l_j = l_ok ? tid - l_k * r : 0;
-  // xA sums: row tid % 128 of the tile, ranks tid / 128 + 2q (q < r / 2)
+  // the ranks go in blocks of kMaxR: ranks j0 .. j0 + rb - 1
+  int j0 = 0, rb = r < kMaxR ? r : kMaxR;
+  // A loads: thread tid < 8 * rb takes A[k0 + tid / rb, j0 + tid % rb]
+  bool l_ok = false;
+  int l_k = 0, l_j = 0;
+  // xA sums: row tid % 128 of the tile, ranks j0 + tid / 128 + 2q
   const int xa_row = tid & (BM - 1), xa_j0 = tid >> 7;
 
   float acc[8][8];
@@ -143,90 +153,123 @@ lora_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
   float xacc[kMaxR / 2];
-#pragma unroll
-  for (int q = 0; q < kMaxR / 2; ++q) xacc[q] = 0.f;
 
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 xv = zero, wv = zero;
   float lv = 0.f;
-  auto load = [&](int k0) {
-    xv = a_ok ? load4<T, kVec>(xp + k0, K - k0 - a_k) : zero;
-    wv = (k0 + b_k < K && n_rem > 0)
-             ? load4<T, kVec>(wp + (size_t)k0 * N, n_rem) : zero;
-    lv = (l_ok && k0 + l_k < K) ? to_f(a[(size_t)(k0 + l_k) * r + l_j]) : 0.f;
-  };
-  auto store = [&](int buf) {
-    As[buf][a_k + 0][a_row] = xv.x;
-    As[buf][a_k + 1][a_row] = xv.y;
-    As[buf][a_k + 2][a_row] = xv.z;
-    As[buf][a_k + 3][a_row] = xv.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = wv;
-    if (l_ok) Ls[buf][l_k][l_j] = lv;
-  };
 
-  load(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load(k0 + BK);
+  // One walk over K: the rank block's xA sums and, on the first walk
+  // (kW), the x @ W sums; later walks read x and A only.
+  auto walk = [&](auto with_w) {
+    constexpr bool kW = decltype(with_w)::value;
+    l_ok = tid < BK * rb;
+    l_k = l_ok ? tid / rb : 0;
+    l_j = l_ok ? tid - l_k * rb : 0;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int q = 0; q < kMaxR / 2; ++q) xacc[q] = 0.f;
+    auto load = [&](int k0) {
+      xv = a_ok ? load4<T, kVec>(xp + k0, K - k0 - a_k) : zero;
+      if constexpr (kW)
+        wv = (k0 + b_k < K && n_rem > 0)
+                 ? load4<T, kVec>(wp + (size_t)k0 * N, n_rem) : zero;
+      lv = (l_ok && k0 + l_k < K)
+               ? to_f(a[(size_t)(k0 + l_k) * r + j0 + l_j]) : 0.f;
+    };
+    auto store = [&](int buf) {
+      As[buf][a_k + 0][a_row] = xv.x;
+      As[buf][a_k + 1][a_row] = xv.y;
+      As[buf][a_k + 2][a_row] = xv.z;
+      As[buf][a_k + 3][a_row] = xv.w;
+      if constexpr (kW)
+        *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = wv;
+      if (l_ok) Ls[buf][l_k][l_j] = lv;
+    };
+
+    load(0);
+    store(0);
+    __syncthreads();
+    int buf = 0;
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      const bool more = k0 + BK < K;
+      if (more) load(k0 + BK);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int kk = 0; kk < BK; ++kk) {
+        if constexpr (kW) {
+          const float4 a0 =
+              *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+          const float4 b0 =
+              *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+          const float4 b1 =
+              *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int i = 0; i < 8; ++i) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+        }
+        const float xk = As[buf][kk][xa_row];
+#pragma unroll
+        for (int q = 0; q < kMaxR / 2; ++q) {
+          // the rank index is uniform across a warp: no divergence
+          if (xa_j0 + 2 * q < rb)
+            xacc[q] = fmaf(xk, Ls[buf][kk][xa_j0 + 2 * q], xacc[q]);
+        }
       }
-      const float xk = As[buf][kk][xa_row];
-#pragma unroll
-      for (int q = 0; q < kMaxR / 2; ++q) {
-        // the rank index is uniform across a warp: no divergence
-        if (xa_j0 + 2 * q < r)
-          xacc[q] = fmaf(xk, Ls[buf][kk][xa_j0 + 2 * q], xacc[q]);
+      if (more) {
+        // the other buffer was last read before the previous barrier
+        store(buf ^ 1);
+        __syncthreads();
+        buf ^= 1;
       }
     }
-    if (more) {
-      // the other buffer was last read before the previous barrier
-      store(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
-    }
-  }
 
-  // epilogue: xA rounded to x's dtype, B's columns of the tile
+    // the block's xA rounded to x's dtype, B's rows j0.. of the tile, and
+    // acc += scale * xA @ B
 #pragma unroll
-  for (int q = 0; q < kMaxR / 2; ++q) {
-    const int j = xa_j0 + 2 * q;
-    if (j < r) XA[xa_row][j] = to_f(from_f<T>(xacc[q]));
+    for (int q = 0; q < kMaxR / 2; ++q) {
+      const int j = xa_j0 + 2 * q;
+      if (j < rb) XA[xa_row][j] = to_f(from_f<T>(xacc[q]));
+    }
+    for (int i = tid; i < rb * BN; i += kThreads) {
+      const int q = i / BN, n = i - q * BN;
+      Rs[q][n] = n0 + n < N ? to_f(b[(size_t)(j0 + q) * N + n0 + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int mi = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ni = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+        float d = 0.f;
+        for (int q = 0; q < rb; ++q) d = fmaf(XA[mi][q], Rs[q][ni], d);
+        acc[i][j] = acc[i][j] + scale * d;
+      }
+    }
+    // As, Ls, XA and Rs are free for the next walk
+    __syncthreads();
+  };
+
+  walk(std::true_type{});
+  for (j0 = kMaxR; j0 < r; j0 += kMaxR) {
+    rb = r - j0 < kMaxR ? r - j0 : kMaxR;
+    walk(std::false_type{});
   }
-  for (int i = tid; i < r * BN; i += kThreads) {
-    const int q = i / BN, n = i - q * BN;
-    Rs[q][n] = n0 + n < N ? to_f(b[(size_t)q * N + n0 + n]) : 0.f;
-  }
-  __syncthreads();
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int mi = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
-    const int m = m0 + mi;
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int ni = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      const int n = n0 + ni;
+      const int n = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
       if (n >= N) continue;
-      float d = 0.f;
-      for (int q = 0; q < r; ++q) d = fmaf(XA[mi][q], Rs[q][ni], d);
-      out[(size_t)m * N + n] = from_f<T>(acc[i][j] + scale * d);
+      out[(size_t)m * N + n] = from_f<T>(acc[i][j]);
     }
   }
 }
@@ -1129,15 +1172,15 @@ int launch(const void* x, const void* w, const void* a, const void* b,
 extern "C" {
 
 // Returns a cudaError_t (0 on success), or cudaErrorInvalidValue for a rank
-// outside 1..16, an unknown dtype or form, or a shape or base the form does
-// not take.  x (M, K), w (K, N), a (K, r), b (r, N) and out (M, N),
+// below 1, a rank above 16 in a tensor-core form, an unknown dtype or form,
+// or a shape or base the form does not take.  x (M, K), w (K, N), a (K, r), b (r, N) and out (M, N),
 // contiguous, all fp32 (dtype 0) or all bf16 (dtype 1).  form 0 is the SIMT
 // form, form 1 the tensor-core form of the dtype (bf16 wgmma, fp32 3xTF32);
 // the caller picks it (lora_matmul_plan), and no form stands in for another.
 int lora_matmul(const void* x, const void* w, const void* a, const void* b,
                 void* out, int M, int K, int N, int r, float scale, int dtype,
                 int form, cudaStream_t stream) {
-  if (r < 1 || r > kMaxR) return (int)cudaErrorInvalidValue;
+  if (r < 1 || (form != 0 && r > kMaxR)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(x, w, a, b, out, M, K, N, r, scale, form, stream);
   if (dtype == 1)

@@ -53,8 +53,31 @@
 // launch (setmaxnreg: 40 producer, 232 consumer), no spills, 32 bytes of
 // static shared memory (the mbarriers) and 197,632 dynamic (the ring);
 // split_wt_kernel 18 registers, 4,224 bytes, no spills.
+//
+// The bf16 form ("bf16_mma", swiglu_matmul_bf16): g, u, W and out bf16, the
+// Pallas kernel's function in those dtypes (fused.py:176-191): silu in fp32
+// rounded to bf16, times u rounded to bf16 (h), then h @ W on the bf16
+// tensor cores with fp32 sums, the output rounded to bf16.  A simple
+// kernel: one CTA of 256 threads (8 warps, 2 x 4) a 128 x 256 output tile,
+// K in steps of 32 through two shared-memory buffers (54 KB), the next
+// step's g, u and W loaded into registers while the tensor cores run the
+// current one.  The loading threads form h (16 elements each, two at a
+// time) and store it row-major, an A fragment register one 32-bit load
+// (rows padded to 40 elements: no bank conflicts); W's tile is stored as
+// it lies, K-major rows of 256 columns padded to 264 (16-byte stores,
+// conflict-free), and ldmatrix.trans turns it into B fragments, two n8
+// tiles a call.  Each warp owns 64 x 64 outputs: 4 x 8 m16n8 tiles, 128
+// fp32 sums a thread.  h is formed once per 256 output columns, 8 times
+// over at N = 2048.  A first design with 128 x 128 tiles formed it twice
+// as often, with an IEEE division, and stored W transposed through 16-way
+// bank conflicts; on an H100 80GB HBM3 at 700 W it took 3.82 ms at the
+// training shape, and 2.44 ms with the conflicts gone: the activation's
+// instructions outnumbered the mma's.  K is walked in one fixed order: a repeated call is
+// bit-identical.  M and N tails load zeros and are masked at the store; K %
+// 32 == 0, N % 8 == 0, 16-byte aligned bases.
 // Plain C interface, loaded with ctypes by tsue_tpu_torch/ops/fused.py.
 #include <cuda.h>            // CUtensorMap and its enums (no driver link)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -418,6 +441,160 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int K,
 // CTAs the card holds at once (asked once, with the kernel's shared memory
 // set up), or 0 on an error: the persistent grid is that many, or one a
 // tile where there are fewer tiles.
+int resident_ctas();
+
+// ---- the bf16 form ---------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+constexpr int kBM = 128, kBN = 256, kBK = 32;   // CTA tile, K a step
+constexpr int kBThreads = 256;                   // 8 warps, 2 x 4
+constexpr int kLd = kBK + 8;                     // padded h row (elements)
+constexpr int kLdW = kBN + 8;                    // padded W row (elements)
+constexpr int kHBuf = kBM * kLd, kWBuf = kBK * kLdW;   // elements a buffer
+constexpr int kBSmem = 2 * (kHBuf + kWBuf) * 2;        // bytes, two buffers
+static_assert(kLd % 8 == 0 && kLdW % 8 == 0 && kHBuf % 8 == 0,
+              "16-byte stores and ldmatrix rows need 16-byte aligned rows");
+
+// silu(g) in fp32 (the hardware exp and reciprocal: the value is rounded
+// to bf16 next, which their 2-ulp fp32 error almost never moves), rounded
+// to bf16, times u in bf16 (one rounding of the exact product)
+__device__ __forceinline__ uint32_t swiglu2(uint32_t g2, uint32_t u2) {
+  const float2 g = __bfloat1622float2(*reinterpret_cast<const bf162*>(&g2));
+  const bf162 s = __floats2bfloat162_rn(__fdividef(g.x, 1.0f + __expf(-g.x)),
+                                        __fdividef(g.y, 1.0f + __expf(-g.y)));
+  const bf162 h = __hmul2(s, *reinterpret_cast<const bf162*>(&u2));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__global__ void __launch_bounds__(kBThreads, 1)
+swiglu_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u,
+                   const bf16* __restrict__ w, bf16* __restrict__ out, int M,
+                   int K, int N) {
+  extern __shared__ __align__(16) bf16 sm[];
+  bf16* hs = sm;                    // [2][kBM][kLd]: h, row-major [m][k]
+  bf16* ws = sm + 2 * kHBuf;        // [2][kBK][kLdW]: W, row-major [k][n]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 64;
+
+  // loads of a step: g and u rows tid / 4 and + 64 (8 elements at
+  // (tid % 4) * 8), W rows tid / 32 + 8 i (8 columns at (tid % 32) * 8)
+  const int ar = tid >> 2, ak = (tid & 3) * 8;
+  const int bk = tid >> 5, bn = (tid & 31) * 8;
+  uint4 rg[2], ru[2], rw[4];
+  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + ar + 64 * i;
+      const size_t at = (size_t)m * K + k0 + ak;
+      rg[i] = m < M ? *reinterpret_cast<const uint4*>(g + at) : z4;
+      ru[i] = m < M ? *reinterpret_cast<const uint4*>(u + at) : z4;
+    }
+    const int n = n0 + bn;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rw[i] = n < N ? *reinterpret_cast<const uint4*>(
+                          w + (size_t)(k0 + bk + 8 * i) * N + n)
+                    : z4;
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint4 h;
+      h.x = swiglu2(rg[i].x, ru[i].x);
+      h.y = swiglu2(rg[i].y, ru[i].y);
+      h.z = swiglu2(rg[i].z, ru[i].z);
+      h.w = swiglu2(rg[i].w, ru[i].w);
+      *reinterpret_cast<uint4*>(hs + buf * kHBuf + (ar + 64 * i) * kLd + ak) =
+          h;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint4*>(ws + buf * kWBuf + (bk + 8 * i) * kLdW + bn) =
+          rw[i];
+  };
+
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int fr = lane >> 2, fc = (lane & 3) * 2;   // fragment row, column
+  load(0);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    const bool more = k0 + kBK < K;
+    if (more) load(k0 + kBK);
+    const bf16* hb = hs + buf * kHBuf;
+    const bf16* wb = ws + buf * kWBuf;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[4][4], b[8][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bf16* r0 = hb + (wm + 16 * i + fr) * kLd + kk + fc;
+        const bf16* r1 = r0 + 8 * kLd;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(r1);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+      }
+      // B fragments of n8 tiles 2p and 2p + 1: lanes 0-15 address the 16 k
+      // rows at the first tile's 8 columns, lanes 16-31 at the second's
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const bf16* src =
+            wb + (kk + (lane & 15)) * kLdW + wn + 16 * p + 8 * (lane >> 4);
+        const uint32_t addr =
+            static_cast<uint32_t>(__cvta_generic_to_shared(src));
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0, %1, %2, %3}, [%4];\n"
+            : "=r"(b[2 * p][0]), "=r"(b[2 * p][1]), "=r"(b[2 * p + 1][0]),
+              "=r"(b[2 * p + 1][1])
+            : "r"(addr));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          asm volatile(
+              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+              "{%0, %1, %2, %3};\n"
+              : "+f"(acc[i][j][0]), "+f"(acc[i][j][1]), "+f"(acc[i][j][2]),
+                "+f"(acc[i][j][3])
+              : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]),
+                "r"(b[j][0]), "r"(b[j][1]));
+    }
+    if (more) {
+      // the other buffer was last read before the previous barrier
+      store(buf ^ 1);
+      __syncthreads();
+      buf ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + fr + 8 * h;
+        const int n = n0 + wn + 8 * j + fc;
+        if (m >= M || n >= N) continue;
+        *reinterpret_cast<bf162*>(out + (size_t)m * N + n) =
+            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
 int resident_ctas() {
   static int n = 0;
   if (n == 0) {
@@ -467,6 +644,32 @@ int swiglu_matmul(const float* g, const float* u, const float* w, float* wt,
   const int tiles = (N + kTN - 1) / kTN * ((M + kTM - 1) / kTM);
   swiglu_tc_kernel<<<tiles < resident ? tiles : resident, kThreads, kSmem,
                      stream>>>(tg, tu, twb, tws, out, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form: g, u (M, K), w (K, N) and out (M, N), bf16, contiguous
+// and 16-byte aligned, with M, N > 0, K % 32 == 0 and N % 8 == 0; one
+// launch, one CTA a 128 x 128 output tile.  Returns a cudaError_t, or
+// cudaErrorInvalidValue for a shape or base it does not take.
+int swiglu_matmul_bf16(const void* g, const void* u, const void* w,
+                       void* out, int M, int K, int N, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 ||
+      (uintptr_t)g % 16 || (uintptr_t)u % 16 || (uintptr_t)w % 16 ||
+      (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        swiglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  swiglu_bf16_kernel<<<grid, kBThreads, kBSmem, stream>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
+      static_cast<const bf16*>(w), static_cast<bf16*>(out), M, K, N);
   return (int)cudaGetLastError();
 }
 

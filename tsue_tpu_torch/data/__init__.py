@@ -14,6 +14,8 @@ from tsue_tpu_torch.data.windowing import build_windows, WindowedDataset
 from tsue_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
 from tsue_tpu_torch.data.schema import (
     load_tracks,
+    load_lane_roi,
+    load_vendored_lane_roi,
     split_tracks,
     make_synthetic_tracks,
     make_synthetic_lane_roi,

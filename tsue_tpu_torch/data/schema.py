@@ -6,8 +6,10 @@ keys ``raw_trajectory`` (N,2 float pixel coords), ``vision_embeddings``
 polygon dict {"Site C": {"A": {"1".."6","safe": [[x,y],...]}}}), ``track_id``.
 
 The port keeps only what its paths and tests use: loading a track pickle,
-the split and the synthetic fixtures (a parametric lane ROI,
-:func:`make_synthetic_lane_roi`).
+the lane-ROI tables (:func:`load_lane_roi`, and the reference's Site-C
+table vendored as ``site_c_lane_roi.json``, :func:`load_vendored_lane_roi`,
+which the plots draw lanes from), the split and the synthetic fixtures (a
+parametric lane ROI, :func:`make_synthetic_lane_roi`).
 
 The reference splits with an UNSEEDED in-place shuffle per rank
 (ref scripts/train.py:31-39) — rank divergence hazard.  We use the seeded
@@ -29,6 +31,92 @@ def load_tracks(path: str) -> List[dict]:
     if not isinstance(data, list):
         raise ValueError(f"expected a list of track dicts in {path}")
     return data
+
+
+def load_lane_roi(path: str) -> Dict:
+    """Ingest a lane-ROI coordinate table in any of the formats the
+    reference ecosystem uses:
+
+    - ``.py``  — reference scripts/graph.py style: a module whose source
+      contains ``lane_roi = {...}`` as a literal (ref scripts/graph.py:7-216).
+      Parsed with ``ast.literal_eval`` on the assignment's AST node — the
+      file is never imported/executed.
+    - ``.json`` — the same nested dict serialized as JSON.
+    - ``.pkl``/``.pickle`` — either the dict itself or an all_data-style
+      track list whose first entry carries ``lane_roi``.
+
+    Returns {site: {zone: {lane: [[x, y], ...]}}} with validation.
+    """
+    import ast
+    import json
+
+    if path.endswith(".py"):
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        roi = None
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id == "lane_roi"
+                    for t in node.targets):
+                roi = ast.literal_eval(node.value)
+                break
+        if roi is None:
+            raise ValueError(f"no `lane_roi = {{...}}` literal in {path}")
+    elif path.endswith(".json"):
+        with open(path) as f:
+            roi = json.load(f)
+    elif path.endswith((".pkl", ".pickle")):
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        if isinstance(data, list) and data:
+            # all_data.pkl layout: list of track dicts carrying lane_roi
+            if not isinstance(data[0], dict):
+                raise ValueError(
+                    f"{path}: expected a list of track dicts, first entry "
+                    f"is {type(data[0]).__name__}")
+            roi = data[0].get("lane_roi")
+            if roi is None:
+                raise ValueError(
+                    f"{path}: first track dict has no 'lane_roi' key")
+        else:
+            roi = data
+    else:
+        raise ValueError(f"unsupported lane-ROI format: {path} "
+                         "(want .py/.json/.pkl)")
+    _validate_lane_roi(roi, path)
+    return roi
+
+
+def load_vendored_lane_roi() -> Dict:
+    """The reference's Site-C lane-ROI table (ref scripts/graph.py:7-216),
+    vendored as package data (constant survey coordinates: 7 polygons under
+    {"Site C": {"A": ...}} — lanes "1".."6" plus the "safe" zone)."""
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).with_name("site_c_lane_roi.json")
+    with open(path) as f:
+        roi = json.load(f)
+    _validate_lane_roi(roi, str(path))
+    return roi
+
+
+def _validate_lane_roi(roi, origin: str = "<roi>") -> None:
+    if not isinstance(roi, dict) or not roi:
+        raise ValueError(f"{origin}: lane_roi must be a non-empty dict")
+    for site, zones in roi.items():
+        if not isinstance(zones, dict):
+            raise ValueError(f"{origin}: site {site!r} must map to zones")
+        for zone, lanes in zones.items():
+            if not isinstance(lanes, dict):
+                raise ValueError(f"{origin}: zone {site}/{zone} must map "
+                                 "to lanes")
+            for lane, coords in lanes.items():
+                arr = np.asarray(coords, dtype=np.float64)
+                if arr.ndim != 2 or arr.shape[1] != 2 or arr.shape[0] < 3:
+                    raise ValueError(
+                        f"{origin}: lane {site}/{zone}/{lane} must be a "
+                        f"(N>=3, 2) coordinate list, got shape {arr.shape}")
 
 
 def split_tracks(tracks: Sequence[dict], train_ratio: float = 0.7,

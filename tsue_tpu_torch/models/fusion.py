@@ -20,6 +20,7 @@ from torch import nn
 from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
 from tsue_tpu_torch.models.llama import (IGNORE_LABEL, LlamaForCausalLM,
                                          init_kv_cache)
+from tsue_tpu_torch.models.layers import Dense
 from tsue_tpu_torch.models.qformer import QFormer
 
 
@@ -30,7 +31,7 @@ class MultiModalLLM(nn.Module):
         self.use_vision = use_vision
         if use_vision:
             self.qformer = QFormer(qformer)
-            self.q_proj = (nn.Linear(qformer.hidden_size, llama.hidden_size)
+            self.q_proj = (Dense(qformer.hidden_size, llama.hidden_size)
                            if qformer.hidden_size != llama.hidden_size
                            else nn.Identity())
             self.vision_modality_embedding = nn.Parameter(

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tsue_tpu_torch.models.layers import EncoderBlock
+from tsue_tpu_torch.models.layers import Dense, EncoderBlock
 
 
 class LanePolygonEncoder(nn.Module):
@@ -24,7 +24,7 @@ class LanePolygonEncoder(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
-        self.input_proj = nn.Linear(2, d_model)
+        self.input_proj = Dense(2, d_model)
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_points, d_model))
         for i in range(num_layers):
             self.add_module(f"block_{i}",

@@ -11,23 +11,57 @@ Every block drops (``MHA``: probabilities and output; ``FFN``: after the
 activation and after the second Dense, as torch's Transformer layers do)
 when a ``generator`` is passed, and only then: the training step and the
 forecaster's K candidates pass one, the deterministic forward passes None.
+
+``Dense`` and ``LayerNorm`` compute as Flax's ``Dense`` and ``LayerNorm``
+over parameters cast to bf16 (the bfloat16 configuration): the input and
+the parameters meet in their promoted dtype, so an fp32 input stays fp32
+and a bf16 one stays bf16; the norm's statistics are fp32.  With fp32
+parameters and inputs they are ``nn.Linear`` and ``nn.LayerNorm``, bit for
+bit.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tsue_tpu_torch.ops.attention import dot_product_attention
+from tsue_tpu_torch.utils.precision import promote
 from tsue_tpu_torch.utils.random import dropout
 
 LN_EPS = 1e-6          # flax nn.LayerNorm's default epsilon
 DIM_FF = 2048  # torch nn.Transformer*Layer default, whatever d_model is
 
 
-def layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=LN_EPS)
+class Dense(nn.Linear):
+    """``nn.Linear`` in the promoted dtype of its input and parameters
+    (Flax ``Dense``'s ``promote_dtype``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = promote(x, self.weight)
+        if x.dtype == dt == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with fp32 statistics, the output in the promoted
+    dtype of the input and the parameters (Flax ``LayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = promote(x, self.weight)
+        if x.dtype == dt == self.weight.dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(dt)
+
+
+def layer_norm(d: int) -> LayerNorm:
+    return LayerNorm(d, eps=LN_EPS)
 
 
 class MHA(nn.Module):
@@ -38,10 +72,10 @@ class MHA(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.q = nn.Linear(d_model, d_model)
-        self.k = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
-        self.o = nn.Linear(d_model, d_model)
+        self.q = Dense(d_model, d_model)
+        self.k = Dense(d_model, d_model)
+        self.v = Dense(d_model, d_model)
+        self.o = Dense(d_model, d_model)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
@@ -71,8 +105,8 @@ class FFN(nn.Module):
     def __init__(self, d_model: int, dim_ff: int, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
-        self.Dense_0 = nn.Linear(d_model, dim_ff)
-        self.Dense_1 = nn.Linear(dim_ff, d_model)
+        self.Dense_0 = Dense(d_model, dim_ff)
+        self.Dense_1 = Dense(dim_ff, d_model)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         h = dropout(torch.relu(self.Dense_0(x)), self.dropout, generator)

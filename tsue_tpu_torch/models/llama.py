@@ -7,31 +7,45 @@ llama-3 rope scaling, ``LoRADense`` (LoRA dropout, the int8 decode branch of
 ``ops/fused.py``), the attention / MLP / layer / model classes with the KV
 cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the tied-embedding
 layout, ``logits_from_hidden`` and the causal-LM loss, dense or in
-sequence chunks that never hold the (B, T, V) logits.  No remat yet.
-Dropout (LoRA) draws from the ``generator`` a training forward passes, and
-only then.
+sequence chunks that never hold the (B, T, V) logits, and per-layer remat
+(``LlamaConfig.remat``: ``torch.utils.checkpoint`` with the JAX package's
+three policies).  Dropout (LoRA) draws from the ``generator`` a training
+forward passes, and only then; a rematerialised layer's recompute replays
+the generator from the state it had at the layer's entry, so it draws the
+masks its forward drew (JAX's ``nn.remat`` replays its key).
 
 KV caches are lists of per-layer tensors written in place (the JAX package
 returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
 int8 layer is ``(k8, ks, v8, vs)``.  Keys are roped before they are
 written.
 
-Compute dtype.  Weights are fp32 parameters.  Where the JAX package casts a
-weight to the compute dtype (``LoRADense``: ``jnp.dot(x, kernel.astype(
-dtype))``), the port rounds the weight to that dtype and multiplies in fp32,
-because the activations reaching it are fp32 (``nn.Embed`` and the modality
-embeddings are fp32) and ``jnp.dot`` promotes fp32 x bf16 to fp32.  So the
-"bfloat16" configuration runs fp32 activations against bf16-rounded weights.
+Compute dtype.  Parameters keep the dtype they hold, and every product and
+sum yields the dtype jnp's promotion gives (fp32 if an operand is fp32).
+Where the JAX package casts a weight to the compute dtype (``LoRADense``:
+``jnp.dot(x, kernel.astype(dtype), preferred_element_type=f32)
+.astype(x.dtype)``), the port rounds the weight to ``dtype`` and multiplies
+in the promoted dtype with fp32 sums, returning x's dtype.  So:
+
+- fp32 parameters under the "bfloat16" configuration (what ``Predictor``
+  serves) run fp32 activations against bf16-rounded weights, since the
+  embedding, and so every activation, is fp32;
+- parameters cast to bf16 (``utils.precision.cast_params``, as the runner
+  builds a "bfloat16" configuration for training) make the embedding bf16,
+  and with it the residual stream, the projections and the attention's
+  operands; the norms' statistics, the softmax, the rope and the losses
+  stay fp32, and the logits are fp32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tsue_tpu_torch.config import LlamaConfig
 from tsue_tpu_torch.ops.attention import dot_product_attention
@@ -41,7 +55,57 @@ from tsue_tpu_torch.ops.fused import (fused_enabled, fused_rmsnorm,
 from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv, update_kv_int8,
                                          write_rows)
 from tsue_tpu_torch.ops.quant import int8_matmul
+from tsue_tpu_torch.utils.precision import promote
 from tsue_tpu_torch.utils.random import dropout
+
+# the outputs each policy saves (jax.checkpoint_policies.checkpoint_dots and
+# dots_with_no_batch_dims_saveable): every matrix product, or the 2-D ones
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+_DOTS_NO_BATCH = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_ops_policy(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(name: Optional[str]):
+    """``LlamaConfig.remat_policy`` -> the checkpoint's ``context_fn``, or
+    None for "full" (recompute the whole layer in the backward: least
+    memory, one more forward).  "dots" saves every matrix product's output,
+    "dots_no_batch" the 2-D ones, so the backward recomputes only the rest
+    (``tsue_tpu/models/llama.py:35-51``)."""
+    if name in ("full", "", None):
+        return None
+    if name == "dots":
+        ops = _DOTS
+    elif name == "dots_no_batch":
+        ops = _DOTS_NO_BATCH
+    else:
+        raise ValueError(f"unknown remat_policy {name!r} "
+                         "(expected full|dots|dots_no_batch)")
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_ops_policy, ops))
+
+
+def _replay(generator: Optional[torch.Generator]):
+    """A function that returns ``generator`` on its first call and, on
+    every later one (the backward's recompute), a new generator started
+    from the state ``generator`` has now."""
+    if generator is None:
+        return lambda: None
+    state = generator.get_state()
+    calls = []
+
+    def gen():
+        if not calls:
+            calls.append(1)
+            return generator
+        g = torch.Generator(device=generator.device)
+        g.set_state(state)
+        return g
+    return gen
 
 
 class RMSNorm(nn.Module):
@@ -85,8 +149,10 @@ class LoRADense(nn.Module):
     ``kernel`` (in, out), ``lora_a`` (in, r), ``lora_b`` (r, out).
 
     y = x @ W + (alpha / r) * (dropout(x) @ A) @ B, each weight rounded to
-    ``dtype`` and the product formed in the activations' fp32; the LoRA
-    dropout draws from ``generator`` and is the identity without one.
+    ``dtype``; x @ W in the promoted dtype with fp32 sums, returned in x's
+    dtype, and the adapter's products in their promoted dtypes
+    (``tsue_tpu/models/llama.py:148-162``); the LoRA dropout draws from
+    ``generator`` and is the identity without one.
 
     With int8 tables attached (``ops.quant.attach_quant``: buffers ``w8``
     (in, out) and ``scale`` (out,)) a call with ``quant_ok=True`` takes
@@ -115,7 +181,14 @@ class LoRADense(nn.Module):
         self.register_buffer("scale", None, persistent=False)
 
     def _w(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return w.to(self.dtype).to(x.dtype)
+        """The weight rounded to ``dtype``, in its promoted dtype with x."""
+        w = w.to(self.dtype)
+        return w.to(promote(x, w))
+
+    def _dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x @ w.to(dtype) in the promoted dtype (``jnp.dot``)."""
+        w = self._w(w, x)
+        return x.to(w.dtype) @ w
 
     def forward(self, x: torch.Tensor, quant_ok: bool = False,
                 swiglu_up: Optional[torch.Tensor] = None,
@@ -128,11 +201,11 @@ class LoRADense(nn.Module):
         if decode_quant:
             y = int8_matmul(x, self.w8, self.scale)
         else:
-            y = x @ self._w(self.kernel, x)
+            y = self._dot(x, self.kernel).to(x.dtype)
         if self.lora_r > 0:
             h = dropout(x, self.lora_dropout, generator)
-            delta = (h @ self._w(self.lora_a, x)) @ self._w(self.lora_b, x)
-            y = y + (self.lora_alpha / self.lora_r) * delta
+            delta = self._dot(self._dot(h, self.lora_a), self.lora_b)
+            y = y + (self.lora_alpha / self.lora_r) * delta.to(y.dtype)
         return y
 
 
@@ -252,6 +325,9 @@ class LlamaModel(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", LlamaLayer(cfg, dtype))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        # the policy's name is checked here, as nn.remat checks it at setup
+        self._remat_ctx = remat_policy(cfg.remat_policy) if cfg.remat \
+            else None
         self.register_buffer("inv_freq",
                              torch.as_tensor(rope_inv_freq(cfg)),
                              persistent=False)
@@ -276,7 +352,13 @@ class LlamaModel(nn.Module):
         T-wide window.  ``positions`` (B, T) default to
         the cumulative count of ``attention_mask`` (or 0..T-1).
         ``quant_ok=True`` (decode only) lets the projections use attached
-        int8 tables.  ``generator``: the LoRA dropout's draws (training)."""
+        int8 tables.  ``generator``: the LoRA dropout's draws (training).
+
+        With ``cfg.remat``, a forward that autograd records and that has no
+        cache runs each layer under ``torch.utils.checkpoint`` (not
+        reentrant): its activations are recomputed in the backward, the
+        policy's saved products aside, with the generator replayed from the
+        layer's entry; decode and no-grad calls run as without remat."""
         B, T, _ = inputs_embeds.shape
         dev = inputs_embeds.device
         mask = None
@@ -290,11 +372,27 @@ class LlamaModel(nn.Module):
         angles = positions[..., None].float() * self.inv_freq   # (B, T, D/2)
         rope = (torch.cos(angles), torch.sin(angles))
         x = inputs_embeds
+        remat = (self.cfg.remat and kv_caches is None
+                 and torch.is_grad_enabled())
         for i in range(self.cfg.num_layers):
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                x = self._checkpointed(layer, x, mask, rope, generator)
+                continue
             cache = None if kv_caches is None else kv_caches[i]
-            x = getattr(self, f"layer_{i}")(x, mask, rope, cache, cache_index,
-                                            kv_mask, quant_ok, generator)
+            x = layer(x, mask, rope, cache, cache_index, kv_mask, quant_ok,
+                      generator)
         return self.final_norm(x)
+
+    def _checkpointed(self, layer, x, mask, rope, generator):
+        gen = _replay(generator)
+        kw = {} if self._remat_ctx is None else {
+            "context_fn": self._remat_ctx}
+        # every draw comes from the explicit generator: the global RNG
+        # state needs no stashing
+        return checkpoint(
+            lambda x_: layer(x_, mask, rope, generator=gen()), x,
+            use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 IGNORE_LABEL = -100
@@ -314,8 +412,8 @@ class LlamaForCausalLM(nn.Module):
         self.dtype = dtype
         self.model = LlamaModel(cfg, dtype)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False)
+            from tsue_tpu_torch.models.layers import Dense
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False)
         self.register_buffer("lm_head_w8", None, persistent=False)
         self.register_buffer("lm_head_scale", None, persistent=False)
 
@@ -323,8 +421,8 @@ class LlamaForCausalLM(nn.Module):
         return self.model.embed(input_ids)
 
     def head_weight(self) -> torch.Tensor:
-        """The fp32 (V, D) head weight: the tied embedding or the untied
-        head."""
+        """The (V, D) head weight, in the parameters' dtype: the tied
+        embedding or the untied head."""
         if self.cfg.tie_word_embeddings:
             return self.model.embed_tokens.weight
         return self.lm_head.weight
@@ -332,13 +430,14 @@ class LlamaForCausalLM(nn.Module):
     def logits_from_hidden(self, hidden: torch.Tensor,
                            quant_ok: bool = False) -> torch.Tensor:
         """(..., D) -> (..., V) fp32 logits.  The tied head rounds the
-        embedding to the compute dtype, as the JAX package does
-        (``llama.py:385-388``); the untied head is an fp32 Dense."""
+        embedding to the compute dtype and sums in fp32, as the JAX package
+        does (``llama.py:385-388``); the untied head is a Dense, its output
+        taken to fp32."""
         if quant_ok and self.lm_head_w8 is not None:
             return int8_matmul(hidden, self.lm_head_w8, self.lm_head_scale)
         if self.cfg.tie_word_embeddings:
             w = self.model.embed_tokens.weight
-            return hidden @ w.to(self.dtype).to(hidden.dtype).t()
+            return hidden.float() @ w.to(self.dtype).float().t()
         return self.lm_head(hidden).float()
 
     def forward(self, inputs_embeds, attention_mask=None, labels=None,
@@ -354,10 +453,10 @@ class LlamaForCausalLM(nn.Module):
                             generator=generator)
         out = {"hidden": hidden}
         if labels is not None and self.cfg.loss_chunk and not compute_logits:
-            w = self.head_weight().to(self.dtype).to(hidden.dtype)
+            w = self.head_weight().to(self.dtype).float()
             out["loss"] = causal_lm_loss_chunked(
-                hidden, labels, lambda h, w_: h @ w_.t(), self.cfg.loss_chunk,
-                w)
+                hidden, labels, lambda h, w_: h.float() @ w_.t(),
+                self.cfg.loss_chunk, w)
         elif compute_logits or labels is not None:
             out["logits"] = self.logits_from_hidden(hidden)
             if labels is not None:

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from tsue_tpu_torch.models.layers import MHA, layer_norm
+from tsue_tpu_torch.models.layers import MHA, Dense, layer_norm
 from tsue_tpu_torch.utils.random import dropout
 
 
@@ -32,7 +32,10 @@ class PerChannelLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, t_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, C, T_in)
-        return torch.einsum("bct,cto->bco", x, self.kernel) + self.bias
+        # fp32 products (the JAX einsum's preferred_element_type), then the
+        # bias added under promotion
+        return torch.einsum("bct,cto->bco", x.float(),
+                            self.kernel.float()) + self.bias
 
 
 class SelfAttentionBlock(nn.Module):
@@ -45,8 +48,8 @@ class SelfAttentionBlock(nn.Module):
         self.norm1 = layer_norm(d_model)
         self.mha = MHA(d_model, num_heads, dropout)
         self.norm2 = layer_norm(d_model)
-        self.ffn1 = nn.Linear(d_model, d_model * 4)
-        self.ffn2 = nn.Linear(d_model * 4, d_model)
+        self.ffn1 = Dense(d_model, d_model * 4)
+        self.ffn2 = Dense(d_model * 4, d_model)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         h_norm = self.norm1(x.transpose(1, 2))            # (B, T, C)
@@ -66,7 +69,7 @@ class NLinearEncoder(nn.Module):
         if individual:
             self.linears = PerChannelLinear(d_model, window_size, window_size)
         else:
-            self.linear = nn.Linear(window_size, window_size)
+            self.linear = Dense(window_size, window_size)
         self.individual = individual
 
     def forward(self, x):                                  # (B, C, T)
@@ -95,19 +98,19 @@ class NLinearDecoder(nn.Module):
         if individual:
             self.linears = PerChannelLinear(C, window_size, F)
         else:
-            self.linear = nn.Linear(window_size, F)
-        self.lane_fc = nn.Linear(polygon_embed_dim, C * F)
+            self.linear = Dense(window_size, F)
+        self.lane_fc = Dense(polygon_embed_dim, C * F)
         if use_post_mlp:
-            self.post_mlp1 = nn.Linear(C * F, post_mlp_hidden_dim)
-            self.post_mlp2 = nn.Linear(post_mlp_hidden_dim, C * F)
+            self.post_mlp1 = Dense(C * F, post_mlp_hidden_dim)
+            self.post_mlp2 = Dense(post_mlp_hidden_dim, C * F)
         if use_cross_attn:
-            self.dec_proj = nn.Linear(C, cross_dim)
+            self.dec_proj = Dense(C, cross_dim)
             self.cross_attn = MHA(cross_dim, cross_nhead, dropout)
-            self.dec_unproj = nn.Linear(cross_dim, C)
+            self.dec_unproj = Dense(cross_dim, C)
         self.fusion_ln = layer_norm(C)
-        self.fusion_fc1 = nn.Linear(C, C)
-        self.fusion_fc2 = nn.Linear(C, C)
-        self.out_proj = nn.Linear(C, output_feature_dim)
+        self.fusion_fc1 = Dense(C, C)
+        self.fusion_fc2 = Dense(C, C)
+        self.out_proj = Dense(C, output_feature_dim)
 
     def project_cross_kv(self, final_hidden: torch.Tensor):
         """Cross-attention K/V of a (deterministic) memory, computed once."""
@@ -153,7 +156,7 @@ class TransformerLTSF(nn.Module):
                  dropout: float = 0.1, cross_dim: int = 2048,
                  cross_nhead: int = 2, use_cross_attn: bool = True):
         super().__init__()
-        self.token_proj = nn.Linear(feature_size, d_model)
+        self.token_proj = Dense(feature_size, d_model)
         self.nlinear_encoder = NLinearEncoder(seq_len, d_model, individual)
         self.pos_encoding = nn.Parameter(torch.zeros(1, d_model, seq_len))
         self.attn_block = SelfAttentionBlock(d_model, nhead, dropout)

@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from tsue_tpu_torch.config import QFormerConfig
-from tsue_tpu_torch.models.layers import DecoderBlock, EncoderBlock
+from tsue_tpu_torch.models.layers import (DecoderBlock, Dense,
+                                          EncoderBlock)
 
 
 class QFormer(nn.Module):
@@ -21,7 +22,7 @@ class QFormer(nn.Module):
         super().__init__()
         self.cfg = cfg
         c = cfg
-        self.vision_proj = nn.Linear(c.vision_dim, c.hidden_size)
+        self.vision_proj = Dense(c.vision_dim, c.hidden_size)
         for i in range(c.num_encoder_layers):
             self.add_module(f"enc_{i}",
                             EncoderBlock(c.hidden_size, c.num_heads,

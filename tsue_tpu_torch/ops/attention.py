@@ -46,19 +46,23 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _plain_attention(q, k, v, mask, is_causal, scale, dropout_p=0.0,
-                     generator=None) -> torch.Tensor:
+                     generator=None, out_dtype=None) -> torch.Tensor:
     """GQA attention without repeating K/V: query head h attends KV head
-    h // G, the head order of a repeat of K/V."""
+    h // G, the head order of a repeat of K/V.  The logits and softmax are
+    fp32 (``preferred_element_type``), the probabilities are rounded to v's
+    dtype, the sums are fp32 and the output takes ``out_dtype``: v's, as
+    the JAX package's ``_xla_attention``, by default."""
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Tq, Hkv, G, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     probs = _finish_attention(logits.reshape(B, H, Tq, Tk), mask, is_causal,
                               dropout_p, generator)
     out = torch.einsum("bhgqk,bkhd->bqhgd",
-                       probs.reshape(B, Hkv, G, Tq, Tk).to(v.dtype), v)
-    return out.reshape(B, Tq, H, D)
+                       probs.reshape(B, Hkv, G, Tq, Tk).to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, Tq, H, D).to(out_dtype or v.dtype)
 
 
 def _finish_attention(logits, mask, is_causal, dropout_p, generator):

@@ -13,6 +13,14 @@ The mask is a (B, Tk) key mask or a per-query (B, Tq, Tk) one (a
 speculative window's in-window causality), passed to the kernel with its
 query stride (0 or Tk).
 
+Dtypes (the Pallas function, ``tsue_tpu/ops/flash.py:_softmax_attend``):
+q, k and v fp32 or bf16, k and v alike.  The logits and the softmax are
+fp32, a roped q or k is rounded back to its own dtype, the probabilities
+are rounded to v's dtype before the product with v, the sums are fp32 and
+the output takes q's dtype.  The kernel takes fp32, bf16, and fp32 q over
+bf16 k and v; a bf16 q over fp32 k and v (no RoPE) is widened to fp32
+first, which is exact, and its output rounded to bf16.
+
 ``flash_attention`` takes the plain version for tensors on the CPU, and
 only there.  On a CUDA tensor it launches the kernel or raises: there is
 no fallback.  Training differentiates it through ``_FlashAttention``, whose
@@ -31,6 +39,11 @@ from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
                                      recompute_backward, uses_kernel)
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 1024)
+_FLOATS = (torch.float32, torch.bfloat16)
+# the C side's Dtypes codes: (q dtype, k/v dtype) -> dt
+_DT = {(torch.float32, torch.float32): 0,
+       (torch.bfloat16, torch.bfloat16): 1,
+       (torch.float32, torch.bfloat16): 2}
 
 
 def rope_bthd(x: torch.Tensor, cos: torch.Tensor,
@@ -46,27 +59,29 @@ def rope_bthd(x: torch.Tensor, cos: torch.Tensor,
 def flash_attention_plain(q, k, v, mask=None, is_causal=False, scale=None,
                           rope=None) -> torch.Tensor:
     """The kernel's function in PyTorch ops: rope, then the
-    ``_xla_attention``/``_finish_attention`` math."""
+    ``_xla_attention``/``_finish_attention`` math, the output in q's
+    dtype."""
     from tsue_tpu_torch.ops.attention import _plain_attention
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if rope is not None:
         q = rope_bthd(q, *rope)
         k = rope_bthd(k, *rope)
-    return _plain_attention(q, k, v, mask, is_causal, scale)
+    return _plain_attention(q, k, v, mask, is_causal, scale,
+                            out_dtype=q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("flash_attn_fwd", {
-        "flash_attn_splits": [i32] * 8,     # B Tq Tk Hq Hkv D rope pq
+        "flash_attn_splits": [i32] * 9,     # B Tq Tk Hq Hkv D rope pq dt
         "flash_attn_fwd": [
             ptr, ptr, ptr, ptr, ptr, ptr,   # q k v mask cos sin
             ptr, ptr,                       # out, split scratch
             i32, i32, i32, i32, i32, i32,   # B Tq Tk Hq Hkv D
             i32, ctypes.c_float, i32,       # causal scale splits
-            i32, ptr]})                     # mask query stride, stream
+            i32, i32, ptr]})                # mask query stride, dt, stream
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
@@ -75,9 +90,21 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     dev = q.device
-    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32, aligned=True)
-    check_tensor("k", k, dev, (B, Tk, Hkv, D), torch.float32, aligned=True)
-    check_tensor("v", v, dev, (B, Tk, Hkv, D), torch.float32, aligned=True)
+    if q.dtype not in _FLOATS or k.dtype not in _FLOATS:
+        raise TypeError(f"the attention kernel takes float32 or bfloat16, "
+                        f"got q {q.dtype}, k {k.dtype}")
+    if (q.dtype, k.dtype) == (torch.bfloat16, torch.float32):
+        if rope is not None:
+            # the roped q would be rounded to bf16: no exact widening
+            raise ValueError("the attention kernel takes a bf16 q over fp32 "
+                             "k and v without RoPE only")
+        # exact: q widened to fp32, the output rounded back to q's dtype
+        return _flash_cuda(q.float(), k, v, mask, is_causal, scale,
+                           rope).to(q.dtype)
+    dt = _DT[(q.dtype, k.dtype)]
+    check_tensor("q", q, dev, (B, Tq, Hq, D), q.dtype, aligned=True)
+    check_tensor("k", k, dev, (B, Tk, Hkv, D), k.dtype, aligned=True)
+    check_tensor("v", v, dev, (B, Tk, Hkv, D), k.dtype, aligned=True)
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {D} not supported by the kernel "
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
@@ -114,13 +141,16 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
     with torch.cuda.device(dev):
         lib = _lib()
         splits = lib.flash_attn_splits(B, Tq, Tk, Hq, Hkv, D,
-                                       int(rope is not None), int(mq != 0))
+                                       int(rope is not None), int(mq != 0),
+                                       dt)
         if splits == -2:
             raise RuntimeError("CUDA refused the attention kernel's "
                                "shared-memory or occupancy set-up")
         if splits < 1:
             raise ValueError(f"the attention kernel does not take B={B} "
-                             f"Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} D={D}")
+                             f"Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} D={D} "
+                             f"with q {q.dtype}, k {k.dtype}"
+                             + (", a per-query mask" if mq else ""))
         # split-KV form: per-split (acc, m, l) partials, merged in order
         scratch = (torch.empty(splits * B * Tq * Hq * (D + 2), device=dev,
                                dtype=torch.float32)
@@ -129,7 +159,7 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, cos_ptr,
             sin_ptr, out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), B, Tq, Tk, Hq,
-            Hkv, D, int(bool(is_causal)), float(scale), splits, mq,
+            Hkv, D, int(bool(is_causal)), float(scale), splits, mq, dt,
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(flash_attention, err)
     return out
@@ -173,7 +203,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the rotary embedding to q and k (self-attention only).
 
     CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
-    kernel (fp32, contiguous, D in ``SUPPORTED_HEAD_DIMS``) or raise.  Both
+    kernel (fp32 or bf16 as the module docstring says, contiguous, D in
+    ``SUPPORTED_HEAD_DIMS``; a per-query mask in fp32 only) or raise.  Both
     are differentiable in q, k and v, through a backward that recomputes
     with the plain version.  ``flash_attention.launches`` counts kernel
     launches.

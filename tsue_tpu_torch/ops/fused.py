@@ -18,6 +18,13 @@ takes the plain version and a CUDA tensor launches the kernel or raises.
 Each kernel sits in a ``torch.autograd.Function`` whose backward recomputes
 through the plain version, as the JAX package's ``custom_vjp``s recompute
 through XLA; it computes only the gradients autograd asks for.
+
+Dtypes, as the Pallas kernels take them: RMSNorm takes fp32 or bf16 x and
+scale, sums in fp32 and returns x's dtype; the SwiGLU product takes fp32
+or bf16 operands, all alike: silu in fp32 rounded to up's dtype, times up
+in that dtype, the product with W summed in fp32 and returned in gate's
+dtype.  In fp32 the kernels keep their forms and bits; bf16 has a form of
+its own in each.
 """
 from __future__ import annotations
 
@@ -72,9 +79,20 @@ def _rows(x: torch.Tensor) -> int:
 # RMSNorm
 # --------------------------------------------------------------------------
 
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _bf16_code(name: str, t: torch.Tensor) -> int:
+    """The C side's dtype code of ``t``: 0 fp32, 1 bf16."""
+    if t.dtype not in _FLOATS:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return int(t.dtype == torch.bfloat16)
+
+
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
                   eps: float) -> torch.Tensor:
-    """fp32 mean of squares, rsqrt, scale, cast back (``rmsnorm_ref``)."""
+    """fp32 mean of squares, rsqrt, scale (promoted to fp32), cast back to
+    x's dtype (``rmsnorm_ref``)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
@@ -84,7 +102,7 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
 def _rmsnorm_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("rmsnorm", {
-        "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr],
+        "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, i32, i32, ptr],
         "rmsnorm_max_k": []})
 
 
@@ -92,8 +110,9 @@ def _rmsnorm_cuda(x2: torch.Tensor, scale: torch.Tensor,
                   eps: float) -> torch.Tensor:
     M, K = x2.shape
     dev = x2.device
-    check_tensor("x", x2, dev, (M, K), torch.float32, aligned=True)
-    check_tensor("scale", scale, dev, (K,), torch.float32, aligned=True)
+    xb, sb = _bf16_code("x", x2), _bf16_code("scale", scale)
+    check_tensor("x", x2, dev, (M, K), x2.dtype, aligned=True)
+    check_tensor("scale", scale, dev, (K,), scale.dtype, aligned=True)
     lib = _rmsnorm_lib()
     if M == 0 or K % 4 or K > lib.rmsnorm_max_k():
         raise ValueError(f"the rmsnorm kernel takes M > 0 rows of K % 4 == 0,"
@@ -101,7 +120,7 @@ def _rmsnorm_cuda(x2: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x2)
     with torch.cuda.device(dev):
         err = lib.rmsnorm(x2.data_ptr(), scale.data_ptr(), out.data_ptr(), M,
-                          K, float(eps),
+                          K, float(eps), xb, sb,
                           torch.cuda.current_stream(dev).cuda_stream)
     count_launch(fused_rmsnorm, err)
     return out
@@ -129,8 +148,9 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """One-pass RMSNorm over the last axis of x (..., K) with scale (K,).
     ``K % 128 != 0`` or fewer than 128 rows take ``rmsnorm_plain``; else
-    CPU tensors take it too and CUDA tensors launch the kernel (fp32) or
-    raise.  ``fused_rmsnorm.launches`` counts kernel launches."""
+    CPU tensors take it too and CUDA tensors launch the kernel (fp32 or bf16
+    x and scale) or raise.  ``fused_rmsnorm.launches`` counts kernel
+    launches."""
     K = x.shape[-1]
     M = _rows(x)
     if K % 128 != 0 or M < 128:
@@ -147,15 +167,20 @@ fused_rmsnorm.launches = 0
 
 def swiglu_matmul_plain(gate: torch.Tensor, up: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
-    """The activation product, then the product with W: the unfused MLP's
-    own ops."""
-    return (F.silu(gate) * up) @ w
+    """The activation product, then the product with W: silu in fp32
+    rounded to up's dtype, times up, the product summed in fp32 (the
+    ``_swiglu_kernel`` function; the unfused MLP's own ops in fp32)."""
+    return ((F.silu(gate.float()).to(up.dtype) * up) @ w).to(gate.dtype)
 
 
-# the kernel's launch: the constants of csrc/swiglu_matmul.cu (kTM, kTN,
-# kK, kStages, kThreads)
-_SWIGLU_FORM = dict(form="tf32x3", tile_m=128, tile_n=256, k_step=32,
-                    stages=2, threads=384)
+# the kernel's launches: the constants of csrc/swiglu_matmul.cu (fp32: kTM,
+# kTN, kK, kStages, kThreads; bf16: kBM, kBN, kBK, two buffers, kBThreads)
+_SWIGLU_FORMS = {
+    torch.float32: dict(form="tf32x3", tile_m=128, tile_n=256, k_step=32,
+                        stages=2, threads=384),
+    torch.bfloat16: dict(form="bf16_mma", tile_m=128, tile_n=256, k_step=32,
+                         stages=2, threads=256),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,25 +188,33 @@ def _swiglu_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("swiglu_matmul", {
         "swiglu_matmul": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+        "swiglu_matmul_bf16": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
         "swiglu_matmul_ctas": []})
 
 
-def swiglu_matmul_plan(M: int, K: int, N: int) -> dict:
-    """The kernel's launch for (M, K) activations and a (K, N) weight: its
-    form, output tile, K positions a step, ring stages, threads, output
-    tiles and CTAs.  One form, "tf32x3" (3xTF32 on the tensor cores), takes
-    every shape the kernel takes: M, N > 0, K > 0 with K % 128 == 0 and
-    N % 4 == 0; any other raises.  It runs a persistent grid, each CTA
-    walking its tiles: as many CTAs as the card holds at once (asked of the
-    CUDA device, which builds the kernel; without one, one a tile) or one
-    a tile where there are fewer."""
-    if min(M, K, N) <= 0 or K % 128 or N % 4:
+def swiglu_matmul_plan(M: int, K: int, N: int,
+                       dtype: torch.dtype = torch.float32) -> dict:
+    """The kernel's launch for (M, K) activations and a (K, N) weight in
+    ``dtype``: its form, output tile, K positions a step, ring stages,
+    threads, output tiles and CTAs.  fp32 has one form, "tf32x3" (3xTF32
+    on the tensor cores), bf16 one, "bf16_mma" (mma.sync with fp32 sums);
+    each takes M, N > 0, K > 0 with K % 128 == 0 and N % 8 == 0 (fp32: N %
+    4); any other shape or dtype raises.  The fp32 form runs a persistent
+    grid, each CTA walking its tiles: as many CTAs as the card holds at once
+    (asked of the CUDA device, which builds the kernel; without one, one a
+    tile) or one a tile where there are fewer; the bf16 form one CTA a
+    tile."""
+    if dtype not in _SWIGLU_FORMS:
+        raise TypeError(f"the swiglu kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    n_align = 4 if dtype == torch.float32 else 8
+    if min(M, K, N) <= 0 or K % 128 or N % n_align:
         raise ValueError(f"the swiglu kernel takes M > 0, K % 128 == 0 and "
-                         f"N % 4 == 0 (M={M}, K={K}, N={N})")
-    plan = dict(_SWIGLU_FORM)
+                         f"N % {n_align} == 0 (M={M}, K={K}, N={N})")
+    plan = dict(_SWIGLU_FORMS[dtype])
     plan["tiles"] = -(-M // plan["tile_m"]) * -(-N // plan["tile_n"])
     held = plan["tiles"]
-    if torch.cuda.is_available():
+    if dtype == torch.float32 and torch.cuda.is_available():
         held = _swiglu_lib().swiglu_matmul_ctas()
         if held < 1:
             raise RuntimeError("the swiglu kernel does not fit on the card")
@@ -194,10 +227,19 @@ def _swiglu_cuda(g: torch.Tensor, u: torch.Tensor,
     M, K = g.shape
     N = w.shape[1]
     dev = g.device
-    check_tensor("gate", g, dev, (M, K), torch.float32, aligned=True)
-    check_tensor("up", u, dev, (M, K), torch.float32, aligned=True)
-    check_tensor("w", w, dev, (K, N), torch.float32, aligned=True)
-    swiglu_matmul_plan(M, K, N)       # raises for a shape it does not take
+    _bf16_code("gate", g)
+    check_tensor("gate", g, dev, (M, K), g.dtype, aligned=True)
+    check_tensor("up", u, dev, (M, K), g.dtype, aligned=True)
+    check_tensor("w", w, dev, (K, N), g.dtype, aligned=True)
+    swiglu_matmul_plan(M, K, N, g.dtype)  # raises for what it does not take
+    if g.dtype == torch.bfloat16:
+        out = torch.empty(M, N, device=dev, dtype=g.dtype)
+        with torch.cuda.device(dev):
+            err = _swiglu_lib().swiglu_matmul_bf16(
+                g.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), M,
+                K, N, torch.cuda.current_stream(dev).cuda_stream)
+        count_launch(swiglu_matmul, err)
+        return out
     # W^T's tf32 halves, written by the kernel's pre-pass
     wt = torch.empty(2, N, K, device=dev, dtype=torch.float32)
     out = torch.empty(M, N, device=dev, dtype=torch.float32)
@@ -229,7 +271,7 @@ def swiglu_matmul(gate: torch.Tensor, up: torch.Tensor,
     """``(silu(gate) * up) @ w`` for gate/up (..., K) and w (K, N).
     ``K % 128``, ``N % 128`` or fewer than 128 rows take
     ``swiglu_matmul_plain``; else CPU tensors take it too and CUDA tensors
-    launch the kernel (fp32) or raise.  ``swiglu_matmul.launches`` counts
+    launch the kernel (fp32 or bf16, all three alike) or raise.  ``swiglu_matmul.launches`` counts
     kernel launches."""
     K = gate.shape[-1]
     N = w.shape[1]

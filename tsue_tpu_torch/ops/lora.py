@@ -13,8 +13,9 @@ calls the kernel: ``models.llama.LoRADense`` keeps its plain products.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (fp32, or bf16 with fp32 sums) or raises.  ``lora_matmul_plan`` names the
 kernel's form for a shape: the tensor-core form of the dtype where TMA can
-read x and W (16-byte rows and bases), the SIMT form elsewhere; the wrapper
-launches that form and no other.
+read x and W (16-byte rows and bases) and the rank is 16 or less, the SIMT
+form elsewhere (any rank: one more walk over x and A for each further 16
+ranks); the wrapper launches that form and no other.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from tsue_tpu_torch.ops._build import (bind, check_tensor, count_launch,
                                      recompute_backward, uses_kernel)
 
-MAX_RANK = 16
+TC_MAX_RANK = 16      # the tensor-core forms' ranks; the SIMT form any
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the forms' launch shapes: the constants of csrc/lora_matmul.cu (SIMT: BM,
 # BN, BK, kThreads; tensor cores: kTM, kTN, Tc<T>::kK and ::kStages,
@@ -45,11 +46,12 @@ def _form(M: int, K: int, N: int, r: int, dtype: torch.dtype,
     if dtype not in _DTYPES:
         raise TypeError(f"the lora kernel takes float32 or bfloat16, got "
                         f"{dtype}")
-    if min(M, K, N) <= 0 or not 0 < r <= MAX_RANK:
-        raise ValueError(f"the lora kernel takes M, K, N > 0 and 0 < r <= "
-                         f"{MAX_RANK} (M={M}, K={K}, N={N}, r={r})")
+    if min(M, K, N, r) <= 0:
+        raise ValueError(f"the lora kernel takes M, K, N, r > 0 (M={M}, "
+                         f"K={K}, N={N}, r={r})")
     per_16_bytes = 4 if dtype == torch.float32 else 8
-    if aligned and K % per_16_bytes == 0 and N % per_16_bytes == 0:
+    if (aligned and K % per_16_bytes == 0 and N % per_16_bytes == 0
+            and r <= TC_MAX_RANK):
         return "tf32x3" if dtype == torch.float32 else "wgmma_bf16"
     return "simt"
 
@@ -60,8 +62,9 @@ def lora_matmul_plan(M: int, K: int, N: int, r: int, dtype: torch.dtype,
     ``dtype``: its form, output tile, K positions a step, ring stages,
     threads, output tiles and CTAs.  The tensor-core form of the dtype
     ("wgmma_bf16", "tf32x3") takes rows of x and W that are multiples of 16
-    bytes and, with ``aligned``, 16-byte aligned bases (TMA's terms); every
-    other shape takes the "simt" form, one CTA a tile.  A tensor-core form
+    bytes and, with ``aligned``, 16-byte aligned bases (TMA's terms), at
+    rank 16 or less; every other shape and every rank above 16 takes the
+    "simt" form, one CTA a tile.  A tensor-core form
     runs a persistent grid, each CTA walking its tiles: as many CTAs as the
     card holds at once (asked of the CUDA device, which builds the kernel;
     without one, one a tile) or one a tile where there are fewer."""

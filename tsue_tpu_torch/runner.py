@@ -16,12 +16,19 @@ parity rollout.  Stage 1 trains the MLLM's causal-LM loss, exports it
 (``train.checkpoint.export_mllm``) for ``run_stage2(mllm_ckpt=...)`` and
 writes a generation dump.
 
+A "bfloat16" ``ModelConfig`` trains stage 2 on bf16 parameters (cast after
+init, as the JAX package's ``build_model_and_params`` casts them), with
+AdamW's moments in bf16; stage 1 trains in fp32 whatever the dtype, as the
+JAX package's ``run_stage1`` does.  ``LlamaConfig.remat`` rematerialises
+the Llama's layers in both.  ``viz_every=N`` plots a validation sample and
+generates a text sample every N epochs; ``save_viz`` plots the test's
+first batch (matplotlib, imported then).
+
 It runs on the CUDA device unless it is given ``device="cpu"``, and never
 falls back to the CPU on its own.  The ``TSUE_FUSED`` switch
 (``ops.fused``) applies as everywhere in the port.  Not taken yet (ROADMAP
-A: the rest of training, parallel): ``viz_every`` and the per-epoch text
-sample, ``save_viz``, remat, bfloat16 training and stage 1's pipeline
-parallelism; each raises ``NotImplementedError`` when asked for.
+A: parallel): stage 1's pipeline parallelism, which raises
+``NotImplementedError`` when asked for.
 """
 from __future__ import annotations
 
@@ -52,10 +59,12 @@ from tsue_tpu_torch.train.checkpoint import (BestCheckpointer, export_mllm,
 from tsue_tpu_torch.train.stage1 import (make_stage1_eval_step,
                                          make_stage1_optimizer,
                                          make_stage1_train_step)
+from tsue_tpu_torch.train.losses import denorm
 from tsue_tpu_torch.train.trainer import (TrainState, make_eval_step,
                                           make_optimizer, make_train_step,
                                           set_trainable)
 from tsue_tpu_torch.utils import MetricLogger, seed_everything
+from tsue_tpu_torch.utils.precision import cast_params
 from tsue_tpu_torch.utils.random import step_generator
 
 
@@ -109,14 +118,6 @@ def _batches(ds, cfg, shuffle, epoch=0):
     return it
 
 
-def _refuse_bf16(cfg: ExperimentConfig) -> None:
-    if cfg.model.dtype != "float32":
-        raise NotImplementedError(
-            f"training with ModelConfig.dtype={cfg.model.dtype!r} is not "
-            "ported yet (ROADMAP A: the rest of training); the training "
-            "presets are float32")
-
-
 def _vocab_resized(llama, tokenizer):
     """The Llama config with the tokenizer's vocabulary (the JAX package's
     resize, ``runner.py:336-340``, ``:746-747``)."""
@@ -130,9 +131,10 @@ def build_model_and_params(cfg: ExperimentConfig, tokenizer,
                            ) -> TrajectoryModel:
     """The model with its parameters: the vocabulary resized to the
     tokenizer's, random weights from ``cfg.train.seed`` (a generator on
-    ``device``), fp32; then, with ``mllm_ckpt``, the stage-1 artifact
-    loaded strictly into its MLLM (``train.checkpoint.import_mllm``)."""
-    _refuse_bf16(cfg)
+    ``device``), fp32, every floating parameter cast to bf16 for a
+    "bfloat16" ``ModelConfig`` (``tsue_tpu/runner.py:347-349``); then, with
+    ``mllm_ckpt``, the stage-1 artifact loaded strictly into its MLLM
+    (``train.checkpoint.import_mllm``, in the MLLM's dtype)."""
     model_cfg = cfg.model
     if model_cfg.use_llm:
         model_cfg = dataclasses.replace(
@@ -141,6 +143,8 @@ def build_model_and_params(cfg: ExperimentConfig, tokenizer,
     with torch.device(dev):
         model = TrajectoryModel(model_cfg, cfg.data.seq_len, cfg.data.out_len)
     init_params(model, torch.Generator(device=dev).manual_seed(cfg.train.seed))
+    if cfg.model.dtype == "bfloat16":
+        cast_params(model)
     if mllm_ckpt:
         import_mllm(model, mllm_ckpt)       # the stage-1 handoff
     return model
@@ -198,7 +202,7 @@ def rebuild_for_eval(cfg: ExperimentConfig, data_path: Optional[str],
 @torch.no_grad()
 def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
              eval_candidates: int = 0, candidate_mode: str = "fast",
-             eval_seed: int = 1000) -> Dict:
+             eval_seed: int = 1000, viz_dir: Optional[str] = None) -> Dict:
     """Test loop (ref train.py:1256-1328 / test.py:1279-1396): the
     sample-weighted mean of the deterministic ADE/FDE over the test windows
     (wrap-padded rows excluded) and, with K = ``eval_candidates``, the
@@ -207,15 +211,18 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     ``evaluate`` routes them: ``candidate_mode == "fast"`` on a ``use_llm``
     model takes the fast rollout (the MLLM context once, K dropout
     forecasts), every other case the parity rollout (K whole stochastic
-    forwards)."""
+    forwards).  ``viz_dir``: the first test batch's first window is plotted
+    into ``<viz_dir>/viz`` (``tsue_tpu/runner.py:457-477``)."""
     fast = candidate_mode == "fast" and model.cfg.use_llm
     dev = next(model.parameters()).device
     per_batch = []
+    first = None
     for i, batch in enumerate(_batches(dte, cfg, False)):
         b = to_device(batch, dev)
         pred = model(b)
         a, f = ade_fde(pred, b["traj_out"], b["norm_stat"], b["valid"])
         entry = [a, f, b["valid"].sum()]
+        cands = None
         if eval_candidates:
             if fast:
                 gen = torch.Generator(device=dev).manual_seed(eval_seed + i)
@@ -226,6 +233,8 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
             entry.extend(min_ade_fde_rmse(cands, b["traj_out"],
                                           b["norm_stat"], b["valid"]))
         per_batch.append(entry)
+        if first is None:
+            first = (b, pred, cands)
     ade_sum = fde_sum = n_sum = 0.0
     min_sums = np.zeros(3)
     for entry in per_batch:
@@ -243,23 +252,90 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
         m = min_sums / n
         out.update(min_ade=float(m[0]), min_fde=float(m[1]),
                    min_rmse=float(m[2]), K=eval_candidates)
+    if viz_dir and first is not None:
+        _plot_test_batch(os.path.join(viz_dir, "viz"), *first)
     return out
 
 
-def _refuse(entry: str, **options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"{entry}({name}=...) is not ported yet (ROADMAP A: the "
-                "rest of training)")
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _plot_test_batch(d: str, b, pred, cands) -> None:
+    """The test's PNGs of one window (past, truth, prediction; x and y over
+    time; the K candidates and the best of K), in pixels."""
+    from tsue_tpu_torch.viz import (plot_best_of_k, plot_candidates,
+                                    plot_one_sample, plot_xy_time)
+    ns = b["norm_stat"]
+    past = _np(denorm(b["traj_in"], ns))
+    gt = _np(denorm(b["traj_out"], ns))
+    pd = _np(denorm(pred, ns))
+    plot_one_sample(past[0], gt[0], pd[0], d, prefix="test")
+    plot_xy_time(gt[0], [pd[0]], d, prefix="test_xy_time")
+    if cands is not None:
+        K = cands.shape[1]
+        cd = _np(denorm(cands[0], ns[:1].repeat_interleave(K, dim=0)))
+        plot_candidates(past[0], gt[0], cd, d, prefix="test_candidates")
+        plot_best_of_k(past[0], gt[0], cd, d, prefix="test_best_of_k")
+
+
+def _epoch_text_sample(model: TrajectoryModel, tokenizer, batch,
+                       generator: torch.Generator,
+                       max_new_tokens: int = 48) -> str:
+    """One traffic-context paragraph generated from the first row of a
+    validation batch, by the model's MLLM in its own dtype
+    (``tsue_tpu/runner.py:289-325``, ref scripts/train.py:1231-1241): the
+    prompt span (``prompt_only``), the default sampling, decoded and cut
+    as the stage-1 generation harness does (``trim_and_decode``)."""
+    from tsue_tpu_torch.eval.generation import (make_generate_fn,
+                                                prompt_only, trim_and_decode)
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    dev = batch["input_ids"].device
+    ids, prompt_mask = prompt_only(
+        {k: v[:1].cpu().numpy() for k, v in batch.items()
+         if k in ("attention_mask", "labels", "input_ids")})
+    gen = make_generate_fn(model.mllm, SamplingConfig(), max_new_tokens,
+                           ids.shape[1], tokenizer.eos_id, tokenizer.pad_id)
+    vision = (batch["vision"][:1] if "vision" in batch
+              and model.cfg.use_vision else None)
+    out = gen(vision, torch.from_numpy(ids).to(dev),
+              torch.from_numpy(prompt_mask).to(dev), generator)
+    return trim_and_decode(out[0].cpu().numpy(), tokenizer)
+
+
+def _epoch_viz(model, state, eval_step, tokenizer, dva, cfg, run_dir: str,
+               epoch: int, dev) -> None:
+    """The per-epoch qualitative samples (``tsue_tpu/runner.py:236-262``):
+    the first validation window's prediction plotted into
+    ``<run_dir>/viz/epoch<NNNN>_0.png`` and, for a model with an LLM, a
+    text sample appended to ``<run_dir>/generated_samples.txt``, drawn from
+    ``step_generator(777, epoch)`` (the JAX package's ``fold_in(key(777),
+    epoch)``)."""
+    from tsue_tpu_torch.viz import plot_one_sample
+    vb = to_device(next(iter(_batches(dva, cfg, False))), dev)
+    pred = eval_step(state, vb)["pred"]
+    ns = vb["norm_stat"]
+    plot_one_sample(_np(denorm(vb["traj_in"], ns))[0],
+                    _np(denorm(vb["traj_out"], ns))[0],
+                    _np(denorm(pred, ns))[0], os.path.join(run_dir, "viz"),
+                    prefix=f"epoch{epoch:04d}")
+    if cfg.model.use_llm and "input_ids" in vb:
+        text = _epoch_text_sample(model, tokenizer, vb,
+                                  step_generator(777, epoch, dev))
+        print(f"[epoch {epoch}] generated sample: {text}")
+        with open(os.path.join(run_dir, "generated_samples.txt"), "a") as f:
+            f.write(f"[epoch {epoch}] {text}\n")
 
 
 def _train_device(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # fp32 products stay fp32, as in the JAX package
+        # fp32 products stay fp32, and bf16 products sum in fp32, as in the
+        # JAX package
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev
 
 
@@ -284,9 +360,12 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     trainable parameters, optimizer, epoch, best val loss) every N epochs;
     ``resume=True`` restores it and continues, so an interrupted run
     equals the uninterrupted one exactly (a step's dropout draws from
-    ``step_generator(seed, step)``, an epoch's shuffle from the epoch)."""
-    _refuse("run_stage2", viz_every=viz_every, save_viz=save_viz,
-            remat=cfg.model.llama.remat)
+    ``step_generator(seed, step)``, an epoch's shuffle from the epoch).
+
+    ``viz_every=N``: every N epochs (epoch % N == 0), the first validation
+    window plotted into ``<out_dir>/<cfg.name>/viz`` and, for a model with
+    an LLM, one generated context appended to ``generated_samples.txt``
+    there.  ``save_viz``: the test's first window plotted there too."""
     if restore_ckpt:
         _check_restore_meta(restore_ckpt, mllm_ckpt)
     dev = _train_device(device)
@@ -344,6 +423,9 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
                     if val_losses else float("nan"))
         logger.log(epoch, train_loss=train_loss, val_loss=val_loss)
         ckpt.maybe_save(val_loss, model)
+        if viz_every and epoch % viz_every == 0 and len(dva):
+            _epoch_viz(model, state, eval_step, tokenizer, dva, cfg, run_dir,
+                       epoch, dev)
         if save_every and (epoch + 1) % save_every == 0:
             save_train_state(state_dir, state, epoch=epoch + 1,
                              best_val=ckpt.best_val,
@@ -353,7 +435,8 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     # train.py:1249-1252); frozen ones never changed
     if n_epochs > 0 and ckpt.best_val < float("inf"):
         ckpt.restore_best(model)
-    metrics = evaluate(model, dte, cfg, eval_candidates, candidate_mode)
+    metrics = evaluate(model, dte, cfg, eval_candidates, candidate_mode,
+                       viz_dir=run_dir if save_viz else None)
     logger.log(n_epochs, **metrics)
     logger.close()
     return metrics
@@ -374,12 +457,14 @@ def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,
     LM loss per epoch, then the MLLM exported to ``export_path`` and, with
     ``generation_dump``, the test windows' generated contexts written
     there (inside ``<out_dir>/stage1_<name>``).  Returns
-    ``{"final_lm_loss"}`` and, with the dump, ``"generated"``."""
+    ``{"final_lm_loss"}`` and, with the dump, ``"generated"``.
+
+    The MLLM is built without a dtype, so it trains in fp32 whatever
+    ``ModelConfig.dtype`` says, as the JAX package's ``run_stage1`` builds
+    it (``tsue_tpu/runner.py:747-753``); ``LlamaConfig.remat`` applies."""
     if cfg.mesh.pipeline_parallel > 1:
         raise NotImplementedError("run_stage1 with pipeline_parallel > 1 is "
                                   "not ported yet (ROADMAP A: parallel)")
-    _refuse("run_stage1", remat=cfg.model.llama.remat)
-    _refuse_bf16(cfg)
     dev = _train_device(device)
     seed_everything(cfg.train.seed)
     out_dir = os.path.join(out_dir, f"stage1_{cfg.name}")
