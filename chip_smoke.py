@@ -2355,9 +2355,9 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False,
     the fused switch on, through the port's entry points: ``make_optimizer``,
     ``make_train_step``, ``make_eval_step``.  ``bf16``: the preset under a
     "bfloat16" ``ModelConfig`` with its parameters cast to bf16, as
-    ``runner.build_model_and_params`` casts them; Adam's first step is then
-    below half an ulp of most weights, so a trainable tensor may keep its
-    bits (its moments must not be zero)."""
+    ``runner.build_model_and_params`` casts them; Adam's step is then
+    below half an ulp of the larger weights, so a trainable tensor that
+    holds no small weight may keep its bits."""
     import dataclasses
     import torch
     from tsue_tpu_torch.config import get_preset
@@ -2451,7 +2451,11 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False,
         # frozen parameters bit-identical; trainable ones changed, unless
         # no gradient above Adam's eps reached them (the lane attention's
         # q/k saturate on raw pixel polygons at random init), so that the
-        # step and the decay lr * wd are below fp32 resolution
+        # step and the decay lr * wd are below fp32 resolution.  In bf16 a
+        # step of about lr is lost where it is under half an ulp of the
+        # weight: a tensor with a gradient may keep its bits only if it
+        # holds no weight below 64 lr (where half an ulp is at most lr / 4),
+        # as a LayerNorm scale of ones does
         adam = state.optimizer.adamw.state
         unreached, no_grad = [], 0
         for n, p in params.items():
@@ -2459,13 +2463,14 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False,
             if n not in trainable:
                 check(same, f"{preset}: frozen {n} changed")
             elif same:
-                unreached.append(n)
                 moved = adam[p]["exp_avg"].abs().max().item()
-                check(moved < 1e-8 or bf16,
+                least = start[n].abs().min().item()
+                unreached.append(f"{n} (|m| {moved:.3g}, |w| >= {least:.3g})")
+                check(moved < 1e-8 or (bf16 and least >= 64 * cfg.train.lr),
                       f"{preset}: trainable {n} got a gradient but did not "
-                      "change")
+                      f"change (largest |m| {moved}, least |w| {least})")
                 no_grad += moved == 0
-        check(len(unreached) < len(trainable) // 2 or bf16,
+        check(len(unreached) < len(trainable) // 2,
               f"{preset}: most trainable tensors did not change")
         check(no_grad < len(trainable) // 2,
               f"{preset}: most trainable tensors got no gradient")
@@ -2510,7 +2515,7 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False,
           f"{', '.join(f'{x:.4f}' for x in losses)}; eval loss "
           f"{float(ev['loss']):.4f}; {len(trainable) - len(unreached)} of "
           f"{len(trainable)} trainable tensors changed (unchanged: "
-          f"{unreached if len(unreached) <= 8 else len(unreached)}; "
+          f"{unreached if len(unreached) <= 16 else len(unreached)}; "
           f"{no_grad} with a zero gradient); "
           f"repeated step bit-identical; peak memory "
           f"{peak:.2f} GiB; launches per step {json.dumps(per_forward)}; eval "

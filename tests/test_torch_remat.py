@@ -2,7 +2,9 @@
 train step equals the plain one bit for bit on the CPU, LoRA dropout
 included, under each of the three policies; the deterministic remat loss
 against the JAX package's ``LlamaForCausalLM(remat=True)``; the policy
-names; remat through ``run_stage2``, ``run_stage1`` and the CLI.
+names; remat through ``run_stage2``, ``run_stage1`` and the CLI; stage 1
+of a bf16 configuration, which trains in fp32 and is held to the same
+fp32 run as the remat run.
 
 The step's model is the train-parity model of ``tests/test_torch_train.py``
 (a 2-layer, 128-wide Llama with LoRA on q and v) with every dropout at 0.1
@@ -231,40 +233,60 @@ def test_run_stage2_with_remat_equals_without(policy, plain_run, tmp_path):
     assert all(torch.equal(best[k], plain_run[1][k]) for k in best)
 
 
-def test_run_stage1_with_remat_equals_without(tmp_path):
-    """``run_stage1`` (LoRA dropout 0.1) with remat: the LM losses and the
-    exported MLLM equal the run without."""
+def _stage1_cfg(dtype="float32"):
+    """The tiny stage-1 configuration with LoRA dropout 0.1, windows every
+    30 frames (a fifth of the steps)."""
     from test_torch_stage1 import _exp_cfg
+    cfg = _exp_cfg(port_config, dropout=0.1)
+    return cfg.replace(data=dataclasses.replace(cfg.data, stride=30),
+                       model=dataclasses.replace(cfg.model, dtype=dtype))
+
+
+def _stage1(cfg, out):
+    """``run_stage1`` for one epoch: (its LM losses, the exported MLLM)."""
     from tsue_tpu_torch.runner import run_stage1
     from tsue_tpu_torch.train.checkpoint import _read
-    cfg = _exp_cfg(port_config, dropout=0.1)
-    # windows every 30 frames: a fifth of the steps
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, stride=30))
-    outs = []
-    for i, c in enumerate((cfg, _remat(cfg, "full"))):
-        exp = str(tmp_path / f"mllm{i}")
-        outs.append(run_stage1(c, out_dir=str(tmp_path / str(i)), epochs=1,
-                               export_path=exp, synthetic_tracks=5,
-                               device="cpu"))
-    assert outs[0] == outs[1]
-    a, b = (_read(str(tmp_path / f"mllm{i}")) for i in range(2))
-    assert all(torch.equal(a[k], b[k]) for k in a)
+    losses = run_stage1(cfg, out_dir=str(out / "run"), epochs=1,
+                        export_path=str(out / "mllm"), synthetic_tracks=5,
+                        device="cpu")
+    return losses, _read(str(out / "mllm"))
 
 
-def test_cli_train_takes_remat(tmp_path, monkeypatch):
-    """``--remat`` reaches ``LlamaConfig`` (remat on, the "full" policy)
-    and trains; ``--remat-policy`` trains in ``test_torch_viz.py``'s CLI
-    run."""
+@pytest.fixture(scope="module")
+def stage1_plain(tmp_path_factory):
+    """The fp32 stage-1 run without remat, which the remat and bf16 runs
+    below are held to."""
+    return _stage1(_stage1_cfg(), tmp_path_factory.mktemp("stage1"))
+
+
+def test_run_stage1_with_remat_equals_without(stage1_plain, tmp_path):
+    """``run_stage1`` (LoRA dropout 0.1) with remat: the LM losses and the
+    exported MLLM equal the run without."""
+    losses, mllm = _stage1(_remat(_stage1_cfg(), "full"), tmp_path)
+    assert losses == stage1_plain[0]
+    assert all(torch.equal(mllm[k], stage1_plain[1][k]) for k in mllm)
+
+
+def test_stage1_of_a_bf16_config_is_its_fp32_run(stage1_plain, tmp_path):
+    """``run_stage1`` ignores ``ModelConfig.dtype``, as the JAX package's
+    does: a bf16 configuration gives the fp32 run's losses and artifact."""
+    losses, mllm = _stage1(_stage1_cfg("bfloat16"), tmp_path)
+    assert {v.dtype for v in mllm.values()} == {torch.float32}
+    assert losses == stage1_plain[0]
+    assert all(torch.equal(mllm[k], stage1_plain[1][k]) for k in mllm)
+
+
+def test_cli_train_takes_remat(monkeypatch):
+    """``--remat`` reaches ``run_stage2`` as a rematerialised Llama under
+    the "full" policy.  The CLI run that trains with remat is
+    ``test_torch_viz.py``'s (``--remat --remat-policy dots``)."""
+    from tsue_tpu_torch import runner
     from tsue_tpu_torch.cli import train
     seen = []
-    real = train.apply_overrides
-    monkeypatch.setattr(train, "apply_overrides",
-                        lambda cfg, args: seen.append(real(cfg, args))
-                        or seen[-1])
-    metrics = train.main(["--tiny", "--device", "cpu", "--preset",
-                          "test_18_18", "--epochs", "1", "--synthetic-tracks",
-                          "5", "--batch-size", "4", "--out-dir",
-                          str(tmp_path), "--remat"])
+    monkeypatch.setattr(runner, "run_stage2", lambda cfg, *a, **k:
+                        seen.append(cfg) or {"test_ade": 0.0})
+    train.main(["--tiny", "--device", "cpu", "--preset", "test_18_18",
+                "--epochs", "1", "--synthetic-tracks", "5", "--batch-size",
+                "4", "--out-dir", "unused", "--remat"])
     llama = seen[0].model.llama
     assert llama.remat and llama.remat_policy == "full"
-    assert np.isfinite(metrics["test_ade"])

@@ -83,7 +83,7 @@ def test_run_stage2_writes_the_epoch_text_sample(viz_run):
 
 def test_cli_train_takes_viz_every(tmp_path, monkeypatch):
     """``--viz-every 1`` plots the epoch's validation sample and writes the
-    text sample; in the same run ``--remat-policy dots`` reaches
+    text sample; in the same run ``--remat --remat-policy dots`` reaches
     ``LlamaConfig`` (remat on, that policy) and trains."""
     from tsue_tpu_torch.cli import train
     seen = []
@@ -94,7 +94,7 @@ def test_cli_train_takes_viz_every(tmp_path, monkeypatch):
     train.main(["--tiny", "--device", "cpu", "--preset", "test_18_18",
                 "--epochs", "1", "--synthetic-tracks", "5", "--batch-size",
                 "4", "--out-dir", str(tmp_path), "--viz-every", "1",
-                "--remat-policy", "dots"])
+                "--remat", "--remat-policy", "dots"])
     llama = seen[0].model.llama
     assert llama.remat and llama.remat_policy == "dots"
     run = tmp_path / "test_18_18"

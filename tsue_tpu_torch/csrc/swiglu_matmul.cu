@@ -649,7 +649,7 @@ int swiglu_matmul(const float* g, const float* u, const float* w, float* wt,
 
 // The bf16 form: g, u (M, K), w (K, N) and out (M, N), bf16, contiguous
 // and 16-byte aligned, with M, N > 0, K % 32 == 0 and N % 8 == 0; one
-// launch, one CTA a 128 x 128 output tile.  Returns a cudaError_t, or
+// launch, one CTA a 128 x 256 output tile.  Returns a cudaError_t, or
 // cudaErrorInvalidValue for a shape or base it does not take.
 int swiglu_matmul_bf16(const void* g, const void* u, const void* w,
                        void* out, int M, int K, int N, cudaStream_t stream) {
