@@ -22,10 +22,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with its launch plan, its share of the tolerance, a repeated call that
      must give the same bits and cuBLAS's fp32 h @ w alone beside;
      the bf16 forms at the training shapes of a bf16 model (flash: the
-     Llama's self-attention, the LTSF cross-attention's fp32 queries over
-     bf16 keys, a bf16 decode step; RMSNorm; SwiGLU), against their plain
-     versions, bounds at bf16's rate and bytes, SDPA / F.rms_norm / cuBLAS
-     in bf16 beside;
+     Llama's and the Q-Former's self-attention on the bf16 tensor cores,
+     the LTSF cross-attention's fp32 queries over bf16 keys, a bf16 decode
+     step; RMSNorm; SwiGLU as a TMA + wgmma pipeline, its drift against an
+     fp64 product), against their plain versions, the form that ran, a
+     repeat bit-identical, bounds at bf16's rate and bytes, SDPA /
+     F.rms_norm / cuBLAS in bf16 beside;
      NLinear (with its launch plan), the fused LoRA product (fp32 and
      bf16 at q_proj and v_proj, and ranks 24 and 64 at q_proj, which take
      the SIMT form, each with its launch plan) and the
@@ -768,17 +770,22 @@ BF_TOL = dict(atol=2 ** -6, rtol=2 ** -7)   # bf16 outputs: a few ulps
 def bf16_checks(dev, gpu, timer):
     """The bf16 forms at the training shapes of a bf16 model: flash
     attention (the Llama's self-attention, B16 T528 32/8 x 64, RoPE,
-    causal; the LTSF cross-attention's fp32 queries over bf16 keys, D =
+    causal, and the Q-Former's, B16 T18 8 x 96: the tensor-core form
+    "bf16_mma"; the LTSF cross-attention's fp32 queries over bf16 keys, D =
     1024; a decode step of bf16 queries over a bf16 cache), RMSNorm (8448,
-    2048) and the SwiGLU product (8448, 8192) x (8192, 2048), each against
-    its plain version (flash, RMSNorm: atol 2^-6, rtol 2^-7; SwiGLU: rtol
-    2^-7, atol 2^-7 of the largest output), a repeated call bit-identical,
-    the bound at bf16's 2 bytes an element and 989 TFLOP/s, and the library
-    call in bf16: SDPA, ``F.rms_norm``, cuBLAS ``h @ w``.  Returns rows by
-    kernel."""
+    2048) and the SwiGLU product (8448, 8192) x (8192, 2048) (the form
+    "bf16_wgmma"), each against its plain version (flash, RMSNorm: atol
+    2^-6, rtol 2^-7; SwiGLU: rtol 2^-7, atol 2^-7 of the largest output),
+    the form that ran, a repeated call bit-identical, the bound at bf16's 2
+    bytes an element and 989 TFLOP/s, and the library call in bf16: SDPA,
+    ``F.rms_norm``, cuBLAS ``h @ w``.  SwiGLU's tensor cores sum all of K =
+    8192 in fp32 accumulators: its ``tol_used`` against an fp64 product of
+    the same h is printed beside the plain version's (the drift of an
+    unpromoted accumulator).  Returns rows by kernel."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.flash import (flash_attention,
+                                          flash_attention_form,
                                           flash_attention_plain, rope_bthd)
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
                                           swiglu_matmul, swiglu_matmul_plain,
@@ -792,6 +799,7 @@ def bf16_checks(dev, gpu, timer):
                     v=kw["v"].to(kv_dtype))
     for name, kw in (
             ("llama_self bf16", cast(cases["llama_self"], bf, bf)),
+            ("qformer_self bf16", cast(cases["qformer_self"], bf, bf)),
             ("ltsf_cross fp32 q, bf16 k/v",
              cast(cases["ltsf_cross"], torch.float32, bf)),
             ("decode bf16, Tq1 S592",
@@ -806,6 +814,12 @@ def bf16_checks(dev, gpu, timer):
               f"flash_attn_fwd {name}: max abs err {err} ({BF_TOL})")
         check(torch.equal(out, flash_attention(**kw)),
               f"flash_attn_fwd {name}: a repeated call differs")
+        (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
+        form = flash_attention_form(B, Tq, Tk, Hq, Hkv, D,
+                                    kw.get("rope") is not None, False,
+                                    kw["q"].dtype, kw["k"].dtype)
+        if name in ("llama_self bf16", "qformer_self bf16"):
+            check(form == "bf16_mma", f"flash_attn_fwd {name}: form {form}")
         plain_ms = timer.ms(lambda: flash_attention_plain(**kw))
         ms = timer.ms(lambda: flash_attention(**kw))
         q, k, v = kw["q"], kw["k"], kw["v"]
@@ -824,7 +838,8 @@ def bf16_checks(dev, gpu, timer):
         rows["flash_attn_fwd"].append(row(
             "flash_attn_fwd", name, gpu, err, rel, ms, plain_ms, b, lib_ms,
             timer.floor_ms, q=list(q.shape), k=list(k.shape),
-            dtypes=[str(kw["q"].dtype)[6:], str(kw["k"].dtype)[6:]]))
+            dtypes=[str(kw["q"].dtype)[6:], str(kw["k"].dtype)[6:]],
+            form=form, repeat_bit_identical=True))
         del out, ref, qt, kt, vt
     del cases
     g = torch.Generator(device=dev).manual_seed(12)
@@ -852,6 +867,7 @@ def bf16_checks(dev, gpu, timer):
     up = torch.randn(M, I, generator=g, device=dev).to(bf)
     w = (torch.randn(I, D, generator=g, device=dev) * I ** -0.5).to(bf)
     plan = swiglu_matmul_plan(M, I, D, bf)
+    check(plan["form"] == "bf16_wgmma", f"swiglu_matmul bf16: plan {plan}")
     out = swiglu_matmul(gate, up, w)
     ref = swiglu_matmul_plain(gate, up, w)
     torch.cuda.synchronize()
@@ -862,16 +878,30 @@ def bf16_checks(dev, gpu, timer):
           f"swiglu_matmul bf16 disagrees with the plain version: {err}")
     check(torch.equal(out, swiglu_matmul(gate, up, w)),
           "swiglu_matmul bf16: a repeated call differs")
+    h = (F.silu(gate.float()).to(bf) * up)
+
+    def tol_used(x, r):
+        return ((x.double() - r).abs()
+                / (2 ** -7 * big + 2 ** -7 * r.abs())).max().item()
+    ref64 = h.double() @ w.double()
+    drift = dict(tol_used=tol_used(out, ref.double()),
+                 tol_used_f64=tol_used(out, ref64),
+                 plain_tol_used_f64=tol_used(ref, ref64),
+                 share_unequal_to_plain=(out != ref).float().mean().item())
+    del ref64
+    print(f"swiglu_matmul bf16 M={M} K={I} N={D}: plan {json.dumps(plan)}; "
+          f"no promotion of partial sums: {json.dumps(drift)}; gpu: {gpu}",
+          flush=True)
     plain_ms = timer.ms(lambda: swiglu_matmul_plain(gate, up, w))
     ms = timer.ms(lambda: swiglu_matmul(gate, up, w))
-    h = (F.silu(gate.float()).to(bf) * up)
     lib_ms = timer.ms(lambda: h @ w)
     del h
     rows["swiglu_matmul"].append(row(
         "swiglu_matmul", f"bf16: M={M} K={I} N={D}", gpu, err, rel, ms,
         plain_ms, bound(nbytes(gate, up, w, out), 2.0 * M * D * I,
                         BF16_FLOPS), lib_ms, timer.floor_ms, plan=plan,
-        dtype="bfloat16"))
+        dtype="bfloat16", form=plan["form"], repeat_bit_identical=True,
+        **drift))
     del gate, up, w, out, ref
     torch.cuda.empty_cache()
     return rows
@@ -3243,6 +3273,10 @@ def bf16_remat_phase(dev, gpu):
     f32 = TRAIN_STATS.get("train_18_30", dict(windows_s=float("nan"),
                                               peak_gib=float("nan")))
     b16 = TRAIN_STATS["train_18_30 bf16"]
+    print(f"train_18_30 bf16 steps: "
+          f"{', '.join(f'{t:.1f}' for t in b16['ms'])} ms (with the "
+          f"earlier mma.sync SwiGLU and fp32-FMA flash forms: 94.8-110.8 ms "
+          f"steady on an H100 80GB HBM3 at 700 W); gpu: {gpu}", flush=True)
     print(f"train_18_30 bf16 against fp32 (phase 7): "
           f"{b16['windows_s']:.3f} against {f32['windows_s']:.3f} train "
           f"windows/s ({b16['windows_s'] / f32['windows_s']:.3f}x); peak "

@@ -2,7 +2,8 @@
 """Time text variants of the fused SwiGLU down-projection kernel side by
 side on one GPU.
 
-    python3 swiglu_variants.py [--out build/swiglu_variants.json]
+    python3 swiglu_variants.py [--dtype bfloat16] [--old-source FILE]
+                               [--out build/swiglu_variants.json]
 
 Each variant is ``tsue_tpu_torch/csrc/swiglu_matmul.cu`` with some edits
 (``EDITS``, and ``_spans`` for edits that swap whole blocks), built with
@@ -10,8 +11,12 @@ nvcc into ``build/swiglu_variants/`` (all in parallel) and swapped in under
 ``tsue_tpu_torch.ops.fused``.  Every variant is timed at chip_smoke.py's
 training shape at batch 16 (M 8448, K 8192, N 2048) with chip_smoke.py's
 timer (L2 flushed, median of 15), in two rounds, the second in reverse
-order, so a drift of the card does not favour one variant.  The variants
-answer where the kernel's time goes:
+order, so a drift of the card does not favour one variant.  ``--old-source``
+adds an earlier source of the kernel (e.g. ``git show
+<commit>:tsue_tpu_torch/csrc/swiglu_matmul.cu`` written under ``runs/``) as
+the variant ``old``, checked and timed beside the others through the same
+C entry.  The fp32 form's variants (the default, ``--dtype float32``)
+answer where its time goes:
 
   copies_only    the ring's TMA copies alone (the pre-pass runs; no
                  activation, no product; the epilogue stores zeros)
@@ -36,12 +41,23 @@ answer where the kernel's time goes:
                  instead of the pre-pass
   cn64           chunks of 64 columns (m64n64 wgmmas) instead of 128
 
+The bf16 form's (``--dtype bfloat16``; inputs and W bf16):
+
+  bf16_copies_only    the two rings' TMA copies alone (no activation, no
+                      product; the epilogue stores what the accumulators
+                      hold)
+  bf16_mma_only       the products alone: no TMA copy, no activation (h = g
+                      of what the ring holds)
+  bf16_no_activation  h = g: the copies and the products without the
+                      activation's arithmetic
+
 The variants named ``*only``, ``no_activation`` and ``no_prepass`` do not
 compute the function and are not checked.  ``no_promote`` is held to the
 tolerance but only reported: its ``tol_used`` is what it measures.  Every
 other variant is held to the plain version with chip_smoke.py's SwiGLU
-tolerance (rtol 1e-4, atol 1e-5 of the largest output); one that disagrees
-is named, left untimed, and makes the script exit 1.  It needs a CUDA
+tolerance (fp32: rtol 1e-4, atol 1e-5 of the largest output; bf16: rtol
+2^-7, atol 2^-7 of the largest output); one that disagrees is named, left
+untimed, and makes the script exit 1.  It needs a CUDA
 device and nvcc, and prints the card beside every time.
 """
 from __future__ import annotations
@@ -252,8 +268,36 @@ def _spans(base: str) -> dict:
     }
 
 
-CHECKED = ("base", "ieee_div", "restage", "cn64")
+CHECKED = ("base", "ieee_div", "restage", "cn64", "old")
 REPORTED = ("no_promote",)
+
+_BF16_ACT = ("  const bf162 h = __hmul2(s, *reinterpret_cast<const bf162*>(&u2));\n"
+             "  return *reinterpret_cast<const uint32_t*>(&h);",
+             "  (void)s; (void)u2;\n  return g2;")
+_BF16_G_TX = ("        mbar_arrive_tx(&full_g[s], kGStageBytes);\n"
+              "        tma_load(st, &tg, k0, m0, &full_g[s]);\n"
+              "        tma_load(st + kBGBytes, &tu, k0, m0, &full_g[s]);\n")
+_BF16_W_TX = ("        mbar_arrive_tx(&full_w[s], boxes * kWBoxBytes);\n"
+              "        for (int i = 0; i < boxes; ++i)\n"
+              "          tma_load(st + i * kWBoxBytes, &tw, n0 + i * kWBoxN, "
+              "k0, &full_w[s]);\n")
+BF16_EDITS = {
+    "bf16_no_activation": [_BF16_ACT],
+    "bf16_mma_only": [(_BF16_G_TX, "        mbar_arrive(&full_g[s]);\n"),
+                      (_BF16_W_TX, "        mbar_arrive(&full_w[s]);\n"),
+                      _BF16_ACT],
+}
+
+
+def _bf16_spans(base: str) -> dict:
+    """The bf16 variants whose edits swap whole blocks of the source."""
+    consumer = _between(base, "__device__ __forceinline__ void consume_bf16(",
+                        "// The bf16 form's persistent kernel")
+    act = _between(consumer, "#pragma unroll\n        for (int kk = 0;",
+                   "        release_bf16<kGStages>")
+    mma = _between(consumer, "        wgmma_fence();", "        wgmma_wait<1>();")
+    return {"bf16_copies_only": [(act, "        (void)st;\n"),
+                                 (mma, "        (void)wb;\n")]}
 
 
 def build(sources: dict, out_dir: Path) -> dict:
@@ -263,11 +307,13 @@ def build(sources: dict, out_dir: Path) -> dict:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = build_variants(sources, out_dir, {
         "swiglu_matmul": [ptr] * 5 + [i32] * 3 + [ptr],
+        "swiglu_matmul_bf16": [ptr] * 4 + [i32] * 3 + [ptr],
         "swiglu_matmul_ctas": []})
     for name, (_, report) in libs.items():
         lines = report.splitlines()
         for i, line in enumerate(lines):
-            if "entry function" in line and "swiglu_tc_kernel" in line:
+            if "entry function" in line and ("swiglu_tc_kernel" in line or
+                                             "swiglu_bf16_kernel" in line):
                 print(f"ptxas {name}: " + " ".join(
                     x.split("info    :")[-1].strip()
                     for x in lines[i + 2:i + 4]), flush=True)
@@ -277,8 +323,34 @@ def build(sources: dict, out_dir: Path) -> dict:
     return {name: lib for name, (lib, _) in libs.items()}
 
 
+def _caller(FU, lib, gate, up, w):
+    """A call of one variant's library: through the wrapper (bound to
+    ``lib``), or, for the bf16 form, straight to its C entry with the
+    output the wrapper would allocate (an earlier source may lack the
+    entries the wrapper's plan asks for)."""
+    import torch
+    if gate.dtype == torch.float32:
+        FU._swiglu_lib = lambda: lib      # the wrapper's binding
+        return lambda: FU._swiglu_cuda(gate, up, w)
+    (M, K), N = gate.shape, w.shape[1]
+    out = torch.empty(M, N, device=gate.device, dtype=gate.dtype)
+
+    def call():
+        err = lib.swiglu_matmul_bf16(
+            gate.data_ptr(), up.data_ptr(), w.data_ptr(), out.data_ptr(), M,
+            K, N, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"swiglu_matmul_bf16: CUDA error {err}")
+        return out
+    return call
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the form whose variants run")
+    ap.add_argument("--old-source", type=Path, default=None,
+                    help="an earlier swiglu_matmul.cu, timed as 'old'")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the timings here as JSON")
     args = ap.parse_args()
@@ -292,8 +364,12 @@ def main() -> int:
     gpu = cs.gpu_line()
     print(gpu, flush=True)
     base = (CSRC / "swiglu_matmul.cu").read_text()
-    edits_of = {**EDITS, **_spans(base)}
+    bf16 = args.dtype == "bfloat16"
+    edits_of = ({**BF16_EDITS, **_bf16_spans(base)} if bf16
+                else {**EDITS, **_spans(base)})
     sources = {"base": base}
+    if args.old_source is not None:
+        sources["old"] = args.old_source.read_text()
     for name, edits in edits_of.items():
         text = base
         for old, new in edits:
@@ -305,11 +381,13 @@ def main() -> int:
     timer = cs.Timer(dev)
     g = torch.Generator(device=dev).manual_seed(4)
     M, K, N = SHAPE
-    gate = torch.randn(M, K, generator=g, device=dev)
-    up = torch.randn(M, K, generator=g, device=dev)
-    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
-    ref = FU.swiglu_matmul_plain(gate, up, w)
-    atol = 1e-5 * ref.abs().max().item()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    gate = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    up = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+    ref = FU.swiglu_matmul_plain(gate, up, w).float()
+    rtol = 2 ** -7 if bf16 else 1e-4
+    atol = (2 ** -7 if bf16 else 1e-5) * ref.abs().max().item()
     names = list(sources)
     times: dict = {}
     used: dict = {}
@@ -318,26 +396,27 @@ def main() -> int:
         for name in order:
             if name in wrong:
                 continue
-            FU._swiglu_lib = lambda lib=libs[name]: lib  # the binding
-            out = FU._swiglu_cuda(gate, up, w)
+            call = _caller(FU, libs[name], gate, up, w)
+            out = call().float()
             torch.cuda.synchronize()
             if name in CHECKED or name in REPORTED:
                 used[name] = ((out - ref).abs()
-                              / (atol + 1e-4 * ref.abs())).max().item()
+                              / (atol + rtol * ref.abs())).max().item()
                 print(f"{name}: tol_used {used[name]:.4f}", flush=True)
                 if name in CHECKED and not torch.allclose(
-                        out, ref, rtol=1e-4, atol=atol):
+                        out, ref, rtol=rtol, atol=atol):
                     print(f"{name} disagrees with the plain version",
                           flush=True)
                     wrong.add(name)
                     continue
             del out
-            ms = timer.ms(lambda: FU._swiglu_cuda(gate, up, w))
+            ms = timer.ms(call)
             times.setdefault(name, []).append(ms)
             print(f"{name} M={M} K={K} N={N}: {ms:.4f} ms; gpu: {gpu}",
                   flush=True)
     summary = {name: min(v) for name, v in times.items()}
-    print(json.dumps({"gpu": gpu, "shape": SHAPE, "tol_used": used,
+    print(json.dumps({"gpu": gpu, "dtype": args.dtype, "shape": SHAPE,
+                      "tol_used": used,
                       "min_ms_of_two_rounds": summary}), flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

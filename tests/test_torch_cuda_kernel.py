@@ -34,6 +34,7 @@ from tsue_tpu_torch.ops.metric_kernels import ade_fde_plain, fused_ade_fde
 from tsue_tpu_torch.ops.nlinear import (nlinear_fused, nlinear_plan,
                                         nlinear_ref)
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
+                                      flash_attention_form,
                                       flash_attention_plain)
 
 pytestmark = pytest.mark.cuda
@@ -1043,14 +1044,29 @@ MIXED = {"bf16": (BF, BF), "f32_q": (torch.float32, BF),
          "bf16_q": (BF, torch.float32)}
 
 
+# shapes at the edges of the all-bf16 tensor-core form ("bf16_mma"): T
+# not a multiple of 16 or 64, causal with Tq < Tk, D 16 to 128, G 1 and 4,
+# RoPE on and off, one block of 128 items and several
+BF16_MMA_EDGES = [(2, 17, 17, 4, 1, 128, True, True),
+                  (2, 33, 70, 8, 2, 64, True, False),
+                  (2, 70, 70, 4, 4, 128, False, True),
+                  (2, 200, 200, 4, 1, 96, True, True),
+                  (2, 33, 33, 8, 8, 32, True, True),
+                  (2, 17, 40, 4, 1, 16, True, False),
+                  (2, 70, 200, 8, 2, 64, True, False),
+                  (2, 200, 200, 8, 8, 16, True, True)]
+
+
 @pytest.mark.parametrize("dtypes", list(MIXED))
 def test_kernel_bf16_matches_plain(dev, dtypes):
     """Each dtype combination in the three forms of the kernel: tiled
     (GQA 32/8 x 64, 200 rows, causal, with RoPE where the combination takes
-    it; D = 16, 32 and 96 of the small encoders), split-KV (one query over
-    592 keys; 18 queries of the LTSF cross-attention, D = 1024, over 600),
-    with padded and all-masked key rows: one launch, the output in q's
-    dtype, within BF_TOL of the plain version, a repeat bit-identical."""
+    it; D = 16, 32 and 96 of the small encoders; all bf16: the tensor-core
+    form, also at ``BF16_MMA_EDGES``), split-KV (one query over 592 keys;
+    18 queries of the LTSF cross-attention, D = 1024, over 600), with
+    padded and all-masked key rows: the form the plan names, one launch,
+    the output in q's dtype, within BF_TOL of the plain version, a repeat
+    bit-identical."""
     qd, kd = MIXED[dtypes]
     g = torch.Generator(device=dev).manual_seed(41)
     shapes = [(2, 200, 200, 32, 8, 64, True, True),
@@ -1059,12 +1075,20 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
               (3, 33, 64, 8, 8, 96, False, False),
               (3, 1, 592, 8, 2, 64, False, False),
               (3, 18, 600, 2, 2, 1024, False, False)]
+    if dtypes == "bf16":
+        shapes += BF16_MMA_EDGES
     for (B, Tq, Tk, Hq, Hkv, D, causal, rope), masked in itertools.product(
             shapes, ("pad", "empty_rows")):
         rope = rope and dtypes != "bf16_q"
         q, k, v, mask, cs = _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, masked,
                                     rope)
         q, k, v = q.to(qd), k.to(kd), v.to(kd)
+        form = flash_attention_form(B, Tq, Tk, Hq, Hkv, D, rope, False, qd,
+                                    kd)
+        tiled = D <= 128 and (rope or Tq * Hq // Hkv > 16)
+        assert form == ("split-KV D1024" if D > 128 else
+                        "split-KV" if not tiled else
+                        "bf16_mma" if dtypes == "bf16" else "tiled"), form
         before = flash_attention.launches
         out = flash_attention(q, k, v, mask, causal, None, cs)
         assert flash_attention.launches == before + 1
@@ -1122,25 +1146,29 @@ def test_rmsnorm_bf16_matches_plain(dev, dtypes):
 
 @pytest.mark.parametrize("M", [128, 129, 8448])
 def test_swiglu_matmul_bf16_matches_plain(dev, M):
-    """The bf16 form: K = 128 and 8192, N = 128 and 2048, a row tail, the
-    gate up to +-60: one launch of the plan's form "bf16_mma", within
-    BF_TOL-like bounds of the plain version (rtol 2^-7, atol 2^-7 of the
-    largest output: sums in another order, one output rounding), a
-    repeat bit-identical."""
+    """The bf16 form: K = 128 (two 64-deep stages) and 8192, N = 128, 136
+    (a column tile of 136, a W box past N left unloaded), 520 (a last tile
+    of 8 columns) and 2048, a row tail, the gate up to +-60: one launch of
+    the plan's form "bf16_wgmma", within BF_TOL-like bounds of the plain
+    version (rtol 2^-7, atol 2^-7 of the largest output: sums in another
+    order, one output rounding), a repeat bit-identical."""
     g = torch.Generator(device=dev).manual_seed(M + 5)
-    for K, N in ((128, 128), (8192, 2048)):
+    for K, N in ((128, 128), (128, 136), (8192, 520), (8192, 2048)):
         gate = torch.randn(M, K, generator=g, device=dev) * 3
         gate[:, :64] = torch.linspace(-60, 60, 64, device=dev)
         gate = gate.to(BF)
         up = torch.randn(M, K, generator=g, device=dev).to(BF)
         w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(BF)
-        assert FU.swiglu_matmul_plan(M, K, N, BF)["form"] == "bf16_mma"
+        assert FU.swiglu_matmul_plan(M, K, N, BF)["form"] == "bf16_wgmma"
+        # the wrapper sends N % 128 != 0 to the plain version, as the JAX
+        # package's dispatch does; the kernel's entry takes N % 8 == 0
+        call = FU.swiglu_matmul if N % 128 == 0 else FU._swiglu_cuda
         before = FU.swiglu_matmul.launches
-        out = FU.swiglu_matmul(gate, up, w)
+        out = call(gate, up, w)
         assert FU.swiglu_matmul.launches == before + 1
         assert out.dtype == BF
         ref = FU.swiglu_matmul_plain(gate, up, w)
-        again = FU.swiglu_matmul(gate, up, w)
+        again = call(gate, up, w)
         torch.cuda.synchronize()
         big = float(ref.float().abs().max())
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,

@@ -165,6 +165,31 @@ def test_swiglu_plan_shape_rules(monkeypatch):
             fused.swiglu_matmul_plan(M, K, N)
 
 
+def test_swiglu_bf16_plan_shape_rules(monkeypatch):
+    """The bf16 form, "bf16_wgmma", beside the fp32 one: the same 128 x 256
+    tiles and persistent grid, 64-deep stages in a ring of three for g and
+    u and one of four for W, 384 threads; it takes M, N > 0, K % 128 == 0 and N % 8 == 0 (16-byte rows of
+    bf16 for TMA), row and column tails included; any other shape, and a
+    dtype other than fp32 and bf16, raises.  (With no CUDA device, as set
+    here, the plan counts one CTA a tile.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bf = torch.bfloat16
+    plan = fused.swiglu_matmul_plan(8448, 8192, 2048, bf)
+    assert plan == dict(form="bf16_wgmma", tile_m=128, tile_n=256,
+                        k_step=64, stages=3, w_stages=4, threads=384,
+                        tiles=528, ctas=528)
+    assert fused.swiglu_matmul_plan(4224, 8192, 2048, bf)["tiles"] == 264
+    plan = fused.swiglu_matmul_plan(129, 128, 136, bf)   # row, column tails
+    assert (plan["form"], plan["tiles"], plan["ctas"]) == ("bf16_wgmma", 2, 2)
+    assert fused.swiglu_matmul_plan(65, 8192, 520, bf)["tiles"] == 3
+    for M, K, N in ((128, 200, 256), (128, 0, 256), (128, 128, 132),
+                    (0, 128, 256), (128, 128, 0), (128, 64, 256)):
+        with pytest.raises(ValueError, match="K % 128 == 0 and N % 8"):
+            fused.swiglu_matmul_plan(M, K, N, bf)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused.swiglu_matmul_plan(128, 128, 256, torch.float16)
+
+
 def test_switch_semantics(monkeypatch):
     """``auto`` is off; ``fused_scope`` nests and restores; the Llama
     modules consult the switch on every call."""

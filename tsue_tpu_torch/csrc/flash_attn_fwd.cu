@@ -26,18 +26,62 @@
 // are fp32 and products are fp32 FMAs on the CUDA cores (no TF32).
 //
 // bf16 (a model whose parameters are bf16): Q, K and V all bf16, or
-// fp32 Q over bf16 K and V (the template parameters QT, KT; the wrapper
-// widens a bf16 Q over fp32 K and V, which is exact).  It computes the
-// Pallas function of those dtypes: the operands are widened to fp32 as
-// they are staged, QK^T and the softmax stay fp32, the roped q and k are
-// rounded to their own dtype (_rope_2d's astype), P is rounded to V's dtype
-// before P V (p.astype(v.dtype)), the sums are fp32 and the output takes
-// Q's dtype.  The Pallas kernel rounds the normalised P, this kernel the
-// unnormalised one (online softmax): the same rounding error, not the same
-// bits.  bf16 operands are loaded, widened and stored to the fp32 stages
-// by the copying thread (8-byte loads) instead of by cp.async; the ring and
-// its barriers are the fp32 kernel's.  fp32 calls compile to the kernels
-// they were (QT = KT = float).
+// fp32 Q over bf16 K and V (the wrapper widens a bf16 Q over fp32 K and V,
+// which is exact).  Both compute the Pallas function of those dtypes: QK^T
+// and the softmax in fp32, the roped q and k rounded to their own dtype
+// (_rope_2d's astype), P rounded to V's dtype before P V
+// (p.astype(v.dtype)), fp32 sums, the output in Q's dtype.  The Pallas
+// kernel rounds the normalised P, these kernels the unnormalised one
+// (online softmax): the same rounding error, not the same bits.
+//   - All-bf16 calls of the tiled form take the tensor-core form below
+//     (attn_mma_kernel, "bf16_mma").
+//   - fp32 Q over bf16 K and V, and the split-KV forms of all-bf16 calls
+//     (the decode step), take attn_kernel with the template parameters QT,
+//     KT: the copying thread loads bf16 operands (8-byte loads), widens them
+//     and stores them to the fp32 stages; the ring and its barriers are the
+//     fp32 kernel's.
+// fp32 calls compile to the kernels they were (QT = KT = float).
+//
+// The bf16 tensor-core form (attn_mma_kernel<D>, D 16 to 128):
+//   - bound on an H100 at the Llama shape (B 16, T 528, 32/8 heads of 64,
+//     RoPE, causal, key mask): 0.0265 ms of bytes (q, k, v, out, mask, cos,
+//     sin once), 0.016 ms of bf16 operations (989 TFLOP/s); the widening
+//     form's floor was the 0.237 ms of fp32 FMAs;
+//   - a block of 8 warps owns 128 (row, head) items of one (b, KV head),
+//     16 a warp: one m16 tile of mma.sync m16n8k16 (bf16 operands, exact
+//     products, fp32 sums: the Pallas function itself).  K/V tiles are read
+//     once for the group (GQA without repetition);
+//   - K and V tiles of 64 keys stay bf16 in shared memory (rows padded to D
+//     + 8: ldmatrix reads 8 rows from 8 bank groups), with the tile's key
+//     mask and, roped, its cos and sin, through a ring of three stages (two
+//     tiles in flight) filled by 16-byte cp.async (4-byte for the mask);
+//     the first tiles are issued before the Q block loads;
+//   - the Q block is roped and rounded as it loads, staged in the last
+//     stage's buffer, and held as A fragments in registers for the whole
+//     key walk (ldmatrix); each K tile is roped in place as it lands, each
+//     thread rotating the pairs it copied (no extra barrier), and rounded
+//     to bf16;
+//   - S = Q K^T: B fragments of K by ldmatrix; the online softmax on the S
+//     accumulators in fp32 (exp2f of the scaled difference; the row's four
+//     lanes by shuffles; the row sum a lane's share, added at the end); P
+//     packed to bf16 from the S registers straight into the A fragments of
+//     P V (no shared-memory round trip); B fragments of V by
+//     ldmatrix.trans; O rescaled in fp32 registers;
+//   - the causal early stop, heaviest row blocks first, the run on to Tk
+//     of a block in which a row saw no valid key, and one fixed order of
+//     sums (a repeated call bit-identical) are the tiled form's;
+//   - on an H100 80GB HBM3 at 700 W (chip_smoke.py's bf16 rows): the
+//     Llama shape 0.198 ms (the widening form 0.845, SDPA bf16 0.267),
+//     the Q-Former's self-attention (B 16, T 18, 8 heads of 96) 0.0095
+//     (0.0178); at the Llama shape its copies alone take 0.159 ms and its
+//     arithmetic alone 0.170 (flash_variants.py --dtype bfloat16): they
+//     overlap;
+//   - ptxas (sm_90a, CUDA 12.8), registers (spill store / load bytes) and
+//     the dynamic shared memory a launch asks for (three stages; roped):
+//     <16> 128 (0), 19,200 (31,488); <32> 128 (0), 31,488 (56,064); <64>
+//     128 (28 / 40: the 128-register cap of two 256-thread blocks an SM),
+//     56,064 (105,216); <96> 196 (0), 80,640 (154,368); <128> 226 (0),
+//     105,216 (203,520).
 //
 // What bounds it on an H100 (67 TFLOP/s fp32, 3.35 TB/s):
 //   - Llama self-attention (B 16, T 528, 32/8 heads of 64, causal, key
@@ -136,6 +180,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -145,6 +190,7 @@ constexpr int BN = 64;                 // keys per tile
 constexpr int TX = 16;                 // lanes across keys / output columns
 constexpr int KPT = BN / TX;           // keys per thread in S: tx + 16 j
 constexpr float kNegInf = -1e30f;      // finite: fully masked rows stay finite
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Kind { kTiled = 0, kSmall = 1, kWide = 2 };
@@ -680,6 +726,444 @@ __global__ void merge_kernel(const float* __restrict__ part,
                                        acc.w * inv));
 }
 
+// ---- the bf16 tensor-core form ---------------------------------------------
+//
+// All-bf16 operands in the tiled form: QK^T and P V on the bf16 tensor
+// cores (mma.sync m16n8k16, fp32 accumulators), which compute the Pallas
+// function itself: bf16 operands, exact products, fp32 sums.  Block of
+// kMmaWarps warps, BM = 16 kMmaWarps items; warp w owns items i0 + 16 w ..
+// + 16, one m16 tile.
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaStages = 3;   // the ring: kMmaStages - 1 tiles in flight
+
+template <int D>
+struct MmaCfg {
+  static constexpr int NT = 32 * kMmaWarps;
+  static constexpr int BM = 16 * kMmaWarps;       // items a block
+  static constexpr int P = D + 8;                 // padded bf16 row of Q, K, V
+  static constexpr int KV_B = BN * P * 2;         // bytes of a K or V tile
+  static constexpr int MASK_B = BN * 4;           // the tile's key mask
+  static constexpr int CS_B = BN * D * 4;         // its cos and sin, fp32
+  // two blocks of 8 warps an SM at D <= 64 (128 registers a thread)
+  static constexpr int MINB = (D <= 64 ? 16 : 8) / kMmaWarps;
+  __host__ __device__ static constexpr int stage(bool rope) {
+    return 2 * KV_B + MASK_B + (rope ? CS_B : 0);
+  }
+  __host__ __device__ static constexpr int smem(bool rope) {
+    return kMmaStages * stage(rope);
+  }
+};
+// a row of P bf16 values is 16 * (D / 8 + 1) bytes: 8 rows of an ldmatrix
+// fall on 8 distinct 16-byte bank groups; cp.async and ldmatrix want
+// 16-byte aligned rows and tiles
+static_assert(MmaCfg<64>::P * 2 % 16 == 0 && MmaCfg<64>::P * 2 % 128 == 16,
+              "padded rows: 16-byte aligned, shifted one bank group a row");
+static_assert(MmaCfg<16>::KV_B % 16 == 0 && MmaCfg<16>::BM <= 2 * BN,
+              "the Q block is staged in a K and a V tile's place");
+static_assert(kMmaStages >= 2 && MmaCfg<128>::smem(true) <= 232448,
+              "the ring fits in a block's shared memory");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 4-byte async copy (zeros with ok == false)
+__device__ __forceinline__ void cp4b(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) b (16 x 8, col), bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Eight bf16 values (16 bytes) rotated as rot_lo / rot_hi do, rounded to
+// bf16: (x1, x2) the pair's halves, c and s their eight cos and sin.
+__device__ __forceinline__ void rope8(uint4& x1, uint4& x2, const float* c,
+                                      const float* s) {
+  const bf16* a = reinterpret_cast<const bf16*>(&x1);
+  const bf16* b = reinterpret_cast<const bf16*>(&x2);
+  uint4 lo, hi;
+  uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+  uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float rl[2], rh[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = __bfloat162float(a[2 * i + e]);
+      const float y = __bfloat162float(b[2 * i + e]);
+      const float cc = c[2 * i + e], ss = s[2 * i + e];
+      rl[e] = x * cc - y * ss;
+      rh[e] = y * cc + x * ss;
+    }
+    l[i] = pack_bf16(rl[0], rl[1]);
+    h[i] = pack_bf16(rh[0], rh[1]);
+  }
+  x1 = lo;
+  x2 = hi;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaCfg<D>::NT, MmaCfg<D>::MINB)
+attn_mma_kernel(const Args a) {
+  using C = MmaCfg<D>;
+  constexpr int P = C::P, KC = D / 16, ND = D / 8, half = D / 2;
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int G = a.Hq / a.Hkv, items = a.Tq * G;
+  const int b = blockIdx.x / a.Hkv, hkv = blockIdx.x % a.Hkv;
+  const int ib = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int i0 = ib * C::BM;
+  const int off = a.Tk - a.Tq;
+  const bool rope = a.cos != nullptr;
+  const int stage_b = C::stage(rope);
+  const int ntiles = (a.Tk + BN - 1) / BN;
+  const bool busy = i0 + warp * 16 < items;   // else the warp only copies
+  const bf16* aq = static_cast<const bf16*>(a.q);
+  const bf16* ak = static_cast<const bf16*>(a.k);
+  const bf16* av = static_cast<const bf16*>(a.v);
+  auto kbuf = [&](int buf) { return reinterpret_cast<bf16*>(sm + buf * stage_b); };
+  auto vbuf = [&](int buf) { return kbuf(buf) + BN * P; };
+  auto mbuf = [&](int buf) {
+    return reinterpret_cast<int*>(sm + buf * stage_b + 2 * C::KV_B);
+  };
+  auto cbuf = [&](int buf) {   // cos [BN][half], then sin [BN][half]
+    return reinterpret_cast<float*>(sm + buf * stage_b + 2 * C::KV_B +
+                                    C::MASK_B);
+  };
+
+  // tile t into buffer buf: K (with cos and sin when roped), V and the key
+  // mask, 16-byte cp.async (4 bytes for the mask); rows past Tk are zeros
+  auto issue = [&](int t, int buf) {
+    const int c0 = t * BN;
+    bf16* kd = kbuf(buf);
+    bf16* vd = vbuf(buf);
+    constexpr int C8 = D / 8, H8 = D / 16;
+    if (rope) {
+      float* cd = cbuf(buf);
+      float* sd = cd + BN * half;
+      for (int e = tid; e < BN * H8; e += C::NT) {
+        const int j = e / H8, d = (e % H8) * 8;
+        const bool ok = c0 + j < a.Tk;
+        const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+        const bf16* kr = ak + (key * a.Hkv + hkv) * D;
+        cp16(reinterpret_cast<float*>(kd + j * P + d),
+             reinterpret_cast<const float*>(kr + d), ok);
+        cp16(reinterpret_cast<float*>(kd + j * P + half + d),
+             reinterpret_cast<const float*>(kr + half + d), ok);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          cp16(cd + j * half + d + 4 * i, a.cos + key * half + d + 4 * i, ok);
+          cp16(sd + j * half + d + 4 * i, a.sin + key * half + d + 4 * i, ok);
+        }
+      }
+    } else {
+      for (int e = tid; e < BN * C8; e += C::NT) {
+        const int j = e / C8, d = (e % C8) * 8;
+        const bool ok = c0 + j < a.Tk;
+        const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+        cp16(reinterpret_cast<float*>(kd + j * P + d),
+             reinterpret_cast<const float*>(ak + (key * a.Hkv + hkv) * D + d),
+             ok);
+      }
+    }
+    for (int e = tid; e < BN * C8; e += C::NT) {
+      const int j = e / C8, d = (e % C8) * 8;
+      const bool ok = c0 + j < a.Tk;
+      const size_t key = (size_t)b * a.Tk + (ok ? c0 + j : 0);
+      cp16(reinterpret_cast<float*>(vd + j * P + d),
+           reinterpret_cast<const float*>(av + (key * a.Hkv + hkv) * D + d),
+           ok);
+    }
+    if (a.mask != nullptr) {
+      int* md = mbuf(buf);
+      for (int j = tid; j < BN; j += C::NT) {
+        const bool ok = c0 + j < a.Tk;
+        cp4b(md + j, a.mask + (size_t)b * a.Tk + (ok ? c0 + j : 0), ok);
+      }
+    }
+    cp_commit();
+  };
+  // the K pairs this thread copied in issue(), rotated in place and rounded
+  auto rope_own = [&](int buf) {
+    constexpr int H8 = D / 16;
+    bf16* kd = kbuf(buf);
+    const float* cd = cbuf(buf);
+    const float* sd = cd + BN * half;
+    for (int e = tid; e < BN * H8; e += C::NT) {
+      const int j = e / H8, d = (e % H8) * 8;
+      uint4* p1 = reinterpret_cast<uint4*>(kd + j * P + d);
+      uint4* p2 = reinterpret_cast<uint4*>(kd + j * P + half + d);
+      uint4 x1 = *p1, x2 = *p2;
+      rope8(x1, x2, cd + j * half + d, sd + j * half + d);
+      *p1 = x1;
+      *p2 = x2;
+    }
+  };
+
+  int t1 = ntiles;
+  if (a.causal) {
+    const int last_row = min(a.Tq - 1, (i0 + C::BM - 1) / G);
+    const int kend = max(0, min(a.Tk, last_row + off + 1));
+    t1 = (kend + BN - 1) / BN;
+  }
+  // the first kMmaStages - 1 tiles of [t0, t1) into buffers 0 ..; one copy
+  // group each (empty past t1)
+  auto prime = [&](int t0, int t1) {
+#pragma unroll
+    for (int i = 0; i < kMmaStages - 1; ++i) {
+      if (t0 + i < t1) issue(t0 + i, i);
+      else cp_commit();
+    }
+  };
+  prime(0, t1);              // in flight while the Q block loads
+
+  // The Q block, roped and rounded to bf16 as it loads, into the last
+  // buffer's K and V tiles (free until tile kMmaStages - 1 is issued)
+  {
+    bf16* qs = kbuf(kMmaStages - 1);
+    constexpr int C8 = D / 8, H8 = D / 16;
+    const int per = rope ? H8 : C8;
+    for (int e = tid; e < C::BM * per; e += C::NT) {
+      const int r = e / per, d = (e % per) * 8, it = i0 + r;
+      uint4 x1 = make_uint4(0u, 0u, 0u, 0u), x2 = x1;
+      if (it < items) {
+        const bf16* qr =
+            aq + (((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G) * D;
+        x1 = __ldg(reinterpret_cast<const uint4*>(qr + d));
+        if (rope) {
+          x2 = __ldg(reinterpret_cast<const uint4*>(qr + half + d));
+          const size_t cr = ((size_t)b * a.Tq + it / G) * half + d;
+          float c[8], sn[8];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float4 cv = ld4(a.cos + cr + 4 * i), sv = ld4(a.sin + cr + 4 * i);
+            c[4 * i] = cv.x; c[4 * i + 1] = cv.y; c[4 * i + 2] = cv.z; c[4 * i + 3] = cv.w;
+            sn[4 * i] = sv.x; sn[4 * i + 1] = sv.y; sn[4 * i + 2] = sv.z; sn[4 * i + 3] = sv.w;
+          }
+          rope8(x1, x2, c, sn);
+        }
+      }
+      *reinterpret_cast<uint4*>(qs + r * P + d) = x1;
+      if (rope) *reinterpret_cast<uint4*>(qs + r * P + half + d) = x2;
+    }
+  }
+
+  uint32_t qf[KC][4];       // the warp's Q rows: A fragments of Q K^T
+  float o[ND][4];           // O: n8 column tile n, rows g8 (e < 2), g8 + 8
+  float m[2], l[2];         // rows g8, g8 + 8 (l: this thread's share)
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+
+  // S = Q K^T of tile t, its online softmax, O += P V
+  auto compute = [&](int t, int buf) {
+    const int c0 = t * BN;
+    const bf16* kd = kbuf(buf);
+    const bf16* vd = vbuf(buf);
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {   // n8 key tiles 2 jp, 2 jp + 1
+        uint32_t kb[4];
+        ldsm4(kb, kd + (16 * jp + 8 * (mat >> 1) + r8) * P + 16 * kc +
+                      8 * (mat & 1));
+        mma_bf16(s[2 * jp], qf[kc], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kc], kb[2], kb[3]);
+      }
+    }
+    const bool diag = a.causal && c0 + BN - 1 > i0 / G + off;
+    const int* md = mbuf(buf);
+    bool in[8][2], kok[8][2];   // the thread's keys: below Tk; unmasked
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = 8 * j + 2 * t4 + e;
+        in[j][e] = c0 + kl < a.Tk;
+        kok[j][e] = a.mask == nullptr || md[kl] != 0;
+      }
+    uint32_t pa[4][4];      // P, rounded to bf16: A fragments of P V
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int it = i0 + warp * 16 + g8 + 8 * rr;
+      const int last = it / G + off;                    // last visible key
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok =
+              kok[j][e] && (!diag || c0 + 8 * j + 2 * t4 + e <= last);
+          float& x = s[j][2 * rr + e];
+          x = !in[j][e] ? -INFINITY : (ok ? x * a.scale : kNegInf);
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float mnew = fmaxf(m[rr], mx);
+      const float corr = exp2f((m[rr] - mnew) * kLog2e);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][2 * rr + e];
+          x = exp2f((x - mnew) * kLog2e);    // 0 past Tk (x = -inf)
+          sum += x;
+        }
+      l[rr] = l[rr] * corr + sum;
+      m[rr] = mnew;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][2 * rr] *= corr;
+        o[n][2 * rr + 1] *= corr;
+      }
+    }
+    // the S accumulators of key tiles 2c, 2c + 1 are the A fragment of
+    // keys 16c .. 16c + 15
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pa[c][0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
+      pa[c][1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
+      pa[c][2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
+      pa[c][3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {   // n8 column tiles 2 np, + 1
+        uint32_t vb[4];
+        ldsm4t(vb, vd + (16 * c + 8 * (mat & 1) + r8) * P + 16 * np +
+                       8 * (mat >> 1));
+        mma_bf16(o[2 * np], pa[c], vb[0], vb[1]);
+        mma_bf16(o[2 * np + 1], pa[c], vb[2], vb[3]);
+      }
+    }
+  };
+
+  // tiles [t0, t1) through the ring, kMmaStages - 1 copies ahead (primed),
+  // tile t0 landed in buffer 0 and roped; every thread runs it (the bounds
+  // are block-uniform).  Each step commits one copy group, so
+  // cp_wait<kMmaStages - 2> means "tile t + 1 landed".
+  auto run = [&](int t0, int t1) {
+#pragma unroll 1
+    for (int t = t0; t < t1; ++t) {
+      const int i = t - t0, buf = i % kMmaStages;
+      if (t + kMmaStages - 1 < t1)
+        issue(t + kMmaStages - 1, (i + kMmaStages - 1) % kMmaStages);
+      else
+        cp_commit();
+      if (busy) compute(t, buf);
+      cp_wait<kMmaStages - 2>();
+      if (rope && t + 1 < t1) rope_own((i + 1) % kMmaStages);
+      __syncthreads();     // tile t + 1 landed; buffer buf is free
+    }
+  };
+
+  cp_wait<kMmaStages - 2>();
+  if (rope && t1 > 0) rope_own(0);
+  __syncthreads();         // the Q block and tile 0 landed
+  {
+    const bf16* qs = kbuf(kMmaStages - 1);
+    const int mat = lane >> 3;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      ldsm4(qf[kc], qs + (warp * 16 + 8 * (mat & 1) + (lane & 7)) * P +
+                        16 * kc + 8 * (mat >> 1));
+  }
+  __syncthreads();         // buffer 1 is free for the ring
+  run(0, t1);
+  if (t1 < ntiles) {
+    // m stays at -1e30 only for a row that saw no valid key: then every key
+    // counts with weight 1, as in the reference, so run on to Tk
+    int empty = 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      empty |= busy && i0 + warp * 16 + g8 + 8 * rr < items && m[rr] <= kNegInf;
+    if (__syncthreads_or(empty)) {
+      cp_wait<0>();
+      prime(t1, ntiles);
+      cp_wait<kMmaStages - 2>();
+      if (rope) rope_own(0);
+      __syncthreads();
+      run(t1, ntiles);
+    }
+  }
+  if (!busy) return;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lt = l[rr];
+    lt += __shfl_xor_sync(kFull, lt, 1);
+    lt += __shfl_xor_sync(kFull, lt, 2);
+    const int it = i0 + warp * 16 + g8 + 8 * rr;
+    if (it >= items) continue;
+    const float f = 1.f / fmaxf(lt, 1e-30f);
+    bf16* orow = static_cast<bf16*>(a.out) +
+                 (((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t4) =
+          pack_bf16(o[n][2 * rr] * f, o[n][2 * rr + 1] * f);
+  }
+}
+
+template <int D>
+struct MmaKern {
+  using C = MmaCfg<D>;
+  static constexpr int BM = C::BM;
+  static int per_sm() {
+    static int n = -1;
+    if (n < 0) {
+      if (cudaFuncSetAttribute(attn_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::smem(true)) != cudaSuccess)
+        return 0;
+      int k = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &k, attn_mma_kernel<D>, C::NT, C::smem(false)) != cudaSuccess)
+        return 0;
+      n = k;
+    }
+    return n;
+  }
+  static void launch(const Args& a, dim3 grid, bool rope, cudaStream_t st) {
+    attn_mma_kernel<D><<<grid, C::NT, C::smem(rope), st>>>(a);
+  }
+};
+
 template <int D, int TY, int RPT, bool PQ, typename QT, typename KT>
 struct Kern {
   using C = Cfg<D, TY, RPT>;
@@ -744,6 +1228,16 @@ bool dispatch(int kind, int D, bool pq, int dt, F&& f) {
     return pq ? dispatch_pq<true, float, float>(kind, D, f)
               : dispatch_pq<false, float, float>(kind, D, f);
   if (pq) return false;
+  if (dt == kBf16 && kind == kTiled) {   // the tensor-core form
+    switch (D) {
+      case 16: f(MmaKern<16>{}); return true;
+      case 32: f(MmaKern<32>{}); return true;
+      case 64: f(MmaKern<64>{}); return true;
+      case 96: f(MmaKern<96>{}); return true;
+      case 128: f(MmaKern<128>{}); return true;
+      default: return false;
+    }
+  }
   if (dt == kBf16) return dispatch_pq<false, bf16, bf16>(kind, D, f);
   if (dt == kF32Bf16) return dispatch_pq<false, float, bf16>(kind, D, f);
   return false;
@@ -801,6 +1295,17 @@ extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
   Plan p;
   const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
   return err != 0 ? err : p.splits;
+}
+
+// The form a call takes, with the arguments of flash_attn_splits: 0 tiled
+// (fp32 FMAs), 1 split-KV, 2 split-KV at D = 1024, 3 tiled on the bf16
+// tensor cores (all-bf16 operands); negative as flash_attn_splits.
+extern "C" int flash_attn_form(int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                               int rope, int pq, int dt) {
+  Plan p;
+  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
+  if (err != 0) return err;
+  return p.kind == kTiled && dt == kBf16 ? 3 : p.kind;
 }
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,

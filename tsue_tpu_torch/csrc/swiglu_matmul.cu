@@ -54,27 +54,51 @@
 // static shared memory (the mbarriers) and 197,632 dynamic (the ring);
 // split_wt_kernel 18 registers, 4,224 bytes, no spills.
 //
-// The bf16 form ("bf16_mma", swiglu_matmul_bf16): g, u, W and out bf16, the
-// Pallas kernel's function in those dtypes (fused.py:176-191): silu in fp32
-// rounded to bf16, times u rounded to bf16 (h), then h @ W on the bf16
-// tensor cores with fp32 sums, the output rounded to bf16.  A simple
-// kernel: one CTA of 256 threads (8 warps, 2 x 4) a 128 x 256 output tile,
-// K in steps of 32 through two shared-memory buffers (54 KB), the next
-// step's g, u and W loaded into registers while the tensor cores run the
-// current one.  The loading threads form h (16 elements each, two at a
-// time) and store it row-major, an A fragment register one 32-bit load
-// (rows padded to 40 elements: no bank conflicts); W's tile is stored as
-// it lies, K-major rows of 256 columns padded to 264 (16-byte stores,
-// conflict-free), and ldmatrix.trans turns it into B fragments, two n8
-// tiles a call.  Each warp owns 64 x 64 outputs: 4 x 8 m16n8 tiles, 128
-// fp32 sums a thread.  h is formed once per 256 output columns, 8 times
-// over at N = 2048.  A first design with 128 x 128 tiles formed it twice
-// as often, with an IEEE division, and stored W transposed through 16-way
-// bank conflicts; on an H100 80GB HBM3 at 700 W it took 3.82 ms at the
-// training shape, and 2.44 ms with the conflicts gone: the activation's
-// instructions outnumbered the mma's.  K is walked in one fixed order: a repeated call is
-// bit-identical.  M and N tails load zeros and are masked at the store; K %
-// 32 == 0, N % 8 == 0, 16-byte aligned bases.
+// The bf16 form ("bf16_wgmma", swiglu_matmul_bf16): g, u, W and out bf16,
+// the Pallas kernel's function in those dtypes (fused.py:176-191): silu in
+// fp32 rounded to bf16, times u rounded to bf16 (h), then h @ W on the bf16
+// tensor cores with fp32 sums, the output rounded to bf16.
+//   - bound on an H100 at the training shape: 283.5 GFLOP at 989 TFLOP/s =
+//     0.287 ms (bytes 0.104 ms);
+//   - the fp32 form's shape: a persistent grid of 384-thread CTAs, 128 x
+//     256 output tiles, two consumer warpgroups of 64 rows (setmaxnreg),
+//     h formed in registers as the A fragment of m64n256k16 bf16 wgmmas
+//     with A from registers, 128 fp32 sums a thread;
+//   - W needs no pre-pass: 16-bit wgmma takes an MN-major (transposed) B
+//     from shared memory, so W's rows land as they lie, four TMA boxes of
+//     64 columns a stage, read through sw128_mn_desc (its own offsets, not
+//     sw128_desc's);
+//   - two TMA rings, each kept full by one producer thread: g and u (64 K
+//     positions, 32 KB a stage, three deep) and W (32 KB a stage, four
+//     deep).  A g and u stage goes back as soon as h is formed, a W stage
+//     once its products are done: with one ring of 64 KB stages (three
+//     deep) a stage was held through the next stage's activation;
+//   - stage s + 1's activation overlaps stage s's asynchronous wgmmas
+//     (two fragment buffers, wgmma.wait_group 1);
+//   - where its time goes (swiglu_variants.py --dtype bfloat16): the copies
+//     alone take most of it (the g and u tiles are read 8 times over at N =
+//     2048, W 66 times, ~4.4 GB from L2), then the products, then the
+//     activation, formed 8 times over (silu by the hardware exp and
+//     reciprocal: one rounding to bf16 follows);
+//   - the tensor cores sum all of K in fp32 accumulators, no promotion:
+//     at the training shape the outputs keep the plain version's bits and
+//     its share of the tolerance against an fp64 product (chip_smoke.py's
+//     bf16 row), against a bf16 tolerance of 2^-7;
+//   - K is walked in one fixed order by one CTA: a repeated call is
+//     bit-identical.  M and N tails are TMA's zero fill and masked stores;
+//     a W box wholly past N is not loaded; K % 128 == 0, N % 8 == 0,
+//     16-byte aligned bases;
+//   - on an H100 80GB HBM3 at 700 W at the training shape: 0.608-0.611 ms
+//     (the earlier mma.sync form 1.457-1.471, the plain version 1.019,
+//     cuBLAS's bf16 h @ w alone 0.349); alone, the copies take 0.541, the
+//     products 0.325, the copies and products without the activation
+//     0.501 (swiglu_variants.py --dtype bfloat16).  A 2-CTA cluster
+//     sharing g and u by TMA multicast was right but slower on the card,
+//     as was the same schedule launched in clusters without multicast;
+//   - ptxas (sm_90a, CUDA 12.8): swiglu_bf16_kernel 168 registers a thread
+//     at launch (setmaxnreg: 40 producer, 232 consumer), no spills, 112
+//     bytes of static shared memory (the mbarriers) and 230,400 dynamic
+//     (the two rings).
 // Plain C interface, loaded with ctypes by tsue_tpu_torch/ops/fused.py.
 #include <cuda.h>            // CUtensorMap and its enums (no driver link)
 #include <cuda_bf16.h>
@@ -447,14 +471,94 @@ int resident_ctas();
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
-constexpr int kBM = 128, kBN = 256, kBK = 32;   // CTA tile, K a step
-constexpr int kBThreads = 256;                   // 8 warps, 2 x 4
-constexpr int kLd = kBK + 8;                     // padded h row (elements)
-constexpr int kLdW = kBN + 8;                    // padded W row (elements)
-constexpr int kHBuf = kBM * kLd, kWBuf = kBK * kLdW;   // elements a buffer
-constexpr int kBSmem = 2 * (kHBuf + kWBuf) * 2;        // bytes, two buffers
-static_assert(kLd % 8 == 0 && kLdW % 8 == 0 && kHBuf % 8 == 0,
-              "16-byte stores and ldmatrix rows need 16-byte aligned rows");
+constexpr int kBK = 64;             // K positions a stage: one 128-byte row
+constexpr int kGStages = 3;         // the g and u ring's depth
+constexpr int kWStages = 4;         // the W ring's depth
+constexpr int kBRowBytes = kBK * 2;           // a g or u tile's row
+constexpr int kBGBytes = kTM * kBRowBytes;    // the g tile (and the u tile)
+constexpr int kWBoxN = 64;          // W columns a TMA box: one 128-byte row
+constexpr int kWRowBytes = kWBoxN * 2;
+constexpr int kWBoxBytes = kBK * kWRowBytes;  // kBK rows of W, 64 columns
+constexpr int kWBoxes = kTN / kWBoxN;
+constexpr int kGStageBytes = 2 * kBGBytes;           // g, then u
+constexpr int kWStageBytes = kWBoxes * kWBoxBytes;   // W's four boxes
+constexpr int kBSmem = kGStages * kGStageBytes + kWStages * kWStageBytes +
+                       1024;                          // + alignment
+static_assert(kBRowBytes == 128 && kWRowBytes == 128,
+              "a TMA box row is one 128-byte swizzle row");
+static_assert(kBGBytes % 1024 == 0 && kWBoxBytes % 1024 == 0 &&
+                  kGStageBytes % 1024 == 0 && kWStageBytes % 1024 == 0,
+              "every tile and W box of a stage starts on a 1024-byte atom");
+static_assert(16 * kWRowBytes % 1024 == 0,
+              "a k16 step of W starts on a 1024-byte atom");
+static_assert((kWBoxBytes >> 4) < (1 << 14) && (1024 >> 4) < (1 << 14),
+              "the descriptor's byte offsets are 14-bit fields of 16 bytes");
+static_assert(kBSmem <= 232448, "the ring must fit in a block's shared memory");
+static_assert(kTN == 256 && kTN % kWBoxN == 0,
+              "a warpgroup's products are one m64n256 wgmma wide");
+
+// A wgmma descriptor of a 128-byte-swizzled MN-major (transposed) 16-bit B
+// operand: W's rows as they lie, K rows of 64 columns a box.  Unlike
+// sw128_desc's K-major operand both offsets count: the leading byte offset
+// steps from one 64-column box to the next along N (kWBoxBytes), the stride
+// byte offset from one 8-row group of K to the next (8 x 128 bytes).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(kWBoxBytes >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// D (64 x 256, fp32) = A (64 x 16, bf16, registers) * B (16 x 256, bf16,
+// shared memory, MN-major: the last immediate, imm-trans-b, is 1) + (acc ?
+// D : 0).  A's fragment, per warp w of the warpgroup and lane l (g = l / 4,
+// t = l % 4), two bf16 a register: a[0] (row 16w + g, k 2t, 2t + 1), a[1]
+// (row + 8, k 2t ..), a[2] (row, k 2t + 8 ..), a[3] (row + 8, k 2t + 8 ..).
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
 
 // silu(g) in fp32 (the hardware exp and reciprocal: the value is rounded
 // to bf16 next, which their 2-ulp fp32 error almost never moves), rounded
@@ -467,151 +571,209 @@ __device__ __forceinline__ uint32_t swiglu2(uint32_t g2, uint32_t u2) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__global__ void __launch_bounds__(kBThreads, 1)
-swiglu_bf16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u,
-                   const bf16* __restrict__ w, bf16* __restrict__ out, int M,
-                   int K, int N) {
-  extern __shared__ __align__(16) bf16 sm[];
-  bf16* hs = sm;                    // [2][kBM][kLd]: h, row-major [m][k]
-  bf16* ws = sm + 2 * kHBuf;        // [2][kBK][kLdW]: W, row-major [k][n]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 64;
+// A consumer warp is done with the stage of k step g of a bf16 ring of
+// `stages` (see release).
+template <int stages>
+__device__ __forceinline__ void release_bf16(uint64_t* empty, int g,
+                                             int total, int lane) {
+  __syncwarp();
+  if (g + stages < total && lane == 0) mbar_arrive(&empty[g % stages]);
+}
 
-  // loads of a step: g and u rows tid / 4 and + 64 (8 elements at
-  // (tid % 4) * 8), W rows tid / 32 + 8 i (8 columns at (tid % 32) * 8)
-  const int ar = tid >> 2, ak = (tid & 3) * 8;
-  const int bk = tid >> 5, bn = (tid & 31) * 8;
-  uint4 rg[2], ru[2], rw[4];
-  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
-  auto load = [&](int k0) {
+// The consumers of the bf16 form: warpgroup wg owns output rows wg * 64 ..
+// + 64 of the tile and all kTN columns, 128 fp32 sums a thread.  Thread
+// (warp w, lane l) forms h at tile rows r = wg * 64 + 16 w + l / 4 and r +
+// 8, K pairs 2 (l % 4) (+ 8) of each k16 step, straight from the ring's g
+// and u (row r holds 16-byte chunk c at chunk c ^ (r % 8), r % 8 = l / 4):
+// a bf16 wgmma A fragment.  The g and u stage goes back to the producer
+// as soon as h is formed, the W stage once its products are done.  Steps
+// alternate between two fragment buffers, so step s + 1's activation runs
+// while step s's products are in flight (wgmma.wait_group 1).  The tensor
+// cores sum all of K in the accumulators (no promotion: see the note atop
+// the file).
+__device__ __forceinline__ void consume_bf16(uint8_t* gring, uint8_t* wring,
+                                             uint64_t* full_g,
+                                             uint64_t* empty_g,
+                                             uint64_t* full_w,
+                                             uint64_t* empty_w, bf16* out,
+                                             int M, int N, const Work& wk) {
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, g8 = lane >> 2, t = lane & 3;
+  const int rl = wg * 64 + warp * 16 + g8;
+  const int a_off = rl * kBRowBytes + t * 4;
+  float acc[kTN / 2];
+  uint32_t a[2][kBK / 16][4];
+  int gk = 0;
+  for (int tile = wk.cta; tile < wk.tiles; tile += wk.ctas) {
+    const int m0 = wk.m0(tile), n0 = wk.n0(tile);
+    for (int kt = 0; kt < wk.nk; kt += 2) {   // nk is even (K % 128 == 0)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + ar + 64 * i;
-      const size_t at = (size_t)m * K + k0 + ak;
-      rg[i] = m < M ? *reinterpret_cast<const uint4*>(g + at) : z4;
-      ru[i] = m < M ? *reinterpret_cast<const uint4*>(u + at) : z4;
-    }
-    const int n = n0 + bn;
+      for (int b = 0; b < 2; ++b, ++gk) {
+        const int s = gk % kGStages;
+        mbar_wait(&full_g[s], (gk / kGStages) & 1);
+        const uint8_t* st = gring + s * kGStageBytes;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      rw[i] = n < N ? *reinterpret_cast<const uint4*>(
-                          w + (size_t)(k0 + bk + 8 * i) * N + n)
-                    : z4;
-  };
-  auto store = [&](int buf) {
+        for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 h;
-      h.x = swiglu2(rg[i].x, ru[i].x);
-      h.y = swiglu2(rg[i].y, ru[i].y);
-      h.z = swiglu2(rg[i].z, ru[i].z);
-      h.w = swiglu2(rg[i].w, ru[i].w);
-      *reinterpret_cast<uint4*>(hs + buf * kHBuf + (ar + 64 * i) * kLd + ak) =
-          h;
-    }
+          for (int e = 0; e < 4; ++e) {
+            const int off = a_off + (e & 1) * 8 * kBRowBytes +
+                            (((2 * kk + (e >> 1)) ^ g8) << 4);
+            a[b][kk][e] = swiglu2(
+                *reinterpret_cast<const uint32_t*>(st + off),
+                *reinterpret_cast<const uint32_t*>(st + kBGBytes + off));
+          }
+        }
+        release_bf16<kGStages>(empty_g, gk, wk.total, lane);
+        const int sw = gk % kWStages;
+        mbar_wait(&full_w[sw], (gk / kWStages) & 1);
+        const uint32_t wb = smem_u32(wring + sw * kWStageBytes);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint4*>(ws + buf * kWBuf + (bk + 8 * i) * kLdW + bn) =
-          rw[i];
-  };
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int fr = lane >> 2, fc = (lane & 3) * 2;   // fragment row, column
-  load(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const bool more = k0 + kBK < K;
-    if (more) load(k0 + kBK);
-    const bf16* hb = hs + buf * kHBuf;
-    const bf16* wb = ws + buf * kWBuf;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[8][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bf16* r0 = hb + (wm + 16 * i + fr) * kLd + kk + fc;
-        const bf16* r1 = r0 + 8 * kLd;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(r1);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_bf16_rs(acc, a[b][kk], sw128_mn_desc(wb + kk * 16 * kWRowBytes),
+                        kt + b + kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous step's products are done
+        if (kt + b > 0) release_bf16<kWStages>(empty_w, gk - 1, wk.total, lane);
       }
-      // B fragments of n8 tiles 2p and 2p + 1: lanes 0-15 address the 16 k
-      // rows at the first tile's 8 columns, lanes 16-31 at the second's
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const bf16* src =
-            wb + (kk + (lane & 15)) * kLdW + wn + 16 * p + 8 * (lane >> 4);
-        const uint32_t addr =
-            static_cast<uint32_t>(__cvta_generic_to_shared(src));
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0, %1, %2, %3}, [%4];\n"
-            : "=r"(b[2 * p][0]), "=r"(b[2 * p][1]), "=r"(b[2 * p + 1][0]),
-              "=r"(b[2 * p + 1][1])
-            : "r"(addr));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(acc[i][j][0]), "+f"(acc[i][j][1]), "+f"(acc[i][j][2]),
-                "+f"(acc[i][j][3])
-              : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]),
-                "r"(b[j][0]), "r"(b[j][1]));
     }
-    if (more) {
-      // the other buffer was last read before the previous barrier
-      store(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
-    }
-  }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release_bf16<kWStages>(empty_w, gk - 1, wk.total, lane);
+
+    // sums (n8 block j, e) of a thread: row rl + 8 (e / 2), column 8j +
+    // 2t + e % 2; N % 8 == 0, so a pair of columns is in or out whole
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kTN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+      if (col >= N) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + 16 * i + fr + 8 * h;
-        const int n = n0 + wn + 8 * j + fc;
-        if (m >= M || n >= N) continue;
-        *reinterpret_cast<bf162*>(out + (size_t)m * N + n) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        const int row = m0 + rl + 8 * h;
+        if (row < M)
+          *reinterpret_cast<bf162*>(out + (size_t)row * N + col) =
+              __floats2bfloat162_rn(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
       }
+    }
+  }
+}
+
+// The bf16 form's persistent kernel, shaped as swiglu_tc_kernel, with two
+// TMA rings (128-byte swizzle): g and u, 64 K positions of 128 rows each a
+// stage (32 KB, kGStages deep), and W as it lies, 64 K rows of 256 columns
+// in four boxes of 64 a stage (32 KB, kWStages deep).  One thread of the
+// producer warpgroup keeps each ring full; the two consumer warpgroups form
+// h in registers and run the products.  A W box wholly past N is not
+// loaded (its columns are never stored).
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_bf16_kernel(const __grid_constant__ CUtensorMap tg,
+                   const __grid_constant__ CUtensorMap tu,
+                   const __grid_constant__ CUtensorMap tw,
+                   bf16* __restrict__ out, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_g[kGStages], empty_g[kGStages];
+  __shared__ __align__(8) uint64_t full_w[kWStages], empty_w[kWStages];
+  uint8_t* gring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* wring = gring + kGStages * kGStageBytes;
+  const int tid = threadIdx.x;
+  Work wk;
+  wk.cta = blockIdx.x;
+  wk.ctas = gridDim.x;
+  wk.tiles_n = (N + kTN - 1) / kTN;
+  wk.tiles = wk.tiles_n * ((M + kTM - 1) / kTM);
+  wk.nk = K / kBK;
+  wk.total = (wk.tiles - wk.cta + wk.ctas - 1) / wk.ctas * wk.nk;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full_g[s], 1);                 // the byte count
+      mbar_init(&empty_g[s], kConsumers / 32);  // each consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full_w[s], 1);
+      mbar_init(&empty_w[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {            // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {          // warp 8: the g and u ring
+      for (int g = 0; g < wk.total; ++g) {
+        const int s = g % kGStages;
+        mbar_wait(&empty_g[s], ((g / kGStages) & 1) ^ 1);
+        const int tile = wk.cta + g / wk.nk * wk.ctas;
+        const int m0 = wk.m0(tile), k0 = g % wk.nk * kBK;
+        uint8_t* st = gring + s * kGStageBytes;
+        mbar_arrive_tx(&full_g[s], kGStageBytes);
+        tma_load(st, &tg, k0, m0, &full_g[s]);
+        tma_load(st + kBGBytes, &tu, k0, m0, &full_g[s]);
+      }
+    } else if (tid == kConsumers + 32) {   // warp 9: the W ring
+      for (int g = 0; g < wk.total; ++g) {
+        const int s = g % kWStages;
+        mbar_wait(&empty_w[s], ((g / kWStages) & 1) ^ 1);
+        const int tile = wk.cta + g / wk.nk * wk.ctas;
+        const int n0 = wk.n0(tile), k0 = g % wk.nk * kBK;
+        const int boxes = min(kWBoxes, (N - n0 + kWBoxN - 1) / kWBoxN);
+        uint8_t* st = wring + s * kWStageBytes;
+        mbar_arrive_tx(&full_w[s], boxes * kWBoxBytes);
+        for (int i = 0; i < boxes; ++i)
+          tma_load(st + i * kWBoxBytes, &tw, n0 + i * kWBoxN, k0, &full_w[s]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  consume_bf16(gring, wring, full_g, empty_g, full_w, empty_w, out, M, N, wk);
+}
+
+// A row-major bf16 (rows, cols) tensor as TMA boxes of box_rows x 64
+// columns with the 128-byte swizzle; false if cuTensorMapEncodeTiled
+// refuses it.
+bool tensor_map_bf16(CUtensorMap* map, const void* base, int rows, int cols,
+                     int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// CTAs of `kernel` the card holds at once with `smem` bytes of dynamic
+// shared memory (set up here), or 0 on an error.
+int occupancy_ctas(const void* kernel, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return sms * per_sm;
+}
+
+int resident_ctas_bf16() {
+  static int n = 0;
+  if (n == 0) n = occupancy_ctas((const void*)swiglu_bf16_kernel, kBSmem);
+  return n;
 }
 
 int resident_ctas() {
   static int n = 0;
-  if (n == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaFuncSetAttribute(swiglu_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem) != cudaSuccess ||
-        cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, swiglu_tc_kernel, kThreads, kSmem) != cudaSuccess) {
-      cudaGetLastError();
-      return 0;
-    }
-    n = sms * per_sm;
-  }
+  if (n == 0) n = occupancy_ctas((const void*)swiglu_tc_kernel, kSmem);
   return n;
 }
 
@@ -648,28 +810,25 @@ int swiglu_matmul(const float* g, const float* u, const float* w, float* wt,
 }
 
 // The bf16 form: g, u (M, K), w (K, N) and out (M, N), bf16, contiguous
-// and 16-byte aligned, with M, N > 0, K % 32 == 0 and N % 8 == 0; one
-// launch, one CTA a 128 x 256 output tile.  Returns a cudaError_t, or
+// and 16-byte aligned, with M, N > 0, K % 128 == 0 and N % 8 == 0; one
+// launch of the persistent bf16 kernel.  Returns a cudaError_t, or
 // cudaErrorInvalidValue for a shape or base it does not take.
 int swiglu_matmul_bf16(const void* g, const void* u, const void* w,
                        void* out, int M, int K, int N, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 ||
+  if (M <= 0 || N <= 0 || K <= 0 || K % (2 * kBK) || N % 8 ||
       (uintptr_t)g % 16 || (uintptr_t)u % 16 || (uintptr_t)w % 16 ||
       (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        swiglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kBSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  swiglu_bf16_kernel<<<grid, kBThreads, kBSmem, stream>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
-      static_cast<const bf16*>(w), static_cast<bf16*>(out), M, K, N);
+  CUtensorMap tg, tu, tw;
+  if (!tensor_map_bf16(&tg, g, M, K, kTM) ||
+      !tensor_map_bf16(&tu, u, M, K, kTM) ||
+      !tensor_map_bf16(&tw, w, K, N, kBK))
+    return (int)cudaErrorInvalidValue;
+  const int resident = resident_ctas_bf16();
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (N + kTN - 1) / kTN * ((M + kTM - 1) / kTM);
+  swiglu_bf16_kernel<<<tiles < resident ? tiles : resident, kThreads, kBSmem,
+                       stream>>>(tg, tu, tw, static_cast<bf16*>(out), M, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -678,6 +837,12 @@ int swiglu_matmul_bf16(const void* g, const void* u, const void* w,
 // error.
 int swiglu_matmul_ctas() {
   const int n = resident_ctas();
+  return n > 0 ? n : -1;
+}
+
+// The same for the bf16 form's persistent grid.
+int swiglu_matmul_bf16_ctas() {
+  const int n = resident_ctas_bf16();
   return n > 0 ? n : -1;
 }
 

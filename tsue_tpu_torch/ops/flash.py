@@ -8,7 +8,9 @@ has two forms, picked per call by the C side: a tiled one for many (row,
 head) items per (batch, KV head), and a split-KV one for few items over
 many keys (decode, the LTSF cross-attention), which writes per-split
 partials to a scratch allocated here and merges them in a second launch.
-``flash_attention.launches`` counts calls, one per call in either form.
+All-bf16 calls of the tiled form run on the bf16 tensor cores
+("bf16_mma"); ``flash_attention_form`` names the form a call takes.
+``flash_attention.launches`` counts calls, one per call in any form.
 The mask is a (B, Tk) key mask or a per-query (B, Tq, Tk) one (a
 speculative window's in-window causality), passed to the kernel with its
 query stride (0 or Tk).
@@ -76,12 +78,37 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("flash_attn_fwd", {
         "flash_attn_splits": [i32] * 9,     # B Tq Tk Hq Hkv D rope pq dt
+        "flash_attn_form": [i32] * 9,       # the same
         "flash_attn_fwd": [
             ptr, ptr, ptr, ptr, ptr, ptr,   # q k v mask cos sin
             ptr, ptr,                       # out, split scratch
             i32, i32, i32, i32, i32, i32,   # B Tq Tk Hq Hkv D
             i32, ctypes.c_float, i32,       # causal scale splits
             i32, i32, ptr]})                # mask query stride, dt, stream
+
+
+# the C side's forms (flash_attn_form)
+_FORMS = ("tiled", "split-KV", "split-KV D1024", "bf16_mma")
+
+
+def flash_attention_form(B: int, Tq: int, Tk: int, Hq: int, Hkv: int,
+                         D: int, rope: bool, per_query_mask: bool,
+                         q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The form of the kernel a call on the card takes: "tiled" (fp32
+    FMAs), "split-KV", "split-KV D1024" or "bf16_mma" (the tiled form of
+    all-bf16 operands, on the bf16 tensor cores).  Asks the CUDA library,
+    which builds it; raises for a call the kernel does not take.  A bf16 q
+    over fp32 k and v takes the form of its widened fp32 call."""
+    if (q_dtype, kv_dtype) == (torch.bfloat16, torch.float32):
+        q_dtype = torch.float32
+    form = _lib().flash_attn_form(B, Tq, Tk, Hq, Hkv, D, int(rope),
+                                  int(per_query_mask),
+                                  _DT[(q_dtype, kv_dtype)])
+    if form < 0:
+        raise ValueError(f"the attention kernel does not take B={B} Tq={Tq} "
+                         f"Tk={Tk} Hq={Hq} Hkv={Hkv} D={D} with q {q_dtype},"
+                         f" k {kv_dtype}")
+    return _FORMS[form]
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:

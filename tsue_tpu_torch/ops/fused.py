@@ -174,12 +174,13 @@ def swiglu_matmul_plain(gate: torch.Tensor, up: torch.Tensor,
 
 
 # the kernel's launches: the constants of csrc/swiglu_matmul.cu (fp32: kTM,
-# kTN, kK, kStages, kThreads; bf16: kBM, kBN, kBK, two buffers, kBThreads)
+# kTN, kK, kStages, kThreads; bf16: kTM, kTN, kBK, kGStages, kWStages,
+# kThreads)
 _SWIGLU_FORMS = {
     torch.float32: dict(form="tf32x3", tile_m=128, tile_n=256, k_step=32,
                         stages=2, threads=384),
-    torch.bfloat16: dict(form="bf16_mma", tile_m=128, tile_n=256, k_step=32,
-                         stages=2, threads=256),
+    torch.bfloat16: dict(form="bf16_wgmma", tile_m=128, tile_n=256,
+                         k_step=64, stages=3, w_stages=4, threads=384),
 }
 
 
@@ -189,21 +190,22 @@ def _swiglu_lib():
     return bind("swiglu_matmul", {
         "swiglu_matmul": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
         "swiglu_matmul_bf16": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
-        "swiglu_matmul_ctas": []})
+        "swiglu_matmul_ctas": [], "swiglu_matmul_bf16_ctas": []})
 
 
 def swiglu_matmul_plan(M: int, K: int, N: int,
                        dtype: torch.dtype = torch.float32) -> dict:
     """The kernel's launch for (M, K) activations and a (K, N) weight in
     ``dtype``: its form, output tile, K positions a step, ring stages,
-    threads, output tiles and CTAs.  fp32 has one form, "tf32x3" (3xTF32
-    on the tensor cores), bf16 one, "bf16_mma" (mma.sync with fp32 sums);
-    each takes M, N > 0, K > 0 with K % 128 == 0 and N % 8 == 0 (fp32: N %
-    4); any other shape or dtype raises.  The fp32 form runs a persistent
-    grid, each CTA walking its tiles: as many CTAs as the card holds at once
-    (asked of the CUDA device, which builds the kernel; without one, one a
-    tile) or one a tile where there are fewer; the bf16 form one CTA a
-    tile."""
+    threads, output tiles and CTAs.  Each dtype has one form, a persistent
+    grid of 384-thread CTAs (a TMA producer, two consumer warpgroups on
+    ``wgmma``): fp32 "tf32x3" (3xTF32), bf16 "bf16_wgmma" (bf16 products
+    with fp32 sums, W read as it lies; ``stages`` of g and u and
+    ``w_stages`` of W in two rings).  Each takes M, N > 0, K > 0 with K
+    % 128 == 0 and N % 8 == 0 (fp32: N % 4); any other shape or dtype
+    raises.  Each CTA walks its tiles: as many CTAs as the card holds at
+    once (asked of the CUDA device, which builds the kernel; without one,
+    one a tile) or one a tile where there are fewer."""
     if dtype not in _SWIGLU_FORMS:
         raise TypeError(f"the swiglu kernel takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -214,8 +216,10 @@ def swiglu_matmul_plan(M: int, K: int, N: int,
     plan = dict(_SWIGLU_FORMS[dtype])
     plan["tiles"] = -(-M // plan["tile_m"]) * -(-N // plan["tile_n"])
     held = plan["tiles"]
-    if dtype == torch.float32 and torch.cuda.is_available():
-        held = _swiglu_lib().swiglu_matmul_ctas()
+    if torch.cuda.is_available():
+        lib = _swiglu_lib()
+        held = (lib.swiglu_matmul_ctas() if dtype == torch.float32
+                else lib.swiglu_matmul_bf16_ctas())
         if held < 1:
             raise RuntimeError("the swiglu kernel does not fit on the card")
     plan["ctas"] = min(plan["tiles"], held)
