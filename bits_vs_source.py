@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Check that the fp32 calls of the flash and SwiGLU kernels give the same
-bits as an earlier source's, and time both kernels' bf16 forms beside the
-earlier ones, on one GPU.
+"""Check that the forms of the flash, SwiGLU and RMSNorm kernels that a
+change left alone give the same bits as an earlier source's, and time the
+redesigned bf16 forms beside the earlier ones, on one GPU.
 
     python3 bits_vs_source.py --old-dir DIR [--out FILE]
 
-DIR holds earlier sources ``flash_attn_fwd.cu`` and ``swiglu_matmul.cu``
-(e.g. ``git show <commit>:tsue_tpu_torch/csrc/<name>.cu > DIR/<name>.cu``,
-with DIR under ``runs/``, which git ignores).  Each is built with nvcc
-into ``build/bits_vs_source/`` beside the current sources.  Every fp32 call
-of chip_smoke.py's attention cases (the tiled and split-KV forms, the
-per-query masks of the speculative windows) and the fp32 SwiGLU product at
-chip_smoke.py's fused shapes (batch 16 and 8) runs through both libraries
-on the same inputs, and the outputs must be equal bit for bit.  Then the
-bf16 forms at chip_smoke.py's shapes (flash: the Llama's and the
-Q-Former's self-attention; SwiGLU: the training shape) are checked against
-their plain versions (chip_smoke.py's BF_TOL; SwiGLU rtol 2^-7, atol 2^-7
-of the largest output) and timed with chip_smoke.py's timer in turns: old,
-new, new, old.  Exits 1 on any fp32 difference or bf16 disagreement.  It
+DIR holds earlier sources ``flash_attn_fwd.cu``, ``swiglu_matmul.cu`` and
+``rmsnorm.cu`` (e.g. ``git show <commit>:tsue_tpu_torch/csrc/<name>.cu >
+DIR/<name>.cu``, with DIR under ``runs/``, which git ignores).  Each is
+built with nvcc into ``build/bits_vs_source/`` beside the current sources.
+On the same inputs through both libraries, these must be equal bit for
+bit: every fp32 call of chip_smoke.py's attention cases (the tiled and
+split-KV forms, the per-query masks of the speculative windows); every
+one of them without a per-query mask with fp32 q over bf16 k/v; every one
+with all-bf16 operands that takes the tensor-core form "bf16_mma"; the
+SwiGLU product in fp32 and in bf16 at chip_smoke.py's fused shapes (batch
+16 and 8); RMSNorm with fp32 x over fp32 and bf16 scales at the same rows.
+Then the forms redesigned since the earlier source, flash's bf16 decode
+form at chip_smoke.py's decode step (B 16, Tq 1, 592 slots, 32/8 x 64) and
+RMSNorm's bf16 form at (8448, 2048), are checked against their plain
+versions (chip_smoke.py's BF_TOL) and timed with chip_smoke.py's timer in
+turns: old, new, new, old.  Exits 1 on any difference or disagreement.  It
 needs a CUDA device and nvcc, and prints the card beside every time.
 """
 from __future__ import annotations
@@ -36,7 +39,8 @@ from swiglu_variants import _caller
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-dir", type=Path, required=True,
-                    help="the earlier flash_attn_fwd.cu and swiglu_matmul.cu")
+                    help="the earlier flash_attn_fwd.cu, swiglu_matmul.cu "
+                         "and rmsnorm.cu")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the results here as JSON")
     args = ap.parse_args()
@@ -51,83 +55,106 @@ def main() -> int:
     gpu = cs.gpu_line()
     print(gpu, flush=True)
     out_dir = BUILD_DIR / "bits_vs_source"
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def old_lib(name, signatures):
+        return build_variants({"old": (args.old_dir / f"{name}.cu")
+                               .read_text()}, out_dir / name,
+                              signatures)["old"][0]
     flash = {"old": build_flash(
         {"old": (args.old_dir / "flash_attn_fwd.cu").read_text()},
         out_dir / "flash")["old"], "new": FL._lib()}
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    swiglu = {"old": build_variants(
-        {"old": (args.old_dir / "swiglu_matmul.cu").read_text()},
-        out_dir / "swiglu", {
-            "swiglu_matmul": [ptr] * 5 + [i32] * 3 + [ptr],
-            "swiglu_matmul_bf16": [ptr] * 4 + [i32] * 3 + [ptr],
-            "swiglu_matmul_ctas": []})["old"][0], "new": FU._swiglu_lib()}
+    swiglu = {"old": old_lib("swiglu_matmul", {
+        "swiglu_matmul": [ptr] * 5 + [i32] * 3 + [ptr],
+        "swiglu_matmul_bf16": [ptr] * 4 + [i32] * 3 + [ptr],
+        "swiglu_matmul_ctas": []}), "new": FU._swiglu_lib()}
+    rms = {"old": old_lib("rmsnorm", {
+        "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, i32, i32, ptr],
+        "rmsnorm_max_k": []}), "new": FU._rmsnorm_lib()}
     dev = torch.device("cuda:0")
-    result: dict = {"gpu": gpu, "fp32_equal": {}, "bf16_ms": {}}
+    result: dict = {"gpu": gpu, "equal": {}, "bf16_ms": {}}
     wrong = []
 
     def flash_with(name, kw):
         FL._lib = lambda: flash[name]      # the wrapper's binding
         return FL.flash_attention(**kw)
 
-    for case, kw in cs.attention_cases(dev):
-        a, b = flash_with("old", kw), flash_with("new", kw)
+    def rms_with(name, x, s):
+        FU._rmsnorm_lib = lambda: rms[name]
+        return FU.fused_rmsnorm(x, s, 1e-5)
+
+    def same(label, a, b):
         torch.cuda.synchronize()
-        same = torch.equal(a, b)
-        result["fp32_equal"][f"flash {case}"] = same
-        print(f"fp32 flash {case}: bit-identical to the old source: {same}",
-              flush=True)
-        wrong += [] if same else [f"flash {case}"]
+        eq = torch.equal(a, b)
+        result["equal"][label] = eq
+        print(f"{label}: bit-identical to the old source: {eq}", flush=True)
+        if not eq:
+            wrong.append(label)
+
+    bf = torch.bfloat16
+    cases = cs.attention_cases(dev)
+    for case, kw in cases:
+        same(f"flash fp32 {case}", flash_with("old", kw),
+             flash_with("new", kw))
+    for case, kw in cases:
+        if kw.get("mask") is not None and kw["mask"].dim() == 3:
+            continue       # per-query masks: fp32 only
+        mixed = dict(kw, k=kw["k"].to(bf), v=kw["v"].to(bf))
+        same(f"flash fp32 q, bf16 k/v {case}", flash_with("old", mixed),
+             flash_with("new", mixed))
+        all_bf = dict(mixed, q=kw["q"].to(bf))
+        (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
+        FL._lib = lambda: flash["new"]
+        form = FL.flash_attention_form(B, Tq, Tk, Hq, Hkv, D,
+                                       kw.get("rope") is not None, False,
+                                       bf, bf)
+        if form == "bf16_mma":
+            same(f"flash bf16_mma {case}", flash_with("old", all_bf),
+                 flash_with("new", all_bf))
+        del mixed, all_bf
     g = torch.Generator(device=dev).manual_seed(4)
     I, D = 8192, 2048
     for B in (16, 8):
         M = B * (16 + cs.TEXT_TOKENS)
-        gate = torch.randn(M, I, generator=g, device=dev)
-        up = torch.randn(M, I, generator=g, device=dev)
-        w = torch.randn(I, D, generator=g, device=dev) * I ** -0.5
-        a = _caller(FU, swiglu["old"], gate, up, w)()
-        b = _caller(FU, swiglu["new"], gate, up, w)()
-        torch.cuda.synchronize()
-        same = torch.equal(a, b)
-        result["fp32_equal"][f"swiglu M={M}"] = same
-        print(f"fp32 swiglu M={M} K={I} N={D}: bit-identical to the old "
-              f"source: {same}", flush=True)
-        wrong += [] if same else [f"swiglu M={M}"]
-        del gate, up, w, a, b
+        for dtype in (torch.float32, bf):
+            gate = torch.randn(M, I, generator=g, device=dev).to(dtype)
+            up = torch.randn(M, I, generator=g, device=dev).to(dtype)
+            w = (torch.randn(I, D, generator=g, device=dev)
+                 * I ** -0.5).to(dtype)
+            same(f"swiglu {str(dtype)[6:]} M={M}",
+                 _caller(FU, swiglu["old"], gate, up, w)(),
+                 _caller(FU, swiglu["new"], gate, up, w)())
+            del gate, up, w
+        x = torch.randn(M, D, generator=g, device=dev)
+        for sd in (torch.float32, bf):
+            s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(sd)
+            same(f"rmsnorm fp32 x, {str(sd)[6:]} scale M={M}",
+                 rms_with("old", x, s), rms_with("new", x, s))
+        del x
 
     timer = cs.Timer(dev)
-    bf = torch.bfloat16
-    cases = dict(cs.attention_cases(dev))
-    for case in ("llama_self", "qformer_self"):
-        kw = dict(cases[case])
-        kw.update(q=kw["q"].to(bf), k=kw["k"].to(bf), v=kw["v"].to(bf))
-        ref = FL.flash_attention_plain(**kw).float()
-        for name in ("old", "new", "new", "old"):
-            out = flash_with(name, kw).float()
-            torch.cuda.synchronize()
-            if not torch.allclose(out, ref, **cs.BF_TOL):
-                wrong.append(f"bf16 flash {case} ({name})")
-            ms = timer.ms(lambda: flash_with(name, kw))
-            result["bf16_ms"].setdefault(f"flash {case} {name}",
-                                         []).append(ms)
-            print(f"bf16 flash {case} {name}: {ms:.4f} ms; gpu: {gpu}",
-                  flush=True)
-    FL._lib = lambda: flash["new"]
+    kw = dict(cases)["gen_decode_fp32_cache"]
+    kw = dict(kw, q=kw["q"].to(bf), k=kw["k"].to(bf), v=kw["v"].to(bf))
     M = 16 * (16 + cs.TEXT_TOKENS)
-    gate = torch.randn(M, I, generator=g, device=dev).to(bf)
-    up = torch.randn(M, I, generator=g, device=dev).to(bf)
-    w = (torch.randn(I, D, generator=g, device=dev) * I ** -0.5).to(bf)
-    ref = FU.swiglu_matmul_plain(gate, up, w).float()
-    atol = 2 ** -7 * ref.abs().max().item()
-    for name in ("old", "new", "new", "old"):
-        call = _caller(FU, swiglu[name], gate, up, w)
-        out = call().float()
-        torch.cuda.synchronize()
-        if not torch.allclose(out, ref, rtol=2 ** -7, atol=atol):
-            wrong.append(f"bf16 swiglu ({name})")
-        ms = timer.ms(call)
-        result["bf16_ms"].setdefault(f"swiglu {name}", []).append(ms)
-        print(f"bf16 swiglu M={M} K={I} N={D} {name}: {ms:.4f} ms; gpu: "
-              f"{gpu}", flush=True)
+    x = torch.randn(M, D, generator=g, device=dev).to(bf)
+    s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(bf)
+    timed = {
+        "flash bf16 decode Tq1 S592": (
+            lambda name: flash_with(name, kw),
+            FL.flash_attention_plain(**kw)),
+        f"rmsnorm bf16 M={M} K={D}": (
+            lambda name: rms_with(name, x, s), FU.rmsnorm_plain(x, s, 1e-5))}
+    for label, (call, ref) in timed.items():
+        for name in ("old", "new", "new", "old"):
+            out = call(name)
+            torch.cuda.synchronize()
+            if not torch.allclose(out.float(), ref.float(), **cs.BF_TOL):
+                wrong.append(f"{label} ({name})")
+            ms = timer.ms(lambda: call(name))
+            result["bf16_ms"].setdefault(f"{label} {name}", []).append(ms)
+            print(f"{label} {name}: {ms:.4f} ms; gpu: {gpu}", flush=True)
+    FL._lib = lambda: flash["new"]
+    FU._rmsnorm_lib = lambda: rms["new"]
     result["wrong"] = wrong
     print(json.dumps(result), flush=True)
     if args.out is not None:

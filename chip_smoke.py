@@ -772,9 +772,10 @@ def bf16_checks(dev, gpu, timer):
     attention (the Llama's self-attention, B16 T528 32/8 x 64, RoPE,
     causal, and the Q-Former's, B16 T18 8 x 96: the tensor-core form
     "bf16_mma"; the LTSF cross-attention's fp32 queries over bf16 keys, D =
-    1024; a decode step of bf16 queries over a bf16 cache), RMSNorm (8448,
-    2048) and the SwiGLU product (8448, 8192) x (8192, 2048) (the form
-    "bf16_wgmma"), each against its plain version (flash, RMSNorm: atol
+    1024; a decode step of bf16 queries over a bf16 cache: the decode form
+    "bf16_decode"), RMSNorm (8448, 2048) (the form "bf16_stream") and the
+    SwiGLU product (8448, 8192) x (8192, 2048) (the form "bf16_wgmma"),
+    each against its plain version (flash, RMSNorm: atol
     2^-6, rtol 2^-7; SwiGLU: rtol 2^-7, atol 2^-7 of the largest output),
     the form that ran, a repeated call bit-identical, the bound at bf16's 2
     bytes an element and 989 TFLOP/s, and the library call in bf16: SDPA,
@@ -788,7 +789,8 @@ def bf16_checks(dev, gpu, timer):
                                           flash_attention_form,
                                           flash_attention_plain, rope_bthd)
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
-                                          swiglu_matmul, swiglu_matmul_plain,
+                                          rmsnorm_plan, swiglu_matmul,
+                                          swiglu_matmul_plain,
                                           swiglu_matmul_plan)
     bf = torch.bfloat16
     rows = {"flash_attn_fwd": [], "rmsnorm": [], "swiglu_matmul": []}
@@ -820,6 +822,9 @@ def bf16_checks(dev, gpu, timer):
                                     kw["q"].dtype, kw["k"].dtype)
         if name in ("llama_self bf16", "qformer_self bf16"):
             check(form == "bf16_mma", f"flash_attn_fwd {name}: form {form}")
+        if name == "decode bf16, Tq1 S592":
+            check(form == "bf16_decode",
+                  f"flash_attn_fwd {name}: form {form}")
         plain_ms = timer.ms(lambda: flash_attention_plain(**kw))
         ms = timer.ms(lambda: flash_attention(**kw))
         q, k, v = kw["q"], kw["k"], kw["v"]
@@ -846,6 +851,8 @@ def bf16_checks(dev, gpu, timer):
     D, I, M = 2048, 8192, 16 * (16 + TEXT_TOKENS)
     x = torch.randn(M, D, generator=g, device=dev).to(bf)
     scale = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(bf)
+    plan = rmsnorm_plan(M, D, bf, bf)
+    check(plan["form"] == "bf16_stream", f"rmsnorm bf16: plan {plan}")
     out = fused_rmsnorm(x, scale, 1e-5)
     ref = rmsnorm_plain(x, scale, 1e-5)
     torch.cuda.synchronize()
@@ -861,7 +868,8 @@ def bf16_checks(dev, gpu, timer):
     rows["rmsnorm"].append(row(
         "rmsnorm", f"bf16 x and scale: M={M} K={D}", gpu, err, rel, ms,
         plain_ms, bound(nbytes(x, scale, out), 4.0 * M * D, BF16_FLOPS),
-        lib_ms, timer.floor_ms, dtype="bfloat16"))
+        lib_ms, timer.floor_ms, dtype="bfloat16", form=plan["form"],
+        plan=plan, repeat_bit_identical=True))
     del x, out, ref
     gate = (torch.randn(M, I, generator=g, device=dev)).to(bf)
     up = torch.randn(M, I, generator=g, device=dev).to(bf)
@@ -2376,10 +2384,14 @@ def train_forward_launches(L: int):
 
 
 TRAIN_STATS: dict = {}     # run label -> ms per step, windows/s, peak GiB
+# kernel-name fragments whose device time a profiled train step sums: the
+# port's kernels, cuBLAS's products (gemm, nvjet, cutlass), and PyTorch's
+# elementwise, reduction and copy kernels
+STEP_FAMILIES = ("attn_", "rmsnorm", "swiglu", "gemm", "nvjet", "cutlass",
+                 "elementwise", "reduce", "Memcpy", "Memset")
 
 
-def train_phase(dev, gpu, preset: str, bf16: bool = False,
-                profile: bool = True):
+def train_phase(dev, gpu, preset: str, bf16: bool = False):
     """A stage-2 trainer of the preset at full Llama-3.2-1B width (fp32, the
     vocabulary of the preset, random weights from the preset's seed) with
     the fused switch on, through the port's entry points: ``make_optimizer``,
@@ -2470,10 +2482,10 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False,
             times.append(time.perf_counter() - t0)
         counts = read_counts()
         expected = {k: 3 * v for k, v in per_forward.items()}
-        if profile:
-            profile_device(dev, gpu, f"train {preset} profile: one step",
-                           sum(times) / len(times),
-                           lambda: train_step(state, batches[3]))
+        profile_device(dev, gpu, f"train {preset} profile: one step",
+                       sum(times) / len(times),
+                       lambda: train_step(state, batches[3]),
+                       totals=STEP_FAMILIES)
         check(counts == expected, f"{preset}: launches in 3 steps {counts} "
                                   f"!= {expected}")
         check(all(math.isfinite(x) for x in losses),
@@ -3269,7 +3281,7 @@ def bf16_remat_phase(dev, gpu):
     import torch
     t_phase = time.time()
     counts = {"train train_18_30 bf16 (3 steps)": train_phase(
-        dev, gpu, "train_18_30", bf16=True, profile=False)}
+        dev, gpu, "train_18_30", bf16=True)}
     f32 = TRAIN_STATS.get("train_18_30", dict(windows_s=float("nan"),
                                               peak_gib=float("nan")))
     b16 = TRAIN_STATS["train_18_30 bf16"]

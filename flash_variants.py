@@ -24,16 +24,35 @@ form's time goes:
               (fewer shared-memory reads per FMA, fewer warps)
 
 With ``--dtype bfloat16`` the cases are the Llama's self-attention and the
-Q-Former's at 64 frames with all-bf16 operands (the tensor-core form,
-held to chip_smoke.py's BF_TOL), and the variants:
+Q-Former's at 64 frames (the tensor-core form "bf16_mma") and the decode
+step over a 592-slot cache (B 16, Tq 1, 32/8 x 64: the decode form
+"bf16_decode"), all with bf16 operands and held to chip_smoke.py's
+BF_TOL, and the variants:
 
   mma_no_compute  the tensor-core form's copies alone
   mma_no_copies   its arithmetic alone (no tile copied; also the fp32
-                  cp.async, which no bf16 case reaches)
+                  cp.async, which no bf16 case reaches), and the decode
+                  form's (its key masks still copied)
   mma_bm64        blocks of 4 warps, 64 items, instead of 8 and 128
   mma_ring2       a ring of two tiles (one in flight) instead of three
   mma_expf        the softmax's exponentials by expf instead of exp2f of
                   the scaled difference
+  dec_no_compute  the decode form's copies alone
+  dec_skeleton    the decode form with neither copies nor arithmetic (its
+                  launch, Q's loads, the warps' merge and the store)
+  dec_split2      the decode form's keys in at least two splits a (b, KV
+                  head), merged by the last block (one launch)
+  dec_merge_launch  the same splits merged by a second launch
+                  (merge_kernel), as the fp32 split-KV form does
+  dec_ring3       three tiles in flight a warp at D = 64 instead of two
+  dec_ring1       one tile in flight a warp at D = 64 (75 KB blocks, three
+                  an SM: three key splits, every tile issued at once)
+  dec_ring1_merge_launch  dec_ring1's three splits merged by a second
+                  launch (merge_kernel) instead of the last block
+  dec_l2_256      the decode form's K and V copies with an L2 prefetch of
+                  256 bytes (the neighbouring KV head's row)
+  dec_contig_no_compute  the decode form's copies alone, each block's rows
+                  read contiguously instead of 1 KB apart (timing only)
 
 It needs a CUDA device and nvcc, and prints the card beside every time.
 """
@@ -49,31 +68,80 @@ import chip_smoke as cs
 
 CASES = ("llama_self", "ltsf_cross", "gen_decode_fp32_cache",
          "gen_qformer_self")
-EDITS = {   # variant: (text in the source, its replacement)
-    "no_compute": ("      if (busy) {\n        if (S < NS)",
-                   "      if (false) {\n        if (S < NS)"),
-    "no_copies": ("""  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(s),
+EDITS = {   # variant: [(text in the source, its replacement), ...]
+    "no_compute": [("      if (busy) {\n        if (S < NS)",
+                    "      if (false) {\n        if (S < NS)")],
+    "no_copies": [("""  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));""",
-                  "  (void)s; (void)src; (void)ok;"),
-    "ring3": ("  static constexpr int NBUF = (SPLIT && QRES) ? 3 : 2;",
-              "  static constexpr int NBUF = 3;"),
-    "wide_4x4": ("f(Kern<1024, 16, 2, PQ, QT, KT>{});",
-                 "f(Kern<1024, 8, 4, PQ, QT, KT>{});"),
+                   "  (void)s; (void)src; (void)ok;")],
+    "ring3": [("  static constexpr int NBUF = (SPLIT && QRES) ? 3 : 2;",
+               "  static constexpr int NBUF = 3;")],
+    "wide_4x4": [("f(Kern<1024, 16, 2, PQ, QT, KT>{});",
+                  "f(Kern<1024, 8, 4, PQ, QT, KT>{});")],
 }
-BF16_CASES = ("llama_self", "gen_qformer_self")
+BF16_CASES = ("llama_self", "gen_qformer_self", "gen_decode_fp32_cache")
+_DEC_SPLIT2 = ("    const long per = std::max<long>(1, (long)sm_count() * "
+               "p->per_sm / pairs);",
+               "    const long per = std::max<long>(2, (long)sm_count() * "
+               "p->per_sm / pairs);")
+BF16_DEC_NO_COMPUTE = [("    compute(i);\n    __syncwarp();", "    __syncwarp();")]
 BF16_EDITS = {
-    "mma_no_compute": ("      if (busy) compute(t, buf);",
-                       "      if (false) compute(t, buf);"),
+    "mma_no_compute": [("      if (busy) compute(t, buf);",
+                        "      if (false) compute(t, buf);")],
     "mma_no_copies": EDITS["no_copies"],
-    "mma_bm64": ("constexpr int kMmaWarps = 8;", "constexpr int kMmaWarps = 4;"),
-    "mma_ring2": ("constexpr int kMmaStages = 3;",
-                  "constexpr int kMmaStages = 2;"),
-    "mma_expf": ("""      const float corr = exp2f((m[rr] - mnew) * kLog2e);""",
-                 """      const float corr = expf(m[rr] - mnew);"""),
+    "mma_bm64": [("constexpr int kMmaWarps = 8;",
+                  "constexpr int kMmaWarps = 4;")],
+    "mma_ring2": [("constexpr int kMmaStages = 3;",
+                   "constexpr int kMmaStages = 2;")],
+    "mma_expf": [("      const float corr = exp2f((m[rr] - mnew) * kLog2e);",
+                  "      const float corr = expf(m[rr] - mnew);"),
+                 ("          x = exp2f((x - mnew) * kLog2e);",
+                  "          x = expf(x - mnew);")],
+    "dec_no_compute": BF16_DEC_NO_COMPUTE,
+    "dec_skeleton": BF16_DEC_NO_COMPUTE + EDITS["no_copies"],
+    "dec_split2": [_DEC_SPLIT2],
+    "dec_merge_launch": [
+        _DEC_SPLIT2,
+        ("  if (a.splits == 1) return;\n\n  // the last block",
+         "  return;\n\n  // the last block"),
+        ("  if (err != cudaSuccess || p.splits == 1 || p.kind == kDecode)",
+         "  if (err != cudaSuccess || p.splits == 1)")],
+    "dec_ring3": [("  static constexpr int NBW = D <= 32 ? 4 : (D <= 96 ? 2 : 1);",
+                   "  static constexpr int NBW = D <= 32 ? 4 : (D <= 64 ? 3 : "
+                   "D <= 96 ? 2 : 1);")],
+    "dec_ring1": [("  static constexpr int NBW = D <= 32 ? 4 : (D <= 96 ? 2 : 1);",
+                   "  static constexpr int NBW = D <= 32 ? 4 : 1;")],
+    "dec_contig_no_compute": BF16_DEC_NO_COMPUTE + [(
+        "        const size_t row = ((size_t)b * a.Tk + (ok ? c0 + j : 0)) "
+        "* a.Hkv + hkv;",
+        "        const size_t row = (size_t)blockIdx.x * a.Tk + "
+        "(ok ? c0 + j : 0);")],
+    "dec_ring1_merge_launch": [
+        ("  static constexpr int NBW = D <= 32 ? 4 : (D <= 96 ? 2 : 1);",
+         "  static constexpr int NBW = D <= 32 ? 4 : 1;"),
+        ("  if (a.splits == 1) return;\n\n  // the last block",
+         "  return;\n\n  // the last block"),
+        ("  if (err != cudaSuccess || p.splits == 1 || p.kind == kDecode)",
+         "  if (err != cudaSuccess || p.splits == 1)")],
+    "dec_l2_256": [
+        ("constexpr int kDecWarps = 4;",
+         """__device__ __forceinline__ void cp16_pf(void* dst, const void* src,
+                                        bool ok) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+constexpr int kDecWarps = 4;"""),
+        ("""        cp16(reinterpret_cast<float*>(kd + j * P + d),
+             reinterpret_cast<const float*>(ak + row * D + d), ok);
+        cp16(reinterpret_cast<float*>(vd + j * P + d),
+             reinterpret_cast<const float*>(av + row * D + d), ok);""",
+         """        cp16_pf(kd + j * P + d, ak + row * D + d, ok);
+        cp16_pf(vd + j * P + d, av + row * D + d, ok);""")],
 }
 # variants that compute the function
 CHECKED = ("base", "ring3", "wide_4x4", "mma_bm64", "mma_ring2", "mma_expf",
-           "old")
+           "dec_split2", "dec_merge_launch", "dec_ring3", "dec_ring1",
+           "dec_ring1_merge_launch", "dec_l2_256", "old")
 
 
 def build(sources: dict, out_dir: Path) -> dict:
@@ -108,13 +176,12 @@ def main() -> int:
     base = (CSRC / "flash_attn_fwd.cu").read_text()
     bf16 = args.dtype == "bfloat16"
     sources = {"base": base}
-    for name, (old, new) in (BF16_EDITS if bf16 else EDITS).items():
-        cs.check(base.count(old) == 1, f"variant {name}: edit not found")
-        sources[name] = base.replace(old, new)
-    if "mma_expf" in sources:   # the edit's second half
-        sources["mma_expf"] = sources["mma_expf"].replace(
-            "          x = exp2f((x - mnew) * kLog2e);",
-            "          x = expf(x - mnew);")
+    for name, edits in (BF16_EDITS if bf16 else EDITS).items():
+        text = base
+        for old, new in edits:
+            cs.check(text.count(old) == 1, f"variant {name}: edit not found")
+            text = text.replace(old, new)
+        sources[name] = text
     if args.old_source is not None:
         sources["old"] = args.old_source.read_text()
     libs = build(sources, BUILD_DIR / "flash_variants")

@@ -372,9 +372,20 @@ def _j(a, dtype):
     return jnp.asarray(a, jnp.bfloat16 if dtype is BF else jnp.float32)
 
 
-def _flash_inputs(combo, rope):
+def _flash_inputs(combo, rope, shape="causal"):
     """Causal GQA 4/2 x 64 over a padded key mask (a row with no valid key
-    included): (q, k, v, mask, rope tables or None) in numpy fp32."""
+    included): (q, k, v, mask, rope tables or None) in numpy fp32.  A
+    decode shape, "decode_tq1" or "decode_tq4": Tq queries of GQA 4/1 x 64
+    over a 70-slot cache, 55 slots valid in one row and none in the
+    other."""
+    if shape != "causal":
+        rng = np.random.default_rng(6)
+        B, Tq, Tk, Hq, Hkv, D = 2, int(shape[-1]), 70, 4, 1, 64
+        q = rng.normal(size=(B, Tq, Hq, D)).astype(np.float32)
+        k, v = (rng.normal(size=(B, Tk, Hkv, D)).astype(np.float32)
+                for _ in range(2))
+        mask = (np.arange(Tk)[None] < np.array([[55], [0]])).astype(np.int32)
+        return q, k, v, mask, None
     rng = np.random.default_rng(5)
     B, T, Hq, Hkv, D = 2, 12, 4, 2, 64
     q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
@@ -408,7 +419,10 @@ def _lora_inputs(r):
     return x, w, a, b
 
 
-FLASH_CASES = [(c, r) for r in (False, True) for c in COMBOS]
+# (combo, rope, shape): the causal shape in every combination, and the
+# decode step's shapes in bf16 (the card's "bf16_decode" form)
+FLASH_CASES = ([(c, r, "causal") for r in (False, True) for c in COMBOS]
+               + [("bf16", False, "decode_tq1"), ("bf16", False, "decode_tq4")])
 RMS_CASES = ("bf16_bf16", "bf16_f32", "f32_bf16")
 LORA_CASES = [(r, d) for r in (24, 64) for d in (np.float32, BF)]
 
@@ -426,10 +440,10 @@ def pallas():
     from tsue_tpu.ops.fused import swiglu_matmul as jax_swiglu
     from tsue_tpu.ops.lora import lora_matmul as jax_lora
     args = {}
-    for combo, rope in FLASH_CASES:
+    for combo, rope, shape in FLASH_CASES:
         qd, kd = COMBOS[combo]
-        q, k, v, mask, cs = _flash_inputs(combo, rope)
-        args[f"flash {combo} {rope}"] = (
+        q, k, v, mask, cs = _flash_inputs(combo, rope, shape)
+        args[f"flash {combo} {rope} {shape}"] = (
             _j(q, qd), _j(k, kd), _j(v, kd), jnp.asarray(mask),
             None if cs is None else tuple(map(jnp.asarray, cs)))
     x, sc = _rmsnorm_inputs()
@@ -447,8 +461,8 @@ def pallas():
             kind, *case = key.split(" ")
             if kind == "flash":
                 q, k, v, mask, cs = val
-                out[key] = jax_flash(q, k, v, mask, True, None, cs,
-                                     interpret=True)
+                out[key] = jax_flash(q, k, v, mask, case[2] == "causal",
+                                     None, cs, interpret=True)
             elif kind == "rmsnorm":
                 out[key] = jax_rmsnorm(*val, 1e-5, interpret=True)
             elif kind == "swiglu":
@@ -461,20 +475,25 @@ def pallas():
             for k, v in out.items()}
 
 
-@pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("combo", list(COMBOS))
-def test_flash_plain_matches_pallas_in_each_dtype(pallas, combo, rope):
+@pytest.mark.parametrize(
+    "combo, rope, shape", FLASH_CASES,
+    ids=[f"{c}-{r}" if s == "causal" else f"{c}-{s}"
+         for c, r, s in FLASH_CASES])
+def test_flash_plain_matches_pallas_in_each_dtype(pallas, combo, rope,
+                                                  shape):
     """(q, k/v) in fp32, bf16 and both mixes, with and without the rope,
     causal over a padded key mask (a row with no valid key included), GQA
-    4/2 x 64: the output in q's dtype, within one bf16 ulp of the
-    interpreted Pallas kernel (2^-8 relative, 2^-8 of the largest output
-    absolute: a probability or output rounded on the other side), or 1e-5
-    where every operand is fp32."""
+    4/2 x 64; and bf16 decode steps (Tq 1 and 4, GQA 4/1 x 64, a 70-slot
+    key mask with padded slots and a row with no valid key): the output in
+    q's dtype, within one bf16 ulp of the interpreted Pallas kernel (2^-8
+    relative, 2^-8 of the largest output absolute: a probability or output
+    rounded on the other side), or 1e-5 where every operand is fp32."""
     qd, kd = COMBOS[combo]
-    q, k, v, mask, cs = _flash_inputs(combo, rope)
-    ref, ref_dtype = pallas[f"flash {combo} {rope}"]
-    args = (_t(q, qd), _t(k, kd), _t(v, kd), torch.from_numpy(mask), True,
-            None, None if cs is None else tuple(map(torch.from_numpy, cs)))
+    q, k, v, mask, cs = _flash_inputs(combo, rope, shape)
+    ref, ref_dtype = pallas[f"flash {combo} {rope} {shape}"]
+    args = (_t(q, qd), _t(k, kd), _t(v, kd), torch.from_numpy(mask),
+            shape == "causal", None,
+            None if cs is None else tuple(map(torch.from_numpy, cs)))
     out = flash_attention_plain(*args)
     assert out.dtype == args[0].dtype
     assert ref_dtype == str(args[0].dtype).replace("torch.", "")

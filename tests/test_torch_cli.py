@@ -224,12 +224,17 @@ def test_http_reports_dropped_track(http):
     assert body["dropped_track_ids"] == [7]
 
 
-@pytest.mark.parametrize("method", ["GET", "POST"])
+@pytest.mark.parametrize("method", ["GET", "POST", "POST_32MB"])
 def test_http_unknown_path_is_404(http, method):
+    """A 404 whose JSON body the client reads in full, also after a POST
+    body the server does not need (the server reads it before it replies
+    and closes, so the close sends no reset)."""
     _, ports = http
+    payload = {"GET": None, "POST": {}, "POST_32MB": {"pad": "x" * (1 << 25)}}
     with pytest.raises(urllib.error.HTTPError) as e:
-        _call(ports["static"], "/nope", {} if method == "POST" else None)
+        _call(ports["static"], "/nope", payload[method])
     assert e.value.code == 404
+    assert json.loads(e.value.read()) == {"error": "unknown path /nope"}
 
 
 @pytest.mark.parametrize("command,argv,error", [

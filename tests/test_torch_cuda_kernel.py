@@ -58,6 +58,8 @@ def _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, masked, rope):
         lens = torch.randint(1, Tk + 1, (B,), generator=g, device=dev)
         if masked == "empty_rows":
             lens[1] = 0
+        elif masked == "one_key":       # every later key split all masked
+            lens[0] = 1
         mask = (torch.arange(Tk, device=dev)[None] < lens[:, None]).int()
     cs = None
     if rope:
@@ -1055,6 +1057,19 @@ BF16_MMA_EDGES = [(2, 17, 17, 4, 1, 128, True, True),
                   (2, 17, 40, 4, 1, 16, True, False),
                   (2, 70, 200, 8, 2, 64, True, False),
                   (2, 200, 200, 8, 8, 16, True, True)]
+# shapes at the edges of the all-bf16 decode form ("bf16_decode"): Tq 1 and
+# 4 at G 4 (4 and 16 items), Tq 2 at G 1, D 16 to 128, Tk 1, 63, 65, 592
+# and 2000 (one key split and several, a tile tail), causal with Tq > 1,
+# the Llama's decode step (B 16, 32/8 x 64: one split), few (b, KV head)
+# pairs over many keys (many splits, merged by the last block)
+BF16_DECODE_EDGES = [(2, 1, 1, 4, 1, 64, False, False),
+                     (2, 4, 63, 16, 4, 32, True, False),
+                     (2, 2, 65, 2, 2, 16, False, False),
+                     (3, 4, 592, 8, 2, 96, False, False),
+                     (2, 1, 2000, 32, 8, 128, False, False),
+                     (2, 2, 2000, 4, 4, 64, True, False),
+                     (2, 4, 65, 4, 1, 16, True, False),
+                     (16, 1, 592, 32, 8, 64, False, False)]
 
 
 @pytest.mark.parametrize("dtypes", list(MIXED))
@@ -1063,10 +1078,11 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
     (GQA 32/8 x 64, 200 rows, causal, with RoPE where the combination takes
     it; D = 16, 32 and 96 of the small encoders; all bf16: the tensor-core
     form, also at ``BF16_MMA_EDGES``), split-KV (one query over 592 keys;
-    18 queries of the LTSF cross-attention, D = 1024, over 600), with
-    padded and all-masked key rows: the form the plan names, one launch,
-    the output in q's dtype, within BF_TOL of the plain version, a repeat
-    bit-identical."""
+    18 queries of the LTSF cross-attention, D = 1024, over 600; all bf16
+    at D <= 128: the decode form, also at ``BF16_DECODE_EDGES``, with no
+    mask and with one valid key in a row), with padded and all-masked key
+    rows: the form the plan names, one launch, the output in q's dtype,
+    within BF_TOL of the plain version, a repeat bit-identical."""
     qd, kd = MIXED[dtypes]
     g = torch.Generator(device=dev).manual_seed(41)
     shapes = [(2, 200, 200, 32, 8, 64, True, True),
@@ -1075,10 +1091,13 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
               (3, 33, 64, 8, 8, 96, False, False),
               (3, 1, 592, 8, 2, 64, False, False),
               (3, 18, 600, 2, 2, 1024, False, False)]
+    masks = ("pad", "empty_rows")
+    cases = list(itertools.product(shapes, masks))
     if dtypes == "bf16":
-        shapes += BF16_MMA_EDGES
-    for (B, Tq, Tk, Hq, Hkv, D, causal, rope), masked in itertools.product(
-            shapes, ("pad", "empty_rows")):
+        cases += list(itertools.product(BF16_MMA_EDGES, masks))
+        cases += list(itertools.product(BF16_DECODE_EDGES,
+                                        masks + ("none", "one_key")))
+    for (B, Tq, Tk, Hq, Hkv, D, causal, rope), masked in cases:
         rope = rope and dtypes != "bf16_q"
         q, k, v, mask, cs = _inputs(dev, g, B, Tq, Tk, Hq, Hkv, D, masked,
                                     rope)
@@ -1087,8 +1106,9 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
                                     kd)
         tiled = D <= 128 and (rope or Tq * Hq // Hkv > 16)
         assert form == ("split-KV D1024" if D > 128 else
-                        "split-KV" if not tiled else
-                        "bf16_mma" if dtypes == "bf16" else "tiled"), form
+                        ("bf16_mma" if tiled else "bf16_decode")
+                        if dtypes == "bf16" else
+                        "tiled" if tiled else "split-KV"), form
         before = flash_attention.launches
         out = flash_attention(q, k, v, mask, causal, None, cs)
         assert flash_attention.launches == before + 1
@@ -1102,6 +1122,26 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
             f"{dtypes} B={B} Tq={Tq} Tk={Tk} D={D} causal={causal} "
             f"mask={masked} rope={rope}: {m}"))
         assert torch.equal(out, again)
+
+
+def test_kernel_bf16_decode_plan(dev):
+    """The decode form's key splits: one wave of blocks over the card, so
+    the Llama's decode step (B 16, 8 KV heads: 128 pairs) takes one split
+    and no merge, while one request (B 1) spreads its 10 key tiles over
+    one split each; a repeat after another shape's call is bit-identical
+    (the merging block left its ticket at zero)."""
+    from tsue_tpu_torch.ops.flash import _DT, _lib
+    dt = _DT[(BF, BF)]
+    assert _lib().flash_attn_splits(16, 1, 592, 32, 8, 64, 0, 0, dt) == 1
+    assert _lib().flash_attn_splits(1, 1, 592, 32, 8, 64, 0, 0, dt) == 10
+    g = torch.Generator(device=dev).manual_seed(45)
+    q, k, v, mask, _ = _inputs(dev, g, 1, 1, 592, 32, 8, 64, "pad", False)
+    q, k, v = q.to(BF), k.to(BF), v.to(BF)
+    first = flash_attention(q, k, v, mask)
+    flash_attention(*(t.contiguous() for t in (
+        q[:, :, :16], k[:, :300, :4], v[:, :300, :4])), mask[:, :300])
+    torch.cuda.synchronize()
+    assert torch.equal(first, flash_attention(q, k, v, mask))
 
 
 def test_kernel_bf16_rejects_what_it_does_not_take(dev):
@@ -1119,18 +1159,31 @@ def test_kernel_bf16_rejects_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("dtypes", ["bf16_bf16", "bf16_f32", "f32_bf16"])
 def test_rmsnorm_bf16_matches_plain(dev, dtypes):
-    """bf16 x and/or bf16 scale (x's dtype out), rows of 2048 and 8192, a
-    zero row, large rows: one launch, within one bf16 ulp of the plain
-    version (rtol 2^-7), a repeat bit-identical."""
+    """bf16 x and/or bf16 scale (x's dtype out), rows of 128, 2048, 4096
+    and 8192 (bf16 x: one, two, four and eight warps a row), 128 rows to
+    100 000 (more rows than one wave of the stream's CTAs holds), a zero
+    row, large
+    rows, a row of bf16's largest values (the sum of squares overflows to
+    inf, the output to 0) and one of its smallest normals: the plan's form
+    ("bf16_stream" for bf16 x, "row" for fp32), one launch, within one bf16
+    ulp of the plain version (rtol 2^-7), a repeat bit-identical."""
     xd, sd = (BF if t == "bf16" else torch.float32
               for t in dtypes.split("_"))
     g = torch.Generator(device=dev).manual_seed(43)
-    for M, K in ((129, 2048), (8448, 2048), (256, 8192)):
+    big, tiny = torch.finfo(BF).max, torch.finfo(BF).tiny
+    for M, K in ((129, 2048), (8448, 2048), (256, 8192), (128, 128),
+                 (128, 4096), (100_000, 128), (100_000, 4096)):
         x = torch.randn(M, K, generator=g, device=dev)
         x[0] = 0.0
         x[-1] *= 1e3
+        x[1] = big * torch.sign(x[1])
+        x[2] = tiny * torch.sign(x[2])
         x = x.to(xd)
         scale = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(sd)
+        plan = FU.rmsnorm_plan(M, K, xd, sd)
+        assert plan["form"] == ("bf16_stream" if xd == BF else "row"), plan
+        if xd == BF:
+            assert plan["warps_per_row"] == max(1, K // 1024), plan
         before = FU.fused_rmsnorm.launches
         out = FU.fused_rmsnorm(x, scale, 1e-5)
         assert FU.fused_rmsnorm.launches == before + 1

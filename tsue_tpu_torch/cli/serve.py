@@ -155,12 +155,16 @@ def make_server(predictor, args) -> ThreadingHTTPServer:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
-            if self.path not in ("/predict", "/generate"):
-                self._reply(404, {"error": f"unknown path {self.path}"})
-                return
             try:
+                # read the body whatever the path: closing with unread
+                # bytes resets the connection, and the client may lose
+                # the reply
                 n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n) or b"{}")
+                raw = self.rfile.read(n)
+                if self.path not in ("/predict", "/generate"):
+                    self._reply(404, {"error": f"unknown path {self.path}"})
+                    return
+                req = json.loads(raw or b"{}")
                 tracks = _coerce_tracks(req.get("tracks", []))
                 with lock:
                     if self.path == "/predict":

@@ -34,12 +34,13 @@
 // kernel rounds the normalised P, these kernels the unnormalised one
 // (online softmax): the same rounding error, not the same bits.
 //   - All-bf16 calls of the tiled form take the tensor-core form below
-//     (attn_mma_kernel, "bf16_mma").
-//   - fp32 Q over bf16 K and V, and the split-KV forms of all-bf16 calls
-//     (the decode step), take attn_kernel with the template parameters QT,
-//     KT: the copying thread loads bf16 operands (8-byte loads), widens them
-//     and stores them to the fp32 stages; the ring and its barriers are the
-//     fp32 kernel's.
+//     (attn_mma_kernel, "bf16_mma"); those of the split-KV form at D <= 128
+//     (the decode step) take the decode form below (attn_decode_kernel,
+//     "bf16_decode").
+//   - fp32 Q over bf16 K and V, and all-bf16 calls at D = 1024, take
+//     attn_kernel with the template parameters QT, KT: the copying thread
+//     loads bf16 operands (8-byte loads), widens them and stores them to
+//     the fp32 stages; the ring and its barriers are the fp32 kernel's.
 // fp32 calls compile to the kernels they were (QT = KT = float).
 //
 // The bf16 tensor-core form (attn_mma_kernel<D>, D 16 to 128):
@@ -82,6 +83,41 @@
 //     128 (28 / 40: the 128-register cap of two 256-thread blocks an SM),
 //     56,064 (105,216); <96> 196 (0), 80,640 (154,368); <128> 226 (0),
 //     105,216 (203,520).
+//
+// The bf16 decode form (attn_decode_kernel<D>, D 16 to 128; all-bf16
+// operands, no RoPE, at most 16 items per (b, KV head), a key mask or
+// none):
+//   - bound on an H100 at the decode step (B 16, Tq 1, 592 slots, 32/8
+//     heads of 64): 19.4 MB of K and V read once, 0.0058 ms; the widening
+//     split-KV form it replaces took 0.043 ms in two launches, K and V
+//     loaded synchronously into an fp32 ring, 6 of its 8 warps only
+//     copying, its products fp32 FMAs;
+//   - a block of 4 warps per (b, KV head, key split); the items are one
+//     m16 tile, held by every warp as bf16 A fragments loaded straight from
+//     device memory; warp w takes the split's key tiles w, w + 4, .. and
+//     walks them through a ring of its own (2 tiles at D 64 and 96, 4 at
+//     16 and 32, 1 at 128), filled by 16-byte cp.async before Q loads, K
+//     and V bf16 in shared memory as attn_mma_kernel lays them: no block
+//     barrier in the key walk;
+//   - QK^T, the online softmax and P V as attn_mma_kernel does them
+//     (mma.sync m16n8k16, ldmatrix(.trans), P packed from the S
+//     registers); the warps merge in warp order through shared memory;
+//   - key splits: one wave of blocks over the card (B * Hkv * splits at
+//     most the blocks the card holds at once, whole tiles a split): the
+//     decode step's 128 (b, KV head) pairs take one split of 10 tiles, a
+//     block an SM; B 1 takes 10 splits of one tile.  With several splits
+//     each block writes its (acc, m, l) to the wrapper's scratch and the
+//     block that takes its pair's last ticket (g_dec_tickets, reset by it)
+//     merges all splits in split order: one launch, a repeat bit-identical;
+//   - on an H100 80GB HBM3 at 700 W (chip_smoke.py's bf16 decode row,
+//     bits_vs_source.py): 0.0185-0.0189 ms (SDPA bf16 0.0259-0.0266, the
+//     widening form 0.0428-0.0444); its copies alone take 0.0160-0.0166
+//     ms, its arithmetic alone 0.0097-0.0100, and neither (the launch, Q's
+//     loads, the merge and the store) 0.0069 (flash_variants.py --dtype
+//     bfloat16): the copies add ~0.0092, ~2.1 TB/s; contiguous rows
+//     instead of the cache's 1 KB-strided ones copy no faster (0.0159
+//     against 0.0160), nor do three tiles in flight a warp (0.0194 in all);
+//   - ptxas: the table below (attn_decode_kernel<D>).
 //
 // What bounds it on an H100 (67 TFLOP/s fp32, 3.35 TB/s):
 //   - Llama self-attention (B 16, T 528, 32/8 heads of 64, causal, key
@@ -167,6 +203,14 @@
 //          <128, 16, 1>  152        0                  151, 0         112 KB
 //   wide   <1024, 16, 2> 124        0                  128, 0         108 KB
 //   merge_kernel         32         0                                 0
+//   decode <16>          128        0                  -              100 KB
+//          <32>          141        0                  -              164 KB
+//          <64>          168        0                  -              146 KB
+//          <96>          255        0                  -              210 KB
+//          <128>         213        0                  -              137 KB
+// (the "few" rows are fp32 and fp32 Q over bf16 K and V; all-bf16 few-item
+// calls take the decode form, attn_decode_kernel<D>, 16 bytes of static
+// shared memory beside the dynamic.)
 // The spills come from the 128-register cap of two 256-thread blocks an SM.
 //
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/flash.py):
@@ -174,8 +218,10 @@
 //   caller allocates a scratch of splits * B*Tq*Hq * (D + 2) floats when it
 //   is above 1; pq: the call passes a per-query mask; dt: the Dtypes code,
 //   0 fp32, 1 bf16, 2 fp32 Q over bf16 K and V; a per-query mask takes 0
-//   only); flash_attn_fwd(...) returns cudaGetLastError() after the
-//   launches, or -1 for what it does not take.
+//   only); flash_attn_form(...) names the form; flash_attn_fwd(...)
+//   returns cudaGetLastError() after the launches (two for the fp32 and
+//   widening split-KV forms, one for the others), or -1 for what it does
+//   not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -193,7 +239,7 @@ constexpr float kNegInf = -1e30f;      // finite: fully masked rows stay finite
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Kind { kTiled = 0, kSmall = 1, kWide = 2 };
+enum Kind { kTiled = 0, kSmall = 1, kWide = 2, kDecode = 3 };
 
 template <int D, int TY, int RPT>
 struct Cfg {
@@ -1164,6 +1210,375 @@ struct MmaKern {
   }
 };
 
+// ---- the bf16 decode form --------------------------------------------------
+//
+// All-bf16 operands, at most 16 items per (b, KV head), no RoPE (the decode
+// step): one block per (b, KV head, key split) of kDecWarps warps.  The
+// block's items are one m16 tile, held by every warp as A fragments; warp w
+// takes the split's key tiles w, w + kDecWarps, .. through a ring of its own
+// (no block barrier in the key walk) and runs QK^T and P V on mma.sync as
+// attn_mma_kernel does.  The warps merge in the block in warp order; with
+// several splits each block writes its partials and the block that takes
+// its (b, KV head)'s last ticket merges them in split order (one launch).
+
+constexpr int kDecWarps = 4;
+// (b, KV head) pairs a launch can merge: one ticket each, zero at load;
+// the merging block resets its own, so every call finds them at zero.
+// Calls share them, so split launches of this form run on one stream.
+constexpr int kDecTickets = 1 << 16;
+__device__ unsigned int g_dec_tickets[kDecTickets];
+
+template <int D>
+struct DecCfg {
+  static constexpr int NT = 32 * kDecWarps;
+  static constexpr int BM = 16;                   // items a block: one m16 tile
+  static constexpr int P = D + 8;                 // padded bf16 row, as MmaCfg
+  static constexpr int KV_B = BN * P * 2;         // bytes of a K or V tile
+  static constexpr int TILE_B = 2 * KV_B + BN * 4;   // K, V, the key mask
+  // tiles a warp keeps in flight: as many as fit beside the other warps'
+  static constexpr int NBW = D <= 32 ? 4 : (D <= 96 ? 2 : 1);
+  // the warps' (O, m, l) for the merge, in the ring's place
+  static constexpr int RED_B = kDecWarps * BM * (D + 2) * 4;
+  __host__ __device__ static constexpr int smem() {
+    return kDecWarps * NBW * TILE_B > RED_B ? kDecWarps * NBW * TILE_B : RED_B;
+  }
+};
+static_assert(DecCfg<16>::TILE_B % 16 == 0 && DecCfg<96>::TILE_B % 16 == 0,
+              "each tile starts 16-byte aligned (cp.async, ldmatrix)");
+static_assert(DecCfg<16>::smem() <= 232448 && DecCfg<32>::smem() <= 232448 &&
+                  DecCfg<64>::smem() <= 232448 && DecCfg<96>::smem() <= 232448 &&
+                  DecCfg<128>::smem() <= 232448,
+              "the warps' rings fit in a block's shared memory");
+static_assert(BN == 64 && DecCfg<64>::BM == 16,
+              "a tile is four k16 chunks of P V; the items one m16 tile");
+
+// The decode form's step over one key tile, for the block's m16 tile of
+// items (Q as A fragments qf): S = Q K^T from the bf16 tile kd, its online
+// softmax into (m, l) over the tile's keys c0 .. c0 + 63 (below Tk;
+// unmasked in md when the call has a mask; causal), P rounded to bf16 from
+// the S registers, O += P V from vd.  It repeats attn_mma_kernel's compute
+// step: called from that kernel too, it changed its register allocation
+// (attn_mma_kernel<96> spilled 24 / 40 bytes, the Llama shape ~1% slower
+// in flash_variants.py, the same bits).
+template <int D>
+__device__ __forceinline__ void dec_tile(const Args& a,
+                                         const uint32_t (&qf)[D / 16][4],
+                                         const bf16* kd, const bf16* vd,
+                                         const int* md, int c0,
+                                         float (&o)[D / 8][4],
+                                         float (&m)[2], float (&l)[2]) {
+  constexpr int P = D + 8, KC = D / 16, ND = D / 8;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int mat = lane >> 3, r8 = lane & 7;
+  const int G = a.Hq / a.Hkv, off = a.Tk - a.Tq;
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {   // n8 key tiles 2 jp, 2 jp + 1
+      uint32_t kb[4];
+      ldsm4(kb, kd + (16 * jp + 8 * (mat >> 1) + r8) * P + 16 * kc +
+                      8 * (mat & 1));
+      mma_bf16(s[2 * jp], qf[kc], kb[0], kb[1]);
+      mma_bf16(s[2 * jp + 1], qf[kc], kb[2], kb[3]);
+    }
+  }
+  bool in[8][2], kok[8][2];   // the thread's keys: below Tk; unmasked
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kl = 8 * j + 2 * t4 + e;
+      in[j][e] = c0 + kl < a.Tk;
+      kok[j][e] = a.mask == nullptr || md[kl] != 0;
+    }
+  uint32_t pa[4][4];      // P, rounded to bf16: A fragments of P V
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int last = (g8 + 8 * rr) / G + off;        // last visible key
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok =
+            kok[j][e] && (!a.causal || c0 + 8 * j + 2 * t4 + e <= last);
+        float& x = s[j][2 * rr + e];
+        x = !in[j][e] ? -INFINITY : (ok ? x * a.scale : kNegInf);
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float mnew = fmaxf(m[rr], mx);
+    const float corr = exp2f((m[rr] - mnew) * kLog2e);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * rr + e];
+        x = exp2f((x - mnew) * kLog2e);    // 0 past Tk (x = -inf)
+        sum += x;
+      }
+    l[rr] = l[rr] * corr + sum;
+    m[rr] = mnew;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][2 * rr] *= corr;
+      o[n][2 * rr + 1] *= corr;
+    }
+  }
+  // the S accumulators of key tiles 2c, 2c + 1 are the A fragment of
+  // keys 16c .. 16c + 15
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pa[c][0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
+    pa[c][1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
+    pa[c][2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
+    pa[c][3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int np = 0; np < ND / 2; ++np) {   // n8 column tiles 2 np, + 1
+      uint32_t vb[4];
+      ldsm4t(vb, vd + (16 * c + 8 * (mat & 1) + r8) * P + 16 * np +
+                       8 * (mat >> 1));
+      mma_bf16(o[2 * np], pa[c], vb[0], vb[1]);
+      mma_bf16(o[2 * np + 1], pa[c], vb[2], vb[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DecCfg<D>::NT, 1)
+attn_decode_kernel(const Args a) {
+  using C = DecCfg<D>;
+  constexpr int P = C::P, KC = D / 16, ND = D / 8, NBW = C::NBW, C8 = D / 8;
+  extern __shared__ float4 smem4[];
+  __shared__ int merger;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int G = a.Hq / a.Hkv, items = a.Tq * G;
+  const int b = blockIdx.x / a.Hkv, hkv = blockIdx.x % a.Hkv;
+  const int split = blockIdx.z;
+  const int ntiles = (a.Tk + BN - 1) / BN;
+  const int t0 = split * a.tps, t1 = min(ntiles, t0 + a.tps);
+  // this warp's tiles: t0 + warp + kDecWarps i, i < nt
+  const int nt = t1 - t0 > warp ? (t1 - t0 - warp + kDecWarps - 1) / kDecWarps : 0;
+  const bf16* ak = static_cast<const bf16*>(a.k);
+  const bf16* av = static_cast<const bf16*>(a.v);
+  uint8_t* ring = sm + warp * NBW * C::TILE_B;
+  auto kbuf = [&](int i) { return reinterpret_cast<bf16*>(ring + i % NBW * C::TILE_B); };
+  auto vbuf = [&](int i) { return kbuf(i) + BN * P; };
+  auto mbuf = [&](int i) {
+    return reinterpret_cast<int*>(ring + i % NBW * C::TILE_B + 2 * C::KV_B);
+  };
+
+  // the warp's i-th tile into its buffer i % NBW: K and V by 16-byte
+  // cp.async, the key mask by 4-byte ones; rows past Tk are zeros.  One
+  // copy group each (empty past nt).
+  auto issue = [&](int i) {
+    if (i < nt) {
+      const int c0 = (t0 + warp + kDecWarps * i) * BN;
+      bf16* kd = kbuf(i);
+      bf16* vd = vbuf(i);
+#pragma unroll
+      for (int n = 0; n < BN * C8 / 32; ++n) {
+        const int e = lane + 32 * n, j = e / C8, d = (e % C8) * 8;
+        const bool ok = c0 + j < a.Tk;
+        const size_t row = ((size_t)b * a.Tk + (ok ? c0 + j : 0)) * a.Hkv + hkv;
+        cp16(reinterpret_cast<float*>(kd + j * P + d),
+             reinterpret_cast<const float*>(ak + row * D + d), ok);
+        cp16(reinterpret_cast<float*>(vd + j * P + d),
+             reinterpret_cast<const float*>(av + row * D + d), ok);
+      }
+      if (a.mask != nullptr) {
+        int* md = mbuf(i);
+#pragma unroll
+        for (int j = lane; j < BN; j += 32) {
+          const bool ok = c0 + j < a.Tk;
+          cp4b(md + j, a.mask + (size_t)b * a.Tk + (ok ? c0 + j : 0), ok);
+        }
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NBW; ++i) issue(i);   // in flight while Q loads
+
+  // the items' Q rows as A fragments, straight from device memory: items
+  // g8 and g8 + 8, columns 2 t4 (+ 8) of each k16 chunk; zeros past items
+  uint32_t qf[KC][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int it = g8 + 8 * h;
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        static_cast<const bf16*>(a.q) +
+        (((size_t)b * a.Tq + min(it, items - 1) / G) * a.Hq + hkv * G +
+         min(it, items - 1) % G) * D + 2 * t4);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        qf[kc][h + 2 * c] = it < items ? __ldg(qr + 8 * kc + 4 * c) : 0u;
+  }
+
+  float o[ND][4];           // O: n8 column tile n, rows g8 (e < 2), g8 + 8
+  float m[2], l[2];         // rows g8, g8 + 8 (l: this thread's share)
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = kNegInf;
+  l[0] = l[1] = 0.f;
+
+  // S = Q K^T of the warp's i-th tile, its online softmax, O += P V
+  auto compute = [&](int i) {
+    dec_tile<D>(a, qf, kbuf(i), vbuf(i), mbuf(i),
+                (t0 + warp + kDecWarps * i) * BN, o, m, l);
+  };
+
+  // the warp's ring: NBW tiles in flight; tile i landed once all but the
+  // newest NBW - 1 copy groups have (one group a step)
+#pragma unroll 1
+  for (int i = 0; i < nt; ++i) {
+    cp_wait<NBW - 1>();
+    __syncwarp();           // every lane's copies of tile i are visible
+    compute(i);
+    __syncwarp();           // every lane is done with buffer i % NBW
+    issue(i + NBW);
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(kFull, l[rr], 1);
+    l[rr] += __shfl_xor_sync(kFull, l[rr], 2);
+  }
+
+  // the warps' (O, m, l) into shared memory, in the rings' place
+  float* red = reinterpret_cast<float*>(sm);        // [warp][BM][D]
+  float* rml = red + kDecWarps * C::BM * D;         // [warp][BM][m, l]
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = warp * C::BM + g8 + 8 * rr;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(red + r * D + 8 * n + 2 * t4) =
+          make_float2(o[n][2 * rr], o[n][2 * rr + 1]);
+    if (t4 == 0) {
+      rml[2 * r] = m[rr];
+      rml[2 * r + 1] = l[rr];
+    }
+  }
+  __syncthreads();
+
+  // the block's result, the warps merged in warp order: out (one split) or
+  // the split's unnormalised (acc, m, l)
+  const size_t NI = (size_t)a.B * a.Tq * a.Hq;
+  constexpr int D4 = D / 4;
+  auto flat = [&](int r) {
+    return ((size_t)b * a.Tq + r / G) * a.Hq + hkv * G + r % G;
+  };
+  for (int e = tid; e < items * D4; e += C::NT) {
+    const int r = e / D4, d = (e % D4) * 4;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, rml[2 * (w * C::BM + r)]);
+    float lw = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const int rw = w * C::BM + r;
+      const float wt = exp2f((rml[2 * rw] - M) * kLog2e);
+      lw = fmaf(rml[2 * rw + 1], wt, lw);
+      const float4 x = sm4(red + rw * D + d);
+      acc.x = fmaf(x.x, wt, acc.x);
+      acc.y = fmaf(x.y, wt, acc.y);
+      acc.z = fmaf(x.z, wt, acc.z);
+      acc.w = fmaf(x.w, wt, acc.w);
+    }
+    if (a.splits == 1) {
+      const float inv = 1.f / fmaxf(lw, 1e-30f);
+      put4(static_cast<bf16*>(a.out) + flat(r) * D + d,
+           make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+    } else {
+      const size_t rec = (size_t)split * NI + flat(r);
+      st4(a.part + rec * D + d, acc);
+      if (d == 0) {
+        float* ml = a.part + (size_t)a.splits * NI * D + rec * 2;
+        ml[0] = M;
+        ml[1] = lw;
+      }
+    }
+  }
+  if (a.splits == 1) return;
+
+  // the last block of the (b, KV head) merges every split's partials in
+  // split order (a repeated call bit-identical whichever block is last)
+  __threadfence();          // this block's partials, visible to the merger
+  __syncthreads();
+  if (tid == 0)
+    merger = atomicAdd(&g_dec_tickets[blockIdx.x], 1u) == (unsigned)a.splits - 1;
+  __syncthreads();
+  if (!merger) return;
+  __threadfence();
+  const float* mls = a.part + (size_t)a.splits * NI * D;
+  for (int e = tid; e < items * D4; e += C::NT) {
+    const int r = e / D4, d = (e % D4) * 4;
+    const size_t it = flat(r);
+    float M = -INFINITY;
+    for (int s = 0; s < a.splits; ++s)
+      M = fmaxf(M, __ldcg(mls + ((size_t)s * NI + it) * 2));
+    float lw = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < a.splits; ++s) {
+      const size_t rec = (size_t)s * NI + it;
+      const float wt = exp2f((__ldcg(mls + rec * 2) - M) * kLog2e);
+      lw = fmaf(__ldcg(mls + rec * 2 + 1), wt, lw);
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(a.part + rec * D + d));
+      acc.x = fmaf(x.x, wt, acc.x);
+      acc.y = fmaf(x.y, wt, acc.y);
+      acc.z = fmaf(x.z, wt, acc.z);
+      acc.w = fmaf(x.w, wt, acc.w);
+    }
+    const float inv = 1.f / fmaxf(lw, 1e-30f);
+    put4(static_cast<bf16*>(a.out) + it * D + d,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+  }
+  if (tid == 0) g_dec_tickets[blockIdx.x] = 0u;   // for the next call
+}
+
+template <int D>
+struct DecKern {
+  using C = DecCfg<D>;
+  static constexpr int BM = C::BM;
+  static int per_sm() {
+    static int n = -1;
+    if (n < 0) {
+      if (cudaFuncSetAttribute(attn_decode_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::smem()) != cudaSuccess)
+        return 0;
+      int k = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &k, attn_decode_kernel<D>, C::NT, C::smem()) != cudaSuccess)
+        return 0;
+      n = k;
+    }
+    return n;
+  }
+  static void launch(const Args& a, dim3 grid, bool, cudaStream_t st) {
+    attn_decode_kernel<D><<<grid, C::NT, C::smem(), st>>>(a);
+  }
+};
+
 template <int D, int TY, int RPT, bool PQ, typename QT, typename KT>
 struct Kern {
   using C = Cfg<D, TY, RPT>;
@@ -1238,7 +1653,21 @@ bool dispatch(int kind, int D, bool pq, int dt, F&& f) {
       default: return false;
     }
   }
-  if (dt == kBf16) return dispatch_pq<false, bf16, bf16>(kind, D, f);
+  if (dt == kBf16 && kind == kDecode) {  // the decode form
+    switch (D) {
+      case 16: f(DecKern<16>{}); return true;
+      case 32: f(DecKern<32>{}); return true;
+      case 64: f(DecKern<64>{}); return true;
+      case 96: f(DecKern<96>{}); return true;
+      case 128: f(DecKern<128>{}); return true;
+      default: return false;
+    }
+  }
+  if (dt == kBf16) {   // D = 1024: the widening kernel
+    if (kind != kWide || D != 1024) return false;
+    f(Kern<1024, 16, 2, false, bf16, bf16>{});
+    return true;
+  }
   if (dt == kF32Bf16) return dispatch_pq<false, float, bf16>(kind, D, f);
   return false;
 }
@@ -1265,6 +1694,7 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
   const long items = (long)Tq * G;
   const int ntiles = (Tk + BN - 1) / BN;
   p->kind = D > 128 ? kWide : (!rope && items <= 16 ? kSmall : kTiled);
+  if (p->kind == kSmall && dt == kBf16) p->kind = kDecode;
   bool known = dispatch(p->kind, D, pq, dt, [&](auto k) {
     p->bm = decltype(k)::BM;
     p->per_sm = decltype(k)::per_sm();
@@ -1283,6 +1713,13 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
     const long want = 2L * sm_count() * p->per_sm;
     const long per = std::max<long>(1, (want + base - 1) / base);
     p->tps = (int)std::max<long>(1, ntiles / per);
+  } else if (p->kind == kDecode) {
+    // one wave of blocks over the card (each block holds its split's
+    // tiles in flight at once), whole tiles a split; a ticket a pair
+    const long pairs = (long)B * Hkv;
+    if (pairs > kDecTickets) return -1;
+    const long per = std::max<long>(1, (long)sm_count() * p->per_sm / pairs);
+    p->tps = (int)((ntiles + per - 1) / per);
   }
   p->splits = (ntiles + p->tps - 1) / p->tps;
   return p->splits > 65535 ? -1 : 0;    // grid.z
@@ -1299,12 +1736,14 @@ extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
 
 // The form a call takes, with the arguments of flash_attn_splits: 0 tiled
 // (fp32 FMAs), 1 split-KV, 2 split-KV at D = 1024, 3 tiled on the bf16
-// tensor cores (all-bf16 operands); negative as flash_attn_splits.
+// tensor cores (all-bf16 operands), 4 the bf16 decode form (all-bf16
+// operands, at most 16 items); negative as flash_attn_splits.
 extern "C" int flash_attn_form(int B, int Tq, int Tk, int Hq, int Hkv, int D,
                                int rope, int pq, int dt) {
   Plan p;
   const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
   if (err != 0) return err;
+  if (p.kind == kDecode) return 4;
   return p.kind == kTiled && dt == kBf16 ? 3 : p.kind;
 }
 
@@ -1327,7 +1766,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   dispatch(p.kind, D, pq, dt,
            [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
+  // the decode form merges its splits itself
+  if (err != cudaSuccess || p.splits == 1 || p.kind == kDecode)
+    return static_cast<int>(err);
   const size_t NI = (size_t)B * Tq * Hq;
   const size_t n = NI * (D / 4);
   const unsigned nb = (unsigned)((n + 255) / 256);

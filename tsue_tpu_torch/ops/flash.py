@@ -8,8 +8,10 @@ has two forms, picked per call by the C side: a tiled one for many (row,
 head) items per (batch, KV head), and a split-KV one for few items over
 many keys (decode, the LTSF cross-attention), which writes per-split
 partials to a scratch allocated here and merges them in a second launch.
-All-bf16 calls of the tiled form run on the bf16 tensor cores
-("bf16_mma"); ``flash_attention_form`` names the form a call takes.
+All-bf16 calls run on the bf16 tensor cores: the tiled form as
+"bf16_mma", the split-KV form (no RoPE, at most 16 items) as
+"bf16_decode", which merges its splits in the same launch;
+``flash_attention_form`` names the form a call takes.
 ``flash_attention.launches`` counts calls, one per call in any form.
 The mask is a (B, Tk) key mask or a per-query (B, Tq, Tk) one (a
 speculative window's in-window causality), passed to the kernel with its
@@ -88,15 +90,17 @@ def _lib():
 
 
 # the C side's forms (flash_attn_form)
-_FORMS = ("tiled", "split-KV", "split-KV D1024", "bf16_mma")
+_FORMS = ("tiled", "split-KV", "split-KV D1024", "bf16_mma", "bf16_decode")
 
 
 def flash_attention_form(B: int, Tq: int, Tk: int, Hq: int, Hkv: int,
                          D: int, rope: bool, per_query_mask: bool,
                          q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     """The form of the kernel a call on the card takes: "tiled" (fp32
-    FMAs), "split-KV", "split-KV D1024" or "bf16_mma" (the tiled form of
-    all-bf16 operands, on the bf16 tensor cores).  Asks the CUDA library,
+    FMAs), "split-KV", "split-KV D1024", "bf16_mma" (the tiled form of
+    all-bf16 operands, on the bf16 tensor cores) or "bf16_decode" (the
+    split-KV form of all-bf16 operands, on the tensor cores, one launch
+    with its merge).  Asks the CUDA library,
     which builds it; raises for a call the kernel does not take.  A bf16 q
     over fp32 k and v takes the form of its widened fp32 call."""
     if (q_dtype, kv_dtype) == (torch.bfloat16, torch.float32):
@@ -178,7 +182,8 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
                              f"Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} D={D} "
                              f"with q {q.dtype}, k {k.dtype}"
                              + (", a per-query mask" if mq else ""))
-        # split-KV form: per-split (acc, m, l) partials, merged in order
+        # split-KV forms: per-split (acc, m, l) partials, merged in order
+        # (by a second launch, or by the decode form's last block)
         scratch = (torch.empty(splits * B * Tq * Hq * (D + 2), device=dev,
                                dtype=torch.float32)
                    if splits > 1 else None)

@@ -20,7 +20,8 @@ through the plain version, as the JAX package's ``custom_vjp``s recompute
 through XLA; it computes only the gradients autograd asks for.
 
 Dtypes, as the Pallas kernels take them: RMSNorm takes fp32 or bf16 x and
-scale, sums in fp32 and returns x's dtype; the SwiGLU product takes fp32
+scale, sums in fp32 and returns x's dtype (bf16 x takes the form
+"bf16_stream", ``rmsnorm_plan``); the SwiGLU product takes fp32
 or bf16 operands, all alike: silu in fp32 rounded to up's dtype, times up
 in that dtype, the product with W summed in fp32 and returned in gate's
 dtype.  In fp32 the kernels keep their forms and bits; bf16 has a form of
@@ -103,7 +104,33 @@ def _rmsnorm_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return bind("rmsnorm", {
         "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, i32, i32, ptr],
+        "rmsnorm_plan": [i32, i32, i32, i32, ctypes.POINTER(i32)],
         "rmsnorm_max_k": []})
+
+
+# the C side's forms (rmsnorm_plan)
+_RMSNORM_FORMS = ("row", "bf16_stream")
+
+
+def rmsnorm_plan(M: int, K: int, x_dtype: torch.dtype,
+                 scale_dtype: torch.dtype) -> dict:
+    """The kernel's launch for (M, K) rows of ``x_dtype`` and a (K,) scale
+    of ``scale_dtype``, as the CUDA library plans it (it builds the
+    library): ``form`` "row" (fp32 x: one CTA of 256 threads a row) or
+    "bf16_stream" (bf16 x: ``warps_per_row`` warps own a row, 1 up to K =
+    1024, then 2, 4 and 8 at K 2048, 4096 and 8192, with
+    ``vectors_per_lane`` 16-byte loads of x a lane, at most 4; a
+    persistent grid of ``ctas`` CTAs of 8 warps strides over the rows).  Raises for a call the kernels do not take
+    (K % 4, bf16 x K % 8, K above ``rmsnorm_max_k()``)."""
+    xb = _bf16_code("x", torch.empty(0, dtype=x_dtype))
+    sb = _bf16_code("scale", torch.empty(0, dtype=scale_dtype))
+    plan = (ctypes.c_int * 4)()
+    err = _rmsnorm_lib().rmsnorm_plan(M, K, xb, sb, plan)
+    if err:
+        raise ValueError(f"the rmsnorm kernel does not take M={M} K={K} of "
+                         f"{x_dtype} with a {scale_dtype} scale (code {err})")
+    return dict(form=_RMSNORM_FORMS[plan[0]], warps_per_row=plan[1],
+                vectors_per_lane=plan[2], ctas=plan[3])
 
 
 def _rmsnorm_cuda(x2: torch.Tensor, scale: torch.Tensor,
@@ -114,9 +141,10 @@ def _rmsnorm_cuda(x2: torch.Tensor, scale: torch.Tensor,
     check_tensor("x", x2, dev, (M, K), x2.dtype, aligned=True)
     check_tensor("scale", scale, dev, (K,), scale.dtype, aligned=True)
     lib = _rmsnorm_lib()
-    if M == 0 or K % 4 or K > lib.rmsnorm_max_k():
-        raise ValueError(f"the rmsnorm kernel takes M > 0 rows of K % 4 == 0,"
-                         f" K <= {lib.rmsnorm_max_k()} (M={M}, K={K})")
+    vec = 8 if xb else 4      # bf16 rows load 8 elements (16 bytes) a step
+    if M == 0 or K % vec or K > lib.rmsnorm_max_k():
+        raise ValueError(f"the rmsnorm kernel takes M > 0 rows of K % {vec} "
+                         f"== 0, K <= {lib.rmsnorm_max_k()} (M={M}, K={K})")
     out = torch.empty_like(x2)
     with torch.cuda.device(dev):
         err = lib.rmsnorm(x2.data_ptr(), scale.data_ptr(), out.data_ptr(), M,
