@@ -12,16 +12,18 @@ built with nvcc into ``build/bits_vs_source/`` beside the current sources.
 On the same inputs through both libraries, these must be equal bit for
 bit: every fp32 call of chip_smoke.py's attention cases (the tiled and
 split-KV forms, the per-query masks of the speculative windows); every
-one of them without a per-query mask with fp32 q over bf16 k/v; every one
-with all-bf16 operands that takes the tensor-core form "bf16_mma"; the
-SwiGLU product in fp32 and in bf16 at chip_smoke.py's fused shapes (batch
-16 and 8); RMSNorm with fp32 x over fp32 and bf16 scales at the same rows.
-Then the forms redesigned since the earlier source, flash's bf16 decode
-form at chip_smoke.py's decode step (B 16, Tq 1, 592 slots, 32/8 x 64) and
-RMSNorm's bf16 form at (8448, 2048), are checked against their plain
-versions (chip_smoke.py's BF_TOL) and timed with chip_smoke.py's timer in
-turns: old, new, new, old.  Exits 1 on any difference or disagreement.  It
-needs a CUDA device and nvcc, and prints the card beside every time.
+one of them without a per-query mask at D <= 128 with fp32 q over bf16
+k/v; every one with all-bf16 operands that takes the tensor-core form
+"bf16_mma" or the decode form "bf16_decode"; the SwiGLU product in fp32
+and in bf16 at chip_smoke.py's fused shapes (batch 16 and 8); RMSNorm with
+fp32 x over fp32 and bf16 scales and with bf16 x and scale at the same
+rows.  Then the form redesigned since the earlier source, flash's wide
+form "bf16_wide" at chip_smoke.py's LTSF cross-attention (B 16, 18 queries
+over 528 keys, 2 heads of 1024, a key mask) with fp32 q over bf16 k/v and
+all bf16, is checked against its plain version (chip_smoke.py's BF_TOL)
+and timed with chip_smoke.py's timer in turns: old, new, new, old.  Exits
+1 on any difference or disagreement.  It needs a CUDA device and nvcc, and
+prints the card beside every time.
 """
 from __future__ import annotations
 
@@ -99,17 +101,19 @@ def main() -> int:
     for case, kw in cases:
         if kw.get("mask") is not None and kw["mask"].dim() == 3:
             continue       # per-query masks: fp32 only
+        (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
+        if D > 128:
+            continue       # bf16 k/v at D = 1024: the wide form, timed below
         mixed = dict(kw, k=kw["k"].to(bf), v=kw["v"].to(bf))
         same(f"flash fp32 q, bf16 k/v {case}", flash_with("old", mixed),
              flash_with("new", mixed))
         all_bf = dict(mixed, q=kw["q"].to(bf))
-        (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
         FL._lib = lambda: flash["new"]
         form = FL.flash_attention_form(B, Tq, Tk, Hq, Hkv, D,
                                        kw.get("rope") is not None, False,
                                        bf, bf)
-        if form == "bf16_mma":
-            same(f"flash bf16_mma {case}", flash_with("old", all_bf),
+        if form in ("bf16_mma", "bf16_decode"):
+            same(f"flash {form} {case}", flash_with("old", all_bf),
                  flash_with("new", all_bf))
         del mixed, all_bf
     g = torch.Generator(device=dev).manual_seed(4)
@@ -130,20 +134,21 @@ def main() -> int:
             s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(sd)
             same(f"rmsnorm fp32 x, {str(sd)[6:]} scale M={M}",
                  rms_with("old", x, s), rms_with("new", x, s))
+        same(f"rmsnorm bf16 x, bf16 scale M={M}",
+             rms_with("old", x.to(bf), s), rms_with("new", x.to(bf), s))
         del x
 
     timer = cs.Timer(dev)
-    kw = dict(cases)["gen_decode_fp32_cache"]
-    kw = dict(kw, q=kw["q"].to(bf), k=kw["k"].to(bf), v=kw["v"].to(bf))
-    M = 16 * (16 + cs.TEXT_TOKENS)
-    x = torch.randn(M, D, generator=g, device=dev).to(bf)
-    s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(bf)
+    kw = dict(cases)["ltsf_cross"]
+    mixed = dict(kw, k=kw["k"].to(bf), v=kw["v"].to(bf))
+    all_bf = dict(mixed, q=kw["q"].to(bf))
     timed = {
-        "flash bf16 decode Tq1 S592": (
-            lambda name: flash_with(name, kw),
-            FL.flash_attention_plain(**kw)),
-        f"rmsnorm bf16 M={M} K={D}": (
-            lambda name: rms_with(name, x, s), FU.rmsnorm_plain(x, s, 1e-5))}
+        "flash fp32 q, bf16 k/v ltsf_cross": (
+            lambda name: flash_with(name, mixed),
+            FL.flash_attention_plain(**mixed)),
+        "flash bf16 ltsf_cross": (
+            lambda name: flash_with(name, all_bf),
+            FL.flash_attention_plain(**all_bf))}
     for label, (call, ref) in timed.items():
         for name in ("old", "new", "new", "old"):
             out = call(name)

@@ -23,8 +23,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      must give the same bits and cuBLAS's fp32 h @ w alone beside;
      the bf16 forms at the training shapes of a bf16 model (flash: the
      Llama's and the Q-Former's self-attention on the bf16 tensor cores,
-     the LTSF cross-attention's fp32 queries over bf16 keys, a bf16 decode
-     step; RMSNorm; SwiGLU as a TMA + wgmma pipeline, its drift against an
+     the LTSF cross-attention's fp32 queries over bf16 keys and its
+     all-bf16 twin (the wide form, its plan printed), a bf16 decode step;
+     RMSNorm; SwiGLU as a TMA + wgmma pipeline, its drift against an
      fp64 product), against their plain versions, the form that ran, a
      repeat bit-identical, bounds at bf16's rate and bytes, SDPA /
      F.rms_norm / cuBLAS in bf16 beside;
@@ -772,8 +773,9 @@ def bf16_checks(dev, gpu, timer):
     attention (the Llama's self-attention, B16 T528 32/8 x 64, RoPE,
     causal, and the Q-Former's, B16 T18 8 x 96: the tensor-core form
     "bf16_mma"; the LTSF cross-attention's fp32 queries over bf16 keys, D =
-    1024; a decode step of bf16 queries over a bf16 cache: the decode form
-    "bf16_decode"), RMSNorm (8448, 2048) (the form "bf16_stream") and the
+    1024, and its all-bf16 twin: the wide form "bf16_wide", its plan
+    printed; a decode step of bf16 queries over a bf16 cache: the decode
+    form "bf16_decode"), RMSNorm (8448, 2048) (the form "bf16_stream") and the
     SwiGLU product (8448, 8192) x (8192, 2048) (the form "bf16_wgmma"),
     each against its plain version (flash, RMSNorm: atol
     2^-6, rtol 2^-7; SwiGLU: rtol 2^-7, atol 2^-7 of the largest output),
@@ -786,8 +788,8 @@ def bf16_checks(dev, gpu, timer):
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.flash import (flash_attention,
-                                          flash_attention_form,
-                                          flash_attention_plain, rope_bthd)
+                                          flash_attention_plain,
+                                          flash_attention_plan, rope_bthd)
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
                                           rmsnorm_plan, swiglu_matmul,
                                           swiglu_matmul_plain,
@@ -804,6 +806,7 @@ def bf16_checks(dev, gpu, timer):
             ("qformer_self bf16", cast(cases["qformer_self"], bf, bf)),
             ("ltsf_cross fp32 q, bf16 k/v",
              cast(cases["ltsf_cross"], torch.float32, bf)),
+            ("ltsf_cross bf16", cast(cases["ltsf_cross"], bf, bf)),
             ("decode bf16, Tq1 S592",
              cast(cases["gen_decode_fp32_cache"], bf, bf))):
         out = flash_attention(**kw)
@@ -817,14 +820,19 @@ def bf16_checks(dev, gpu, timer):
         check(torch.equal(out, flash_attention(**kw)),
               f"flash_attn_fwd {name}: a repeated call differs")
         (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
-        form = flash_attention_form(B, Tq, Tk, Hq, Hkv, D,
+        plan = flash_attention_plan(B, Tq, Tk, Hq, Hkv, D,
                                     kw.get("rope") is not None, False,
                                     kw["q"].dtype, kw["k"].dtype)
-        if name in ("llama_self bf16", "qformer_self bf16"):
-            check(form == "bf16_mma", f"flash_attn_fwd {name}: form {form}")
-        if name == "decode bf16, Tq1 S592":
-            check(form == "bf16_decode",
-                  f"flash_attn_fwd {name}: form {form}")
+        form = plan["form"]
+        want = ("bf16_wide" if name.startswith("ltsf_cross") else
+                "bf16_decode" if name.startswith("decode") else "bf16_mma")
+        check(form == want, f"flash_attn_fwd {name}: form {form}")
+        if form == "bf16_wide":
+            # one wave of clusters, one launch, no scratch
+            check(plan["waves"] == 1, f"flash_attn_fwd {name}: plan {plan}")
+            print(f"flash_attn_fwd {name}: plan {json.dumps(plan)} (key "
+                  f"splits merged by their cluster in one launch); gpu: "
+                  f"{gpu}", flush=True)
         plain_ms = timer.ms(lambda: flash_attention_plain(**kw))
         ms = timer.ms(lambda: flash_attention(**kw))
         q, k, v = kw["q"], kw["k"], kw["v"]
@@ -844,7 +852,7 @@ def bf16_checks(dev, gpu, timer):
             "flash_attn_fwd", name, gpu, err, rel, ms, plain_ms, b, lib_ms,
             timer.floor_ms, q=list(q.shape), k=list(k.shape),
             dtypes=[str(kw["q"].dtype)[6:], str(kw["k"].dtype)[6:]],
-            form=form, repeat_bit_identical=True))
+            form=form, plan=plan, repeat_bit_identical=True))
         del out, ref, qt, kt, vt
     del cases
     g = torch.Generator(device=dev).manual_seed(12)

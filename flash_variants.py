@@ -2,6 +2,7 @@
 """Time text variants of the flash-attention kernel side by side on one GPU.
 
     python3 flash_variants.py [--dtype bfloat16] [--old-source FILE]
+                              [--variants NAME,...]
                               [--out build/flash_variants.json]
 
 Each variant is ``tsue_tpu_torch/csrc/flash_attn_fwd.cu`` with one edit
@@ -12,7 +13,8 @@ flushed, median of 15), in two rounds, the second in reverse order, so a
 drift of the card does not favour one variant.  ``--old-source`` adds an
 earlier source of the kernel (e.g. ``git show
 <commit>:tsue_tpu_torch/csrc/flash_attn_fwd.cu`` written under ``runs/``)
-as the variant ``old``.  The fp32 variants (the default) answer where a
+as the variant ``old``; ``--variants`` keeps only the named variants
+(``base`` always runs).  The fp32 variants (the default) answer where a
 form's time goes:
 
   no_compute  the ring runs and copies every tile, no warp computes
@@ -24,9 +26,11 @@ form's time goes:
               (fewer shared-memory reads per FMA, fewer warps)
 
 With ``--dtype bfloat16`` the cases are the Llama's self-attention and the
-Q-Former's at 64 frames (the tensor-core form "bf16_mma") and the decode
+Q-Former's at 64 frames (the tensor-core form "bf16_mma"), the decode
 step over a 592-slot cache (B 16, Tq 1, 32/8 x 64: the decode form
-"bf16_decode"), all with bf16 operands and held to chip_smoke.py's
+"bf16_decode"), all with bf16 operands, and the LTSF cross-attention (B
+16, 18 queries over 528 keys, 2 heads of 1024: the wide form "bf16_wide")
+with fp32 q over bf16 k and v and all bf16, held to chip_smoke.py's
 BF_TOL, and the variants:
 
   mma_no_compute  the tensor-core form's copies alone
@@ -53,6 +57,26 @@ BF_TOL, and the variants:
                   256 bytes (the neighbouring KV head's row)
   dec_contig_no_compute  the decode form's copies alone, each block's rows
                   read contiguously instead of 1 KB apart (timing only)
+  wide_no_compute the wide form's copies alone (with its launch, Q's
+                  loads and the cluster's merge)
+  wide_no_copies  its arithmetic alone (no tile or key mask copied)
+  wide_skeleton   neither: the launch, Q's loads and the merge
+  wide_skel_nomerge, wide_skel_noq, wide_skel_noloop  the skeleton without
+                  the cluster's merge, without Q's loads, or without the
+                  tile loop (its barriers)
+  wide_skel_nosync  the skeleton without the merge and the two cluster
+                  barriers
+  wide_empty      the wide form's launch alone (every block returns at
+                  once)
+  wide_nc_no_s, wide_nc_no_softmax, wide_nc_no_pv, wide_nc_no_bar  the
+                  arithmetic alone without S^T's products, the softmax, P V,
+                  or the key loop's two barriers (timing only)
+  wide_evict_normal  the wide form's K and V copies with L2's normal
+                  eviction priority instead of evict-first
+
+``--clean-l2`` times every case a second time with another 128 MB read
+after the flush, before the call (L2 then holds clean lines, so the
+call's misses evict nothing to write back), under "<case> clean-L2".
 
 It needs a CUDA device and nvcc, and prints the card beside every time.
 """
@@ -79,12 +103,26 @@ EDITS = {   # variant: [(text in the source, its replacement), ...]
     "wide_4x4": [("f(Kern<1024, 16, 2, PQ, QT, KT>{});",
                   "f(Kern<1024, 8, 4, PQ, QT, KT>{});")],
 }
-BF16_CASES = ("llama_self", "gen_qformer_self", "gen_decode_fp32_cache")
+BF16_CASES = ("llama_self", "gen_qformer_self", "gen_decode_fp32_cache",
+              "ltsf_cross")
 _DEC_SPLIT2 = ("    const long per = std::max<long>(1, (long)sm_count() * "
                "p->per_sm / pairs);",
                "    const long per = std::max<long>(2, (long)sm_count() * "
                "p->per_sm / pairs);")
 BF16_DEC_NO_COMPUTE = [("    compute(i);\n    __syncwarp();", "    __syncwarp();")]
+WIDE_NO_COPIES = [
+    ("""  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(ok ? 16 : 0), "l"(policy));""",
+     "  (void)dst; (void)src; (void)ok; (void)policy;"),
+    ("""  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));""",
+     "  (void)dst; (void)src; (void)ok;")]
+WIDE_NO_COMPUTE = [("      s_part(buf(2 * t));\n", ""),
+                   ("    if (t < nt) softmax(t, mk);\n", ""),
+                   ("    if (t > 0) pv(buf(2 * t - 1));\n", "")]
 BF16_EDITS = {
     "mma_no_compute": [("      if (busy) compute(t, buf);",
                         "      if (false) compute(t, buf);")],
@@ -123,6 +161,39 @@ BF16_EDITS = {
          "  return;\n\n  // the last block"),
         ("  if (err != cudaSuccess || p.splits == 1 || p.kind == kDecode)",
          "  if (err != cudaSuccess || p.splits == 1)")],
+    "wide_no_compute": WIDE_NO_COMPUTE,
+    "wide_no_copies": WIDE_NO_COPIES,
+    "wide_skeleton": WIDE_NO_COMPUTE + WIDE_NO_COPIES,
+    "wide_skel_nomerge": WIDE_NO_COMPUTE + WIDE_NO_COPIES + [
+        ("  for (int r = rank; r < nib; r += RB * nc) {",
+         "  for (int r = nib; r < nib; r += RB * nc) {")],
+    "wide_skel_noq": WIDE_NO_COMPUTE + WIDE_NO_COPIES + [
+        ("      qx[j][kc][0] = QPair<QT>::load(qr + 16 * kc);\n"
+         "      qx[j][kc][1] = QPair<QT>::load(qr + 16 * kc + 8);\n",
+         "      qx[j][kc][0] = qx[j][kc][1] = {};\n")],
+    "wide_skel_nosync": WIDE_NO_COMPUTE + WIDE_NO_COPIES + [
+        ("  for (int r = rank; r < nib; r += RB * nc) {",
+         "  for (int r = nib; r < nib; r += RB * nc) {"),
+        ("  if (tid < nib) {\n    float ms[kWideMaxCluster]",
+         "  if (false) {\n    float ms[kWideMaxCluster]"),
+        ("  cluster.sync();          // every rank's (O, m, l) visible",
+         "  //"),
+        ("  cluster.sync();          // no rank leaves", "  //")],
+    "wide_nc_no_s": WIDE_NO_COPIES + [WIDE_NO_COMPUTE[0]],
+    "wide_nc_no_softmax": WIDE_NO_COPIES + [WIDE_NO_COMPUTE[1]],
+    "wide_nc_no_pv": WIDE_NO_COPIES + [WIDE_NO_COMPUTE[2]],
+    "wide_nc_no_bar": WIDE_NO_COPIES + [
+        ("    __syncthreads();       // K_t and V_{t-1} landed; P_{t-1} "
+         "written\n", ""),
+        ("    __syncthreads();       // the partials written; K_t's, "
+         "V_{t-1}'s buffers free\n", "")],
+    "wide_evict_normal": [("createpolicy.fractional.L2::evict_first.b64",
+                           "createpolicy.fractional.L2::evict_normal.b64")],
+    "wide_empty": [("  cg::cluster_group cluster = cg::this_cluster();\n",
+                    "  cg::cluster_group cluster = cg::this_cluster();\n"
+                    "  if (a.scale != 0.f) return;\n")],
+    "wide_skel_noloop": WIDE_NO_COMPUTE + WIDE_NO_COPIES + [
+        ("  for (int t = 0; t <= nt; ++t) {", "  for (int t = 0; t < 0; ++t) {")],
     "dec_l2_256": [
         ("constexpr int kDecWarps = 4;",
          """__device__ __forceinline__ void cp16_pf(void* dst, const void* src,
@@ -141,7 +212,7 @@ constexpr int kDecWarps = 4;"""),
 # variants that compute the function
 CHECKED = ("base", "ring3", "wide_4x4", "mma_bm64", "mma_ring2", "mma_expf",
            "dec_split2", "dec_merge_launch", "dec_ring3", "dec_ring1",
-           "dec_ring1_merge_launch", "dec_l2_256", "old")
+           "dec_ring1_merge_launch", "dec_l2_256", "wide_evict_normal", "old")
 
 
 def build(sources: dict, out_dir: Path) -> dict:
@@ -161,6 +232,11 @@ def main() -> int:
                     default="float32", help="the operands' dtype")
     ap.add_argument("--old-source", type=Path, default=None,
                     help="an earlier flash_attn_fwd.cu, timed as 'old'")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variants to build and time beside "
+                         "base (default: all)")
+    ap.add_argument("--clean-l2", action="store_true",
+                    help="also time each case after a flush read back")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the timings here as JSON")
     args = ap.parse_args()
@@ -176,7 +252,10 @@ def main() -> int:
     base = (CSRC / "flash_attn_fwd.cu").read_text()
     bf16 = args.dtype == "bfloat16"
     sources = {"base": base}
+    keep = None if args.variants is None else set(args.variants.split(","))
     for name, edits in (BF16_EDITS if bf16 else EDITS).items():
+        if keep is not None and name not in keep:
+            continue
         text = base
         for old, new in edits:
             cs.check(text.count(old) == 1, f"variant {name}: edit not found")
@@ -187,12 +266,24 @@ def main() -> int:
     libs = build(sources, BUILD_DIR / "flash_variants")
     dev = torch.device("cuda:0")
     timer = cs.Timer(dev)
+    clean = None
+    if args.clean_l2:
+        # the flush, then a read of another 128 MB: its misses write the
+        # dirty lines back before the call, whose misses then evict clean
+        # lines
+        clean = cs.Timer(dev)
+        dirty, other = clean.flush, torch.ones_like(clean.flush)
+        clean.flush = type("ReadBack", (), {"zero_": lambda self: (
+            dirty.zero_(), other.sum())})()
     cases = [(n, kw) for n, kw in cs.attention_cases(dev)
              if n in (BF16_CASES if bf16 else CASES)]
     if bf16:
         bf = torch.bfloat16
         cases = [(n, dict(kw, q=kw["q"].to(bf), k=kw["k"].to(bf),
                           v=kw["v"].to(bf))) for n, kw in cases]
+        # the LTSF cross-attention of a bf16 model: fp32 q over bf16 k, v
+        cases += [(f"{n} fp32 q", dict(kw, q=kw["q"].float()))
+                  for n, kw in cases if n == "ltsf_cross"]
     tol = cs.BF_TOL if bf16 else cs.TOL
     times: dict = {}
     for order in (list(libs), list(libs)[::-1]):
@@ -206,9 +297,13 @@ def main() -> int:
                     cs.check(torch.allclose(out, ref, **tol),
                              f"{name} disagrees with the plain version at "
                              f"{case}")
-                ms = timer.ms(lambda: FL.flash_attention(**kw))
-                times.setdefault(name, {}).setdefault(case, []).append(ms)
-                print(f"{name} {case}: {ms:.4f} ms; gpu: {gpu}", flush=True)
+                for label, tm in ((case, timer), (f"{case} clean-L2", clean)):
+                    if tm is None:
+                        continue
+                    ms = tm.ms(lambda: FL.flash_attention(**kw))
+                    times.setdefault(name, {}).setdefault(label, []).append(ms)
+                    print(f"{name} {label}: {ms:.4f} ms; gpu: {gpu}",
+                          flush=True)
     summary = {name: {case: min(v) for case, v in per.items()}
                for name, per in times.items()}
     print(json.dumps({"gpu": gpu, "min_ms_of_two_rounds": summary}),

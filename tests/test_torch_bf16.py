@@ -377,7 +377,17 @@ def _flash_inputs(combo, rope, shape="causal"):
     included): (q, k, v, mask, rope tables or None) in numpy fp32.  A
     decode shape, "decode_tq1" or "decode_tq4": Tq queries of GQA 4/1 x 64
     over a 70-slot cache, 55 slots valid in one row and none in the
-    other."""
+    other.  "ltsf_cross": the LTSF cross-attention's layout (2 heads of
+    1024, G 1), 6 queries over 70 keys, 41 valid in one row and none in
+    the other."""
+    if shape == "ltsf_cross":
+        rng = np.random.default_rng(9)
+        B, Tq, Tk, H, D = 2, 6, 70, 2, 1024
+        q = rng.normal(size=(B, Tq, H, D)).astype(np.float32)
+        k, v = (rng.normal(size=(B, Tk, H, D)).astype(np.float32)
+                for _ in range(2))
+        mask = (np.arange(Tk)[None] < np.array([[41], [0]])).astype(np.int32)
+        return q, k, v, mask, None
     if shape != "causal":
         rng = np.random.default_rng(6)
         B, Tq, Tk, Hq, Hkv, D = 2, int(shape[-1]), 70, 4, 1, 64
@@ -419,10 +429,12 @@ def _lora_inputs(r):
     return x, w, a, b
 
 
-# (combo, rope, shape): the causal shape in every combination, and the
-# decode step's shapes in bf16 (the card's "bf16_decode" form)
+# (combo, rope, shape): the causal shape in every combination, the decode
+# step's shapes in bf16 (the card's "bf16_decode" form), and the LTSF
+# cross-attention's with bf16 k and v (the card's "bf16_wide" form)
 FLASH_CASES = ([(c, r, "causal") for r in (False, True) for c in COMBOS]
-               + [("bf16", False, "decode_tq1"), ("bf16", False, "decode_tq4")])
+               + [("bf16", False, "decode_tq1"), ("bf16", False, "decode_tq4")]
+               + [(c, False, "ltsf_cross") for c in ("f32_q", "bf16")])
 RMS_CASES = ("bf16_bf16", "bf16_f32", "f32_bf16")
 LORA_CASES = [(r, d) for r in (24, 64) for d in (np.float32, BF)]
 
@@ -483,8 +495,11 @@ def test_flash_plain_matches_pallas_in_each_dtype(pallas, combo, rope,
                                                   shape):
     """(q, k/v) in fp32, bf16 and both mixes, with and without the rope,
     causal over a padded key mask (a row with no valid key included), GQA
-    4/2 x 64; and bf16 decode steps (Tq 1 and 4, GQA 4/1 x 64, a 70-slot
-    key mask with padded slots and a row with no valid key): the output in
+    4/2 x 64; bf16 decode steps (Tq 1 and 4, GQA 4/1 x 64, a 70-slot key
+    mask with padded slots and a row with no valid key); the LTSF
+    cross-attention's layout (2 heads of 1024, 6 queries over 70 keys, a
+    padded row and a row with no valid key) with fp32 and bf16 q over bf16
+    k and v: the output in
     q's dtype, within one bf16 ulp of the interpreted Pallas kernel (2^-8
     relative, 2^-8 of the largest output absolute: a probability or output
     rounded on the other side), or 1e-5 where every operand is fp32."""

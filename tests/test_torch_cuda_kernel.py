@@ -35,7 +35,8 @@ from tsue_tpu_torch.ops.nlinear import (nlinear_fused, nlinear_plan,
                                         nlinear_ref)
 from tsue_tpu_torch.ops.flash import (SUPPORTED_HEAD_DIMS, flash_attention,
                                       flash_attention_form,
-                                      flash_attention_plain)
+                                      flash_attention_plain,
+                                      flash_attention_plan)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -1078,9 +1079,10 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
     (GQA 32/8 x 64, 200 rows, causal, with RoPE where the combination takes
     it; D = 16, 32 and 96 of the small encoders; all bf16: the tensor-core
     form, also at ``BF16_MMA_EDGES``), split-KV (one query over 592 keys;
-    18 queries of the LTSF cross-attention, D = 1024, over 600; all bf16
-    at D <= 128: the decode form, also at ``BF16_DECODE_EDGES``, with no
-    mask and with one valid key in a row), with padded and all-masked key
+    18 queries of the LTSF cross-attention, D = 1024, over 600: the wide
+    form "bf16_wide" where k and v are bf16; all bf16 at D <= 128: the
+    decode form, also at ``BF16_DECODE_EDGES``, with no mask and with one
+    valid key in a row), with padded and all-masked key
     rows: the form the plan names, one launch, the output in q's dtype,
     within BF_TOL of the plain version, a repeat bit-identical."""
     qd, kd = MIXED[dtypes]
@@ -1105,7 +1107,8 @@ def test_kernel_bf16_matches_plain(dev, dtypes):
         form = flash_attention_form(B, Tq, Tk, Hq, Hkv, D, rope, False, qd,
                                     kd)
         tiled = D <= 128 and (rope or Tq * Hq // Hkv > 16)
-        assert form == ("split-KV D1024" if D > 128 else
+        assert form == (("bf16_wide" if kd == BF else "split-KV D1024")
+                        if D > 128 else
                         ("bf16_mma" if tiled else "bf16_decode")
                         if dtypes == "bf16" else
                         "tiled" if tiled else "split-KV"), form
@@ -1140,6 +1143,89 @@ def test_kernel_bf16_decode_plan(dev):
     first = flash_attention(q, k, v, mask)
     flash_attention(*(t.contiguous() for t in (
         q[:, :, :16], k[:, :300, :4], v[:, :300, :4])), mask[:, :300])
+    torch.cuda.synchronize()
+    assert torch.equal(first, flash_attention(q, k, v, mask))
+
+
+# shapes at the edges of the wide form ("bf16_wide": bf16 k and v at D =
+# 1024), (B, Tq, Tk, Hq, Hkv, causal): Tk 1, 63, 64, 65, 528 and 2000
+# (one 16-key tile, tile tails, one key split and up to eight, ragged
+# splits), B 1 and 64 (one (b, head) pair a head and one wave of pairs), Tq
+# 1, 18 and 33 (one item block, a full one, two), GQA 4/2 (four blocks),
+# causal with Tq > Tk (rows with no visible key) and Tq < Tk
+BF16_WIDE_EDGES = [(1, 1, 1, 2, 2, False),
+                   (2, 18, 1, 2, 2, True),
+                   (2, 18, 63, 2, 2, False),
+                   (2, 18, 64, 2, 2, True),
+                   (2, 33, 65, 2, 2, True),
+                   (16, 18, 528, 2, 2, False),
+                   (1, 18, 528, 2, 2, False),
+                   (2, 1, 2000, 2, 2, False),
+                   (2, 18, 2000, 2, 2, True),
+                   (64, 18, 65, 2, 2, False),
+                   (3, 33, 200, 4, 2, True)]
+
+
+@pytest.mark.parametrize("dtypes", ["f32_q", "bf16"])
+def test_kernel_bf16_wide_edges(dev, dtypes):
+    """The wide form at ``BF16_WIDE_EDGES``, with no mask, padded key rows,
+    a row with no valid key (B > 1) and a row with one valid key (every
+    later key split all masked): the form "bf16_wide", one launch, the
+    output in q's dtype, finite, within BF_TOL of the plain version, a
+    repeat bit-identical."""
+    qd, kd = MIXED[dtypes]
+    g = torch.Generator(device=dev).manual_seed(47)
+    for B, Tq, Tk, Hq, Hkv, causal in BF16_WIDE_EDGES:
+        masks = ("none", "pad", "one_key") + (("empty_rows",) if B > 1
+                                              else ())
+        for masked in masks:
+            q, k, v, mask, _ = _inputs(dev, g, B, Tq, Tk, Hq, Hkv, 1024,
+                                       masked, False)
+            q, k, v = q.to(qd), k.to(kd), v.to(kd)
+            assert flash_attention_form(B, Tq, Tk, Hq, Hkv, 1024, False,
+                                        False, qd, kd) == "bf16_wide"
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, mask, causal)
+            assert flash_attention.launches == before + 1
+            assert out.dtype == qd
+            ref = flash_attention_plain(q, k, v, mask, causal)
+            again = flash_attention(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all()
+            torch.testing.assert_close(out.float(), ref.float(), **BF_TOL,
+                                       msg=lambda m: (
+                f"{dtypes} B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} "
+                f"causal={causal} mask={masked}: {m}"))
+            assert torch.equal(out, again)
+            del q, k, v, out, ref, again
+
+
+def test_kernel_bf16_wide_plan(dev):
+    """The wide form's plan: the LTSF cross-attention's call (B 16, 18
+    queries over 528 keys, 2 heads of 1024) takes one wave of clusters,
+    one block an SM at most, each cluster's key splits no more than 8 and
+    no more than its 33 tiles of 16 keys, the same plan for fp32 and bf16
+    q; an fp32 call keeps "split-KV D1024"; a repeat after another shape's
+    call is bit-identical (the merge leaves nothing behind)."""
+    args = (16, 18, 528, 2, 2, 1024, False, False)
+    plans = [flash_attention_plan(*args, qd, BF)
+             for qd in (torch.float32, BF)]
+    for plan in plans:
+        assert plan["form"] == "bf16_wide" and plan["waves"] == 1, plan
+        assert plan["cluster"] == plan["splits"] <= 8, plan
+        assert plan["blocks"] == 32 * plan["splits"], plan
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert plan["blocks"] <= sms, plan
+        assert plan["keys_per_split"] == 16 * -(-33 // plan["splits"]), plan
+    assert plans[0] == plans[1]
+    assert flash_attention_form(*args, torch.float32,
+                                torch.float32) == "split-KV D1024"
+    g = torch.Generator(device=dev).manual_seed(48)
+    q, k, v, mask, _ = _inputs(dev, g, 16, 18, 528, 2, 2, 1024, "pad", False)
+    k, v = k.to(BF), v.to(BF)
+    first = flash_attention(q, k, v, mask)
+    flash_attention(*(t[:3, :5].contiguous() for t in (q, k, v)),
+                    mask[:3, :5])
     torch.cuda.synchronize()
     assert torch.equal(first, flash_attention(q, k, v, mask))
 

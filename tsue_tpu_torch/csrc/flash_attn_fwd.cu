@@ -37,10 +37,13 @@
 //     (attn_mma_kernel, "bf16_mma"); those of the split-KV form at D <= 128
 //     (the decode step) take the decode form below (attn_decode_kernel,
 //     "bf16_decode").
-//   - fp32 Q over bf16 K and V, and all-bf16 calls at D = 1024, take
-//     attn_kernel with the template parameters QT, KT: the copying thread
-//     loads bf16 operands (8-byte loads), widens them and stores them to
-//     the fp32 stages; the ring and its barriers are the fp32 kernel's.
+//   - bf16 K and V at D = 1024, Q fp32 or bf16 (the LTSF cross-attention of
+//     a bf16 model), take the wide form below (attn_wide_kernel,
+//     "bf16_wide").
+//   - fp32 Q over bf16 K and V at D <= 128 takes attn_kernel with the
+//     template parameters QT, KT: the copying thread loads bf16 operands
+//     (8-byte loads), widens them and stores them to the fp32 stages; the
+//     ring and its barriers are the fp32 kernel's.
 // fp32 calls compile to the kernels they were (QT = KT = float).
 //
 // The bf16 tensor-core form (attn_mma_kernel<D>, D 16 to 128):
@@ -119,6 +122,52 @@
 //     against 0.0160), nor do three tiles in flight a warp (0.0194 in all);
 //   - ptxas: the table below (attn_decode_kernel<D>).
 //
+// The bf16 wide form (attn_wide_kernel<QT>; D = 1024, bf16 K and V, Q fp32
+// or bf16, a key mask or none, causal or not; no RoPE, no per-query mask):
+//   - bound on an H100 at the LTSF cross-attention (B 16, Tq 18, Tk 528, 2
+//     heads of 1024, a key mask): 73.9 MB of q, k, v, out and mask read or
+//     written once, 0.0221 ms (fp32 q; 0.0214 with a bf16 q), against 0.0025
+//     ms of bf16 operations with the three-term split; the widening form it
+//     replaces took 0.182 ms in two launches, K and V widened by a
+//     synchronous copy into an fp32 ring, 9 splits of one 64-key tile
+//     each re-reading Q, fp32 FMAs, a 42 MB scratch round trip;
+//   - a thread block cluster of c CTAs per (b, KV head, 18 items), one
+//     CTA of 8 warps per key split (c <= 8 and the tiles; picked with
+//     cudaOccupancyMaxActiveClusters for the least waves x tiles: on an H100
+//     SXM the LTSF call takes 32 clusters of 3, one wave of 96 CTAs, 11
+//     tiles each: cudaOccupancyMaxActiveClusters puts fewer than 32
+//     clusters of 4 such CTAs on the card at once);
+//   - warp w owns columns 128 w ..: S^T = K Q^T (keys m, items n, three n8
+//     tiles) on mma.sync m16n8k16 with exact products; Q's hi term is held
+//     in registers for the whole walk, an fp32 q's mid and lo terms in
+//     shared memory (Q re-read from shared memory every 16-key tile bound
+//     S^T: 147 KB a tile); the 8 warps' partials added in warp order by
+//     the softmax threads (8 an item); P bf16 in shared memory; O^T += V^T
+//     P^T in registers (96 a thread);
+//   - 16-key tiles (one m16 of S^T, one k16 of P V: a tile of K or V at D
+//     1024 is 32 KB), K with its key mask and V as half-tiles through a
+//     cp.async ring of 4 (fp32 q) or 6 (bf16 q) with an L2 evict-first
+//     policy (read once; the misses then displace K and V, not dirty lines:
+//     with normal priority 0.0527 ms (fp32 q) and 0.0505 (bf16 q) after the
+//     timer's flush, flash_variants.py wide_evict_normal); a step runs tile
+//     t's S^T beside tile t - 1's P V, then tile t's softmax: two barriers
+//     a tile;
+//   - the ranks' (O, m, l) stay in shared memory; after a cluster barrier
+//     each rank reads every item's (m, l) once, weighs and adds every
+//     rank's O for its items in rank order through distributed shared
+//     memory and writes the output: one launch, no scratch, a repeat
+//     bit-identical;
+//   - on an H100 80GB HBM3 at 700 W (chip_smoke.py, bits_vs_source.py,
+//     flash_variants.py --dtype bfloat16): fp32 q 0.0459-0.0464 ms, bf16 q
+//     0.0448-0.0452 (SDPA 0.395 in fp32, 0.141 in bf16); with L2 left clean
+//     0.0446 and 0.0388.  Copies alone (wide_no_compute) 0.0433 and 0.0394
+//     (clean 0.0390, 0.0353), arithmetic alone (wide_no_copies) 0.0322 and
+//     0.0242, neither 0.0154 and 0.0112 (an empty launch 0.0054, the merge
+//     0.0033 and 0.0031, the cluster barriers and weights 0.0015, an fp32
+//     q's loads and split 0.0034): the copies bound it, ~2.5 TB/s after the
+//     timer's flush, ~2.9 with L2 clean;
+//   - ptxas: the table below (attn_wide_kernel<QT>).
+//
 // What bounds it on an H100 (67 TFLOP/s fp32, 3.35 TB/s):
 //   - Llama self-attention (B 16, T 528, 32/8 heads of 64, causal, key
 //     mask): 4 * D * Hq * (attended pairs) = 15.9 GFLOP, 0.237 ms of FMAs
@@ -154,7 +203,8 @@
 //     some row saw no valid key runs on to Tk (the keys past its causal end
 //     are invalid for all its rows, so the others add exact zeros).
 // Split-KV form (few items per (b, KV head), flash-decoding; kernels
-// <D, 16, 1> for D <= 128 and at most 16 items, <1024, 16, 2> for D = 1024):
+// <D, 16, 1> for D <= 128 and at most 16 items, <1024, 16, 2> for fp32 at
+// D = 1024):
 //   - one block per (b, KV head, item chunk, key split) holds all the items
 //     of its (b, KV head) (up to 16, or 32 at D = 1024) and one split of the
 //     keys; the keys are split so that the grid covers at least two waves
@@ -203,6 +253,8 @@
 //          <128, 16, 1>  152        0                  151, 0         112 KB
 //   wide   <1024, 16, 2> 124        0                  128, 0         108 KB
 //   merge_kernel         32         0                                 0
+//   bf16 wide <float>    255        0                  -              214.8 KB
+//             <bf16>     233        0                  -              206.3 KB
 //   decode <16>          128        0                  -              100 KB
 //          <32>          141        0                  -              164 KB
 //          <64>          168        0                  -              146 KB
@@ -210,25 +262,32 @@
 //          <128>         213        0                  -              137 KB
 // (the "few" rows are fp32 and fp32 Q over bf16 K and V; all-bf16 few-item
 // calls take the decode form, attn_decode_kernel<D>, 16 bytes of static
-// shared memory beside the dynamic.)
+// shared memory beside the dynamic; the wide row is fp32, bf16 K and V at D
+// = 1024 take attn_wide_kernel<QT>, Q's type, one block an SM.)
 // The spills come from the 128-register cap of two 256-thread blocks an SM.
 //
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/flash.py):
-//   flash_attn_splits(...) is the number of key splits a call will use (the
-//   caller allocates a scratch of splits * B*Tq*Hq * (D + 2) floats when it
-//   is above 1; pq: the call passes a per-query mask; dt: the Dtypes code,
+//   flash_attn_splits(...) is the number of key splits whose partials a
+//   call writes to a scratch (the caller allocates splits * B*Tq*Hq * (D +
+//   2) floats when it is above 1; 1 for the wide form, whose cluster
+//   merges them; pq: the call passes a per-query mask; dt: the Dtypes code,
 //   0 fp32, 1 bf16, 2 fp32 Q over bf16 K and V; a per-query mask takes 0
-//   only); flash_attn_form(...) names the form; flash_attn_fwd(...)
-//   returns cudaGetLastError() after the launches (two for the fp32 and
-//   widening split-KV forms, one for the others), or -1 for what it does
-//   not take.
+//   only); flash_attn_form(...) names the form; flash_attn_plan(..., field)
+//   reports its splits, cluster, blocks, keys a split and waves;
+//   flash_attn_fwd(...) returns cudaGetLastError() after the launches (two
+//   for the fp32 and widening split-KV forms, one for the others), or -1
+//   for what it does not take.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -239,7 +298,7 @@ constexpr float kNegInf = -1e30f;      // finite: fully masked rows stay finite
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Kind { kTiled = 0, kSmall = 1, kWide = 2, kDecode = 3 };
+enum Kind { kTiled = 0, kSmall = 1, kWide = 2, kDecode = 3, kWideBf16 = 4 };
 
 template <int D, int TY, int RPT>
 struct Cfg {
@@ -342,7 +401,6 @@ __device__ __forceinline__ float4 rnd4(float4 x) {
   return make_float4(rnd<T>(x.x), rnd<T>(x.y), rnd<T>(x.z), rnd<T>(x.w));
 }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void put4(float* p, float4 v) { st4(p, v); }
 __device__ __forceinline__ void put4(bf16* p, float4 v) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
@@ -1579,6 +1637,576 @@ struct DecKern {
   }
 };
 
+// ---- the bf16 wide form ----------------------------------------------------
+//
+// D = 1024 with bf16 K and V, Q fp32 or bf16, a key mask or none (the LTSF
+// cross-attention of a bf16 model): a thread block cluster per (b, KV
+// head, block of kWideBM items), one CTA of kWideWarps warps per key split.
+// Warp w owns head-dim columns 128 w .. 128 w + 127 of every product:
+//   - S^T = K Q^T of a 16-key tile: m16n8k16 bf16 mma.sync with the keys as
+//     m and the items as n (three n8 tiles hold up to 24 items), A = K by
+//     ldmatrix from the bf16 tile, B = Q^T built from the fp32 Q rows in
+//     shared memory: an fp32 q split into hi + mid + lo bf16 terms (exact,
+//     as int8_matmul.cu splits x), a bf16 q one term; each warp's partial
+//     sum over its 128 columns goes to shared memory and the softmax
+//     threads (8 a item, 2 keys each) add the 8 partials in warp order;
+//   - the online softmax in fp32, P rounded to bf16 into shared memory;
+//   - O^T += V^T P^T: A = V^T by ldmatrix.trans, B = P^T by ldmatrix, the
+//     warp's O^T (128 columns x 24 items, fp32) in registers;
+//   - K and V tiles stay bf16 from device memory to the tensor cores: 16-
+//     byte cp.async into a ring of half-tiles (a tile's K, then its V; 4
+//     for an fp32 q, 6 for a bf16 q), all but one in flight;
+//   - the cluster's CTAs leave their (O, m, l) in shared memory; after a
+//     cluster barrier rank r merges a share of the outputs over all ranks
+//     in rank order through distributed shared memory: one launch, no
+//     scratch, a repeated call bit-identical.
+
+constexpr int kWideD = 1024;
+constexpr int kWideWarps = 8;
+constexpr int kWideBM = 18;           // items a block (the LTSF's 18 queries)
+constexpr int kWideKeys = 16;         // keys a tile: one m16 of S^T, one k16 of P V
+constexpr int kWideMaxCluster = 8;    // portable cluster size: key splits
+
+template <typename QT>
+struct WideCfg {
+  static constexpr int NTERM = sizeof(QT) == 4 ? 3 : 1;   // Q's bf16 terms
+  static constexpr int NT = 32 * kWideWarps;
+  static constexpr int DW = kWideD / kWideWarps;      // columns a warp
+  static constexpr int NJ = 3;                        // n8 item tiles
+  static constexpr int KP = kWideD + 8;               // padded bf16 K / V row
+  static constexpr int KV_B = kWideKeys * KP * 2;     // a K or V tile
+  static constexpr int HALF_B = KV_B + kWideKeys * 4; // + the key mask (K's)
+  // half-tiles in the ring: as many as fit beside the terms of Q that stay
+  // in shared memory (mid and lo of an fp32 q; the hi term is in registers)
+  static constexpr int BUFS = NTERM == 3 ? 4 : 6;
+  static constexpr int RING_B = BUFS * HALF_B;
+  static constexpr int QW = kWideD / 2 + 8;           // a Q term's row, words
+  static constexpr int Q_B = (NTERM - 1) * kWideBM * QW * 4;
+  static constexpr int RS = kWideKeys + 4;            // a partial S row
+  static constexpr int SP_B = kWideWarps * kWideBM * RS * 4;
+  static constexpr int PP = kWideKeys + 8;            // bf16 P row
+  static constexpr int P_B = 8 * NJ * PP * 2;
+  static constexpr int OS = kWideD + 4;               // fp32 O row, merge
+  static constexpr int SMEM = RING_B + Q_B + SP_B + P_B + 8 * NJ * 4;
+};
+using WideF = WideCfg<float>;
+static_assert(WideF::DW == 128 && kWideKeys == 16,
+              "a warp's columns are 8 m16 tiles of O^T and 8 k16 chunks of S^T;"
+              " a tile is one m16 of S^T and one k16 of P V");
+static_assert(kWideBM <= 8 * WideF::NJ && kWideBM * 8 <= WideF::NT,
+              "the items fit the n8 tiles; 8 softmax threads an item");
+static_assert(WideF::KP * 2 % 128 == 16 && WideF::PP * 2 % 16 == 0 &&
+                  WideF::KV_B % 16 == 0 && WideF::HALF_B % 16 == 0,
+              "ldmatrix rows 16-byte aligned, K / V rows one bank group apart");
+static_assert(WideF::QW * 4 % 128 == 32 && WideF::Q_B % 16 == 0,
+              "four Q rows of a half warp's 8-byte loads in distinct banks");
+static_assert(kWideD / 4 == WideF::NT,
+              "the merge: a thread a 4-column group of every row");
+static_assert(WideF::RS % 32 == 20 && WideF::OS % 32 == 4,
+              "partial S and O stores of a warp in 32 distinct banks");
+static_assert(kWideBM * WideF::OS * 4 <= WideF::RING_B &&
+                  (3 + kWideMaxCluster) * kWideBM * 4 <= WideF::SP_B,
+              "the merge's O in the ring's place; (m, l), the ranks' weights "
+              "and 1 / l in the partials'");
+static_assert(kWideKeys * kWideD / 8 % WideF::NT == 0 && WideF::BUFS >= 3 &&
+                  WideCfg<bf16>::BUFS >= 3,
+              "whole 16-byte copies a thread; K and V of a tile in flight");
+static_assert(WideF::SMEM <= 232448 && WideCfg<bf16>::SMEM <= 232448,
+              "one block an SM");
+
+// K and V are read once: their lines are the first L2 evicts (the lines
+// the call's misses displace are then its own, not other data, dirty data
+// included, which would cost a write-back)
+__device__ __forceinline__ uint64_t stream_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+// 16-byte async copy with an L2 policy (zeros with ok == false)
+__device__ __forceinline__ void cp16_policy(void* dst, const void* src,
+                                            bool ok, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(ok ? 16 : 0), "l"(policy));
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+// Two fp32 values -> three bf16x2 terms (low half the first value), by
+// truncation: a = hi + mid + lo exactly (int8_matmul.cu's split).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
+  const uint32_t hb = __float_as_uint(b) & 0xffff0000u;
+  const float ra = a - __uint_as_float(ha), rb = b - __uint_as_float(hb);
+  const uint32_t ma = __float_as_uint(ra) & 0xffff0000u;
+  const uint32_t mb = __float_as_uint(rb) & 0xffff0000u;
+  const float sa = ra - __uint_as_float(ma), sb = rb - __uint_as_float(mb);
+  hi = __byte_perm(ha, hb, 0x7632);
+  mid = __byte_perm(ma, mb, 0x7632);
+  lo = __byte_perm(__float_as_uint(sa), __float_as_uint(sb), 0x7632);
+}
+// Two adjacent q values, loaded, then as bf16x2 terms (low half the
+// first): hi, mid, lo of fp32 values; a bf16 pair as it lies (one term)
+template <typename QT>
+struct QPair;
+template <>
+struct QPair<float> {
+  using T = float2;
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ void terms(T x, uint32_t (&w)[3]) {
+    split3(x.x, x.y, w[0], w[1], w[2]);
+  }
+};
+template <>
+struct QPair<bf16> {
+  using T = unsigned int;
+  static __device__ __forceinline__ T load(const bf16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  static __device__ __forceinline__ void terms(T x, uint32_t (&w)[3]) {
+    w[0] = x;
+    w[1] = w[2] = 0u;
+  }
+};
+
+template <typename QT>
+__global__ void __launch_bounds__(WideCfg<QT>::NT, 1)
+attn_wide_kernel(const Args a) {
+  using C = WideCfg<QT>;
+  constexpr int NTERM = C::NTERM, NB = C::BUFS;
+  constexpr int BM = kWideBM, KEYS = kWideKeys, NJ = C::NJ, DW = C::DW;
+  constexpr int KP = C::KP, QW = C::QW, RS = C::RS, PP = C::PP, OS = C::OS;
+  constexpr int C8 = kWideD / 8;            // 16-byte chunks of a bf16 row
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  uint32_t* qt = reinterpret_cast<uint32_t*>(sm + C::RING_B);  // [term-1][BM][QW]
+  float* sp = reinterpret_cast<float*>(qt + (NTERM - 1) * BM * QW);  // [warp][BM][RS]
+  bf16* ps = reinterpret_cast<bf16*>(sp + kWideWarps * BM * RS);   // [24][PP]
+  float* corr_s = reinterpret_cast<float*>(ps + 8 * NJ * PP);      // [24]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3, mat = lane >> 3, r8 = lane & 7;
+  const int G = a.Hq / a.Hkv, items = a.Tq * G;
+  const int pair = blockIdx.x / nc;
+  const int b = pair / a.Hkv, hkv = pair % a.Hkv;
+  const int i0 = blockIdx.y * BM;
+  const int nib = min(BM, items - i0);     // the block's items
+  const int off = a.Tk - a.Tq;
+  // this rank's tiles: a balanced share, every rank at least one
+  const int ntiles = (a.Tk + KEYS - 1) / KEYS;
+  const int t0 = (int)((long)rank * ntiles / nc);
+  const int nt = (int)((long)(rank + 1) * ntiles / nc) - t0;
+  const bf16* ak = static_cast<const bf16*>(a.k);
+  const bf16* av = static_cast<const bf16*>(a.v);
+  auto buf = [&](int h) {
+    return reinterpret_cast<bf16*>(sm + (h % NB) * C::HALF_B);
+  };
+  const uint64_t policy = stream_policy();
+
+  // half-tile h: K and the key mask (h even) or V (h odd) of the rank's
+  // tile h / 2, 16-byte cp.async (4-byte for the mask), rows past Tk zeros;
+  // one copy group each (empty past the end)
+  auto issue = [&](int h) {
+    if (h < 2 * nt) {
+      const int c0 = (t0 + (h >> 1)) * KEYS;
+      const bf16* src = (h & 1) ? av : ak;
+      bf16* dst = buf(h);
+#pragma unroll
+      for (int n = 0; n < KEYS * C8 / C::NT; ++n) {
+        const int e = tid + C::NT * n, j = e / C8, d = (e % C8) * 8;
+        const bool ok = c0 + j < a.Tk;
+        const size_t key = ((size_t)b * a.Tk + (ok ? c0 + j : 0)) * a.Hkv + hkv;
+        cp16_policy(dst + j * KP + d, src + key * kWideD + d, ok, policy);
+      }
+      if (!(h & 1) && a.mask != nullptr && tid < KEYS) {
+        const bool ok = c0 + tid < a.Tk;
+        cp4b(dst + KEYS * KP + 2 * tid,
+             a.mask + (size_t)b * a.Tk + (ok ? c0 + tid : 0), ok);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int h = 0; h < NB - 1; ++h) issue(h);   // in flight while Q loads
+
+  // Q^T's B fragments of the warp's columns (items 8 j + g8; columns 2 t4,
+  // 2 t4 + 1 and 2 t4 + 8, + 9 of each 16-column chunk), straight from
+  // device memory: an fp32 q split into hi + mid + lo bf16 terms, a bf16 q
+  // one term.  The hi term stays in registers for the whole key walk
+  // (shared-memory reads of Q otherwise bound S^T); mid and lo go to shared
+  // memory where this thread reads them back.  Items past the block's zeros.
+  uint32_t qh[DW / 16][NJ][2];
+  typename QPair<QT>::T qx[NJ][DW / 16][2];   // every load before the first use
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int it = i0 + min(8 * j + g8, nib - 1);
+    const QT* qr = static_cast<const QT*>(a.q) +
+                   (((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G) *
+                       kWideD + warp * DW + 2 * t4;
+#pragma unroll
+    for (int kc = 0; kc < DW / 16; ++kc) {
+      qx[j][kc][0] = QPair<QT>::load(qr + 16 * kc);
+      qx[j][kc][1] = QPair<QT>::load(qr + 16 * kc + 8);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int r = 8 * j + g8;
+#pragma unroll
+    for (int kc = 0; kc < DW / 16; ++kc) {
+      uint32_t w0[3], w1[3];
+      QPair<QT>::terms(qx[j][kc][0], w0);
+      QPair<QT>::terms(qx[j][kc][1], w1);
+      const bool ok = r < nib;
+      qh[kc][j][0] = ok ? w0[0] : 0u;
+      qh[kc][j][1] = ok ? w1[0] : 0u;
+#pragma unroll
+      for (int u = 1; u < NTERM; ++u)
+        if (r < BM)
+          *reinterpret_cast<uint2*>(qt + ((u - 1) * BM + r) * QW +
+                                    (warp * DW + 16 * kc) / 2 + 2 * t4) =
+              ok ? make_uint2(w0[u], w1[u]) : make_uint2(0u, 0u);
+    }
+  }
+  for (int e = tid; e < 8 * NJ * PP / 2; e += C::NT)   // P rows past the items
+    reinterpret_cast<uint32_t*>(ps)[e] = 0u;
+  if (tid < 8 * NJ) corr_s[tid] = 1.f;
+
+  float o[8][NJ][4];   // O^T: column tile i (warp * DW + 16 i + g8, + 8),
+                       // item tile j (items 8 j + 2 t4, + 1)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
+  // the softmax threads: item sr of the block, keys sk, sk + 1 of a tile
+  constexpr int SMW = (8 * BM + 31) / 32;    // their warps
+  const int sr = tid >> 3, sk = (tid & 7) * 2;
+  float m_r = kNegInf, l_r = 0.f;            // l: this thread's share
+
+  // the warp's partial S^T of the tile in kb, over its DW columns
+  auto s_part = [&](const bf16* kb) {
+    float acc[NJ][NTERM][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int u = 0; u < NTERM; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][u][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DW / 16; ++kc) {
+      const int d0 = warp * DW + 16 * kc;
+      uint32_t ka[4];
+      ldsm4(ka, kb + (8 * (mat & 1) + r8) * KP + d0 + 8 * (mat >> 1));
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int r = 8 * j + g8;
+        const uint32_t* qw = qt + r * QW + (d0 >> 4) * 8 + 2 * t4;
+#pragma unroll
+        for (int u = NTERM - 1; u >= 1; --u) {   // smallest term first
+          const uint2 bq = r < BM ? *reinterpret_cast<const uint2*>(
+                                        qw + (u - 1) * BM * QW)
+                                  : make_uint2(0u, 0u);
+          mma_bf16(acc[j][u], ka, bq.x, bq.y);
+        }
+        mma_bf16(acc[j][0], ka, qh[kc][j][0], qh[kc][j][1]);
+      }
+    }
+    float* spw = sp + warp * BM * RS;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] = acc[j][NTERM - 1][e];
+#pragma unroll
+        for (int u = NTERM - 2; u >= 0; --u) s[e] += acc[j][u][e];
+      }
+      const int r = 8 * j + 2 * t4;   // c0, c1: key g8; c2, c3: key g8 + 8
+      if (r < BM) {
+        spw[r * RS + g8] = s[0];
+        spw[r * RS + g8 + 8] = s[2];
+      }
+      if (r + 1 < BM) {
+        spw[(r + 1) * RS + g8] = s[1];
+        spw[(r + 1) * RS + g8 + 8] = s[3];
+      }
+    }
+  };
+
+  // the tile's logits (the warps' partials added in warp order), its
+  // online softmax, P rounded to bf16 and the items' rescale factors; mk:
+  // the thread's two keys' mask entries
+  auto softmax = [&](int t, const int (&mk)[2]) {
+    if (warp >= SMW) return;
+    const int r = min(sr, BM - 1);
+    const int c = (t0 + t) * KEYS + sk;
+    float2 s = *reinterpret_cast<const float2*>(sp + r * RS + sk);
+#pragma unroll
+    for (int w = 1; w < kWideWarps; ++w) {
+      const float2 v = *reinterpret_cast<const float2*>(sp + (w * BM + r) * RS + sk);
+      s.x += v.x;
+      s.y += v.y;
+    }
+    const int last = (i0 + r) / G + off;      // last visible key
+    float x[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = c + e;
+      const bool in = key < a.Tk;
+      const bool ok = in && (!a.causal || key <= last) &&
+                      (a.mask == nullptr || mk[e] != 0);
+      x[e] = !in ? -INFINITY : (ok ? (e ? s.y : s.x) * a.scale : kNegInf);
+    }
+    float mx = fmaxf(x[0], x[1]);
+#pragma unroll
+    for (int w = 1; w < 8; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
+    const float mnew = fmaxf(m_r, mx);
+    const float corr = exp2f((m_r - mnew) * kLog2e);
+    const float p0 = exp2f((x[0] - mnew) * kLog2e);   // 0 past Tk
+    const float p1 = exp2f((x[1] - mnew) * kLog2e);
+    l_r = l_r * corr + (p0 + p1);
+    m_r = mnew;
+    if (sr < nib) {
+      *reinterpret_cast<uint32_t*>(ps + sr * PP + sk) = pack_bf16(p0, p1);
+      if (sk == 0) corr_s[sr] = corr;
+    }
+  };
+
+  // O^T = O^T * corr + V^T P^T over the warp's columns, V's tile in vb
+  auto pv = [&](const bf16* vb) {
+    float cr[NJ][2];
+    uint32_t pb[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      cr[j][0] = corr_s[8 * j + 2 * t4];
+      cr[j][1] = corr_s[8 * j + 2 * t4 + 1];
+    }
+    {
+      uint32_t r4[4], r2[2];
+      ldsm4(r4, ps + (8 * (mat >> 1) + r8) * PP + 8 * (mat & 1));
+      ldsm2(r2, ps + (16 + r8) * PP + 8 * (mat & 1));
+      pb[0][0] = r4[0]; pb[0][1] = r4[1];
+      pb[1][0] = r4[2]; pb[1][1] = r4[3];
+      pb[2][0] = r2[0]; pb[2][1] = r2[1];
+    }
+    // once the items' maxima settle every factor is 1 (the identity): the
+    // warp skips the rescale
+    bool scale = false;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) scale |= cr[j][0] != 1.f || cr[j][1] != 1.f;
+    if (__any_sync(kFull, scale)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          o[i][j][0] *= cr[j][0];
+          o[i][j][1] *= cr[j][1];
+          o[i][j][2] *= cr[j][0];
+          o[i][j][3] *= cr[j][1];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint32_t va[4];
+      ldsm4t(va, vb + (8 * (mat >> 1) + r8) * KP + warp * DW + 16 * i +
+                     8 * (mat & 1));
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_bf16(o[i][j], va, pb[j][0], pb[j][1]);
+    }
+  };
+
+  // Step t: S^T of tile t beside P V of tile t - 1 (both on the tensor
+  // cores), then the softmax of tile t.  Half-tile h lands in buffer h % NB;
+  // NB - 1 are issued ahead, two a step, so cp_wait<NB - 2> means "K_t and
+  // V_{t-1} landed".
+  int mk[2] = {1, 1};
+#pragma unroll 1
+  for (int t = 0; t <= nt; ++t) {
+    cp_wait<NB - 2>();
+    __syncthreads();       // K_t and V_{t-1} landed; P_{t-1} written
+    if (t < nt) {
+      if (a.mask != nullptr && warp < SMW) {   // read while K_t's buffer holds it
+        const int* md = reinterpret_cast<const int*>(buf(2 * t) + KEYS * KP);
+        mk[0] = md[sk];
+        mk[1] = md[sk + 1];
+      }
+      s_part(buf(2 * t));
+    }
+    if (t > 0) pv(buf(2 * t - 1));
+    __syncthreads();       // the partials written; K_t's, V_{t-1}'s buffers free
+    issue(2 * t + NB - 1);
+    issue(2 * t + NB);
+    if (t < nt) softmax(t, mk);
+  }
+  cp_wait<0>();
+  __syncthreads();         // every warp is done with the ring and the partials
+
+  // the rank's unnormalised O (in the ring's place) and (m, l) (in the
+  // partials' place), for the cluster
+  float* ofin = reinterpret_cast<float*>(sm);   // [BM][OS]
+  float* mfin = sp;
+  float* lfin = sp + BM;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = warp * DW + 16 * i + g8, r = 8 * j + 2 * t4;
+      if (r < nib) {
+        ofin[r * OS + d] = o[i][j][0];
+        ofin[r * OS + d + 8] = o[i][j][2];
+      }
+      if (r + 1 < nib) {
+        ofin[(r + 1) * OS + d] = o[i][j][1];
+        ofin[(r + 1) * OS + d + 8] = o[i][j][3];
+      }
+    }
+  if (warp < SMW) {
+#pragma unroll
+    for (int w = 1; w < 8; w <<= 1) l_r += __shfl_xor_sync(kFull, l_r, w);
+    if (sk == 0 && sr < nib) {
+      mfin[sr] = m_r;
+      lfin[sr] = l_r;
+    }
+  }
+  cluster.sync();          // every rank's (O, m, l) visible to the cluster
+
+  // each item's weights: rank s's exp(m_s - max m), in rank order, and
+  // 1 / the weighed sum of l
+  float* wgt = lfin + BM;                        // [rank][BM]
+  float* inv = wgt + kWideMaxCluster * BM;       // [BM]
+  if (tid < nib) {
+    float ms[kWideMaxCluster], ls[kWideMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kWideMaxCluster; ++s) {  // all loads in flight at once
+      ms[s] = s < nc ? cluster.map_shared_rank(mfin, s)[tid] : -INFINITY;
+      ls[s] = s < nc ? cluster.map_shared_rank(lfin, s)[tid] : 0.f;
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < kWideMaxCluster; ++s) M = fmaxf(M, ms[s]);
+    float lw = 0.f;
+#pragma unroll
+    for (int s = 0; s < kWideMaxCluster; ++s) {
+      if (s >= nc) break;
+      const float w = exp2f((ms[s] - M) * kLog2e);
+      lw = fmaf(ls[s], w, lw);
+      wgt[s * BM + tid] = w;
+    }
+    inv[tid] = 1.f / fmaxf(lw, 1e-30f);
+  }
+  __syncthreads();
+
+  // rank r finishes items r, r + nc, ..: every rank's partial O weighed and
+  // added in rank order; thread tid the columns 4 tid .. 4 tid + 3, three
+  // items' loads in flight at once (its own rank's from its own memory)
+  const int d = 4 * tid;
+  auto finish = [&](int r, const float4 (&v)[kWideMaxCluster]) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kWideMaxCluster; ++s) {
+      if (s >= nc) break;
+      const float w = wgt[s * BM + r];
+      acc.x = fmaf(v[s].x, w, acc.x);
+      acc.y = fmaf(v[s].y, w, acc.y);
+      acc.z = fmaf(v[s].z, w, acc.z);
+      acc.w = fmaf(v[s].w, w, acc.w);
+    }
+    const float f = inv[r];
+    const int it = i0 + r;
+    put4(static_cast<QT*>(a.out) +
+             (((size_t)b * a.Tq + it / G) * a.Hq + hkv * G + it % G) * kWideD + d,
+         make_float4(acc.x * f, acc.y * f, acc.z * f, acc.w * f));
+  };
+  constexpr int RB = 3;
+  for (int r = rank; r < nib; r += RB * nc) {
+    float4 v[RB][kWideMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kWideMaxCluster; ++s) {
+      if (s < nc) {
+        const float* os =
+            (s == rank ? ofin : cluster.map_shared_rank(ofin, s)) + d;
+#pragma unroll
+        for (int u = 0; u < RB; ++u)
+          v[u][s] = *reinterpret_cast<const float4*>(
+              os + min(r + u * nc, nib - 1) * OS);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u)
+      if (r + u * nc < nib) finish(r + u * nc, v[u]);
+  }
+  cluster.sync();          // no rank leaves while another reads its partials
+}
+
+template <typename QT>
+struct WideKern {
+  using C = WideCfg<QT>;
+  static const void* fn() {
+    return reinterpret_cast<const void*>(&attn_wide_kernel<QT>);
+  }
+  // clusters of c blocks the card holds at once, asked once; 0 when CUDA
+  // cannot say
+  static int clusters(int c) {
+    static bool set_up = false;
+    static int cache[kWideMaxCluster + 1] = {};
+    if (!set_up) {
+      if (cudaFuncSetAttribute(attn_wide_kernel<QT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM) != cudaSuccess)
+        return 0;
+      set_up = true;
+    }
+    if (cache[c] == 0) {
+      cudaLaunchConfig_t lc = {};
+      lc.gridDim = dim3((unsigned)c, 1, 1);
+      lc.blockDim = dim3(C::NT, 1, 1);
+      lc.dynamicSmemBytes = (size_t)C::SMEM;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)c;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      lc.attrs = attr;
+      lc.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, fn(), &lc) != cudaSuccess ||
+          n < 1) {
+        cudaGetLastError();
+        return 0;
+      }
+      cache[c] = n;
+    }
+    return cache[c];
+  }
+  static cudaError_t launch(const Args& a, dim3 grid, int c, cudaStream_t st) {
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = grid;
+    lc.blockDim = dim3(C::NT, 1, 1);
+    lc.dynamicSmemBytes = (size_t)C::SMEM;
+    lc.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    return cudaLaunchKernelEx(&lc, attn_wide_kernel<QT>, a);
+  }
+};
+
 template <int D, int TY, int RPT, bool PQ, typename QT, typename KT>
 struct Kern {
   using C = Cfg<D, TY, RPT>;
@@ -1607,6 +2235,7 @@ struct Kern {
 
 struct Plan {
   int kind, bm, nib, splits, tps, per_sm;
+  int waves;   // the bf16 wide form: waves of clusters (splits: their size)
 };
 
 // The operands' dtypes: fp32 Q, K and V; bf16 Q, K and V; fp32 Q over bf16
@@ -1618,10 +2247,13 @@ enum Dtypes { kF32 = 0, kBf16 = 1, kF32Bf16 = 2 };
 // D it lacks.
 template <bool PQ, typename QT, typename KT, typename F>
 bool dispatch_pq(int kind, int D, F&& f) {
-  if (kind == kWide) {
-    if (D != 1024) return false;
-    f(Kern<1024, 16, 2, PQ, QT, KT>{});
-    return true;
+  if (kind == kWide) {   // bf16 K and V at D = 1024: the wide form
+    if constexpr (std::is_same<KT, float>::value) {
+      if (D != 1024) return false;
+      f(Kern<1024, 16, 2, PQ, QT, KT>{});
+      return true;
+    }
+    return false;
   }
   switch (D) {
 #define FLASH_CASE(DD)                                               \
@@ -1663,11 +2295,7 @@ bool dispatch(int kind, int D, bool pq, int dt, F&& f) {
       default: return false;
     }
   }
-  if (dt == kBf16) {   // D = 1024: the widening kernel
-    if (kind != kWide || D != 1024) return false;
-    f(Kern<1024, 16, 2, false, bf16, bf16>{});
-    return true;
-  }
+  if (dt == kBf16) return false;
   if (dt == kF32Bf16) return dispatch_pq<false, float, bf16>(kind, D, f);
   return false;
 }
@@ -1684,6 +2312,41 @@ int sm_count() {
   return n;
 }
 
+// The bf16 wide form's plan: a cluster of c key splits per (b, KV head,
+// block of kWideBM items), c <= 8 and at most the key tiles, picked for the
+// least modelled time: waves of clusters (as many as the card holds at
+// once) times the tiles of the longest split.
+int wide_plan(int B, long items, int Tk, int Hkv, int dt, Plan* p) {
+  p->kind = kWideBf16;
+  p->bm = kWideBM;
+  p->per_sm = 1;
+  const long nib = (items + kWideBM - 1) / kWideBM;
+  const long groups = (long)B * Hkv * nib;
+  const int ntiles = (Tk + kWideKeys - 1) / kWideKeys;
+  if (nib > 65535) return -1;
+  int best = 0;
+  long best_t = 0, best_w = 0;
+  for (int c = 1; c <= std::min(kWideMaxCluster, ntiles); ++c) {
+    const int cap = dt == kBf16 ? WideKern<bf16>::clusters(c)
+                                : WideKern<float>::clusters(c);
+    if (cap < 1) continue;
+    const long waves = (groups + cap - 1) / cap;
+    const long t = waves * ((ntiles + c - 1) / c);
+    if (best == 0 || t < best_t) {
+      best = c;
+      best_t = t;
+      best_w = waves;
+    }
+  }
+  if (best == 0) return -2;            // CUDA could not place the kernel
+  if ((long)B * Hkv * best > 0x7fffffffL) return -1;
+  p->nib = (int)nib;
+  p->splits = best;
+  p->tps = (ntiles + best - 1) / best;  // tiles of the longest split
+  p->waves = (int)std::min<long>(best_w, 0x7fffffffL);
+  return 0;
+}
+
 // The form and the key splits of a call: -1 for what the kernel does not
 // take, -2 when CUDA refused the kernel's set-up.
 int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
@@ -1694,6 +2357,11 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
   const long items = (long)Tq * G;
   const int ntiles = (Tk + BN - 1) / BN;
   p->kind = D > 128 ? kWide : (!rope && items <= 16 ? kSmall : kTiled);
+  p->waves = 0;
+  if (p->kind == kWide && dt != kF32) {  // bf16 K and V: the wide form
+    if (pq || D != kWideD) return -1;
+    return wide_plan(B, items, Tk, Hkv, dt, p);
+  }
   if (p->kind == kSmall && dt == kBf16) p->kind = kDecode;
   bool known = dispatch(p->kind, D, pq, dt, [&](auto k) {
     p->bm = decltype(k)::BM;
@@ -1727,24 +2395,59 @@ int make_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D, bool rope,
 
 }  // namespace
 
+// The key splits whose partials a call writes to the wrapper's scratch (1:
+// none; the bf16 wide form merges through its cluster)
+int scratch_splits(const Plan& p) {
+  return p.kind == kWideBf16 ? 1 : p.splits;
+}
+
+int form_code(const Plan& p, int dt) {
+  if (p.kind == kDecode) return 4;
+  if (p.kind == kWideBf16) return 5;
+  return p.kind == kTiled && dt == kBf16 ? 3 : p.kind;
+}
+
 extern "C" int flash_attn_splits(int B, int Tq, int Tk, int Hq, int Hkv,
                                  int D, int rope, int pq, int dt) {
   Plan p;
   const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
-  return err != 0 ? err : p.splits;
+  return err != 0 ? err : scratch_splits(p);
 }
 
 // The form a call takes, with the arguments of flash_attn_splits: 0 tiled
 // (fp32 FMAs), 1 split-KV, 2 split-KV at D = 1024, 3 tiled on the bf16
 // tensor cores (all-bf16 operands), 4 the bf16 decode form (all-bf16
-// operands, at most 16 items); negative as flash_attn_splits.
+// operands, at most 16 items), 5 the bf16 wide form (bf16 K and V at D =
+// 1024); negative as flash_attn_splits.
 extern "C" int flash_attn_form(int B, int Tq, int Tk, int Hq, int Hkv, int D,
                                int rope, int pq, int dt) {
   Plan p;
   const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
+  return err != 0 ? err : form_code(p, dt);
+}
+
+// A field of a call's plan, with the arguments of flash_attn_splits and
+// then the field: 0 the form (flash_attn_form's code), 1 the key splits, 2
+// the cluster size (the wide form's splits; 1 for the others), 3 the
+// blocks of the launch, 4 the keys of the longest split, 5 the waves of
+// clusters (the wide form; 0 for the others); negative as
+// flash_attn_splits, -1 for another field.
+extern "C" int flash_attn_plan(int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                               int rope, int pq, int dt, int field) {
+  Plan p;
+  const int err = make_plan(B, Tq, Tk, Hq, Hkv, D, rope != 0, pq != 0, dt, &p);
   if (err != 0) return err;
-  if (p.kind == kDecode) return 4;
-  return p.kind == kTiled && dt == kBf16 ? 3 : p.kind;
+  const bool wide = p.kind == kWideBf16;
+  const long blocks = (long)B * Hkv * p.nib * p.splits;
+  switch (field) {
+    case 0: return form_code(p, dt);
+    case 1: return p.splits;
+    case 2: return wide ? p.splits : 1;
+    case 3: return (int)std::min<long>(blocks, 0x7fffffffL);
+    case 4: return std::min(Tk, p.tps * (wide ? kWideKeys : BN));
+    case 5: return p.waves;
+    default: return -1;
+  }
 }
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
@@ -1758,10 +2461,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (mq != 0 && mq != Tk) return -1;
   const bool pq = mask != nullptr && mq != 0;
   if (make_plan(B, Tq, Tk, Hq, Hkv, D, rope, pq, dt, &p) != 0) return -1;
-  if (p.splits != splits || (splits > 1 && part == nullptr)) return -1;
+  if (scratch_splits(p) != splits || (splits > 1 && part == nullptr))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, mask, cos, sin, out, part, B, Tq, Tk, Hq, Hkv,
                causal, p.splits, p.tps, mq, scale};
+  if (p.kind == kWideBf16) {   // one launch: the cluster merges its splits
+    const dim3 grid(B * Hkv * p.splits, p.nib, 1);
+    const cudaError_t err =
+        dt == kBf16 ? WideKern<bf16>::launch(a, grid, p.splits, s)
+                    : WideKern<float>::launch(a, grid, p.splits, s);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
   const dim3 grid(B * Hkv, p.nib, p.splits);
   dispatch(p.kind, D, pq, dt,
            [&](auto kern) { decltype(kern)::launch(a, grid, rope, s); });
@@ -1769,14 +2480,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   // the decode form merges its splits itself
   if (err != cudaSuccess || p.splits == 1 || p.kind == kDecode)
     return static_cast<int>(err);
+  // fp32 outputs only: every bf16-output form merges its own splits
   const size_t NI = (size_t)B * Tq * Hq;
   const size_t n = NI * (D / 4);
   const unsigned nb = (unsigned)((n + 255) / 256);
-  if (dt == kBf16)
-    merge_kernel<<<nb, 256, 0, s>>>(part, static_cast<bf16*>(out), NI, D,
-                                    p.splits);
-  else
-    merge_kernel<<<nb, 256, 0, s>>>(part, static_cast<float*>(out), NI, D,
-                                    p.splits);
+  merge_kernel<<<nb, 256, 0, s>>>(part, static_cast<float*>(out), NI, D,
+                                  p.splits);
   return static_cast<int>(cudaGetLastError());
 }

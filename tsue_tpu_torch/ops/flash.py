@@ -10,8 +10,12 @@ many keys (decode, the LTSF cross-attention), which writes per-split
 partials to a scratch allocated here and merges them in a second launch.
 All-bf16 calls run on the bf16 tensor cores: the tiled form as
 "bf16_mma", the split-KV form (no RoPE, at most 16 items) as
-"bf16_decode", which merges its splits in the same launch;
-``flash_attention_form`` names the form a call takes.
+"bf16_decode", which merges its splits in the same launch.  bf16 k and v at
+D = 1024 (the LTSF cross-attention of a bf16 model, q fp32 or bf16) take
+"bf16_wide": the tensor cores too, an fp32 q split into three exact bf16
+terms, the key splits of a thread block cluster merged in the same launch.
+``flash_attention_form`` names the form a call takes,
+``flash_attention_plan`` its splits and blocks.
 ``flash_attention.launches`` counts calls, one per call in any form.
 The mask is a (B, Tk) key mask or a per-query (B, Tq, Tk) one (a
 speculative window's in-window causality), passed to the kernel with its
@@ -81,6 +85,7 @@ def _lib():
     return bind("flash_attn_fwd", {
         "flash_attn_splits": [i32] * 9,     # B Tq Tk Hq Hkv D rope pq dt
         "flash_attn_form": [i32] * 9,       # the same
+        "flash_attn_plan": [i32] * 10,      # the same, then the field
         "flash_attn_fwd": [
             ptr, ptr, ptr, ptr, ptr, ptr,   # q k v mask cos sin
             ptr, ptr,                       # out, split scratch
@@ -90,7 +95,19 @@ def _lib():
 
 
 # the C side's forms (flash_attn_form)
-_FORMS = ("tiled", "split-KV", "split-KV D1024", "bf16_mma", "bf16_decode")
+_FORMS = ("tiled", "split-KV", "split-KV D1024", "bf16_mma", "bf16_decode",
+          "bf16_wide")
+# flash_attn_plan's fields
+_PLAN_FIELDS = ("form", "splits", "cluster", "blocks", "keys_per_split",
+                "waves")
+
+
+def _call_codes(q_dtype, kv_dtype):
+    """The dtypes code of a call (a bf16 q over fp32 k and v takes its
+    widened fp32 call)."""
+    if (q_dtype, kv_dtype) == (torch.bfloat16, torch.float32):
+        q_dtype = torch.float32
+    return _DT[(q_dtype, kv_dtype)]
 
 
 def flash_attention_form(B: int, Tq: int, Tk: int, Hq: int, Hkv: int,
@@ -98,21 +115,38 @@ def flash_attention_form(B: int, Tq: int, Tk: int, Hq: int, Hkv: int,
                          q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     """The form of the kernel a call on the card takes: "tiled" (fp32
     FMAs), "split-KV", "split-KV D1024", "bf16_mma" (the tiled form of
-    all-bf16 operands, on the bf16 tensor cores) or "bf16_decode" (the
+    all-bf16 operands, on the bf16 tensor cores), "bf16_decode" (the
     split-KV form of all-bf16 operands, on the tensor cores, one launch
-    with its merge).  Asks the CUDA library,
+    with its merge) or "bf16_wide" (bf16 k and v at D = 1024, q fp32 or
+    bf16: the tensor cores, one launch of clusters).  Asks the CUDA library,
     which builds it; raises for a call the kernel does not take.  A bf16 q
     over fp32 k and v takes the form of its widened fp32 call."""
-    if (q_dtype, kv_dtype) == (torch.bfloat16, torch.float32):
-        q_dtype = torch.float32
     form = _lib().flash_attn_form(B, Tq, Tk, Hq, Hkv, D, int(rope),
                                   int(per_query_mask),
-                                  _DT[(q_dtype, kv_dtype)])
+                                  _call_codes(q_dtype, kv_dtype))
     if form < 0:
         raise ValueError(f"the attention kernel does not take B={B} Tq={Tq} "
                          f"Tk={Tk} Hq={Hq} Hkv={Hkv} D={D} with q {q_dtype},"
                          f" k {kv_dtype}")
     return _FORMS[form]
+
+
+def flash_attention_plan(B: int, Tq: int, Tk: int, Hq: int, Hkv: int,
+                         D: int, rope: bool, per_query_mask: bool,
+                         q_dtype: torch.dtype, kv_dtype: torch.dtype
+                         ) -> dict:
+    """A call's plan on the card: its "form" (as ``flash_attention_form``),
+    its key "splits", the "cluster" size that merges them ("bf16_wide"; 1
+    for the others), the "blocks" of the launch, the "keys_per_split" of
+    the longest split and the "waves" of clusters ("bf16_wide"; 0 for the
+    others).  Asks the CUDA library; raises as ``flash_attention_form``."""
+    plan = {"form": flash_attention_form(B, Tq, Tk, Hq, Hkv, D, rope,
+                                         per_query_mask, q_dtype, kv_dtype)}
+    dt = _call_codes(q_dtype, kv_dtype)
+    for i, name in enumerate(_PLAN_FIELDS[1:], 1):
+        plan[name] = _lib().flash_attn_plan(B, Tq, Tk, Hq, Hkv, D, int(rope),
+                                            int(per_query_mask), dt, i)
+    return plan
 
 
 def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
@@ -183,7 +217,8 @@ def _flash_cuda(q, k, v, mask, is_causal, scale, rope) -> torch.Tensor:
                              f"with q {q.dtype}, k {k.dtype}"
                              + (", a per-query mask" if mq else ""))
         # split-KV forms: per-split (acc, m, l) partials, merged in order
-        # (by a second launch, or by the decode form's last block)
+        # (by a second launch, or by the decode form's last block; the
+        # wide form's cluster merges without a scratch: splits is 1)
         scratch = (torch.empty(splits * B * Tq * Hq * (D + 2), device=dev,
                                dtype=torch.float32)
                    if splits > 1 else None)
