@@ -136,7 +136,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K=10 request through Predictor.from_checkpoint of its bf16 artifact,
      bit for bit a Predictor over the merged state; the small
      configuration's per-epoch text sample (a bf16 MLLM's decode) twice,
-     equal.
+     equal;
+ 13. the comparison models: (a) at their own widths on a small batch, the
+     card against the CPU from the same weights: one train step of
+     CS-LSTM, Social-LSTM, STGCNN (its running statistics too), MMTrans
+     (dropout 0) and GAIL (D, then G), Trajectron's deterministic loss and
+     gradients, the DDPM UNet's CFG forward and a reverse step; (b)
+     run_baseline for all seven names (preset "ablation_no_llm", 6->30,
+     batch 16, 2 epochs, no candidate plot: the card's machine has no
+     matplotlib) with train windows/s, ms per step and eval windows/s and
+     the launch counts (MMTrans: 4 flash launches a test batch), then the
+     test pass timed alone at K = 0 and with K = 10 candidates
+     (make_baseline_eval_fn: STGCNN's running statistics unchanged,
+     MMTrans's dropout passes launching nothing); (c) the DDPM generator
+     (preset "mllm_free_18_18": 32 UNet rows a step, 1000 timesteps):
+     three epochs of train steps (ms per step, one flash launch a step),
+     5 + 5 reverse chains of 1000 steps with the EMA weights (ms per
+     reverse step, 1000 flash launches, peak memory), the chain repeated
+     bit for bit, and the idle share of a profiled 50-step stretch.
+Phase 3 also checks flash at the comparison models' shapes: MMTrans's
+self-attention (B 16, 70 keys, 8 heads of 16, a key mask) and the UNet's
+cross-attention over one key (B 32 and B 10, 18 queries, 1 head of 64),
+their bound the larger of the roofline's and the timer's launch floor.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -190,6 +211,8 @@ NO_PATH = ("nlinear", "lora_matmul", "ade_fde")
 # kernels whose work takes the card less than a launch: their bound is the
 # larger of the roofline's and the timer's launch floor
 FLOOR_BOUND = ("nlinear", "ade_fde")
+# the same for these attention cases (the comparison models' shapes)
+FLOOR_BOUND_CASES = ("mmtrans_self", "ddpm_cross_train", "ddpm_cross_sample")
 KERNEL_PHASE = "kernel phase (no caller in the JAX package)"
 TRAIN_PRESETS = ("train_18_30", "lora_only_18_18")
 TEXT_TOKENS = 512         # the synthetic prompts fill the 512-token bucket
@@ -256,12 +279,13 @@ def nbytes(*tensors) -> int:
 
 
 def row(kernel, shape, gpu, err, rel, ms, plain_ms, b, library_ms=None,
-        floor_ms=None, **extra):
+        floor_ms=None, floor_bound=False, **extra):
     """One kernel check's line.  ``b`` is (roofline bound, what sets it);
     the timer's launch floor ``floor_ms`` stands beside it where it is
-    larger, and in the bound of the tiny kernels (``FLOOR_BOUND``), as the
-    larger of the two, with ``roofline_bound_ms`` beside."""
-    if kernel in FLOOR_BOUND:
+    larger, and in the bound of the tiny kernels (``FLOOR_BOUND``) and of
+    the rows asked for (``floor_bound``), as the larger of the two, with
+    ``roofline_bound_ms`` beside."""
+    if kernel in FLOOR_BOUND or floor_bound:
         extra.update(floor_ms=floor_ms, roofline_bound_ms=b[0],
                      roofline_bound_by=b[1])
         if floor_ms > b[0]:
@@ -366,7 +390,22 @@ def attention_cases(dev):
         # form) and sampled (W 4, the split-KV form)
         ("spec_window_w8", window(8)),
         ("spec_window_w4", window(4)),
+        # the comparison models (phase 13): MMTrans's self-attention over 6
+        # trajectory steps and 64 lane points, the lane's zero points masked;
+        # the DDPM UNet's bottleneck cross-attention, 18 queries over its one
+        # condition token, in training (B 32) and in sampling (B 10)
+        ("mmtrans_self", dict(
+            q=randn(B, 70, 8, 16), k=randn(B, 70, 8, 16),
+            v=randn(B, 70, 8, 16),
+            mask=key_mask(B, 70, [6 + n for n in lane_lens]))),
+        ("ddpm_cross_train", dict(
+            q=randn(32, 18, 1, 64), k=randn(32, 1, 1, 64),
+            v=randn(32, 1, 1, 64))),
+        ("ddpm_cross_sample", dict(
+            q=randn(10, 18, 1, 64), k=randn(10, 1, 1, 64),
+            v=randn(10, 1, 1, 64))),
     ]
+
 
 
 def window_mask(dev, g, lens, P, W, S):
@@ -400,6 +439,7 @@ def flash_checks(dev, gpu, timer):
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.flash import (_DT, _lib, flash_attention,
+                                          flash_attention_form,
                                           flash_attention_plain, rope_bthd)
     rows = []
     for name, kw in attention_cases(dev):
@@ -428,16 +468,19 @@ def flash_checks(dev, gpu, timer):
         b = bound(nbytes(kw["q"], kw["k"], kw["v"], out, *extra), flops)
         (B, Tq, Hq, D), (Tk, Hkv) = kw["q"].shape, kw["k"].shape[1:3]
         mask = kw.get("mask")
+        call = (B, Tq, Tk, Hq, Hkv, D, kw.get("rope") is not None,
+                mask is not None and mask.dim() == 3)
         splits = _lib().flash_attn_splits(
-            B, Tq, Tk, Hq, Hkv, D, int(kw.get("rope") is not None),
-            int(mask is not None and mask.dim() == 3),
+            *call[:6], *map(int, call[6:]),
             _DT.get((kw["q"].dtype, kw["k"].dtype), 0))
         rows.append(row("flash_attn_fwd", name, gpu, err, rel, ms, plain_ms,
-                        b, lib_ms, timer.floor_ms, q=list(kw["q"].shape),
-                        k=list(kw["k"].shape),
+                        b, lib_ms, timer.floor_ms,
+                        floor_bound=name in FLOOR_BOUND_CASES,
+                        q=list(kw["q"].shape), k=list(kw["k"].shape),
                         mask=None if kw.get("mask") is None
                         else list(kw["mask"].shape),
-                        form="split-KV" if splits > 1 else "tiled",
+                        form=flash_attention_form(*call, kw["q"].dtype,
+                                                  kw["k"].dtype),
                         splits=splits))
         check(ok, f"flash_attn_fwd disagrees with the plain version at "
                   f"{name}: max abs err {err} (atol/rtol {TOL})")
@@ -1229,8 +1272,9 @@ def small_training_phase(dev):
     dropout live.  Tolerances are the CPU train
     tests' (tests/test_torch_train.py): loss rtol 1e-4; after the step, a
     parameter element within atol 2e-6, or 2 * lr where its gradient is
-    below 1e-4 or 1e-3 of its tensor's largest, or is an attention key
-    bias's (zero in exact arithmetic): the clipped gradients are near Adam's
+    below 1e-4 or 1e-3 of its tensor's largest (an attention key bias,
+    zero in exact arithmetic, moves by at most lr on either side, see
+    ``step_parity``): the clipped gradients are near Adam's
     eps, where a step moves by up to lr / 4 times the gradient's relative
     error, and the two devices' errors scale with the tensor's largest
     gradient; frozen ones unchanged.
@@ -1340,7 +1384,11 @@ def step_parity(what, start, runs, lr):
     (runs: [(loss, parameters after, the CPU's first gradients, counts)]
     for the CPU, then the card): the losses within rtol 1e-4, frozen
     parameters unchanged, trainable ones within 2e-6 where well conditioned
-    (see ``small_training_phase``).  Returns the largest such difference."""
+    (see ``small_training_phase``); a bias whose gradient is 0 in exact
+    arithmetic (an attention key bias: a shift common to all keys; a conv
+    bias before a train-mode BatchNorm, which subtracts the channel's
+    batch mean) steps on rounding noise, so each side must move it by at
+    most lr, Adam's first step.  Returns the largest such difference."""
     import torch
     (l_cpu, p_cpu, grads, _), (l_gpu, p_gpu, _, _) = runs
     check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
@@ -1352,12 +1400,13 @@ def step_parity(what, start, runs, lr):
             check(torch.equal(a, before) and torch.equal(c, before),
                   f"{what}: frozen {n} changed")
             continue
+        if n.endswith((".k.bias", "conv.bias")):
+            check(bool(((a - before).abs() <= lr * 1.001).all())
+                  and bool(((c - before).abs() <= lr * 1.001).all()),
+                  f"{what}: {n} moved by more than lr")
+            continue
         gm = grads[n]
         small = (gm < 1e-4) | (gm < 1e-3 * gm.max())
-        if n.endswith(".k.bias"):
-            # zero in exact arithmetic (a shift common to all keys): both
-            # sides step on rounding noise
-            small[:] = True
         diff = (a - c).abs()
         check(bool((diff[~small] <= 2e-6).all())
               and bool((diff[small] <= 2 * lr).all()),
@@ -3314,6 +3363,438 @@ def bf16_remat_phase(dev, gpu):
     return counts
 
 
+# --------------------------------------------------------------------------
+# 13. the comparison models: the seven baselines and the DDPM generator
+# --------------------------------------------------------------------------
+
+BASELINE_PRESET = "ablation_no_llm"      # 6 -> 30, batch 16
+DIFFUSION_PRESET = "mllm_free_18_18"     # 18 -> 18, batch 16 (32 UNet rows)
+CANDIDATES = 10
+DIFFUSION_EPOCHS = 3
+REVERSE_STEPS = 1000
+DDPM_SAMPLES = 5                         # 5 + 5 chains: [uncond || cond]
+
+
+def _after(model):
+    return ({n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.grad.abs().cpu() for n, p in model.named_parameters()})
+
+
+def small_comparison_phase(dev):
+    """Phase 13 (a): the comparison models at their own widths on a small
+    batch (8 windows), the card against the CPU from the same weights: one
+    train step of CS-LSTM, Social-LSTM, STGCNN (with its running
+    statistics) and MMTrans (dropout 0, so its attention is the kernel's),
+    GAIL's D-then-G step, Trajectron's deterministic loss (z = mu, + 0.1
+    KL) and its gradients (its train step draws the latent from the
+    device's own generator); the DDPM UNet's CFG forward and one reverse
+    step with a given z (atol 1e-5, the CPU tests' forward tolerance)."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.data import BatchIterator
+    from tsue_tpu_torch.models import baselines as bl
+    from tsue_tpu_torch.models.baselines.trajectron import kl_divergence
+    from tsue_tpu_torch.models.diffusion import (ConditionalUNet,
+                                                 DDPMSchedule, p_sample_step)
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.runner import _no_text_cfg, prepare_data, to_device
+    from tsue_tpu_torch.train.baseline_steps import (make_baseline_train_step,
+                                                     make_gail_train_step)
+    from tsue_tpu_torch.train.losses import denorm_mse_loss
+
+    cfg = _no_text_cfg(get_preset(BASELINE_PRESET))
+    lr, wd = cfg.train.lr, cfg.train.weight_decay
+    T_in, T_out = cfg.data.seq_len, cfg.data.out_len
+    dtr, _, _ = prepare_data(cfg, None, None, 3)
+    batch = next(iter(BatchIterator(dtr, 8, shuffle=False)))
+
+    def seeded(module, seed):
+        return init_params(module, torch.Generator().manual_seed(seed))
+
+    for name in ("cs_lstm", "social_lstm", "stgcnn", "mmtrans"):
+        kw = dict(dropout=0.0) if name == "mmtrans" else {}
+        base = seeded(bl.BASELINE_REGISTRY[name](seq_len=T_in, out_len=T_out,
+                                                 **kw), 1)
+        start = {n: p.detach().clone() for n, p in base.named_parameters()}
+        runs, stats = [], []
+        for d in ("cpu", dev):
+            m = copy.deepcopy(base).to(d)
+            step = make_baseline_train_step(m, torch.optim.AdamW(
+                m.parameters(), lr=lr, weight_decay=wd, eps=1e-8))
+            reset_counts()
+            loss = float(step(to_device(batch, d),
+                              torch.Generator(device=d).manual_seed(0))
+                         ["loss"])
+            counts = read_counts()
+            params, grads = _after(m)
+            runs.append((loss, params, grads, counts))
+            stats.append({n: b.cpu() for n, b in m.named_buffers()})
+        want = 4 if name == "mmtrans" else 0     # one per encoder layer
+        check(counts["flash_attn_fwd"] == want
+              and sum(counts.values()) == want,
+              f"small {name} step: launches {counts}")
+        worst = step_parity(f"small {name} step", start, runs, lr)
+        for n, b in stats[0].items():
+            check(torch.allclose(stats[1][n], b, rtol=0, atol=1e-5),
+                  f"small {name} step: buffer {n} differs")
+        print(f"small {name} train step: loss cuda {runs[1][0]} cpu "
+              f"{runs[0][0]}; parameters max abs diff {worst} on "
+              f"well-conditioned elements (tol 2e-6)", flush=True)
+
+    # GAIL: D's step, then G's against the updated D
+    gen0 = seeded(bl.GAILGenerator(T_in, T_out), 1)
+    disc0 = seeded(bl.GAILDiscriminator(T_in, T_out), 2)
+    start = {f"{side}.{n}": p.detach().clone()
+             for side, mod in (("g", gen0), ("d", disc0))
+             for n, p in mod.named_parameters()}
+    runs, d_losses = [], []
+    for d in ("cpu", dev):
+        gen, disc = copy.deepcopy(gen0).to(d), copy.deepcopy(disc0).to(d)
+        m = make_gail_train_step(
+            gen, disc, torch.optim.Adam(gen.parameters(), lr=lr),
+            torch.optim.Adam(disc.parameters(), lr=lr))(to_device(batch, d))
+        (gp, gg), (dp, dg) = _after(gen), _after(disc)
+        runs.append((float(m["g_loss"]),
+                     {**{f"g.{n}": v for n, v in gp.items()},
+                      **{f"d.{n}": v for n, v in dp.items()}},
+                     {**{f"g.{n}": v for n, v in gg.items()},
+                      **{f"d.{n}": v for n, v in dg.items()}}, None))
+        d_losses.append(float(m["d_loss"]))
+    check(abs(d_losses[1] - d_losses[0]) <= 1e-4 * abs(d_losses[0]),
+          f"small gail step: d_loss {d_losses[1]} on the card, "
+          f"{d_losses[0]} on the CPU")
+    worst = step_parity("small gail step", start, runs, lr)
+    print(f"small gail train step: g_loss cuda {runs[1][0]} cpu {runs[0][0]},"
+          f" d_loss cuda {d_losses[1]} cpu {d_losses[0]}; parameters max abs "
+          f"diff {worst} (tol 2e-6)", flush=True)
+
+    # Trajectron: the deterministic loss and its gradients
+    base = seeded(bl.TrajectronPP(T_in, T_out), 1)
+    out = []
+    for d in ("cpu", dev):
+        m = copy.deepcopy(base).to(d)
+        b = to_device(batch, d)
+        pred, (mu, logvar) = m(b, return_latent=True)
+        loss = denorm_mse_loss(pred, b["traj_out"], b["norm_stat"],
+                               b["valid"]) + 0.1 * kl_divergence(mu, logvar)
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.cpu()
+                                  for n, p in m.named_parameters()}))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"small trajectron: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    for n, r in g_cpu.items():
+        check(torch.allclose(g_gpu[n], r, rtol=1e-4,
+                             atol=1e-4 * r.abs().max().item() + 1e-4),
+              f"small trajectron: gradient {n} differs")
+    print(f"small trajectron deterministic loss: cuda {l_gpu} cpu {l_cpu}; "
+          "gradients within rtol 1e-4", flush=True)
+
+    # the DDPM UNet's CFG forward and one reverse step with a given z
+    unet = seeded(ConditionalUNet(), 3)
+    sched = DDPMSchedule.create("cosine", REVERSE_STEPS)
+    g = torch.Generator().manual_seed(5)
+    x, z = (torch.randn(8, 2, 18, generator=g) for _ in range(2))
+    cond = torch.randn(8, 128, generator=g)
+    res = []
+    for d in ("cpu", dev):
+        m = copy.deepcopy(unet).to(d)
+        with torch.no_grad():
+            res.append([m(x.to(d), cond.to(d)).cpu()] + [
+                p_sample_step(m, sched, x.to(d), t, cond.to(d), z.to(d)).cpu()
+                for t in (REVERSE_STEPS // 2, 0)])
+    for what, a, c in zip(("cfg forward",
+                           f"reverse step t={REVERSE_STEPS // 2}",
+                           "reverse step t=0"), res[1], res[0]):
+        err = (a - c).abs().max().item()
+        check(bool(torch.isfinite(a).all()) and err <= 1e-5,
+              f"small ddpm {what}: card vs CPU max abs diff {err}")
+        print(f"small ddpm {what}: card vs CPU max abs diff {err} (tol "
+              "1e-5)", flush=True)
+
+
+def baseline_runs(dev, gpu) -> dict:
+    """Phase 13 (b): ``run_baseline`` of all seven names at their own widths
+    (preset "ablation_no_llm", 2 epochs, no candidates: the card's machine
+    has no matplotlib for the candidate plot), the test metrics checked,
+    the rates read from the run's own metrics stream (the second epoch's
+    train windows/s and ms a step, the test's eval windows/s, to the
+    stream's millisecond); then the test pass timed alone, as
+    ``run_baseline``'s test loop runs it: cv's K = 10 candidates, and for
+    the five registry models (fresh weights from seed 0) the deterministic
+    forwards alone (K = 0) and with the K = 10 candidates of
+    ``make_baseline_eval_fn``: windows/s, STGCNN's running statistics
+    unchanged, MMTrans's flash launches 4 a deterministic batch and none in
+    the dropout passes.  Returns the launch counts by run."""
+    import shutil
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.eval.metrics import min_ade_fde_rmse
+    from tsue_tpu_torch.models import baselines as bl
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.runner import (_batches, _no_text_cfg, prepare_data,
+                                       run_baseline, to_device)
+    from tsue_tpu_torch.train.baseline_steps import make_baseline_eval_fn
+
+    cfg = get_preset(BASELINE_PRESET)
+    bs = cfg.train.batch_size
+    dtr, _, dte = prepare_data(_no_text_cfg(cfg), None, None, 40)
+    steps, test_batches = -(-len(dtr) // bs), -(-len(dte) // bs)
+    out_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke_comparison"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    all_counts = {}
+    for name in bl.BASELINE_NAMES:
+        reset_counts()
+        t0 = time.time()
+        metrics = run_baseline(name, cfg, out_dir=str(out_dir), epochs=2,
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        want = ({"test_ade", "test_fde", "min_ade", "min_fde", "min_rmse",
+                 "K"} if name == "cv" else {"test_ade", "test_fde"})
+        check(set(metrics) == want
+              and all(np.isfinite(v) for v in metrics.values()),
+              f"run_baseline {name} on the card: {metrics}")
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["flash_attn_fwd"] = 4 * test_batches if name == "mmtrans" \
+            else 0
+        check(counts == expected, f"run_baseline {name}: launches {counts} "
+                                  f"!= {expected}")
+        for k, v in counts.items():
+            all_counts[k] = all_counts.get(k, 0) + v
+        log = [json.loads(line) for line in
+               (out_dir / f"baseline_{name}" / "metrics.jsonl").open()]
+        if name == "cv":
+            rates = "no training"
+        else:
+            train_s = log[1]["t"] - log[0]["t"]
+            eval_s = log[2]["t"] - log[1]["t"]
+            rates = (f"train {steps * bs / train_s:.1f} windows/s, "
+                     f"{train_s / steps * 1e3:.2f} ms/step (the second "
+                     f"epoch's {steps} steps of {bs}); eval "
+                     f"{len(dte) / eval_s:.1f} windows/s ({len(dte)} test "
+                     f"windows, {test_batches} batches)")
+        print(f"run_baseline {name} ({BASELINE_PRESET}, 2 epochs): "
+              f"{json.dumps(metrics)}; {rates}; {wall:.1f}s in all; "
+              f"launches {json.dumps(counts)}; gpu: {gpu}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the test pass at K = 0 (run_baseline's eval) and K = 10, timed alone
+    ecfg = _no_text_cfg(cfg)
+    from tsue_tpu_torch.ops.flash import flash_attention
+
+    def timed(fn):
+        fn()                                           # warm-up
+        reset_counts()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, read_counts()
+
+    def cv_pass():
+        with torch.no_grad():
+            for i, batch in enumerate(_batches(dte, ecfg, False)):
+                b = to_device(batch, dev)
+                cands = bl.cv_candidates(
+                    b["traj_in"], cfg.data.out_len,
+                    torch.Generator(device=dev).manual_seed(i), CANDIDATES)
+                min_ade_fde_rmse(cands, b["traj_out"], b["norm_stat"],
+                                 b["valid"])
+    _, dt, _ = timed(cv_pass)
+    print(f"cv K={CANDIDATES} test pass (cv_candidates, {len(dte)} test "
+          f"windows): {len(dte) / dt:.1f} windows/s; gpu: {gpu}", flush=True)
+    cand_counts = dict.fromkeys(KERNELS, 0)
+    for name, cls in bl.BASELINE_REGISTRY.items():
+        model = cls(seq_len=cfg.data.seq_len, out_len=cfg.data.out_len)
+        model = init_params(model.to(dev),
+                            torch.Generator(device=dev).manual_seed(0))
+        eval_fn = make_baseline_eval_fn(model)
+        before = {n: b.clone() for n, b in model.named_buffers()}
+
+        def test_pass(K):
+            """run_baseline's test loop: the deterministic forward and,
+            with K, the K candidates; (flash launches of the forwards, of
+            the candidates)."""
+            det = drop = 0
+            sums = []
+            with torch.no_grad():
+                for i, batch in enumerate(_batches(dte, ecfg, False)):
+                    b = to_device(batch, dev)
+                    c0 = flash_attention.launches
+                    model(b)
+                    c1 = flash_attention.launches
+                    det += c1 - c0
+                    if K:
+                        cands = eval_fn(b, torch.Generator(device=dev)
+                                        .manual_seed(100 + i), K)
+                        drop += flash_attention.launches - c1
+                        sums.append(min_ade_fde_rmse(
+                            cands, b["traj_out"], b["norm_stat"], b["valid"]))
+            if K:
+                check(tuple(cands.shape) == (bs, K, 2, cfg.data.out_len)
+                      and all(math.isfinite(float(x)) for s in sums
+                              for x in s),
+                      f"{name} K={K} candidates: {tuple(cands.shape)}")
+            return det, drop
+        _, det_s, _ = timed(lambda: test_pass(0))
+        (det, drop), dt, counts = timed(lambda: test_pass(CANDIDATES))
+        for k, v in counts.items():
+            cand_counts[k] += v
+        for n, b in model.named_buffers():
+            check(torch.equal(b, before[n]),
+                  f"{name}: buffer {n} changed by the candidate eval")
+        want_det = 4 * test_batches if name == "mmtrans" else 0
+        check(det == want_det and drop == 0,
+              f"{name} K={CANDIDATES}: flash launches {det} in the "
+              f"deterministic forwards (want {want_det}), {drop} in the "
+              "dropout passes (want 0)")
+        print(f"{name} test pass ({len(dte)} test windows, {test_batches} "
+              f"batches of {bs}): K=0 {len(dte) / det_s:.1f} windows/s; "
+              f"K={CANDIDATES} (make_baseline_eval_fn) {len(dte) / dt:.1f} "
+              f"windows/s, {dt / test_batches * 1e3:.2f} ms a batch; flash "
+              f"launches {det} in the deterministic forwards, {drop} in the "
+              f"dropout passes; buffers unchanged; gpu: {gpu}", flush=True)
+    return {f"baselines: run_baseline x{len(bl.BASELINE_NAMES)} "
+            f"({BASELINE_PRESET}, 2 epochs)": all_counts,
+            f"baselines: K={CANDIDATES} candidate eval x"
+            f"{len(bl.BASELINE_REGISTRY)}": cand_counts}
+
+
+def diffusion_runs(dev, gpu) -> dict:
+    """Phase 13 (c): the DDPM generator at its own width (UNet 64 channels,
+    1000 timesteps, preset "mllm_free_18_18": batch 16, so 32 UNet rows a
+    step) through the functions ``run_diffusion`` calls: three epochs of
+    ``make_diffusion_train_step`` (ms a step over the last two, one flash
+    launch a step, the EMA copy moved), then ``p_sample_loop`` with the EMA
+    weights, 5 + 5 chains of 1000 steps (ms a reverse step, exactly 1000
+    flash launches, values in [-1, 1], peak memory), the same chain again
+    (bit-identical), and the idle share of a profiled 50-step stretch.
+    Returns the launch counts by run."""
+    import torch
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.models.diffusion import (ConditionalUNet,
+                                                 DDPMSchedule,
+                                                 make_diffusion_train_step,
+                                                 p_sample_loop, p_sample_step)
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.runner import _batches, _no_text_cfg, prepare_data
+    from tsue_tpu_torch.utils.random import step_generator
+
+    cfg = _no_text_cfg(get_preset(DIFFUSION_PRESET))
+    dtr, _, _ = prepare_data(cfg, None, None, 40)
+    model = init_params(ConditionalUNet().to(dev),
+                        torch.Generator(device=dev).manual_seed(0))
+    ema = copy.deepcopy(model).requires_grad_(False)
+    ema0 = [p.clone() for p in ema.parameters()]
+    sched = DDPMSchedule.create("cosine", REVERSE_STEPS)
+    step = make_diffusion_train_step(
+        model, sched, torch.optim.Adam(model.parameters(), lr=1e-4,
+                                       weight_decay=1e-4), ema)
+    reset_counts()
+    n_steps, timed_steps, losses = 0, 0, []
+    t_timed = None
+    for epoch in range(DIFFUSION_EPOCHS):
+        if epoch == 1:
+            torch.cuda.synchronize()
+            t_timed = time.time()
+        for i, batch in enumerate(_batches(dtr, cfg, True, epoch)):
+            x0 = torch.from_numpy(batch["traj_out"]).to(dev) * 2.0 - 1.0
+            cond = torch.zeros(x0.shape[0], 128, device=dev)
+            losses.append(step(x0, cond, step_generator(epoch, i, dev))
+                          ["loss"])
+            n_steps += 1
+            timed_steps += epoch >= 1
+    torch.cuda.synchronize()
+    ms_step = (time.time() - t_timed) / timed_steps * 1e3
+    train_counts = read_counts()
+    losses = [float(x) for x in losses]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["flash_attn_fwd"] = n_steps
+    check(train_counts == expected,
+          f"ddpm train: launches {train_counts} != {expected}")
+    check(all(math.isfinite(x) for x in losses)
+          and not all(torch.equal(a, b) for a, b in
+                      zip(ema.parameters(), ema0)),
+          "ddpm train: non-finite loss or the EMA copy did not move")
+    rows = 2 * cfg.train.batch_size
+    print(f"ddpm train ({DIFFUSION_PRESET}, UNet 64 ch, {rows} rows a "
+          f"step): {n_steps} steps in {DIFFUSION_EPOCHS} epochs, "
+          f"{ms_step:.2f} ms/step over the last {timed_steps}, "
+          f"{cfg.train.batch_size * 1e3 / ms_step:.1f} windows/s; loss "
+          f"{losses[0]:.4f} -> mean of the last epoch "
+          f"{sum(losses[-timed_steps // 2:]) / (timed_steps // 2):.4f}; "
+          f"flash launches {train_counts['flash_attn_fwd']} (one a step); "
+          f"gpu: {gpu}", flush=True)
+
+    n = 2 * DDPM_SAMPLES
+    shape = (n, 2, cfg.data.out_len)
+    cond = torch.zeros(n, 128, device=dev)
+
+    def chain():
+        return p_sample_loop(ema, sched, shape, cond,
+                             torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.time()
+    first = chain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sample_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["flash_attn_fwd"] = REVERSE_STEPS
+    check(sample_counts == expected,
+          f"ddpm sampling: launches {sample_counts} != {expected}")
+    again = chain()
+    check(torch.equal(first, again), "ddpm sampling: the same generator "
+                                     "gave another chain")
+    check(bool(torch.isfinite(first).all())
+          and first.abs().max().item() <= 1.0 + 1e-6,
+          "ddpm sampling: values outside [-1, 1] or not finite")
+    print(f"ddpm sampling ({DDPM_SAMPLES} + {DDPM_SAMPLES} chains of "
+          f"{REVERSE_STEPS} steps, the EMA weights): {wall:.3f}s, "
+          f"{wall / REVERSE_STEPS * 1e3:.3f} ms a reverse step; flash "
+          f"launches {sample_counts['flash_attn_fwd']}; a repeated chain "
+          f"bit-identical; peak memory {peak:.1f} MiB; gpu: {gpu}",
+          flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def stretch():
+        x = first
+        with torch.no_grad():
+            for t in range(REVERSE_STEPS - 1, REVERSE_STEPS - 51, -1):
+                z = torch.randn(shape, generator=g, device=dev)
+                x = p_sample_step(ema, sched, x, t, cond, z)
+        return x
+    stretch()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stretch()
+    torch.cuda.synchronize()
+    profile_device(dev, gpu, "ddpm reverse chain, 50 steps",
+                   time.time() - t0, stretch)
+    return {f"ddpm train ({DIFFUSION_EPOCHS} epochs)": train_counts,
+            f"ddpm sampling ({REVERSE_STEPS} steps)": sample_counts}
+
+
+def comparison_phase(dev, gpu) -> dict:
+    """Phase 13: (a) the small configuration, card against CPU; (b) the
+    seven baselines at full width; (c) the DDPM generator at full width.
+    Returns the launch counts by run."""
+    t_phase = time.time()
+    small_comparison_phase(dev)
+    counts = baseline_runs(dev, gpu)
+    counts.update(diffusion_runs(dev, gpu))
+    print(f"comparison models phase: {time.time() - t_phase:.1f}s in all; "
+          f"gpu: {gpu}", flush=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3378,6 +3859,7 @@ def main() -> int:
     stage1_counts = stage1_phase(dev, gpu)
     eval_counts = eval_from_disk_phase(dev, gpu)
     p12_counts = bf16_remat_phase(dev, gpu)
+    p13_counts = comparison_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
@@ -3429,7 +3911,8 @@ def main() -> int:
         "stage1 train_18_30 (3 steps)": stage1_counts[name],
         **{f"eval from disk, {mode} (K=10)": eval_counts[mode][name]
            for mode in ("fast", "parity")},
-        **{run: c[name] for run, c in p12_counts.items()}}
+        **{run: c[name] for run, c in p12_counts.items()},
+        **{run: c[name] for run, c in p13_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:

@@ -265,7 +265,8 @@ def test_module_dispatches_to_the_commands(capsys):
     ``main`` with the rest of the argv; anything else is a usage error."""
     from tsue_tpu_torch.cli import COMMANDS
     from tsue_tpu_torch.cli.__main__ import main
-    assert COMMANDS == ("train", "stage1", "test", "serve")
+    assert COMMANDS == ("train", "stage1", "test", "serve", "baseline",
+                        "diffusion")
     with pytest.raises(SystemExit, match="usage"):
         main(["predict"])
     with pytest.raises(SystemExit, match="usage"):

@@ -45,7 +45,16 @@ PORT_MODULES = (
     "tsue_tpu_torch.cli", "tsue_tpu_torch.cli.__main__",
     "tsue_tpu_torch.cli._common", "tsue_tpu_torch.cli.train",
     "tsue_tpu_torch.cli.stage1", "tsue_tpu_torch.cli.test",
-    "tsue_tpu_torch.cli.serve", "chip_smoke", "flash_variants",
+    "tsue_tpu_torch.cli.serve", "tsue_tpu_torch.cli.baseline",
+    "tsue_tpu_torch.cli.diffusion", "tsue_tpu_torch.models.baselines",
+    "tsue_tpu_torch.models.baselines.cv",
+    "tsue_tpu_torch.models.baselines.lstm",
+    "tsue_tpu_torch.models.baselines.stgcnn",
+    "tsue_tpu_torch.models.baselines.trajectron",
+    "tsue_tpu_torch.models.baselines.mmtrans",
+    "tsue_tpu_torch.models.baselines.gail",
+    "tsue_tpu_torch.models.diffusion",
+    "tsue_tpu_torch.train.baseline_steps", "chip_smoke", "flash_variants",
     "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 

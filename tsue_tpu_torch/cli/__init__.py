@@ -11,8 +11,12 @@ prints its result as one JSON line:
 - ``test``: the K-candidate eval of a checkpoint (``scripts/test.py``;
   ``--preset test_6_12`` is ``scripts/test_10.py``);
 - ``serve``: batch JSONL predictions or generations, or the HTTP API
-  (``scripts/serve.py``).
+  (``scripts/serve.py``);
+- ``baseline``: one of the seven comparison baselines trained and scored
+  (``scripts/baseline_*.py``, ``scripts/test_baseline_*.py``);
+- ``diffusion``: the DDPM trajectory generator, or the eval of a stage-2
+  checkpoint (``scripts/capstone.py``).
 
 Every command runs on the CUDA device unless given ``--device cpu``.
 """
-COMMANDS = ("train", "stage1", "test", "serve")
+COMMANDS = ("train", "stage1", "test", "serve", "baseline", "diffusion")

@@ -115,10 +115,11 @@ class TrajectoryModel(nn.Module):
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator``, with the distributions of the
-    JAX package's Flax initialisers: lecun-normal kernels, zero biases,
-    unit norm scales, normal(1) embeddings, tokens and modality embeddings,
-    zero positional embeddings and LoRA B, U(+-1/sqrt(T_in)) per-channel
-    linears.  The generator must live on the model's device."""
+    JAX package's Flax initialisers: lecun-normal kernels (dense and
+    convolution; the LSTM cells' recurrent kernels too, where Flax draws
+    them orthogonal), zero biases, unit norm scales, normal(1) embeddings,
+    tokens and modality embeddings, zero positional embeddings and LoRA B,
+    U(+-1/sqrt(T_in)) per-channel linears.  The generator must live on the model's device."""
     def normal(t, std):
         t.normal_(0.0, std, generator=generator)
 
@@ -127,6 +128,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal(mod.weight, mod.in_features ** -0.5)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.Conv1d):
+            normal(mod.weight, (mod.in_channels * mod.kernel_size[0]) ** -0.5)
+            mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -16,6 +16,10 @@ parity rollout.  Stage 1 trains the MLLM's causal-LM loss, exports it
 (``train.checkpoint.export_mllm``) for ``run_stage2(mllm_ckpt=...)`` and
 writes a generation dump.
 
+``run_baseline`` trains and scores the seven comparison baselines and
+``run_diffusion`` the DDPM trajectory generator, as the JAX package's
+runners of the same names.
+
 A "bfloat16" ``ModelConfig`` trains stage 2 on bf16 parameters (cast after
 init, as the JAX package's ``build_model_and_params`` casts them), with
 AdamW's moments in bf16; stage 1 trains in fp32 whatever the dtype, as the
@@ -32,6 +36,7 @@ A: parallel): stage 1's pipeline parallelism, which raises
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -220,8 +225,6 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     for i, batch in enumerate(_batches(dte, cfg, False)):
         b = to_device(batch, dev)
         pred = model(b)
-        a, f = ade_fde(pred, b["traj_out"], b["norm_stat"], b["valid"])
-        entry = [a, f, b["valid"].sum()]
         cands = None
         if eval_candidates:
             if fast:
@@ -230,11 +233,21 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
             else:
                 cands = candidate_rollout(model, b, eval_candidates,
                                           eval_seed + i)
-            entry.extend(min_ade_fde_rmse(cands, b["traj_out"],
-                                          b["norm_stat"], b["valid"]))
-        per_batch.append(entry)
+        per_batch.append(_batch_metrics(b, pred, cands))
         if first is None:
             first = (b, pred, cands)
+    out = _test_metrics(per_batch, eval_candidates)
+    if viz_dir and first is not None:
+        _plot_test_batch(os.path.join(viz_dir, "viz"), *first)
+    return out
+
+
+def _test_metrics(per_batch, eval_candidates: int) -> Dict:
+    """The sample-weighted means of per-batch entries [ADE, FDE, valid
+    rows, (minADE, minFDE, minRMSE with K candidates)], read from the
+    device once all batches are queued: ``test_ade``, ``test_fde`` and,
+    with K and any valid row, ``min_ade``, ``min_fde``, ``min_rmse``,
+    ``K``."""
     ade_sum = fde_sum = n_sum = 0.0
     min_sums = np.zeros(3)
     for entry in per_batch:
@@ -252,9 +265,17 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
         m = min_sums / n
         out.update(min_ade=float(m[0]), min_fde=float(m[1]),
                    min_rmse=float(m[2]), K=eval_candidates)
-    if viz_dir and first is not None:
-        _plot_test_batch(os.path.join(viz_dir, "viz"), *first)
     return out
+
+
+def _batch_metrics(b, pred, cands=None) -> list:
+    """One test batch's entry for ``_test_metrics`` (device scalars)."""
+    a, f = ade_fde(pred, b["traj_out"], b["norm_stat"], b["valid"])
+    entry = [a, f, b["valid"].sum()]
+    if cands is not None:
+        entry.extend(min_ade_fde_rmse(cands, b["traj_out"], b["norm_stat"],
+                                      b["valid"]))
+    return entry
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -510,3 +531,213 @@ def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,
         out["generated"] = len(recs)
     logger.close()
     return out
+
+
+def _no_text_cfg(cfg: ExperimentConfig) -> ExperimentConfig:
+    """The configuration without text or vision inputs (the baselines and
+    the DDPM generator read trajectories and lane polygons only)."""
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, use_text=False, use_vision=False))
+
+
+def _seeded(module, dev, seed: int):
+    """``module`` on ``dev`` with random weights from ``seed``."""
+    module = module.to(dev)
+    return init_params(module, torch.Generator(device=dev).manual_seed(seed))
+
+
+def run_baseline(name: str, cfg: ExperimentConfig,
+                 data_path: Optional[str] = None, out_dir: str = "runs",
+                 epochs: Optional[int] = None, eval_candidates: int = 0,
+                 synthetic_tracks: int = 40, device="cuda") -> Dict:
+    """Baseline pipeline (ref scripts/baseline_*.py main flows;
+    ``tsue_tpu/runner.py:479-586``): ``name`` one of
+    ``models.baselines.BASELINE_NAMES``.  "cv" trains nothing and scores
+    its K = ``eval_candidates or 10`` noisy candidates; "gail" trains the
+    alternating GAN (``_run_gail``); the others train their registry model
+    (random weights from seed 0, AdamW(lr, weight_decay); step ``si`` of
+    epoch ``e`` draws from ``step_generator(e, si)``) and score the
+    deterministic forward and, with K = ``eval_candidates``, K train-mode
+    candidates (batch i from seed 100 + i), plotting the first test
+    window's candidates into ``<out_dir>/baseline_<name>/viz``.  Returns
+    ``test_ade``, ``test_fde`` and, with K, ``min_ade``, ``min_fde``,
+    ``min_rmse``, ``K``; metrics go to
+    ``<out_dir>/baseline_<name>/metrics.jsonl``."""
+    from tsue_tpu_torch.models.baselines import (BASELINE_NAMES,
+                                                 BASELINE_REGISTRY,
+                                                 cv_candidates)
+    from tsue_tpu_torch.train.baseline_steps import (make_baseline_eval_fn,
+                                                     make_baseline_train_step)
+    if name not in BASELINE_NAMES:
+        raise KeyError(f"unknown baseline {name!r}; have {BASELINE_NAMES}")
+    dev = _train_device(device)
+    seed_everything(cfg.train.seed)
+    out_dir = os.path.join(out_dir, f"baseline_{name}")
+    logger = MetricLogger(out_dir)
+    cfg = _no_text_cfg(cfg)
+    dtr, dva, dte = prepare_data(cfg, data_path, None, synthetic_tracks)
+    print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
+
+    if name == "cv":  # no training (ref baseline_cv.py)
+        K = eval_candidates or 10
+        per_batch = []
+        for i, batch in enumerate(_batches(dte, cfg, False)):
+            b = to_device(batch, dev)
+            cands = cv_candidates(b["traj_in"], cfg.data.out_len,
+                                  torch.Generator(device=dev).manual_seed(i),
+                                  K, 0.1)
+            per_batch.append(_batch_metrics(b, cands[:, 0], cands))
+        out = _test_metrics(per_batch, K)
+        if "K" not in out:                    # no test window
+            out.update(min_ade=float("nan"), min_fde=float("nan"),
+                       min_rmse=float("nan"), K=K)
+        logger.log(0, **out)
+        logger.close()
+        return out
+
+    if name == "gail":
+        return _run_gail(cfg, dtr, dte, logger, epochs, eval_candidates, dev)
+
+    model = _seeded(BASELINE_REGISTRY[name](seq_len=cfg.data.seq_len,
+                                            out_len=cfg.data.out_len), dev, 0)
+    step = make_baseline_train_step(model, torch.optim.AdamW(
+        model.parameters(), lr=cfg.train.lr,
+        weight_decay=cfg.train.weight_decay, eps=1e-8))
+    n_epochs = epochs if epochs is not None else cfg.train.epochs
+    for epoch in range(n_epochs):
+        # per-step losses stay on the device until the epoch ends
+        losses = [step(to_device(b, dev), step_generator(epoch, si, dev))
+                  ["loss"]
+                  for si, b in enumerate(_batches(dtr, cfg, True, epoch))]
+        logger.log(epoch, train_loss=(
+            sum(float(x) for x in losses) / max(len(losses), 1)))
+
+    # test (sample-weighted like evaluate())
+    eval_fn = make_baseline_eval_fn(model)
+    per_batch = []
+    with torch.no_grad():
+        for i, batch in enumerate(_batches(dte, cfg, False)):
+            b = to_device(batch, dev)
+            cands = (eval_fn(b, torch.Generator(device=dev).manual_seed(
+                100 + i), eval_candidates) if eval_candidates else None)
+            per_batch.append(_batch_metrics(b, model(b), cands))
+    out = _test_metrics(per_batch, eval_candidates)
+    if eval_candidates and len(dte):
+        # candidate visualization (ref test_baseline_stgcnn.py:342-489)
+        from tsue_tpu_torch.viz import plot_candidates
+        b = to_device(next(iter(_batches(dte, cfg, False))), dev)
+        cands = eval_fn(b, torch.Generator(device=dev).manual_seed(99),
+                        eval_candidates)
+        ns = b["norm_stat"]
+        cd = _np(denorm(cands[0], ns[:1].repeat_interleave(eval_candidates,
+                                                           dim=0)))
+        plot_candidates(_np(denorm(b["traj_in"], ns))[0],
+                        _np(denorm(b["traj_out"], ns))[0], cd,
+                        os.path.join(out_dir, "viz"),
+                        prefix=f"{name}_candidates")
+    logger.log(n_epochs, **out)
+    logger.close()
+    return out
+
+
+def _run_gail(cfg, dtr, dte, logger, epochs, eval_candidates: int, dev):
+    """GAIL's part of ``run_baseline`` (``tsue_tpu/runner.py:589-650``):
+    generator and discriminator from seeds 0 and 1, Adam(lr) each, one D
+    then one G update a step; the test scores the noise-free generator
+    and, with K, K candidates with output noise 0.05 (batch i from seed
+    500 + i, ref scripts/baseline_GAIL.py:441-460)."""
+    from tsue_tpu_torch.models.baselines import (GAILDiscriminator,
+                                                 GAILGenerator)
+    from tsue_tpu_torch.train.baseline_steps import make_gail_train_step
+    lens = dict(seq_len=cfg.data.seq_len, out_len=cfg.data.out_len)
+    gen = _seeded(GAILGenerator(**lens), dev, 0)
+    disc = _seeded(GAILDiscriminator(**lens), dev, 1)
+    step = make_gail_train_step(
+        gen, disc, torch.optim.Adam(gen.parameters(), lr=cfg.train.lr),
+        torch.optim.Adam(disc.parameters(), lr=cfg.train.lr))
+    n_epochs = epochs if epochs is not None else cfg.train.epochs
+    for epoch in range(n_epochs):
+        ms = [step(to_device(b, dev))
+              for b in _batches(dtr, cfg, True, epoch)]
+        n = max(len(ms), 1)
+        logger.log(epoch, g_loss=sum(float(m["g_loss"]) for m in ms) / n,
+                   d_loss=sum(float(m["d_loss"]) for m in ms) / n)
+    per_batch = []
+    with torch.no_grad():
+        for i, batch in enumerate(_batches(dte, cfg, False)):
+            b = to_device(batch, dev)
+            cands = None
+            if eval_candidates:
+                g = torch.Generator(device=dev).manual_seed(500 + i)
+                cands = torch.stack([gen(b, noise_scale=0.05, generator=g)
+                                     for _ in range(eval_candidates)], 1)
+            per_batch.append(_batch_metrics(b, gen(b), cands))
+    out = _test_metrics(per_batch, eval_candidates)
+    logger.log(n_epochs, **out)
+    logger.close()
+    return out
+
+
+def run_diffusion(cfg: ExperimentConfig, data_path: Optional[str] = None,
+                  out_dir: str = "runs", epochs: Optional[int] = None,
+                  cfg_scale: float = 3.0, n_timestep: int = 1000,
+                  n_samples: int = 5, synthetic_tracks: int = 40,
+                  device="cuda") -> Dict:
+    """DDPM generate mode (ref capstone_project.py:1138-1423;
+    ``tsue_tpu/runner.py:653-722``): train the conditional UNet (random
+    weights from seed 0) on the future trajectories scaled to [-1, 1]
+    under a zero placeholder condition, Adam(1e-4) with coupled L2 1e-4
+    (torch Adam's ``weight_decay``, the reference's) and an EMA copy after
+    every step (step ``i`` of epoch ``e`` draws from ``step_generator(e,
+    i)``), then ``n_samples`` guided reverse chains of ``n_timestep`` steps
+    with the EMA weights (the chains' draws from seed 7), plotted against
+    the first test window's X/Y over time into
+    ``<out_dir>/diffusion/viz``.  Returns ``final_diff_loss`` (the last
+    epoch's mean) and ``samples``."""
+    from tsue_tpu_torch.models.diffusion import (ConditionalUNet,
+                                                 DDPMSchedule,
+                                                 make_diffusion_train_step,
+                                                 p_sample_loop)
+    dev = _train_device(device)
+    seed_everything(cfg.train.seed)
+    out_dir = os.path.join(out_dir, "diffusion")
+    logger = MetricLogger(out_dir)
+    cfg = _no_text_cfg(cfg)
+    dtr, _, dte = prepare_data(cfg, data_path, None, synthetic_tracks)
+
+    model = _seeded(ConditionalUNet(), dev, 0)
+    ema = copy.deepcopy(model).requires_grad_(False)
+    sched = DDPMSchedule.create("cosine", n_timestep)
+    # ref: torch.optim.Adam(lr=diffusion_lr=1e-4, weight_decay=1e-4),
+    # capstone_project.py:1194-1196: L2 added to the gradient before the
+    # moments (the JAX package's add_decayed_weights then adam)
+    step = make_diffusion_train_step(
+        model, sched, torch.optim.Adam(model.parameters(), lr=1e-4,
+                                       weight_decay=1e-4), ema, cfg_scale)
+    n_epochs = epochs if epochs is not None else 20  # ref diffusion_epochs=20
+    tl, tn = 0.0, 0
+    for epoch in range(n_epochs):
+        losses = []   # device scalars; fetched once per epoch
+        for i, batch in enumerate(_batches(dtr, cfg, True, epoch)):
+            x0 = torch.from_numpy(batch["traj_out"]).to(dev) * 2.0 - 1.0
+            cond = torch.zeros(x0.shape[0], 128, device=dev)  # ref :1218-1221
+            losses.append(step(x0, cond, step_generator(epoch, i, dev))
+                          ["loss"])
+        tl, tn = sum(float(x) for x in losses), len(losses)
+        logger.log(epoch, diff_loss=tl / max(tn, 1))
+
+    # sampling with the EMA weights (ref ema.apply_shadow, :1282)
+    cond = torch.zeros(2 * n_samples, 128, device=dev)
+    out = p_sample_loop(ema, sched, (2 * n_samples, 2, cfg.data.out_len),
+                        cond, torch.Generator(device=dev).manual_seed(7),
+                        cfg_scale)
+    guided = _np(out[n_samples:])                 # cond half (CFG-combined)
+    if len(dte):
+        from tsue_tpu_torch.viz import plot_xy_time
+        plot_xy_time(np.asarray(dte.traj_out[0]) * 2.0 - 1.0, list(guided),
+                     os.path.join(out_dir, "viz"), prefix="ddpm_samples")
+    metrics = {"final_diff_loss": tl / max(tn, 1) if n_epochs
+               else float("nan"), "samples": int(n_samples)}
+    logger.log(n_epochs, **metrics)
+    logger.close()
+    return metrics
