@@ -153,7 +153,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      three epochs of train steps (ms per step, one flash launch a step),
      5 + 5 reverse chains of 1000 steps with the EMA weights (ms per
      reverse step, 1000 flash launches, peak memory), the chain repeated
-     bit for bit, and the idle share of a profiled 50-step stretch.
+     bit for bit, and the idle share of a profiled 50-step stretch;
+ 14. the bf16 quantised decode: the bf16 forms of the int8 product (bf16
+     x at a decode step's seven projections, bf16 out, and at the LM head,
+     fp32 out), of the int8-KV attention (bf16 q over the phase's 224-slot
+     cache) and of the fused head (bf16 h over the int8 head and the tied
+     bf16 embedding, exact and random inputs) against their plain
+     versions, with times, bounds at bf16's rate and library times; then
+     the quality_quant command (cli/quality_quant.main) at Llama-3.2-1B's
+     widths with every parameter bf16 (batch 16, prompt 144, 64 new
+     tokens, vocab 128256), the Llama's weights an HF-named bf16 state
+     dict drawn from a seed and loaded by models.llama_loader
+     .load_hf_llama: its JSON line, every drift finite, teacher-forced
+     top-1 agreement >= 0.90 in each mode, its launches exactly as the
+     code implies (113 int8 products and 16 int8-KV attentions a decode
+     step of the arms that use them); the model rebuilt (greedy ids equal
+     to the study's), and two greedy runs through the fused head's bf16
+     forms, bf16 alone and with int8 weights + int8 KV, id for id equal to
+     the unfused runs or each divergence a tie within 1e-3 reported; last
+     the int8_w arm's teacher-forced rollout twice more, once through the
+     kernel and once through the plain int8 product (ops.quant.plain_int8)
+     on the same weights, both top-1 figures printed and held within one
+     point of each other (the kernel's share of the int8 arms' gap).
 Phase 3 also checks flash at the comparison models' shapes: MMTrans's
 self-attention (B 16, 70 keys, 8 heads of 16, a key mask) and the UNet's
 cross-attention over one key (B 32 and B 10, 18 queries, 1 head of 64),
@@ -3795,6 +3816,448 @@ def comparison_phase(dev, gpu) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# 14. the bf16 quantised decode and its quality study
+# --------------------------------------------------------------------------
+
+QQ_BATCH, QQ_PROMPT, QQ_NEW = 16, 144, 64     # the JAX script's defaults
+QQ_TOP1_FLOOR = 0.90          # teacher-forced top-1 agreement, every mode
+QQ_TIE_BOUND = 1e-3           # a greedy divergence's top-2 logit gap
+QQ_WITNESS_BOUND = 0.01       # |top-1, kernel - top-1, plain int8 product|
+QQ_CACHE = 16 + QQ_PROMPT + QQ_NEW    # 16 image tokens + prompt + decode
+
+
+def _bf16_ulp_err(out, ref):
+    """(max abs err, the largest error in bf16 ulps of each output, with
+    the floor of 1e-6 of the largest output where an output cancels)."""
+    import torch
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(1e-30))) - 7)
+    return d.max().item(), (d / (ulp + 1e-6 * r.max())).max().item()
+
+
+def bf16_decode_kernel_checks(dev, gpu, timer):
+    """The bf16 forms at the shapes phase 14 launches: the int8 product on
+    bf16 x at the seven projections of a decode step (bf16 out) and the LM
+    head (fp32 out), M = 16; the int8-KV attention on bf16 q over the
+    phase's cache (B 16, 32/8 heads of 64, S 224, a prefix and a decode
+    step); the fused head on bf16 h over the int8 head and over the tied
+    bf16 embedding (B 16, D 2048, V 128256, the penalty and the ban), on
+    exact inputs (indices and values equal) and random ones.  Each against
+    its plain version, a repeat bit-identical, with the library call's time
+    beside: (x @ w8.to(bf16)) * scale; SDPA over the cache dequantised to
+    bf16 beforehand; cuBLAS bf16 h @ W^T (the int8 head's weight as bf16)
+    and torch.topk.  Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
+                                             attend_int8_kv_plain,
+                                             attend_int8_kv_plan,
+                                             dequantize_kv, quantize_cache)
+    from tsue_tpu_torch.ops.lmhead_topk import (LANES, lmhead_topk,
+                                                lmhead_topk_plain,
+                                                lmhead_topk_plan)
+    from tsue_tpu_torch.ops.quant import (int8_matmul, int8_matmul_plan,
+                                          int8_matmul_ref, quantize_weight)
+    BF = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = {"int8_matmul": [], "attend_int8_kv": [], "lmhead_topk": []}
+    M = QQ_BATCH
+    for name, K, N, per_layer in INT8_SHAPES:
+        od = torch.float32 if name == "lm_head" else BF
+        x = torch.randn(M, K, generator=g, device=dev).to(BF)
+        w8, s = quantize_weight(torch.randn(K, N, generator=g, device=dev)
+                                * K ** -0.5)
+        out = int8_matmul(x, w8, s, out_dtype=od)
+        again = int8_matmul(x, w8, s, out_dtype=od)
+        ref = int8_matmul_ref(x, w8, s, od)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        if od == BF:
+            err, ulps = _bf16_ulp_err(out, ref)
+            ok = ulps <= 1.0
+            tol = "1 bf16 ulp of each output"
+        else:
+            err, ulps = errors(out, ref)[0], None
+            ok = torch.allclose(out, ref, rtol=1e-5,
+                                atol=1e-5 * ref.abs().max().item())
+            tol = "rtol 1e-5, atol 1e-5 of the largest"
+        plain_ms = timer.ms(lambda: int8_matmul_ref(x, w8, s, od))
+        ms = timer.ms(lambda: int8_matmul(x, w8, s, out_dtype=od))
+        lib_ms = timer.ms(lambda: (x @ w8.to(BF)) * s)
+        # one bf16 product a weight: x is exact in bf16 (csrc/int8_matmul.cu)
+        b = bound(nbytes(x, w8, s, out), 2.0 * M * K * N, BF16_FLOPS)
+        rows["int8_matmul"].append(row(
+            "int8_matmul", f"bf16 x {name} M={M} K={K} N={N} out {od}",
+            gpu, err, err / max(ref.float().abs().max().item(), 1e-30), ms,
+            plain_ms, b, lib_ms, timer.floor_ms, per_layer=0,
+            bf16_per_layer=per_layer, form="bf16", max_ulps=ulps,
+            tolerance=tol, library="(x @ w8.to(bf16)) * scale",
+            plan=int8_matmul_plan(M, K, N), repeat_bit_identical=same))
+        check(ok, f"int8_matmul bf16 {name}: max abs err {err} ({tol})")
+        check(same, f"int8_matmul bf16 {name}: a repeated call differs")
+
+    B, Hq, Hkv, D, S = QQ_BATCH, 32, 8, 64, QQ_CACHE
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(BF)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(BF)
+    cache = quantize_cache([(k, v)])[0]
+    q = torch.randn(B, 1, Hq, D, generator=g, device=dev).to(BF)
+    P = S - QQ_NEW
+    s_idx = torch.arange(S, device=dev)[None, :]
+    mask = ((s_idx < P) | ((s_idx >= P) & (s_idx <= P + 40))).expand(
+        B, S).contiguous()
+    out = attend_int8_kv(q, cache, mask)
+    again = attend_int8_kv(q, cache, mask)
+    ref = attend_int8_kv_plain(q, cache, mask)
+    torch.cuda.synchronize()
+    err, ulps = _bf16_ulp_err(out, ref)
+    kd, vd = (dequantize_kv(x8, xs, BF).transpose(1, 2)
+              for x8, xs in ((cache[0], cache[1]), (cache[2], cache[3])))
+    qd = q.transpose(1, 2)
+    amask = mask[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd, kd, vd, attn_mask=amask, enable_gqa=True)
+    plain_ms = timer.ms(lambda: attend_int8_kv_plain(q, cache, mask))
+    ms = timer.ms(lambda: attend_int8_kv(q, cache, mask))
+    lib_ms = timer.ms(lib)
+    b = bound(nbytes(q, *cache, mask, out),
+              4.0 * D * Hq * mask.sum().item())
+    plan = attend_int8_kv_plan(S, Hq // Hkv, D)
+    rows["attend_int8_kv"].append(row(
+        "attend_int8_kv", f"bf16 q S={S} B={B} 32/8x64 Tq=1", gpu, err,
+        err / max(ref.float().abs().max().item(), 1e-30), ms, plain_ms, b,
+        lib_ms, timer.floor_ms, form="bf16", max_ulps=ulps,
+        tolerance="1 bf16 ulp of each output",
+        library="SDPA over the cache dequantised to bf16 beforehand",
+        plan={**plan, "ctas": plan["splits"] * B * Hkv},
+        repeat_bit_identical=bool(torch.equal(out, again))))
+    check(ulps <= 1.0, f"attend_int8_kv bf16: {ulps} ulps (max abs err "
+                       f"{err})")
+    check(torch.equal(out, again), "attend_int8_kv bf16: a repeated call "
+                                   "differs")
+    del k, v, cache, kd, vd
+
+    penalty = 1.2
+    for exact in (True, False):
+        h, w, quant, hmask = head_inputs(dev, g, exact)
+        h, w = h.to(BF), w.to(BF)
+        for layout in ("int8 (bf16 h)", "tied_bf16"):
+            args = ((h, None, hmask, penalty, quant) if layout != "tied_bf16"
+                    else (h, w, hmask, penalty, None))
+            vals, idx = lmhead_topk(*args)
+            again = lmhead_topk(*args)
+            rv, ri = lmhead_topk_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = errors(vals, rv)
+            same = torch.equal(again[0], vals) and torch.equal(again[1], idx)
+            name = f"{layout} {'exact' if exact else 'random'} B=16 V=128256"
+            check(same, f"lmhead_topk {name}: a repeated call differs")
+            if exact:
+                check(torch.equal(idx, ri) and torch.equal(vals, rv),
+                      f"lmhead_topk {name}: indices or values differ")
+                check(any(len(torch.unique(r)) < LANES for r in rv),
+                      f"lmhead_topk {name}: the case has no ties")
+            else:
+                check(torch.allclose(vals, rv, **TOL),
+                      f"lmhead_topk {name}: max abs err {err}")
+                agree = (idx == ri).float().mean().item()
+                check(agree > 0.99, f"lmhead_topk {name}: {agree} of the "
+                                    "indices agree")
+            plain_ms = timer.ms(lambda: lmhead_topk_plain(*args))
+            ms = timer.ms(lambda: lmhead_topk(*args))
+            if layout == "tied_bf16":
+                lib = lambda: torch.topk(h @ w.t(), LANES)  # noqa: E731
+                wb = nbytes(w)
+            else:
+                w8b = quant[0].to(BF)
+                lib = lambda: torch.topk(  # noqa: E731
+                    (h @ w8b).float() * quant[1], LANES)
+                wb = nbytes(*quant)
+            lib_ms = timer.ms(lib)
+            # one bf16 product a weight (csrc/lmhead_topk.cu)
+            b = bound(wb + nbytes(h, hmask, vals, idx),
+                      2.0 * h.shape[0] * h.shape[1] * 128256, BF16_FLOPS)
+            rows["lmhead_topk"].append(row(
+                "lmhead_topk", name, gpu, err, rel, ms, plain_ms, b, lib_ms,
+                timer.floor_ms, layout=layout, exact=exact, form="bf16",
+                repeat_bit_identical=same,
+                library="cuBLAS bf16 h @ W^T, then torch.topk",
+                plan=lmhead_topk_plan("int8" if layout != "tied_bf16"
+                                      else "tied_bf16")))
+        del h, w, quant, hmask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hf_llama_state(cfg, dev, seed: int) -> dict:
+    """An HF-named bf16 Llama state dict at ``cfg``'s widths, drawn on the
+    card from a seeded generator: (out, in) projections N(0, 1/in), the
+    embedding N(0, 1/D), unit norms (the distributions of
+    models.tsue.init_params)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, Hd = cfg.hidden_size, cfg.head_dim
+
+    def w(o, i):
+        return (torch.randn(o, i, generator=g, device=dev)
+                * i ** -0.5).to(torch.bfloat16)
+
+    def ones():
+        return torch.ones(D, dtype=torch.bfloat16, device=dev)
+
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, D),
+          "model.norm.weight": ones()}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        for name, o, n_in in (("q_proj", cfg.num_heads * Hd, D),
+                              ("k_proj", cfg.num_kv_heads * Hd, D),
+                              ("v_proj", cfg.num_kv_heads * Hd, D),
+                              ("o_proj", D, cfg.num_heads * Hd)):
+            sd[f"{p}.self_attn.{name}.weight"] = w(o, n_in)
+        for name, o, n_in in (("gate_proj", cfg.intermediate_size, D),
+                              ("up_proj", cfg.intermediate_size, D),
+                              ("down_proj", D, cfg.intermediate_size)):
+            sd[f"{p}.mlp.{name}.weight"] = w(o, n_in)
+        sd[f"{p}.input_layernorm.weight"] = ones()
+        sd[f"{p}.post_attention_layernorm.weight"] = ones()
+    return sd
+
+
+def study_expected(steps: dict, L: int, qformer_calls: int) -> dict:
+    """The launches of quality_quant's run, written out from the code:
+    each generation prefills once (flash in every Llama layer and Q-Former
+    call); each decode step runs flash in every layer (the bf16 cache) or
+    attend_int8_kv (the int8 cache), and with int8 weights seven int8
+    products a layer plus the LM head's (113 a step at 16 layers), with one
+    more head product for the first token; the four teacher-forced
+    rollouts decode QQ_NEW steps each the same way."""
+    from tsue_tpu_torch.cli.quality_quant import MODES
+    exp = {"flash_attn_fwd": 0, "int8_matmul": 0, "attend_int8_kv": 0}
+    runs = [(MODES.get(run.split("_", 1)[1], (False, False)), s)
+            for run, s in steps.items()]
+    runs += [((False, False), QQ_NEW)] + [(m, QQ_NEW)
+                                          for m in MODES.values()]
+    for (w8, kv8), s in runs:
+        exp["flash_attn_fwd"] += L + qformer_calls + (0 if kv8 else s * L)
+        exp["int8_matmul"] += (1 + s * (7 * L + 1)) if w8 else 0
+        exp["attend_int8_kv"] += s * L if kv8 else 0
+    return {**dict.fromkeys(KERNELS, 0), **exp}
+
+
+def greedy_ties(dev, gpu, mllm, inputs, label, ref_ids, out_ids, kv8):
+    """Rows where a fused-head greedy run's ids differ from the unfused
+    run's: the first step that differs, and the gap between the two
+    largest processed logits of the unfused run there (its teacher-forced
+    logits along its own ids, the greedy chain's penalty and ban).  Each
+    divergence must start at a tie within QQ_TIE_BOUND (the two heads sum
+    the same exact products in other orders).  Returns the rows and
+    gaps."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.cli.quality_quant import rollout_logits
+    from tsue_tpu_torch.ops.sampling import (SamplingConfig,
+                                             apply_no_repeat_ngram,
+                                             apply_repetition_penalty)
+    vision, ids, mask = inputs
+    diff = [r for r in range(ref_ids.shape[0])
+            if not np.array_equal(ref_ids[r], out_ids[r])]
+    ties = []
+    if not diff:
+        return ties
+    cfg = SamplingConfig(do_sample=False)
+    logits = rollout_logits(mllm, vision, ids, mask,
+                            torch.from_numpy(ref_ids).to(dev), kv8)
+    for r in diff:
+        t = int(np.argmax(ref_ids[r] != out_ids[r]))
+        hist = torch.cat([ids[r:r + 1].long(), torch.from_numpy(
+            ref_ids[r:r + 1, :t]).to(dev).long()], 1)
+        hlen = torch.tensor([hist.shape[1]], device=dev)
+        lg = apply_repetition_penalty(logits[t, r:r + 1].float(), hist, hlen,
+                                      cfg.repetition_penalty)
+        lg = apply_no_repeat_ngram(lg, hist, hlen, cfg.no_repeat_ngram_size)
+        top = torch.topk(lg[0], 2).values
+        gap = (top[0] - top[1]).item()
+        ties.append({"row": r, "step": t, "top2_gap": gap})
+        print(f"{label}: row {r} diverges at step {t}: the unfused run's "
+              f"top-2 processed logits {top[0].item():.6f} and "
+              f"{top[1].item():.6f}, gap {gap:.3g} (bound {QQ_TIE_BOUND}); "
+              f"gpu: {gpu}", flush=True)
+        check(gap <= QQ_TIE_BOUND, f"{label}: row {r} diverges at step {t} "
+                                   f"with a top-2 gap of {gap}: not a tie")
+    return ties
+
+
+def int8_witness(gpu, mllm, inputs, tables, ref_ids, study_drift):
+    """The int8_w arm's teacher-forced rollout along the bf16 baseline's
+    greedy ids, through the int8 kernel and through the plain int8
+    product (``plain_int8``: fp32 products and sums, one rounding after
+    the scale), on the same weights: both drifts against the bf16
+    rollout, and the top-1 figures within QQ_WITNESS_BOUND of each other.
+    Equal figures put the int8 arms' distance from the TPU table on the
+    weights' quantisation, not on the kernel."""
+    import torch
+    from tsue_tpu_torch.cli import quality_quant as QQ
+    from tsue_tpu_torch.ops.quant import plain_int8
+    t0 = time.time()
+    toks = torch.from_numpy(ref_ids).to(inputs[1].device)
+    base = QQ.rollout_logits(mllm, *inputs, toks, False)
+    QQ.set_quant(mllm, tables, tables)
+    try:
+        kern = QQ.rollout_logits(mllm, *inputs, toks, False)
+        with plain_int8():
+            plain = QQ.rollout_logits(mllm, *inputs, toks, False)
+    finally:
+        QQ.set_quant(mllm, None, tables)
+    dk, dp = QQ.drift(base, kern), QQ.drift(base, plain)
+    between = QQ.drift(plain, kern)
+    print(f"int8_w plain witness ({time.time() - t0:.1f}s, 3 rollouts): "
+          f"top-1 vs bf16 through the kernel {dk['top1_agree']} (the "
+          f"study's {study_drift['top1_agree']}), through the plain int8 "
+          f"product {dp['top1_agree']}; max |dlogit| vs bf16 "
+          f"{dk['max_abs_dlogit']} and {dp['max_abs_dlogit']}; kernel vs "
+          f"plain: max |dlogit| {between['max_abs_dlogit']}, mean "
+          f"{between['mean_abs_dlogit']}, top-1 {between['top1_agree']}; "
+          f"gpu: {gpu}", flush=True)
+    check(all(math.isfinite(x) for d in (dk, dp, between)
+              for x in d.values()), "int8_w plain witness: not finite")
+    check(abs(dk["top1_agree"] - dp["top1_agree"]) <= QQ_WITNESS_BOUND,
+          f"int8_w plain witness: top-1 through the kernel "
+          f"{dk['top1_agree']} and through the plain product "
+          f"{dp['top1_agree']} differ by more than {QQ_WITNESS_BOUND}")
+
+
+def bf16_decode_phase(dev, gpu):
+    """Phase 14: the bf16 forms' kernel checks, quality_quant at
+    Llama-3.2-1B's widths in bf16 (B 16, prompt 144, 64 new tokens) with
+    the Llama's weights an HF-named state dict loaded by load_hf_llama,
+    its launch counts exact, every drift finite and teacher-forced top-1
+    agreement >= QQ_TOP1_FLOOR in each mode; then, over a rebuild of the
+    same model, the bf16 greedy run again (equal to the study's), and two
+    greedy runs through the fused head's bf16 forms: bf16 with the fused
+    head alone against the bf16 baseline, and int8 weights + int8 KV +
+    the fused head against the study's "both" arm, id for id or each
+    divergence a reported, bounded tie; last the plain int8 witness
+    (``int8_witness``).  Returns (kernel rows, launches by run)."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.cli import quality_quant as QQ
+    from tsue_tpu_torch.cli._common import build_mllm_bf16
+    from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
+    from tsue_tpu_torch.ops.quant import quantize_llama_params
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    t_phase = time.time()
+    timer = Timer(dev)
+    rows = bf16_decode_kernel_checks(dev, gpu, timer)
+    del timer
+    llama, qcfg = LlamaConfig(vocab_size=128256), QFormerConfig()
+    L = llama.num_layers
+    qcalls = qcfg.num_encoder_layers + 2 * qcfg.num_decoder_layers
+    t0 = time.time()
+    hf = hf_llama_state(llama, dev, seed=21)
+    print(f"bf16 decode: HF-named bf16 Llama state dict ({len(hf)} tensors, "
+          f"{sum(t.numel() for t in hf.values()) / 1e9:.3f}B values) drawn "
+          f"in {time.time() - t0:.1f}s", flush=True)
+    argv = ["--bs", str(QQ_BATCH), "--prompt-len", str(QQ_PROMPT),
+            "--max-new", str(QQ_NEW)]
+    reset_counts()
+    t0 = time.time()
+    result = QQ.main(argv, hf_state=hf)
+    torch.cuda.synchronize(dev)
+    study_s = time.time() - t0
+    study = read_counts()
+    expected = study_expected(QQ.last_steps, L, qcalls)
+    print(f"quality_quant: {study_s:.1f}s for 8 generations and 4 "
+          f"teacher-forced rollouts of {QQ_NEW} steps (B {QQ_BATCH}, prompt "
+          f"{QQ_PROMPT}, vocab 128256, all-bf16 parameters, model build "
+          f"included); steps {json.dumps(QQ.last_steps)}; launches "
+          f"{json.dumps(study)}, expected {json.dumps(expected)}; gpu: "
+          f"{gpu}", flush=True)
+    check(study == expected, f"quality_quant: launches {study} != "
+                             f"{expected}")
+    for mode in QQ.MODES:
+        d = result[f"drift_{mode}"]
+        check(all(math.isfinite(x) for x in d.values()),
+              f"quality_quant drift_{mode}: not finite: {d}")
+        check(d["top1_agree"] >= QQ_TOP1_FLOOR,
+              f"quality_quant drift_{mode}: teacher-forced top-1 "
+              f"{d['top1_agree']} < {QQ_TOP1_FLOOR}")
+    print("quality_quant table (this card; PARITY.md:376-378 has the JAX "
+          "package's on a TPU: top-1 97.7 / 99.2 / 98.0%): " + "; ".join(
+              f"{m}: max |dlogit| {result[f'drift_{m}']['max_abs_dlogit']}, "
+              f"mean {result[f'drift_{m}']['mean_abs_dlogit']}, last-step "
+              f"max {result[f'drift_{m}']['last_step_max']}, top-1 "
+              f"{result[f'drift_{m}']['top1_agree']}, greedy prefix "
+              f"{result[f'greedy_{m}']['mean_prefix']}"
+              for m in QQ.MODES) + f"; gpu: {gpu}", flush=True)
+
+    t0 = time.time()
+    mllm, inputs = build_mllm_bf16(QQ_BATCH, QQ_PROMPT, device=dev,
+                                   hf_state=hf)
+    lay = mllm.llama.model.layer_3
+    check(torch.equal(lay.attn.q_proj.kernel,
+                      hf["model.layers.3.self_attn.q_proj.weight"].t())
+          and torch.equal(lay.mlp.down_proj.kernel,
+                          hf["model.layers.3.mlp.down_proj.weight"].t())
+          and torch.equal(mllm.llama.model.embed_tokens.weight,
+                          hf["model.embed_tokens.weight"]),
+          "load_hf_llama: the model's weights are not the state dict's")
+    check({p.dtype for p in mllm.parameters()} == {torch.bfloat16},
+          "bf16 decode: a parameter is not bf16")
+    del hf
+    greedy = SamplingConfig(do_sample=False)
+    again, _ = QQ.generate(mllm, greedy, QQ_NEW, *inputs, 0)
+    check(np.array_equal(again, QQ.last_ids["bf16"]),
+          "bf16 decode: the rebuilt model's greedy ids differ from the "
+          "study's bf16 baseline")
+    print(f"bf16 decode: rebuilt through load_hf_llama and the bf16 greedy "
+          f"run repeated bit for bit in {time.time() - t0:.1f}s", flush=True)
+    tables = quantize_llama_params(mllm)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids_b, s_b = QQ.generate(mllm, greedy, QQ_NEW, *inputs, 0,
+                             fused_head=True)
+    t_b = time.perf_counter() - t0
+    QQ.set_quant(mllm, tables, tables)
+    t0 = time.perf_counter()
+    ids_q, s_q = QQ.generate(mllm, greedy, QQ_NEW, *inputs, 0,
+                             quantize_kv=True, fused_head=True)
+    t_q = time.perf_counter() - t0
+    fused = read_counts()
+    exp_fused = {**dict.fromkeys(KERNELS, 0),
+                 "flash_attn_fwd": 2 * (L + qcalls) + s_b * L,
+                 "lmhead_topk": s_b + s_q, "int8_matmul": s_q * 7 * L,
+                 "attend_int8_kv": s_q * L}
+    print(f"bf16 fused head, greedy: bf16 + fused head {t_b:.3f}s, int8 w + "
+          f"int8 KV + fused head {t_q:.3f}s ({s_b} and {s_q} steps); "
+          f"launches {json.dumps(fused)}, expected {json.dumps(exp_fused)}; "
+          f"gpu: {gpu}", flush=True)
+    check(fused == exp_fused, f"bf16 fused head: launches {fused} != "
+                              f"{exp_fused}")
+    ties = greedy_ties(dev, gpu, mllm, inputs, "bf16 fused head vs bf16",
+                       QQ.last_ids["bf16"], ids_b, False)
+    QQ.set_quant(mllm, tables, tables)
+    ties += greedy_ties(dev, gpu, mllm, inputs, "both + fused head vs both",
+                        QQ.last_ids["both"], ids_q, True)
+    QQ.set_quant(mllm, None, tables)
+    eq_b = sum(np.array_equal(a, b)
+               for a, b in zip(QQ.last_ids["bf16"], ids_b))
+    eq_q = sum(np.array_equal(a, b)
+               for a, b in zip(QQ.last_ids["both"], ids_q))
+    print(f"bf16 fused head, greedy: rows equal id for id {eq_b}/{QQ_BATCH} "
+          f"(bf16) and {eq_q}/{QQ_BATCH} (both); ties {json.dumps(ties)}; "
+          f"gpu: {gpu}", flush=True)
+    int8_witness(gpu, mllm, inputs, tables, QQ.last_ids["bf16"],
+                 result["drift_int8_w"])
+    del mllm, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16 decode phase: {time.time() - t_phase:.1f}s in all; gpu: "
+          f"{gpu}", flush=True)
+    return rows, {"quality_quant bf16 (8 generations, 4 rollouts)": study,
+                  "bf16 fused head greedy (bf16; int8 w + KV)": fused}
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3860,6 +4323,9 @@ def main() -> int:
     eval_counts = eval_from_disk_phase(dev, gpu)
     p12_counts = bf16_remat_phase(dev, gpu)
     p13_counts = comparison_phase(dev, gpu)
+    p14_rows, p14_counts = bf16_decode_phase(dev, gpu)
+    for name, extra in p14_rows.items():
+        rows[name] += extra
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
@@ -3912,7 +4378,8 @@ def main() -> int:
         **{f"eval from disk, {mode} (K=10)": eval_counts[mode][name]
            for mode in ("fast", "parity")},
         **{run: c[name] for run, c in p12_counts.items()},
-        **{run: c[name] for run, c in p13_counts.items()}}
+        **{run: c[name] for run, c in p13_counts.items()},
+        **{run: c[name] for run, c in p14_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:
@@ -3927,6 +4394,31 @@ def main() -> int:
               f"{name} was not launched on any driven path")
     check(predict_counts["flash_attn_fwd"] > 0,
           "flash_attn_fwd was not launched on the predict path")
+    def bf16_forms(name):
+        """The bf16 forms' lines (phase 14): int8, the sum over a decode
+        step's seven projections and the LM head's; the head, each form on
+        random inputs; the int8-KV attention, the phase's cache."""
+        r = p14_rows.get(name, [])
+        if name == "int8_matmul":
+            # a decode step of the int8 arms: each projection shape as
+            # often as a layer has it, and the LM head once
+            times = [x["bf16_per_layer"] or int("lm_head" in x["shape"])
+                     for x in r]
+            groups = {"one decoder layer's 7 projections + LM head, M=16, "
+                      "bf16 x": [x for x, n in zip(r, times)
+                                 for _ in range(n)]}
+        elif name == "lmhead_topk":
+            groups = {x["shape"]: [x] for x in r if not x["exact"]}
+        else:
+            groups = {x["shape"]: [x] for x in r}
+        return {shape: {"ms": sum(x["ms"] for x in pick),
+                        "plain_ms": sum(x["plain_ms"] for x in pick),
+                        "bound_ms": sum(x["bound_ms"] for x in pick),
+                        "bound_by": max((x["bound_ms"], x["bound_by"])
+                                        for x in pick)[1],
+                        "library_ms": sum(x["library_ms"] for x in pick)}
+                for shape, pick in groups.items()}
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {
@@ -3937,6 +4429,8 @@ def main() -> int:
             **head(name), "gpu": gpu}
         if name in grad_errs:
             entry["grad_max_abs_err"] = grad_errs[name]
+        if name in p14_rows:
+            entry["bf16_forms"] = bf16_forms(name)
         kernels.append(entry)
     print(f"chip_smoke: {time.time() - t_start:.1f}s in all, the build "
           f"included; gpu: {gpu}", flush=True)

@@ -34,6 +34,8 @@ form's):
 
 The variants named ``*only`` and ``no_*`` do not compute the function and
 are not checked; every other variant is held to the plain version (TOL).
+The edits reach every instantiation of a form's kernel (the tied form's
+bf16 twin, the int8 form's bf16-h twin); the runs time the fp32 forms.
 It needs a CUDA device and nvcc, and prints the card beside every time.
 """
 from __future__ import annotations
@@ -48,10 +50,13 @@ import chip_smoke as cs
 
 _NEXT = {"int8": "\n\n// ---- the fp32 tied form",
          "f32": "\n\n__global__ void __launch_bounds__(kMergeThreads)"}
-_MERGE = ("  head_merge<<<B, kMergeThreads, kMergeSegs * kSeg * sizeof(u64), "
-          "stream>>>(\n      c, vals, idx, n_tiles);\n")
-_COMPUTE = {"int8": "      cp_commit();\n      const unsigned char* ws =",
-            "f32": "      cp_commit();\n      const float* ws ="}
+_MERGE = ("  head_merge<<<B, kMergeThreads, kMergeSmem, stream>>>(cand, vals, "
+          "idx,\n                                                       "
+          "n_tiles);\n")
+_COMPUTE = {"int8": ("      cp_commit();\n      const unsigned char* ws = "
+                     "smem_raw + (st % kStages)"),
+            "f32": ("      cp_commit();\n      const unsigned char* ws =\n"
+                    "          smem_raw + (st % kF32Stages)")}
 _CP16 = ('  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" '
          '::"r"(s),\n               "l"(src), "r"(bytes));')
 _NO_CP16 = "  (void)s; (void)src; (void)bytes;"
@@ -140,12 +145,12 @@ def build(sources: dict, out_dir: Path) -> dict:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = build_variants(sources, out_dir, {
         "lmhead_topk_plan": [i32, i32],
-        "lmhead_topk": [ptr] * 5 + [ctypes.c_float] + [ptr] * 3 + [i32] * 3
+        "lmhead_topk": [ptr] * 5 + [ctypes.c_float] + [ptr] * 3 + [i32] * 4
         + [ptr]})
     for name, (_, report) in libs.items():
         lines = report.splitlines()
         for i, line in enumerate(lines):
-            for kernel in ("head_tile_topk_i8", "head_tile_topk_f32"):
+            for kernel in ("head_tile_topk_i8", "head_tile_topk_tied"):
                 if "entry function" in line and kernel in line:
                     print(f"ptxas {name} {kernel}: " + " ".join(
                         x.split("info    :")[-1].strip()

@@ -9,8 +9,9 @@ writes the artifact and the generation dump; ``serve`` writes the JSONL
 records of ``tests/test_serve_cli.py`` and its HTTP API, started in a
 thread on port 0, answers ``/healthz``, ``/predict`` (equal to
 ``Predictor.predict``), ``/generate`` through both batchers, reports a
-dropped track and gives 404 on an unknown path.  Flags whose work is not
-ported yet raise before any work."""
+dropped track and gives 404 on an unknown path; ``params``,
+``roi_map``, ``plot`` and ``quality_quant`` run and print their JSON
+line.  Flags whose work is not ported yet raise before any work."""
 import argparse
 import dataclasses
 import importlib.util
@@ -266,7 +267,8 @@ def test_module_dispatches_to_the_commands(capsys):
     from tsue_tpu_torch.cli import COMMANDS
     from tsue_tpu_torch.cli.__main__ import main
     assert COMMANDS == ("train", "stage1", "test", "serve", "baseline",
-                        "diffusion")
+                        "diffusion", "quality_quant", "params", "roi_map",
+                        "plot")
     with pytest.raises(SystemExit, match="usage"):
         main(["predict"])
     with pytest.raises(SystemExit, match="usage"):
@@ -277,3 +279,52 @@ def test_module_dispatches_to_the_commands(capsys):
                                    "--serve-batch-size", "2"])["results"] > 0
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["mode"] == \
         "predict"
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.splitlines()[-1])
+
+
+def test_params_counts(capsys):
+    """``params --tiny``: the total and trainable counts of each regime,
+    the trainable ones below the total except in ``joint``, and the
+    JSON line."""
+    from tsue_tpu_torch.cli import params
+    out = {r: params.main(["--tiny", "--regime", r]) for r in params.REGIMES}
+    assert _last_json(capsys) == out["full_freeze"]
+    assert len({o["total"] for o in out.values()}) == 1
+    assert out["joint"]["trainable"] == out["joint"]["total"]
+    assert out["frozen_mllm"]["trainable"] < out["lora_only"]["trainable"] \
+        < out["joint"]["trainable"]
+    no_llm = params.main(["--tiny", "--no-llm"])
+    assert no_llm["total"] < out["joint"]["total"]
+
+
+def test_roi_map_writes_the_map(tmp_path, capsys):
+    from tsue_tpu_torch.cli import roi_map
+    out = roi_map.main(["--out-dir", str(tmp_path), "--roi", "synthetic"])
+    assert os.path.getsize(out["map"]) > 0 and _last_json(capsys) == out
+    vendored = roi_map.main(["--out-dir", str(tmp_path), "--out", "c.png"])
+    assert vendored["map"].endswith("c.png") and os.path.exists(
+        vendored["map"])
+
+
+def test_plot_walks_the_test_split(tmp_path, capsys):
+    """``plot --tiny --synthetic-tracks 4``: the test split's windows
+    through the deterministic forward of random weights, over the
+    vendored map."""
+    from tsue_tpu_torch.cli import plot
+    out = plot.main(CPU + ["--synthetic-tracks", "4", "--max-samples", "5",
+                           "--out-dir", str(tmp_path)])
+    assert out["samples"] == 5 and os.path.getsize(out["figure"]) > 0
+    assert _last_json(capsys) == out
+
+
+def test_quality_quant_command(capsys):
+    """``quality_quant --device cpu --tiny`` at a tiny batch: the JAX
+    script's nine keys on one JSON line."""
+    from tsue_tpu_torch.cli.__main__ import main
+    out = main(["quality_quant", "--device", "cpu", "--tiny", "--bs", "2",
+                "--prompt-len", "6", "--max-new", "3"])
+    assert len(out) == 9 and _last_json(capsys) == out
+    assert 0.0 <= out["drift_both"]["top1_agree"] <= 1.0

@@ -1361,3 +1361,170 @@ def test_lora_matmul_above_rank_16(dev, dtype):
             ((129, 256, 132), (200, 37, 300), (8448, 2048, 512)),
             (17, 24, 64)):
         assert _lora_case(dev, g, M, K, N, r, dtype) == "simt"
+
+
+# --------------------------------------------------------------------------
+# bf16 forms of the three decode kernels (a bf16 model's quantised decode)
+# and the implementation switches' plain routes
+# --------------------------------------------------------------------------
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(
+        1e-30))) - 7)
+
+
+def _assert_bf16_ulp(out, ref, ulps, what):
+    """bf16 ``out`` within ``ulps`` ulps of bf16 ``ref``, element by
+    element (the two sum in different orders, then round once), or 1e-6
+    of the largest where an output cancels towards 0."""
+    assert out.dtype == ref.dtype == BF, what
+    d = (out.float() - ref.float()).abs()
+    bad = d > ulps * _bf16_ulp(ref) + 1e-6 * ref.float().abs().max()
+    assert not bad.any(), (what, float(d.max()), int(bad.sum()))
+
+
+@pytest.mark.parametrize("M", [1, 16, 128, 300])
+def test_int8_matmul_bf16_matches_plain(dev, M):
+    """bf16 x (the one-term form) at the decode projections, the LM head
+    with an fp32 output, ragged K and N (N = 132 and 516: the 4-byte copy
+    path; K = 100: not a multiple of 8, x staged by plain loads), and M
+    across one launch's 128 rows and above (300: three consecutive
+    launches): bf16 outputs within one bf16 ulp of the plain version,
+    fp32 outputs within 1e-5 of the largest, a repeated call
+    bit-identical, one launch per 128 rows."""
+    g = torch.Generator(device=dev).manual_seed(43 + M)
+    for K, N, out_dtype in ((2048, 2048, BF), (2048, 512, BF),
+                            (8192, 2048, BF), (2048, 8192, BF),
+                            (2048, 128256, torch.float32), (300, 132, BF),
+                            (100, 516, BF), (576, 2048, torch.float32)):
+        x = torch.randn(M, K, generator=g, device=dev).to(BF)
+        w8, s = Q.quantize_weight(torch.randn(K, N, generator=g, device=dev))
+        before = Q.int8_matmul.launches
+        out = Q.int8_matmul(x, w8, s, out_dtype=out_dtype)
+        assert Q.int8_matmul.launches == before + -(-M // Q.MAX_ROWS)
+        again = Q.int8_matmul(x, w8, s, out_dtype=out_dtype)
+        ref = Q.int8_matmul_ref(x, w8, s, out_dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == out_dtype and torch.equal(out, again), (K, N)
+        if out_dtype == BF:
+            _assert_bf16_ulp(out, ref, 1, (M, K, N))
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5,
+                                       atol=1e-5 * float(ref.abs().max()))
+
+
+def test_int8_matmul_bf16_forms_and_plain_scope(dev):
+    """fp32 x takes no bf16 output (TypeError); under plain_int8() a CUDA
+    tensor launches nothing and gets the plain version's bits; the
+    bf16 form's rows do not depend on the other rows of the call."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    x = torch.randn(16, 2048, generator=g, device=dev).to(BF)
+    w8, s = Q.quantize_weight(torch.randn(2048, 2048, generator=g,
+                                          device=dev))
+    with pytest.raises(TypeError):
+        Q.int8_matmul(x.float(), w8, s, out_dtype=BF)
+    before = Q.int8_matmul.launches
+    with Q.plain_int8():
+        plain = Q.int8_matmul(x, w8, s)
+    assert Q.int8_matmul.launches == before
+    assert torch.equal(plain, Q.int8_matmul_ref(x, w8, s))
+    full = Q.int8_matmul(x, w8, s)
+    for b in (0, 9, 15):
+        assert torch.equal(full[b:b + 1], Q.int8_matmul(x[b:b + 1], w8, s))
+
+
+@pytest.mark.parametrize("D", KV.SUPPORTED_HEAD_DIMS)
+def test_attend_int8_kv_bf16_matches_plain(dev, D):
+    """bf16 q (widened as it is loaded, the output rounded once): GQA
+    groups 1, 4 and 8, S giving one key split and several (37 and 200 are
+    not multiples of a split), a fully masked row (the uniform mean over
+    all S), a row whose only valid keys sit in the last split, a key mask
+    and per-query masks of W = 4 and 8 (also as (B, 1, W, S)): within one
+    bf16 ulp of the plain version, one launch each, a repeat
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(53 + D)
+    for G, S in itertools.product((1, 4, 8), (1, 37, 200, 592)):
+        B, Hkv = 3, 2
+        Hq = G * Hkv
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(BF)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(BF)
+        cache = KV.quantize_cache([(k, v)])[0]
+        slots = torch.arange(S, device=dev)[None]
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        key = (slots < lens[:, None]).int()
+        key[1] = 0
+        key[2] = (slots[0] >= S - 3).int()
+        masks = [(1, key), (1, None)]
+        for W in (4, 8):
+            upper = torch.randint(0, S, (B, W, 1), generator=g, device=dev)
+            pq = (slots[None] <= upper).int()
+            pq[0, 1] = 0
+            masks += [(W, pq), (W, pq[:, None])]
+        for W, mask in masks:
+            q = torch.randn(B, W, Hq, D, generator=g, device=dev).to(BF)
+            before = KV.attend_int8_kv.launches
+            out = KV.attend_int8_kv(q, cache, mask)
+            again = KV.attend_int8_kv(q, cache, mask)
+            assert KV.attend_int8_kv.launches == before + 2
+            ref = KV.attend_int8_kv_plain(q, cache, mask)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again)
+            _assert_bf16_ulp(out, ref, 1, (G, S, W, None if mask is None
+                                           else tuple(mask.shape)))
+
+
+@pytest.mark.parametrize("layout", ["tied_bf16", "int8"])
+def test_lmhead_topk_bf16_exact_ties_across_tiles(dev, layout):
+    """bf16 h (and the tied bf16 weight): integer inputs, exact in bf16,
+    with runs of one logit across the tile and warp borders (ties), a
+    ragged last tile, an all-banned row, penalised rows, batches of 1, 16
+    and 17 rows, V = 128256 and D a multiple of the stage depth and D =
+    104 (a multiple of 8, not of the depth): indices and values identical
+    to a stable descending sort of the processed logits, a repeated call
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    plan = LT.lmhead_topk_plan(layout)
+    assert 104 % plan["k_rows_per_stage"], plan
+    for D, (B, V) in itertools.chain(
+            itertools.product([4 * plan["k_rows_per_stage"]],
+                              ((1, 1024), (16, 3000), (17, 2176),
+                               (16, 128256))),
+            itertools.product([104], ((16, 3000), (17, 128256)))):
+        h, w, quant = _exact_head(dev, g, B, D, V,
+                                  "int8" if layout == "int8" else "tied")
+        _tie_runs(w, quant, V, plan["warp_cols"])
+        h = h.to(BF)
+        w = None if w is None else w.to(BF)
+        mask = torch.randint(0, 4, (B, V), generator=g, device=dev).int()
+        mask[0] = 2
+        for m, pen in ((None, 1.0), (mask, 2.0)):
+            before = LT.lmhead_topk.launches
+            vals, idx = LT.lmhead_topk(h, w, m, penalty=pen, quant=quant)
+            again = LT.lmhead_topk(h, w, m, penalty=pen, quant=quant)
+            assert LT.lmhead_topk.launches == before + 2
+            rv, ri = LT.lmhead_topk_plain(h, w, m, penalty=pen, quant=quant)
+            torch.cuda.synchronize()
+            assert torch.equal(idx, ri), (layout, D, B, V, pen)
+            assert torch.equal(vals, rv), (layout, D, B, V, pen)
+            assert torch.equal(again[0], vals) and torch.equal(again[1], idx)
+
+
+def test_lmhead_topk_bf16_random_close(dev):
+    """Random bf16 inputs at the decode shape (B 16, D 2048, V 128256),
+    both bf16 forms: values within 1e-4 of the plain version (fp32 sums of
+    exact products in two orders), nearly all indices equal; a tied fp32
+    weight with bf16 h is refused on the card."""
+    g = torch.Generator(device=dev).manual_seed(67)
+    B, D, V = 16, 2048, 128256
+    h = torch.randn(B, D, generator=g, device=dev).to(BF)
+    w = (torch.randn(V, D, generator=g, device=dev) * 0.05).to(BF)
+    w8, s = Q.quantize_weight(w, axis=1)
+    for weight, quant in ((w, None), (None, (w8.t().contiguous(), s))):
+        vals, idx = LT.lmhead_topk(h, weight, None, quant=quant)
+        rv, ri = LT.lmhead_topk_plain(h, weight, None, quant=quant)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vals, rv, **TOL)
+        assert (idx == ri).float().mean() > 0.99
+    with pytest.raises(TypeError):
+        LT.lmhead_topk(h, w.float(), None)

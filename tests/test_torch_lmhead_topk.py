@@ -189,9 +189,10 @@ def test_topk_topp_slots_and_greedy_chain_equal():
 
 
 def test_plan_rejects_an_unknown_layout():
-    """The kernel's plan names its two forms and checks the name before it
-    builds anything, so a wrong layout fails the same way with or without
-    a card."""
-    assert TL.LAYOUTS == ("int8", "tied_fp32")
+    """The kernel's plan names its three layouts (the int8 head with fp32
+    or bf16 h, the tied fp32 and the tied bf16 head) and checks the name
+    before it builds anything, so a wrong layout fails the same way with or
+    without a card."""
+    assert TL.LAYOUTS == ("int8", "tied_fp32", "tied_bf16")
     with pytest.raises(ValueError, match="layout"):
         TL.lmhead_topk_plan("bf16")

@@ -54,7 +54,11 @@ PORT_MODULES = (
     "tsue_tpu_torch.models.baselines.mmtrans",
     "tsue_tpu_torch.models.baselines.gail",
     "tsue_tpu_torch.models.diffusion",
-    "tsue_tpu_torch.train.baseline_steps", "chip_smoke", "flash_variants",
+    "tsue_tpu_torch.train.baseline_steps",
+    "tsue_tpu_torch.models.llama_loader", "tsue_tpu_torch.utils.debug",
+    "tsue_tpu_torch.utils.checks", "tsue_tpu_torch.cli.quality_quant",
+    "tsue_tpu_torch.cli.params", "tsue_tpu_torch.cli.roi_map",
+    "tsue_tpu_torch.cli.plot", "chip_smoke", "flash_variants",
     "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 
@@ -62,11 +66,13 @@ def test_port_imports_no_jax():
     """The port, chip_smoke.py and the kernels' variant scripts
     (flash_variants.py, head_variants.py, lora_variants.py,
     swiglu_variants.py, nlinear_variants.py) import neither JAX nor any module of the JAX
-    package (``tsue_tpu``, ``tsue_tpu.*``)."""
+    package (``tsue_tpu``, ``tsue_tpu.*``), nor ``safetensors`` or
+    ``transformers`` (the HF loader reads checkpoints without them)."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'tsue_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'tsue_tpu', 'safetensors', "
+            "'transformers')]\n"
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

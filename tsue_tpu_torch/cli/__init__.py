@@ -15,8 +15,16 @@ prints its result as one JSON line:
 - ``baseline``: one of the seven comparison baselines trained and scored
   (``scripts/baseline_*.py``, ``scripts/test_baseline_*.py``);
 - ``diffusion``: the DDPM trajectory generator, or the eval of a stage-2
-  checkpoint (``scripts/capstone.py``).
+  checkpoint (``scripts/capstone.py``);
+- ``quality_quant``: the quantised decode's quality against the bf16
+  baseline at Llama-3.2-1B's widths (``scripts/quality_quant.py``);
+- ``params``: parameter counts per freeze regime (``scripts/check.py``);
+- ``roi_map``: the lane-ROI polygon map (``scripts/graph.py``);
+- ``plot``: test-split predictions over the lane map, and the map
+  (``scripts/plot.py``).
 
-Every command runs on the CUDA device unless given ``--device cpu``.
+Every command that runs a model runs it on the CUDA device unless given
+``--device cpu``.
 """
-COMMANDS = ("train", "stage1", "test", "serve", "baseline", "diffusion")
+COMMANDS = ("train", "stage1", "test", "serve", "baseline", "diffusion",
+            "quality_quant", "params", "roi_map", "plot")

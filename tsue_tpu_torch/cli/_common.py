@@ -4,9 +4,12 @@
 ``base_parser`` takes the JAX scripts' flags, with ``--device {cuda,cpu}``
 (the CUDA device by default) in place of ``--platform``; there is no
 ``--rng-impl``, which names JAX PRNG implementations.  ``apply_overrides``
-maps the flags onto a preset as the JAX scripts do.  A flag whose work is
-not ported yet is taken by the parser and raises ``NotImplementedError``,
-naming its ROADMAP item, before any work (``refuse_not_ported``).
+maps the flags onto a preset as the JAX scripts do.  ``add_roi_args`` and
+``resolve_roi`` are the lane-ROI flags of the map commands, and
+``build_mllm_bf16`` the bf16 decode substrate of ``quality_quant``. A flag
+whose work is not ported yet is taken by the parser and raises
+``NotImplementedError``, naming its ROADMAP item, before any work
+(``refuse_not_ported``).
 """
 from __future__ import annotations
 
@@ -70,6 +73,77 @@ def parse_length_buckets(spec: str):
     if any(b <= 0 for b in buckets):
         raise SystemExit("--length-buckets: buckets must be positive")
     return buckets
+
+
+def add_roi_args(p: argparse.ArgumentParser) -> None:
+    """--roi/--site/--zone for the lane-ROI map commands (roi_map, plot)."""
+    p.add_argument("--roi", default=None,
+                   help="lane-ROI table: reference graph.py-format .py, "
+                        ".json, or .pkl; the literal 'synthetic' selects "
+                        "the parametric stand-in (default: --data's table, "
+                        "else the vendored Site-C reference table)")
+    p.add_argument("--site", default=None,
+                   help="site key in the ROI table (default: auto when the "
+                        "table has exactly one site, else an error listing "
+                        "the available keys)")
+    p.add_argument("--zone", default=None, help="zone key (same defaulting)")
+
+
+def resolve_roi(args):
+    """The lane ROI, by precedence: --roi table > --data pickle > the
+    vendored Site-C reference table; ``--roi synthetic`` is the parametric
+    stand-in."""
+    from tsue_tpu_torch.data.schema import (load_lane_roi, load_tracks,
+                                            load_vendored_lane_roi,
+                                            make_synthetic_lane_roi)
+    if args.roi == "synthetic":
+        return make_synthetic_lane_roi()
+    if args.roi:
+        return load_lane_roi(args.roi)
+    if args.data:
+        return load_tracks(args.data)[0]["lane_roi"]
+    return load_vendored_lane_roi()
+
+
+def build_mllm_bf16(batch_size: int = 16, prompt_len: int = 144,
+                    vocab: int = 128256, device="cuda", llama=None,
+                    qformer=None, hf_state=None, seed: int = 0):
+    """A MultiModalLLM with every parameter bf16, and synthetic inputs: the
+    decode substrate of ``quality_quant`` (``scripts/_common.py:190-214``).
+    ``llama``/``qformer`` default to Llama-3.2-1B at ``vocab`` and the
+    default Q-Former.  The weights are drawn by ``models.tsue.init_params``
+    from ``torch.Generator(device).manual_seed(seed)`` (the Flax
+    initialisers' distributions); ``hf_state``, an HF-named Llama state
+    dict, then replaces the Llama's base weights through
+    ``models.llama_loader.load_hf_llama``.  The inputs come from
+    ``numpy.random.default_rng(0)``, as the JAX copy draws them: vision
+    (B, 18, vision_dim) fp32, ids (B, P) int32 in [3, min(vocab, 50000)),
+    an all-ones mask.  Returns (mllm, (vision, ids, mask)) on ``device``,
+    the model in eval mode."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.utils.precision import cast_params
+    llama = llama or LlamaConfig(vocab_size=vocab)
+    qformer = qformer or QFormerConfig()
+    dev = torch.device(device)
+    with torch.device(dev):
+        mllm = MultiModalLLM(llama, qformer, dtype=torch.bfloat16)
+    init_params(mllm, torch.Generator(device=dev).manual_seed(seed))
+    cast_params(mllm, torch.bfloat16)
+    if hf_state is not None:
+        from tsue_tpu_torch.models.llama_loader import load_hf_llama
+        load_hf_llama(mllm.llama, hf_state)
+    rng = np.random.default_rng(0)
+    vision = torch.from_numpy(rng.standard_normal(
+        (batch_size, 18, qformer.vision_dim)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(
+        3, min(llama.vocab_size, 50000),
+        (batch_size, prompt_len)).astype(np.int32)).to(dev)
+    mask = torch.ones(batch_size, prompt_len, dtype=torch.int32, device=dev)
+    return mllm.eval(), (vision, ids, mask)
 
 
 def apply_overrides(cfg, args):

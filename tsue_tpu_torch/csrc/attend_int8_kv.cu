@@ -64,13 +64,26 @@
 // shared memory follows the slice (attend_int8_kv_plan): 30.9 KB at S =
 // 592, D = 64, G = 4.
 //
+// The bf16 form (a bf16 model's decode: the Pallas kernel widens a bf16 q to
+// fp32 and writes out in q's dtype, tsue_tpu/ops/kv_quant.py:147-175): q is
+// bf16, loaded and widened to fp32 into the same shared-memory slot, every
+// step after the load is the fp32 kernel's, and the output is rounded once
+// to bf16 as it is stored.  The masks, the plan and the launch are the fp32
+// form's; ptxas gives the bf16 instantiations the fp32 ones' registers (55-56
+// at D <= 64, 64 at D = 128), no spills.  On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 14, L2 flushed): 0.020 ms at B = 16, S = 224, 32/8
+// heads of 64, within one bf16 ulp of the plain version.
+//
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/kv_quant.py):
 // attend_int8_kv_plan(...) reports the launch plan (-1 for a shape the kernel
 // does not take), attend_int8_kv(...) returns cudaGetLastError() after the
 // one launch.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -140,15 +153,20 @@ __device__ __forceinline__ void unpack4(int v, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
-template <int D>
+typedef __nv_bfloat16 bf16;
+
+// QT: q's and out's type, fp32 or bf16.
+template <int D, typename QT>
 __global__ void __launch_bounds__(kThreads)
-attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
+attend_int8_kernel(const QT* __restrict__ q, const int8_t* __restrict__ k8,
                    const float* __restrict__ ks,
                    const int8_t* __restrict__ v8,
                    const float* __restrict__ vs,
-                   const int32_t* __restrict__ mask, float* __restrict__ out,
+                   const int32_t* __restrict__ mask, QT* __restrict__ out,
                    int Tq, int S, int Hq, int Hkv, int per, int mq,
                    float scale) {
+  static_assert(std::is_same_v<QT, float> || std::is_same_v<QT, bf16>,
+                "q is fp32 or bf16");
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -173,7 +191,9 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
   constexpr int CH = D / 16;              // 16-byte chunks of a cache row
 
   // every copy of the slice in flight at once
-  for (int i = tid; i < G * D; i += kThreads) cp4(q_s + i, q + q_off + i);
+  if constexpr (std::is_same_v<QT, float>) {
+    for (int i = tid; i < G * D; i += kThreads) cp4(q_s + i, q + q_off + i);
+  }
   for (int i = tid; i < n * CH; i += kThreads) {
     const int key = i / CH, c = (i % CH) * 16;
     const size_t row = ((size_t)b * S + s0 + key) * Hkv + h;
@@ -190,6 +210,10 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
       valid[i] = 1;
   }
   asm volatile("cp.async.commit_group;\n" ::);
+  if constexpr (std::is_same_v<QT, bf16>) {   // loaded and widened, exactly
+    for (int i = tid; i < G * D; i += kThreads)
+      q_s[i] = __bfloat162float(q[q_off + i]);
+  }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
@@ -331,21 +355,25 @@ attend_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
       l = fmaf(lr[r], w, l);
       o = fmaf(ar[r], w, o);
     }
-    out[q_off + e] = o / fmaxf(l, 1e-30f);
+    const float r = o / fmaxf(l, 1e-30f);
+    if constexpr (std::is_same_v<QT, float>)
+      out[q_off + e] = r;
+    else
+      out[q_off + e] = __float2bfloat16_rn(r);
   }
   cluster.sync();   // no rank leaves while another reads its partials
 }
 
-template <int D>
-int launch(const float* q, const int8_t* k8, const float* ks,
+template <int D, typename QT>
+int launch(const void* q, const int8_t* k8, const float* ks,
            const int8_t* v8, const float* vs, const int32_t* mask,
-           float* out, int B, int Tq, int S, int Hq, int Hkv, int mq,
+           void* out, int B, int Tq, int S, int Hq, int Hkv, int mq,
            float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attend_int8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        attend_int8_kernel<D, QT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -364,10 +392,24 @@ int launch(const float* q, const int8_t* k8, const float* ks,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, attend_int8_kernel<D>, q, k8, ks, v8, vs, mask, out, Tq, S, Hq,
-      Hkv, p.per, mq, scale);
+      &cfg, attend_int8_kernel<D, QT>, static_cast<const QT*>(q), k8, ks,
+      v8, vs, mask, static_cast<QT*>(out), Tq, S, Hq, Hkv, p.per, mq, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT>
+int launch_d(const void* q, const int8_t* k8, const float* ks,
+             const int8_t* v8, const float* vs, const int32_t* mask,
+             void* out, int B, int Tq, int S, int Hq, int Hkv, int D, int mq,
+             float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<16, QT>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 32: return launch<32, QT>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 64: return launch<64, QT>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    case 128: return launch<128, QT>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -392,21 +434,18 @@ int attend_int8_kv_plan(int S, int G, int D, int field) {
 }
 
 // Returns a cudaError_t (0 on success), or -1 for a shape it does not take.
-// Needs D in {16, 32, 64, 128}, Hkv dividing Hq with Hq / Hkv <= 8, B * Tq
-// <= 65535, 16-byte aligned k8 and v8, and mq (the mask's query stride) 0
-// or S.
-int attend_int8_kv(const float* q, const int8_t* k8, const float* ks,
+// q and out are fp32 (q_bf16 = 0) or bf16 (q_bf16 = 1).  Needs D in {16,
+// 32, 64, 128}, Hkv dividing Hq with Hq / Hkv <= 8, B * Tq <= 65535,
+// 16-byte aligned k8 and v8, and mq (the mask's query stride) 0 or S.
+int attend_int8_kv(const void* q, const int8_t* k8, const float* ks,
                    const int8_t* v8, const float* vs, const int32_t* mask,
-                   float* out, int B, int Tq, int S, int Hq, int Hkv, int D,
-                   int mq, float scale, cudaStream_t stream) {
+                   void* out, int B, int Tq, int S, int Hq, int Hkv, int D,
+                   int mq, float scale, int q_bf16, cudaStream_t stream) {
   if (mq != 0 && mq != S) return -1;
-  switch (D) {
-    case 16: return launch<16>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
-    case 32: return launch<32>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
-    case 64: return launch<64>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
-    case 128: return launch<128>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq, Hkv, mq, scale, stream);
-    default: return -1;
-  }
+  return q_bf16 ? launch_d<bf16>(q, k8, ks, v8, vs, mask, out, B, Tq, S, Hq,
+                                 Hkv, D, mq, scale, stream)
+                : launch_d<float>(q, k8, ks, v8, vs, mask, out, B, Tq, S,
+                                  Hq, Hkv, D, mq, scale, stream);
 }
 
 }  // extern "C"

@@ -56,16 +56,34 @@
 // their fixed costs.
 //
 // ptxas (nvcc -Xptxas -v, sm_90a), with the dynamic shared memory a launch
-// asks for:
-//   int8_matmul_kernel<8>  243 registers, no spills, 103.0 KB (2 CTAs an SM)
-//   int8_matmul_kernel<4>  219 registers, no spills,  62.5 KB
+// asks for (the bf16 forms: either output type):
+//   int8_matmul_kernel<8, float>  243 registers, no spills, 103.0 KB (2 CTAs
+//                                 an SM)
+//   int8_matmul_kernel<4, float>  219 registers, no spills,  62.5 KB
+//   int8_matmul_kernel<8, bf16>   212 registers, no spills, 103.0 KB
+//   int8_matmul_kernel<4, bf16>   146 registers, no spills,  62.5 KB
+//
+// The bf16 form (a bf16 model's decode: tsue_tpu/ops/quant.py:97-101 with
+// x_ref bf16).  x is bf16; every product of an x value and an int8 weight is
+// exact in fp32, so x is the one-term case of the split above: the same
+// ring, fragments and tensor-core products with one term, x staged in shared
+// memory as it lies (bf16), the sums fp32, the scale applied to the finished
+// dot product and the result rounded once to the output type, bf16 (a
+// projection) or fp32 (the LM head).  The plan is the fp32 form's: the same
+// shared memory a CTA, so the same clusters fit.  On an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 14, L2 flushed, M = 16): one layer's seven
+// products 0.113 ms (bytes bound 0.019), the LM head with an fp32 output
+// 0.130 ms (bound 0.081); within one bf16 ulp of the plain version.
 //
 // C interface (loaded with ctypes by tsue_tpu_torch/ops/quant.py):
 // int8_matmul_plan(M, K, N, field) reports the launch plan, and
 // int8_matmul(...) returns cudaGetLastError() after the one launch.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -90,7 +108,18 @@ struct Tile {
   static constexpr int RS = CT + 4;                // floats per reduced row
   static constexpr int SMEM = RING + (kRows + 1) * CT * 4;   // + tile, scale
   static_assert(kWarps * kRows * RS * 4 <= RING, "reduction fits the ring");
+  // the bf16 form stages x rows of kXS bf16 in the fp32 form's x space:
+  // 16-byte aligned rows for its 16-byte copies, 4-byte aligned fragments
+  static_assert((kXS * 2) % 16 == 0 && kKC % 8 == 0, "bf16 x rows tile");
+  static_assert(W_BYTES % 16 == 0 && STAGE % 16 == 0, "aligned x space");
 };
+
+// An fp32 value in out's type: itself, or rounded to bf16 (to nearest even).
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -143,25 +172,28 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
 }
 
 // Column tile J of a 32-column group: B fragment of column 4g + J from the
-// four biased rows, then the three terms' products, smallest first.
-template <int J>
+// four biased rows, then the TERMS terms' products, smallest first.
+template <int J, int TERMS>
 __device__ __forceinline__ void tile(float* c, const uint32_t (&a)[3][4],
                                      const uint32_t (&r)[4]) {
   const uint32_t b0 = __byte_perm(byte_f32<J>(r[0]), byte_f32<J>(r[1]),
                                   0x7632);
   const uint32_t b1 = __byte_perm(byte_f32<J>(r[2]), byte_f32<J>(r[3]),
                                   0x7632);
-  mma(c, a[2], b0, b1);
-  mma(c, a[1], b0, b1);
-  mma(c, a[0], b0, b1);
+#pragma unroll
+  for (int t = TERMS - 1; t >= 0; --t) mma(c, a[t], b0, b1);
 }
 
-template <int NG>
+// XT: x's type (fp32: three bf16 terms; bf16: one), OT: out's type.
+template <int NG, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads, 2)
-int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
-                   const float* __restrict__ scale, float* __restrict__ out,
+int8_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w8,
+                   const float* __restrict__ scale, OT* __restrict__ out,
                    int M, int K, int N, int k_per_rank) {
   using T = Tile<NG>;
+  constexpr bool XB = std::is_same_v<XT, __nv_bfloat16>;
+  constexpr int TERMS = XB ? 1 : 3;
+  constexpr int XV = 16 / sizeof(XT);   // x elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -173,11 +205,11 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
   const bool w16 = N % 16 == 0;
-  const bool x16 = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x16 = K % XV == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   auto load_stage = [&](int st) {
     unsigned char* ws = smem + (st % kStages) * T::STAGE;
-    float* xs = reinterpret_cast<float*>(ws + T::W_BYTES);
+    XT* xs = reinterpret_cast<XT*>(ws + T::W_BYTES);
     const int k0 = k_begin + st * kKC;
     if (w16) {
       constexpr int CPR = T::CT / 16;   // 16-byte chunks per K row
@@ -197,12 +229,21 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
       }
     }
     if (x16) {
-      for (int i = tid; i < kRows * kKC / 4; i += kThreads) {
-        const int r = i / (kKC / 4), c = (i % (kKC / 4)) * 4;
+      for (int i = tid; i < kRows * kKC / XV; i += kThreads) {
+        const int r = i / (kKC / XV), c = (i % (kKC / XV)) * XV;
         const int k = k0 + c;
-        const int bytes = m0 + r < M ? 4 * max(0, min(4, k_end - k)) : 0;
+        const int bytes = m0 + r < M ? (int)sizeof(XT) *
+                                           max(0, min(XV, k_end - k))
+                                     : 0;
         cp16(xs + r * kXS + c, bytes ? x + (size_t)(m0 + r) * K + k : x,
              bytes);
+      }
+    } else if constexpr (XB) {   // no 2-byte cp.async: plain loads
+      for (int i = tid; i < kRows * kKC; i += kThreads) {
+        const int r = i / kKC, c = i % kKC;
+        const bool ok = m0 + r < M && k0 + c < k_end;
+        xs[r * kXS + c] = ok ? x[(size_t)(m0 + r) * K + k0 + c]
+                             : __float2bfloat16_rn(0.f);
       }
     } else {
       for (int i = tid; i < kRows * kKC; i += kThreads) {
@@ -242,11 +283,19 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
     if (st + kStages - 1 < nst) load_stage(st + kStages - 1);
     cp_commit();
     const unsigned char* ws = smem + (st % kStages) * T::STAGE;
-    const float* xs = reinterpret_cast<const float*>(ws + T::W_BYTES);
-    // this warp's 16 K rows: x fragments, three terms
+    // this warp's 16 K rows: x fragments, TERMS terms
     const int kw = warp * 16;
     uint32_t a[3][4];
-    {
+    if constexpr (XB) {   // bf16 pairs as they lie
+      const XT* xs = reinterpret_cast<const XT*>(ws + T::W_BYTES);
+      const XT* x0 = xs + g * kXS + kw + 2 * q;
+      const XT* x1 = x0 + 8 * kXS;
+      a[0][0] = *reinterpret_cast<const uint32_t*>(x0);
+      a[0][1] = *reinterpret_cast<const uint32_t*>(x1);
+      a[0][2] = *reinterpret_cast<const uint32_t*>(x0 + 8);
+      a[0][3] = *reinterpret_cast<const uint32_t*>(x1 + 8);
+    } else {
+      const float* xs = reinterpret_cast<const float*>(ws + T::W_BYTES);
       const float* x0 = xs + g * kXS + kw + 2 * q;
       const float* x1 = x0 + 8 * kXS;
       const float2 v0 = *reinterpret_cast<const float2*>(x0);
@@ -269,10 +318,10 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
              0x80808080u;
       r[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * T::WS + 32 * i) ^
              0x80808080u;
-      tile<0>(acc[i][0], a, r);
-      tile<1>(acc[i][1], a, r);
-      tile<2>(acc[i][2], a, r);
-      tile<3>(acc[i][3], a, r);
+      tile<0, TERMS>(acc[i][0], a, r);
+      tile<1, TERMS>(acc[i][1], a, r);
+      tile<2, TERMS>(acc[i][2], a, r);
+      tile<3, TERMS>(acc[i][3], a, r);
     }
   }
   cp_wait<0>();
@@ -318,20 +367,38 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < C) s += v[r];
-    if (n < N) out[(size_t)(m0 + e / T::CT) * N + n] = s * sc[e % T::CT];
+    if (n < N)
+      out[(size_t)(m0 + e / T::CT) * N + n] =
+          from_f32<OT>(s * sc[e % T::CT]);
   }
   cluster.sync();   // no rank leaves while another reads its tile
 }
 
-// The kernels, by 32-column groups a CTA.
+// The kernels, by 32-column groups a CTA.  The plan is made for the fp32
+// form; the other forms ask for the same shared memory.
 constexpr int kGroups[] = {8, 4};
 constexpr int kConfigs = 2;
+typedef __nv_bfloat16 bf16;
 
 const void* kernel_of(int cfg) {
-  return cfg == 0 ? reinterpret_cast<const void*>(&int8_matmul_kernel<8>)
-                  : reinterpret_cast<const void*>(&int8_matmul_kernel<4>);
+  return cfg == 0 ? reinterpret_cast<const void*>(
+                        &int8_matmul_kernel<8, float, float>)
+                  : reinterpret_cast<const void*>(
+                        &int8_matmul_kernel<4, float, float>);
 }
 int smem_of(int cfg) { return cfg == 0 ? Tile<8>::SMEM : Tile<4>::SMEM; }
+
+// The shared-memory limit of one form's kernel, set at its first launch.
+template <int NG, typename XT, typename OT>
+cudaError_t configure() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_matmul_kernel<NG, XT, OT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NG>::SMEM);
+  done = err == cudaSuccess;
+  return err;
+}
 
 // Clusters of c CTAs of a kernel that the card holds at once (its GPCs
 // decide); asked once and kept.  0 when CUDA cannot say.
@@ -416,10 +483,12 @@ Plan make_plan(int M, int K, int N) {
   return best;
 }
 
-template <int NG>
-int launch(const Plan& p, const float* x, const int8_t* w8,
-           const float* scale, float* out, int M, int K, int N,
+template <int NG, typename XT, typename OT>
+int launch(const Plan& p, const void* x, const int8_t* w8,
+           const float* scale, void* out, int M, int K, int N,
            cudaStream_t stream) {
+  const cudaError_t set = configure<NG, XT, OT>();
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int R = (M + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(p.ctas / R), (unsigned)R, 1);
@@ -434,10 +503,19 @@ int launch(const Plan& p, const float* x, const int8_t* w8,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, int8_matmul_kernel<NG>, x, w8, scale, out, M, K, N,
-      p.k_per_rank);
+      &cfg, int8_matmul_kernel<NG, XT, OT>, static_cast<const XT*>(x), w8,
+      scale, static_cast<OT*>(out), M, K, N, p.k_per_rank);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename XT, typename OT>
+int launch_form(const Plan& p, const void* x, const int8_t* w8,
+                const float* scale, void* out, int M, int K, int N,
+                cudaStream_t stream) {
+  return p.cfg == 0
+             ? launch<8, XT, OT>(p, x, w8, scale, out, M, K, N, stream)
+             : launch<4, XT, OT>(p, x, w8, scale, out, M, K, N, stream);
 }
 
 }  // namespace
@@ -459,15 +537,24 @@ int int8_matmul_plan(int M, int K, int N, int field) {
   }
 }
 
-// Returns a cudaError_t (0 on success), or -2 when CUDA could not place the
-// kernel.  x (M, K) fp32 with 1 <= M <= 128, w8 (K, N) int8 with N % 4 == 0
-// and a 16-byte aligned base, scale (N,) fp32, out (M, N) fp32.
-int int8_matmul(const float* x, const int8_t* w8, const float* scale,
-                float* out, int M, int K, int N, cudaStream_t stream) {
+// Returns a cudaError_t (0 on success), -2 when CUDA could not place the
+// kernel, -1 for a form it does not have.  x (M, K) fp32 (x_bf16 = 0) or
+// bf16 (x_bf16 = 1) with 1 <= M <= 128, w8 (K, N) int8 with N % 4 == 0 and
+// a 16-byte aligned base, scale (N,) fp32, out (M, N) fp32 (out_bf16 = 0)
+// or bf16 (out_bf16 = 1, bf16 x only).
+int int8_matmul(const void* x, const int8_t* w8, const float* scale,
+                void* out, int M, int K, int N, int x_bf16, int out_bf16,
+                cudaStream_t stream) {
   const Plan p = make_plan(M, K, N);
   if (p.cluster == 0) return -2;
-  return p.cfg == 0 ? launch<8>(p, x, w8, scale, out, M, K, N, stream)
-                    : launch<4>(p, x, w8, scale, out, M, K, N, stream);
+  if (!x_bf16)
+    return out_bf16 ? -1
+                    : launch_form<float, float>(p, x, w8, scale, out, M, K,
+                                                N, stream);
+  return out_bf16
+             ? launch_form<bf16, bf16>(p, x, w8, scale, out, M, K, N, stream)
+             : launch_form<bf16, float>(p, x, w8, scale, out, M, K, N,
+                                        stream);
 }
 
 }  // extern "C"

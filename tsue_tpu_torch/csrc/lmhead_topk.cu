@@ -78,7 +78,7 @@
 // copies (TMA) of the 1 KB rows, instead of the block-wide barrier a stage.
 // head_variants.py times the other shapes tried.
 //
-// fp32 tied head (head_tile_topk_f32; the form generation runs with the
+// fp32 tied head (head_tile_topk_tied<float>; the form generation runs with the
 // fused head alone).  What bounds it: the weight stream, 1.05 GB of fp32
 // (V, D) rows at D 2048, V 128256, over 3.35 TB/s = 0.316 ms.  The same
 // shape as the int8 form (512 threads, 16 warps each owning 64 columns of
@@ -125,19 +125,48 @@
 //
 // ptxas (nvcc -Xptxas -v, sm_90a), with the dynamic shared memory a launch
 // asks for:
-//   head_tile_topk_i8   122 registers, no spills, 128.0 KB (512 threads)
-//   head_tile_topk_f32  109 registers, no spills, 195.0 KB (512 threads)
-//   head_merge           32 registers, no spills, 128.0 KB (1024 threads)
+//   head_tile_topk_i8<float>    122 registers, no spills, 128.0 KB (512
+//                               threads)
+//   head_tile_topk_i8<bf16>     100 registers, no spills, 128.0 KB
+//   head_tile_topk_tied<float>  109 registers, no spills, 195.0 KB (512
+//                               threads)
+//   head_tile_topk_tied<bf16>   108 registers, no spills, 195.0 KB
+//   head_merge                   32 registers, no spills, 128.0 KB (1024
+//                               threads)
+//
+// The bf16 forms (a bf16 model's decode: the Pallas kernel casts the weight
+// to h's dtype and sums in fp32, tsue_tpu/ops/lmhead_topk.py:163-170):
+//   - the int8 head with bf16 h is the one-term case of the int8 form's
+//     split: h staged as it lies (bf16 rows of kXS elements in the fp32
+//     form's space), one tensor-core product a k16 step instead of three;
+//   - the tied bf16 head (head_tile_topk_tied<bf16>: a bf16 (V, D) weight
+//     and bf16 h) is the fp32 tied form's layout with bf16 rows: a stage is
+//     32 D positions (the same 64 bytes of each row), a lane reads 16 bytes
+//     of its row at 16 q and uses its four words 2 s, 2 s + 1 as the k16
+//     step s's slots (2q, 2q+1) and (2q+8, 2q+9) in A and B alike (with
+//     the fp32 form's 8-position stages: 16 positions, 8 bytes a lane), and
+//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate) takes the place of the
+//     3xTF32 products: a bf16 product is exact in fp32.
+// The selection, the merge and the keys are the fp32 forms'.  On an H100
+// 80GB HBM3 at 700 W (chip_smoke.py phase 14, L2 flushed, B 16, D 2048, V
+// 128256): the int8 form with bf16 h 0.256 ms (bytes bound 0.081), the tied
+// bf16 form 0.331 ms (bytes bound 0.159; cuBLAS's bf16 product and
+// torch.topk together take 0.265-0.266); both equal to the plain version,
+// indices and values, on exact inputs with ties.
 //
 // Plain C interface, loaded with ctypes by tsue_tpu_torch/ops/lmhead_topk.py:
-// lmhead_topk_plan(tied, field) reports a form's layout, lmhead_topk(...)
+// lmhead_topk_plan(form, field) reports a form's layout, lmhead_topk(...)
 // launches.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 typedef unsigned long long u64;
+typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 1024;            // vocab columns per CTA
 constexpr int kRows = 16;              // batch rows per pass over the tile
@@ -164,6 +193,9 @@ constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kI8Smem = kRingBytes > kKeyBytes ? kRingBytes : kKeyBytes;
 static_assert(kStages >= 3, "the ring holds at least three stages");
 static_assert(kKS % 16 == 0 && kGroups >= 1, "whole k16 steps and groups");
+// bf16 h: rows of kXS bf16 in the fp32 h space, 16-byte copies of 8
+static_assert((kXS * 2) % 16 == 0 && kKS % 8 == 0 && kWBytes % 16 == 0,
+              "bf16 h rows tile");
 
 // fp32 tied form: 64 columns a warp (8 n8 tiles), kF32KS D positions a
 // stage, the ring in (and past) the keys' space
@@ -181,6 +213,13 @@ constexpr int kF32Smem = kF32RingBytes > kKeyBytes ? kF32RingBytes
 static_assert(kF32KS == 8 || kF32KS == 16, "conflict-free reads need 8 or 16");
 static_assert(kF32Stages >= 2 && kF32Smem <= kMaxSmem, "the ring fits");
 static_assert(kF32NTiles >= 1, "whole n8 tiles a warp");
+// the tied bf16 form: the same bytes a row a stage, twice the positions; a
+// lane reads a quarter of a row's stage, two words a k16 step
+constexpr int kRowBytes = kF32KS * 4;   // bytes of a row a stage
+constexpr int kB16KS = kRowBytes / 2;   // D positions a stage
+constexpr int kB16Words = kRowBytes / 16;   // words a lane reads of a row
+static_assert(kB16KS % 16 == 0 && kB16Words % 2 == 0,
+              "whole k16 steps a stage, two words each a lane");
 
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
   if (f == 0.f) f = 0.f;               // -0 and +0 are one value
@@ -319,24 +358,28 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
 }
 
 // Column tile J of a 32-column group: B fragment of column 4g + J from the
-// four biased rows, then the three terms' products, smallest first.
-template <int J>
+// four biased rows, then the TERMS terms' products, smallest first.
+template <int J, int TERMS>
 __device__ __forceinline__ void col_tile(float* c, const uint32_t (&a)[3][4],
                                          const uint32_t (&r)[4]) {
   const uint32_t b0 = __byte_perm(byte_f32<J>(r[0]), byte_f32<J>(r[1]),
                                   0x7632);
   const uint32_t b1 = __byte_perm(byte_f32<J>(r[2]), byte_f32<J>(r[3]),
                                   0x7632);
-  mma(c, a[2], b0, b1);
-  mma(c, a[1], b0, b1);
-  mma(c, a[0], b0, b1);
+#pragma unroll
+  for (int t = TERMS - 1; t >= 0; --t) mma(c, a[t], b0, b1);
 }
 
+// HT: h's type (fp32: three bf16 terms; bf16: one).
+template <typename HT>
 __global__ void __launch_bounds__(kI8Threads, 1)
-head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
+head_tile_topk_i8(const HT* __restrict__ h, const int8_t* __restrict__ w8,
                   const float* __restrict__ scale,
                   const int32_t* __restrict__ mask, float penalty,
                   u64* __restrict__ cand, int B, int D, int V, int n_tiles) {
+  constexpr bool HB = std::is_same_v<HT, bf16>;
+  constexpr int TERMS = HB ? 1 : 3;
+  constexpr int HV = 16 / sizeof(HT);   // h elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the ring during the product, the keys [kRows][kTile] after it
   u64* keys = reinterpret_cast<u64*>(smem_raw);
@@ -350,7 +393,7 @@ head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
   for (int b0 = 0; b0 < B; b0 += kRows) {
     auto load_stage = [&](int st) {
       unsigned char* ws = smem_raw + (st % kStages) * kStageBytes;
-      float* xs = reinterpret_cast<float*>(ws + kWBytes);
+      HT* xs = reinterpret_cast<HT*>(ws + kWBytes);
       const int k0 = st * kKS;
       if (w16) {
         constexpr int CPR = kTile / 16;   // 16-byte chunks per K row
@@ -369,10 +412,11 @@ head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
               ok ? 4 : 0);
         }
       }
-      for (int i = tid; i < kRows * kKS / 4; i += kI8Threads) {
-        const int r = i / (kKS / 4), c = (i % (kKS / 4)) * 4;
+      for (int i = tid; i < kRows * kKS / HV; i += kI8Threads) {
+        const int r = i / (kKS / HV), c = (i % (kKS / HV)) * HV;
         const int k = k0 + c;
-        const int bytes = b0 + r < B ? 4 * max(0, min(4, D - k)) : 0;
+        const int bytes =
+            b0 + r < B ? (int)sizeof(HT) * max(0, min(HV, D - k)) : 0;
         cp16(xs + r * kXS + c, bytes ? h + (size_t)(b0 + r) * D + k : h,
              bytes);
       }
@@ -399,20 +443,27 @@ head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
       if (st + kStages - 1 < nst) load_stage(st + kStages - 1);
       cp_commit();
       const unsigned char* ws = smem_raw + (st % kStages) * kStageBytes;
-      const float* xs = reinterpret_cast<const float*>(ws + kWBytes);
+      const HT* xs = reinterpret_cast<const HT*>(ws + kWBytes);
 #pragma unroll 1   // unrolled, the two steps' fragments spill
       for (int kk = 0; kk < kKS; kk += 16) {
-        uint32_t a[3][4];   // the k16 step's h fragment, three terms
-        const float* x0 = xs + g * kXS + kk + 2 * q;
-        const float* x1 = x0 + 8 * kXS;
-        const float2 f0 = *reinterpret_cast<const float2*>(x0);
-        const float2 f1 = *reinterpret_cast<const float2*>(x1);
-        const float2 f2 = *reinterpret_cast<const float2*>(x0 + 8);
-        const float2 f3 = *reinterpret_cast<const float2*>(x1 + 8);
-        split3(f0.x, f0.y, a[0][0], a[1][0], a[2][0]);
-        split3(f1.x, f1.y, a[0][1], a[1][1], a[2][1]);
-        split3(f2.x, f2.y, a[0][2], a[1][2], a[2][2]);
-        split3(f3.x, f3.y, a[0][3], a[1][3], a[2][3]);
+        uint32_t a[3][4];   // the k16 step's h fragment, TERMS terms
+        const HT* x0 = xs + g * kXS + kk + 2 * q;
+        const HT* x1 = x0 + 8 * kXS;
+        if constexpr (HB) {   // bf16 pairs as they lie
+          a[0][0] = *reinterpret_cast<const uint32_t*>(x0);
+          a[0][1] = *reinterpret_cast<const uint32_t*>(x1);
+          a[0][2] = *reinterpret_cast<const uint32_t*>(x0 + 8);
+          a[0][3] = *reinterpret_cast<const uint32_t*>(x1 + 8);
+        } else {
+          const float2 f0 = *reinterpret_cast<const float2*>(x0);
+          const float2 f1 = *reinterpret_cast<const float2*>(x1);
+          const float2 f2 = *reinterpret_cast<const float2*>(x0 + 8);
+          const float2 f3 = *reinterpret_cast<const float2*>(x1 + 8);
+          split3(f0.x, f0.y, a[0][0], a[1][0], a[2][0]);
+          split3(f1.x, f1.y, a[0][1], a[1][1], a[2][1]);
+          split3(f2.x, f2.y, a[0][2], a[1][2], a[2][2]);
+          split3(f3.x, f3.y, a[0][3], a[1][3], a[2][3]);
+        }
         const unsigned char* wr = ws + (kk + 2 * q) * kWS + wc + 4 * g;
 #pragma unroll
         for (int i = 0; i < kGroups; ++i) {
@@ -425,10 +476,10 @@ head_tile_topk_i8(const float* __restrict__ h, const int8_t* __restrict__ w8,
                  0x80808080u;
           r[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * kWS + 32 * i) ^
                  0x80808080u;
-          col_tile<0>(acc[i][0], a, r);
-          col_tile<1>(acc[i][1], a, r);
-          col_tile<2>(acc[i][2], a, r);
-          col_tile<3>(acc[i][3], a, r);
+          col_tile<0, TERMS>(acc[i][0], a, r);
+          col_tile<1, TERMS>(acc[i][1], a, r);
+          col_tile<2, TERMS>(acc[i][2], a, r);
+          col_tile<3, TERMS>(acc[i][3], a, r);
         }
       }
     }
@@ -510,6 +561,18 @@ __device__ __forceinline__ void cp16_w(void* dst, const void* src,
                ::"r"(s), "l"(src), "r"(bytes));
 }
 
+// kB16Words consecutive words of a staged bf16 row (16 or 8 bytes).
+__device__ __forceinline__ void lds_words(uint32_t (&w)[kB16Words],
+                                          const unsigned char* p) {
+  if constexpr (kB16Words == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  }
+}
+
 // kF32Vec consecutive floats of a staged row (16 or 8 bytes).
 __device__ __forceinline__ void lds_vec(float (&v)[kF32Vec], const float* p) {
   if constexpr (kF32Vec == 4) {
@@ -521,10 +584,17 @@ __device__ __forceinline__ void lds_vec(float (&v)[kF32Vec], const float* p) {
   }
 }
 
+// WT: the weight's and h's type.  fp32: 3xTF32 products, kF32KS positions a
+// stage; bf16: one bf16 product a k16 step, kB16KS positions a stage.  A
+// stage holds the same 64 bytes of each row either way.
+template <typename WT>
 __global__ void __launch_bounds__(kF32Threads, 1)
-head_tile_topk_f32(const float* __restrict__ h, const float* __restrict__ w,
-                   const int32_t* __restrict__ mask, float penalty,
-                   u64* __restrict__ cand, int B, int D, int V, int n_tiles) {
+head_tile_topk_tied(const WT* __restrict__ h, const WT* __restrict__ w,
+                    const int32_t* __restrict__ mask, float penalty,
+                    u64* __restrict__ cand, int B, int D, int V, int n_tiles) {
+  constexpr bool WB = std::is_same_v<WT, bf16>;
+  constexpr int KS = kRowBytes / (int)sizeof(WT);   // D positions a stage
+  constexpr int EV = 16 / (int)sizeof(WT);          // elements a 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the ring during the product, the keys [kRows][kTile] after it
   u64* keys = reinterpret_cast<u64*>(smem_raw);
@@ -532,28 +602,28 @@ head_tile_topk_f32(const float* __restrict__ h, const float* __restrict__ w,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
   const int wc = warp * kF32WarpCols;   // the warp's first column
-  const int nst = (D + kF32KS - 1) / kF32KS;
-  constexpr int CPR = kF32KS / 4;       // 16-byte chunks a row a stage
+  const int nst = (D + KS - 1) / KS;
+  constexpr int CPR = kRowBytes / 16;   // 16-byte chunks a row a stage
 
   for (int b0 = 0; b0 < B; b0 += kRows) {
-    // stage st: w[v0 + r, k0:k0 + kF32KS] as row r of the tile (the rows as
-    // they lie, unpadded), then h[b0 + r, k0:k0 + kF32KS]; zero past V, B
-    // and D (D % 4 == 0: a 16-byte chunk is all in or all out)
+    // stage st: w[v0 + r, k0:k0 + KS] as row r of the tile (the rows as
+    // they lie, unpadded), then h[b0 + r, k0:k0 + KS]; zero past V, B and D
+    // (D % EV == 0: a 16-byte chunk is all in or all out)
     auto load_stage = [&](int st) {
-      float* ws = reinterpret_cast<float*>(smem_raw +
-                                           (st % kF32Stages) * kF32StageBytes);
-      float* xs = ws + kTile * kF32KS;
-      const int k0 = st * kF32KS;
+      WT* ws = reinterpret_cast<WT*>(smem_raw +
+                                     (st % kF32Stages) * kF32StageBytes);
+      WT* xs = ws + kTile * KS;
+      const int k0 = st * KS;
       for (int i = tid; i < kTile * CPR; i += kF32Threads) {
-        const int r = i / CPR, c = (i % CPR) * 4;
+        const int r = i / CPR, c = (i % CPR) * EV;
         const bool ok = v0 + r < V && k0 + c < D;
-        cp16_w(ws + r * kF32KS + c,
+        cp16_w(ws + r * KS + c,
                ok ? w + (size_t)(v0 + r) * D + k0 + c : w, ok ? 16 : 0);
       }
       for (int i = tid; i < kRows * CPR; i += kF32Threads) {
-        const int r = i / CPR, c = (i % CPR) * 4;
+        const int r = i / CPR, c = (i % CPR) * EV;
         const bool ok = b0 + r < B && k0 + c < D;
-        cp16(xs + r * kF32KS + c, ok ? h + (size_t)(b0 + r) * D + k0 + c : h,
+        cp16(xs + r * KS + c, ok ? h + (size_t)(b0 + r) * D + k0 + c : h,
              ok ? 16 : 0);
       }
     };
@@ -575,38 +645,64 @@ head_tile_topk_f32(const float* __restrict__ h, const float* __restrict__ w,
       __syncthreads();   // stage st landed; the slot of st - 1 is free
       if (st + kF32Stages - 1 < nst) load_stage(st + kF32Stages - 1);
       cp_commit();
-      const float* ws = reinterpret_cast<const float*>(
-          smem_raw + (st % kF32Stages) * kF32StageBytes);
-      const float* xs = ws + kTile * kF32KS;
-      // Lane (g, q) reads positions kF32Vec q .. + kF32Vec - 1 of the
-      // stage; k8 step s gives positions kF32Vec q + 2 s and + 1 the
-      // fragment slots q and q + 4 of A (rows g, g + 8 of h) and of B (row
-      // wc + 8 t + g of w: n8 tile t, column g) alike, so each step sums 8
-      // distinct positions and the steps cover the stage.
-      float x0[kF32Vec], x1[kF32Vec];
-      lds_vec(x0, xs + g * kF32KS + kF32Vec * q);
-      lds_vec(x1, xs + (g + 8) * kF32KS + kF32Vec * q);
-      uint32_t ab[kF32Steps][4], as[kF32Steps][4];   // h's big, small terms
+      const unsigned char* ws =
+          smem_raw + (st % kF32Stages) * kF32StageBytes;
+      const unsigned char* xs = ws + kTile * kRowBytes;
+      if constexpr (WB) {
+        // Lane (g, q) reads the q-th quarter of a staged row, kB16Words
+        // words of two positions each.  k16 step s gives words 2 s and
+        // 2 s + 1 the slots (2q, 2q+1) and (2q+8, 2q+9) of A (rows g, g + 8
+        // of h) and of B (row wc + 8 t + g of w) alike, so the steps sum
+        // the stage's kB16KS positions once each.
+        constexpr int QB = kRowBytes / 4;   // bytes a lane reads of a row
+        uint32_t h0[kB16Words], h1[kB16Words];
+        lds_words(h0, xs + g * kRowBytes + QB * q);
+        lds_words(h1, xs + (g + 8) * kRowBytes + QB * q);
+        const unsigned char* wr = ws + (wc + g) * kRowBytes + QB * q;
 #pragma unroll
-      for (int s = 0; s < kF32Steps; ++s) {
-        split_tf32(x0[2 * s], ab[s][0], as[s][0]);
-        split_tf32(x1[2 * s], ab[s][1], as[s][1]);
-        split_tf32(x0[2 * s + 1], ab[s][2], as[s][2]);
-        split_tf32(x1[2 * s + 1], ab[s][3], as[s][3]);
-      }
-      const float* wr = ws + (wc + g) * kF32KS + kF32Vec * q;
+        for (int t = 0; t < kF32NTiles; ++t) {
+          uint32_t wv[kB16Words];
+          lds_words(wv, wr + 8 * t * kRowBytes);
 #pragma unroll
-      for (int t = 0; t < kF32NTiles; ++t) {
-        float wv[kF32Vec];
-        lds_vec(wv, wr + 8 * t * kF32KS);
+          for (int s = 0; s < kB16Words / 2; ++s) {
+            const uint32_t a[4] = {h0[2 * s], h1[2 * s], h0[2 * s + 1],
+                                   h1[2 * s + 1]};
+            mma(acc[t], a, wv[2 * s], wv[2 * s + 1]);
+          }
+        }
+      } else {
+        // Lane (g, q) reads positions kF32Vec q .. + kF32Vec - 1 of the
+        // stage; k8 step s gives positions kF32Vec q + 2 s and + 1 the
+        // fragment slots q and q + 4 of A (rows g, g + 8 of h) and of B
+        // (row wc + 8 t + g of w: n8 tile t, column g) alike, so each step
+        // sums 8 distinct positions and the steps cover the stage.
+        const float* xf = reinterpret_cast<const float*>(xs);
+        float x0[kF32Vec], x1[kF32Vec];
+        lds_vec(x0, xf + g * kF32KS + kF32Vec * q);
+        lds_vec(x1, xf + (g + 8) * kF32KS + kF32Vec * q);
+        uint32_t ab[kF32Steps][4], as[kF32Steps][4];   // h's big, small
 #pragma unroll
         for (int s = 0; s < kF32Steps; ++s) {
-          uint32_t bb0, bs0, bb1, bs1;
-          split_tf32(wv[2 * s], bb0, bs0);
-          split_tf32(wv[2 * s + 1], bb1, bs1);
-          mma_tf32(acc[t], as[s], bb0, bb1);   // the small terms first
-          mma_tf32(acc[t], ab[s], bs0, bs1);
-          mma_tf32(acc[t], ab[s], bb0, bb1);
+          split_tf32(x0[2 * s], ab[s][0], as[s][0]);
+          split_tf32(x1[2 * s], ab[s][1], as[s][1]);
+          split_tf32(x0[2 * s + 1], ab[s][2], as[s][2]);
+          split_tf32(x1[2 * s + 1], ab[s][3], as[s][3]);
+        }
+        const float* wr = reinterpret_cast<const float*>(ws) +
+                          (wc + g) * kF32KS + kF32Vec * q;
+#pragma unroll
+        for (int t = 0; t < kF32NTiles; ++t) {
+          float wv[kF32Vec];
+          lds_vec(wv, wr + 8 * t * kF32KS);
+#pragma unroll
+          for (int s = 0; s < kF32Steps; ++s) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split_tf32(wv[2 * s], bb0, bs0);
+            split_tf32(wv[2 * s + 1], bb1, bs1);
+            mma_tf32(acc[t], as[s], bb0, bb1);   // the small terms first
+            mma_tf32(acc[t], ab[s], bs0, bs1);
+            mma_tf32(acc[t], ab[s], bb0, bb1);
+          }
         }
       }
     }
@@ -614,7 +710,8 @@ head_tile_topk_f32(const float* __restrict__ h, const float* __restrict__ w,
     __syncthreads();   // the ring drained: its space becomes the keys
 
     // processed logits -> keys.  n8 tile t's c0, c1 are columns
-    // wc + 8 t + 2 q, + 1 of row g and c2, c3 the same of row g + 8.
+    // wc + 8 t + 2 q, + 1 of row g and c2, c3 the same of row g + 8 (the
+    // same accumulator layout for m16n8k8 tf32 and m16n8k16 bf16).
     // Columns past V and rows past B key to 0 and sort last.
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -668,41 +765,50 @@ head_merge(const u64* __restrict__ cand, float* __restrict__ vals,
   }
 }
 
-// The shared-memory limits of a form's two kernels, set at its first call
-// only.
-cudaError_t configure(bool int8) {
-  static bool done[2] = {false, false};
-  if (done[int8]) return cudaSuccess;
-  cudaError_t err =
-      int8 ? cudaFuncSetAttribute(head_tile_topk_i8,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kI8Smem)
-           : cudaFuncSetAttribute(head_tile_topk_f32,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kF32Smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(head_merge,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMergeSegs * kSeg * (int)sizeof(u64));
-  done[int8] = err == cudaSuccess;
+// A kernel's shared-memory limit, set at its first launch only.
+template <auto Kernel>
+cudaError_t configure(int smem) {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  done = err == cudaSuccess;
   return err;
+}
+
+constexpr int kMergeSmem = kMergeSegs * kSeg * (int)sizeof(u64);
+
+// The tile kernel of a form, then head_merge.
+template <auto Kernel, typename... Args>
+int launch(int n_tiles, int threads, int smem, cudaStream_t stream,
+           const u64* cand, float* vals, int32_t* idx, int B, Args... args) {
+  cudaError_t err = configure<Kernel>(smem);
+  if (err == cudaSuccess) err = configure<head_merge>(kMergeSmem);
+  if (err != cudaSuccess) return (int)err;
+  Kernel<<<n_tiles, threads, smem, stream>>>(args...);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  head_merge<<<B, kMergeThreads, kMergeSmem, stream>>>(cand, vals, idx,
+                                                       n_tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The layout of one form (tied = 0: the int8 form, 1: the tied fp32 form):
-// field 0 the vocab columns a CTA (the tile), 1 the columns a warp owns, 2
-// the K (= D) positions a stage of the cp.async ring, 3 the ring's stages,
-// 4 the tile kernel's dynamic shared memory, 5 its threads; -1 for another
-// field or form.
-int lmhead_topk_plan(int tied, int field) {
-  if (tied != 0 && tied != 1) return -1;
+// The layout of one form (0: the int8 form, with fp32 or bf16 h; 1: the
+// tied fp32 form; 2: the tied bf16 form): field 0 the vocab columns a CTA
+// (the tile), 1 the columns a warp owns, 2 the K (= D) positions a stage of
+// the cp.async ring, 3 the ring's stages, 4 the tile kernel's dynamic shared
+// memory, 5 its threads; -1 for another field or form.
+int lmhead_topk_plan(int form, int field) {
+  if (form < 0 || form > 2) return -1;
+  const bool tied = form != 0;
   switch (field) {
     case 0: return kTile;
     case 1: return tied ? kF32WarpCols : kWarpCols;
-    case 2: return tied ? kF32KS : kKS;
+    case 2: return form == 2 ? kB16KS : tied ? kF32KS : kKS;
     case 3: return tied ? kF32Stages : kStages;
     case 4: return tied ? kF32Smem : kI8Smem;
     case 5: return tied ? kF32Threads : kI8Threads;
@@ -710,31 +816,38 @@ int lmhead_topk_plan(int tied, int field) {
   }
 }
 
-// Returns a cudaError_t (0 on success).  h (B, D) fp32; exactly one of
-// w (V, D) fp32 or (w8 (D, V) int8, scale (V,) fp32); mask (B, V) int32 or
-// null; cand a (B, ceil(V / 1024), 128) 64-bit scratch; vals (B, 128) fp32
-// and idx (B, 128) int32 out.  Needs V >= 128, V % 4 == 0, D % 4 == 0 and
+// Returns a cudaError_t (0 on success).  h (B, D) fp32 (bf16_in = 0) or
+// bf16 (bf16_in = 1); exactly one of w (V, D) in h's type or (w8 (D, V)
+// int8, scale (V,) fp32); mask (B, V) int32 or null; cand a (B, ceil(V /
+// 1024), 128) 64-bit scratch; vals (B, 128) fp32 and idx (B, 128) int32
+// out.  Needs V >= 128, V % 4 == 0, D % 4 == 0 (D % 8 == 0 for bf16 h) and
 // 16-byte aligned bases.
-int lmhead_topk(const float* h, const float* w, const int8_t* w8,
+int lmhead_topk(const void* h, const void* w, const int8_t* w8,
                 const float* scale, const int32_t* mask, float penalty,
                 void* cand, float* vals, int32_t* idx, int B, int D, int V,
-                cudaStream_t stream) {
-  const int n_tiles = (V + kTile - 1) / kTile;
+                int bf16_in, cudaStream_t stream) {
+  const int n = (V + kTile - 1) / kTile;
   u64* c = static_cast<u64*>(cand);
-  const bool int8 = w8 != nullptr;
-  cudaError_t err = configure(int8);
-  if (err != cudaSuccess) return (int)err;
-  if (int8)
-    head_tile_topk_i8<<<n_tiles, kI8Threads, kI8Smem, stream>>>(
-        h, w8, scale, mask, penalty, c, B, D, V, n_tiles);
-  else
-    head_tile_topk_f32<<<n_tiles, kF32Threads, kF32Smem, stream>>>(
-        h, w, mask, penalty, c, B, D, V, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  head_merge<<<B, kMergeThreads, kMergeSegs * kSeg * sizeof(u64), stream>>>(
-      c, vals, idx, n_tiles);
-  return (int)cudaGetLastError();
+  if (w8 != nullptr) {
+    if (bf16_in)
+      return launch<head_tile_topk_i8<bf16>>(
+          n, kI8Threads, kI8Smem, stream, c, vals, idx, B,
+          static_cast<const bf16*>(h), w8, scale, mask, penalty, c, B, D, V,
+          n);
+    return launch<head_tile_topk_i8<float>>(
+        n, kI8Threads, kI8Smem, stream, c, vals, idx, B,
+        static_cast<const float*>(h), w8, scale, mask, penalty, c, B, D, V,
+        n);
+  }
+  if (bf16_in)
+    return launch<head_tile_topk_tied<bf16>>(
+        n, kF32Threads, kF32Smem, stream, c, vals, idx, B,
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), mask,
+        penalty, c, B, D, V, n);
+  return launch<head_tile_topk_tied<float>>(
+      n, kF32Threads, kF32Smem, stream, c, vals, idx, B,
+      static_cast<const float*>(h), static_cast<const float*>(w), mask,
+      penalty, c, B, D, V, n);
 }
 
 }  // extern "C"

@@ -16,7 +16,8 @@ JAX package:
 
 - ``fused_head``: sample from ``ops.lmhead_topk`` (the (B, V) logits are
   never materialised) fed by ``MultiModalLLM.decode_hidden``;
-- ``quantize_kv``: quantise the prefilled fp32 cache to int8 once and
+- ``quantize_kv``: quantise the prefilled cache (fp32, or bf16 for a
+  model whose parameters are bf16) to int8 once and
   decode over it (``ops.kv_quant``);
 - int8 weights are not an option here: they are used when the Predictor
   has attached the tables (``ops.quant.attach_quant``).
@@ -34,9 +35,9 @@ CUTOFF_MARKER = "No right-following vehicle."
 
 
 def head_arrays(mllm):
-    """LM-head weights for the fused sampler: (raw fp32 tied embedding
-    (V, D), None), or (None, (lm_head_w8, lm_head_scale)) when int8 tables
-    are attached."""
+    """LM-head weights for the fused sampler: (the raw tied embedding
+    (V, D) in the parameters' dtype, fp32 or bf16, None), or (None,
+    (lm_head_w8, lm_head_scale)) when int8 tables are attached."""
     llama = mllm.llama
     if llama.lm_head_w8 is not None:
         return None, (llama.lm_head_w8, llama.lm_head_scale)

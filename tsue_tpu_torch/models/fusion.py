@@ -94,8 +94,9 @@ class MultiModalLLM(nn.Module):
     def prefill(self, vision: Optional[torch.Tensor],
                 prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
                 cache_len: int):
-        """Prefill fp32 KV caches of ``cache_len`` slots with the fused
-        [img || prompt] prefix.  Returns (caches, last_hidden (B, D),
+        """Prefill KV caches of ``cache_len`` slots, in the fused
+        embeddings' dtype (fp32, or bf16 for bf16 parameters), with the
+        fused [img || prompt] prefix.  Returns (caches, last_hidden (B, D),
         prefix_valid_len (B,), fused_mask (B, P)).  Positions are the
         cumulative count of the fused mask; the prompt occupies a prefix of
         its row, so the last valid position is ``valid_len - 1``."""

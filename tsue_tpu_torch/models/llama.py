@@ -5,9 +5,9 @@ Counterpart of ``tsue_tpu/models/llama.py``.  What is carried: RMSNorm
 llama-3 rope scaling, ``LoRADense`` (LoRA dropout, the int8 decode branch of
 ``ops/quant.py`` and the MLP's fused SwiGLU down-projection of
 ``ops/fused.py``), the attention / MLP / layer / model classes with the KV
-cache (fp32 or the int8 cache of ``ops/kv_quant.py``), the tied-embedding
-layout, ``logits_from_hidden`` and the causal-LM loss, dense or in
-sequence chunks that never hold the (B, T, V) logits, and per-layer remat
+cache (fp32 or bf16, or the int8 cache of ``ops/kv_quant.py``), the
+tied-embedding layout, ``logits_from_hidden`` and the causal-LM loss, dense
+or in sequence chunks that never hold the (B, T, V) logits, and per-layer remat
 (``LlamaConfig.remat``: ``torch.utils.checkpoint`` with the JAX package's
 three policies).  Dropout (LoRA) draws from the ``generator`` a training
 forward passes, and only then; a rematerialised layer's recompute replays
@@ -434,7 +434,8 @@ class LlamaForCausalLM(nn.Module):
         does (``llama.py:385-388``); the untied head is a Dense, its output
         taken to fp32."""
         if quant_ok and self.lm_head_w8 is not None:
-            return int8_matmul(hidden, self.lm_head_w8, self.lm_head_scale)
+            return int8_matmul(hidden, self.lm_head_w8, self.lm_head_scale,
+                               out_dtype=torch.float32)
         if self.cfg.tie_word_embeddings:
             w = self.model.embed_tokens.weight
             return hidden.float() @ w.to(self.dtype).float().t()

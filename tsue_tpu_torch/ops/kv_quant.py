@@ -2,18 +2,20 @@
 
 Counterpart of ``tsue_tpu/ops/kv_quant.py``.  The decode cache is stored
 per-token, per-head symmetric int8 (``k ~ k8 * ks``).  Prefill stays exact:
-the prefix is prefilled into an fp32 cache and ``quantize_cache`` converts
-it once before the decode loop; every decode write quantises the new rows
-on the way in (``update_kv_int8``).  A cache layer is the 4-tuple
-``(k8, ks, v8, vs)``; the port writes it in place where the JAX package
-returns a new one.
+the prefix is prefilled into an fp32 (or, for a bf16 model, bf16) cache
+and ``quantize_cache`` converts it once before the decode loop; every
+decode write quantises the new rows on the way in (``update_kv_int8``).
+A cache layer is the 4-tuple ``(k8, ks, v8, vs)``; the port writes it in
+place where the JAX package returns a new one.
 
 ``attend_int8_kv`` runs the CUDA kernel ``csrc/attend_int8_kv.cu`` on CUDA
 tensors and its plain version ``attend_int8_kv_plain`` on CPU tensors, and
 only there: a CUDA tensor the kernel cannot take raises.  Both compute the
-fp32 softmax(QK^T)V of the Pallas kernel ``_attend_kernel`` (masked logits
--1e30, ``p / max(s, 1e-30)``), which is also the function of the JAX
-package's default XLA formulation.
+fp32 softmax(QK^T)V of the Pallas kernel ``_attend_kernel`` (q widened to
+fp32, masked logits -1e30, ``p / max(s, 1e-30)``, the output in q's
+dtype).  The JAX package's default is instead its XLA formulation, the
+cache dequantised to q's dtype (``tsue_tpu/ops/kv_quant.py:301-306``); the
+port computes the kernel's function on every device.
 """
 from __future__ import annotations
 
@@ -48,8 +50,8 @@ def dequantize_kv(x8: torch.Tensor, scale: torch.Tensor,
 
 def quantize_cache(caches: List[Tuple[torch.Tensor, torch.Tensor]]
                    ) -> List[LayerCache]:
-    """Per-layer fp32 (k, v) -> per-layer (k8, ks, v8, vs), once after
-    prefill."""
+    """Per-layer fp32 or bf16 (k, v) -> per-layer (k8, ks, v8, vs), once
+    after prefill (the values quantised as they are)."""
     out = []
     for k, v in caches:
         k8, ks = quantize_kv(k)
@@ -105,7 +107,8 @@ def mask3(mask: Optional[torch.Tensor], B: int, Tq: int, S: int
 def attend_int8_kv_plain(q: torch.Tensor, layer_cache: LayerCache,
                          mask: Optional[torch.Tensor],
                          scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in PyTorch ops (fp32 throughout)."""
+    """The kernel's function in PyTorch ops: fp32 throughout, q widened,
+    the output rounded once to q's dtype."""
     k8, ks, v8, vs = layer_cache
     B, Tq, Hq, D = q.shape
     S, Hkv = k8.shape[1], k8.shape[2]
@@ -136,8 +139,8 @@ def _lib():
         "attend_int8_kv": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k8 ks v8 vs mask out
             i32, i32, i32, i32, i32, i32,       # B Tq S Hq Hkv D
-            i32, ctypes.c_float, ptr],          # mask query stride, scale,
-                                                # stream
+            i32, ctypes.c_float, i32, ptr],     # mask query stride, scale,
+                                                # q bf16, stream
         "attend_int8_kv_plan": [i32, i32, i32, i32],   # S G D field
         "attend_int8_kv_max_groups": []})
 
@@ -164,7 +167,9 @@ def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
     B, Tq, Hq, D = q.shape
     S, Hkv = k8.shape[1], k8.shape[2]
     dev = q.device
-    check_tensor("q", q, dev, (B, Tq, Hq, D), torch.float32)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be fp32 or bf16, got {q.dtype}")
+    check_tensor("q", q, dev, (B, Tq, Hq, D), q.dtype)
     check_tensor("k8", k8, dev, (B, S, Hkv, D), torch.int8, aligned=True)
     check_tensor("v8", v8, dev, (B, S, Hkv, D), torch.int8, aligned=True)
     check_tensor("ks", ks, dev, (B, S, Hkv), torch.float32)
@@ -196,7 +201,8 @@ def _attend_cuda(q, layer_cache, mask, scale) -> torch.Tensor:
         err = lib.attend_int8_kv(
             q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
             vs.data_ptr(), mask_ptr, out.data_ptr(), B, Tq, S, Hq, Hkv, D,
-            mq, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            mq, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
     count_launch(attend_int8_kv, err)
     return out
 
@@ -210,10 +216,11 @@ def attend_int8_kv(q: torch.Tensor, layer_cache: LayerCache,
     layer_cache: (k8, ks, v8, vs) with k8/v8 (B, S, Hkv, Dh) and ks/vs (B,
     S, Hkv); mask: None, (B, S) key validity (every query step), or a
     per-query (B, Tq, S) mask, also given as (B, 1|H, Tq, S) and read as
-    ``mask[:, 0]`` (``mask3``).  Returns (B, Tq, Hq, Dh) fp32.  CPU tensors take
-    ``attend_int8_kv_plain``; CUDA tensors launch the kernel or raise (also
-    under grad mode when an input requires a gradient: the kernel has no
-    backward).  ``attend_int8_kv.launches`` counts kernel launches."""
+    ``mask[:, 0]`` (``mask3``).  q is fp32 or bf16; returns (B, Tq, Hq, Dh)
+    in q's dtype.  CPU tensors take ``attend_int8_kv_plain``; CUDA tensors
+    launch the kernel or raise (also under grad mode when an input requires
+    a gradient: the kernel has no backward).  ``attend_int8_kv.launches``
+    counts kernel launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not uses_kernel(q, "int8 attention kernel"):

@@ -7,8 +7,12 @@ descending sort of the processed logits, truncated to 128 — without ever
 writing the (B, V) logits to device memory.  The processing is the plain
 sampler's repetition penalty (divide when positive, multiply otherwise)
 and n-gram ban (``NEG_INF``), read from a (B, V) token-state mask
-(``token_state_mask``).  The weight is the raw fp32 tied embedding (V, D)
-or the int8 head ``(w8 (D, V), scale (V,))`` of ``ops/quant.py``.
+(``token_state_mask``).  The weight is the raw tied embedding (V, D), fp32
+with fp32 h or bf16 with bf16 h, or the int8 head ``(w8 (D, V), scale
+(V,))`` of ``ops/quant.py`` with fp32 or bf16 h.  The logits are fp32
+sums of the products of h and the weight in h's dtype (for bf16 these
+products are exact in fp32), as the Pallas kernel computes them
+(``tsue_tpu/ops/lmhead_topk.py:163-170``).
 
 On CUDA tensors it runs the kernel ``csrc/lmhead_topk.cu`` and on CPU
 tensors its plain version ``lmhead_topk_plain``, and only there: a CUDA
@@ -61,11 +65,12 @@ def lmhead_topk_plain(hidden: torch.Tensor, weight: Optional[torch.Tensor],
                       quant=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in PyTorch ops: the (B, V) logits, the mask's
     penalty and ban, then a stable descending sort cut to 128."""
+    h = hidden.float()
     if quant is not None:
         w8, scale = quant
-        logits = (hidden @ w8.to(hidden.dtype)) * scale
+        logits = (h @ w8.float()) * scale
     else:
-        logits = hidden @ weight.t()
+        logits = h @ weight.to(hidden.dtype).float().t()
     if mask is not None:
         if penalty != 1.0:
             pen = torch.where(logits > 0, logits / penalty, logits * penalty)
@@ -81,11 +86,11 @@ def _lib():
     return bind("lmhead_topk", {
         "lmhead_topk": [ptr, ptr, ptr, ptr, ptr,        # h w w8 scale mask
                         ctypes.c_float, ptr, ptr, ptr,  # penalty cand vals idx
-                        i32, i32, i32, ptr],            # B D V stream
-        "lmhead_topk_plan": [i32, i32]})                # tied field
+                        i32, i32, i32, i32, ptr],       # B D V bf16 stream
+        "lmhead_topk_plan": [i32, i32]})                # form field
 
 
-LAYOUTS = ("int8", "tied_fp32")
+LAYOUTS = ("int8", "tied_fp32", "tied_bf16")
 PLAN_FIELDS = ("tile_cols", "warp_cols", "k_rows_per_stage", "stages",
                "smem_bytes", "threads")
 
@@ -94,12 +99,12 @@ def lmhead_topk_plan(layout: str = "int8") -> dict:
     """The layout of one form of the kernel (builds the kernel): the vocab
     columns a CTA (the same in both forms), the columns a warp owns, the K
     (= D) rows a stage of the cp.async ring, the ring's stages, the shared
-    memory and the threads of a CTA.  ``layout`` is "int8" or
-    "tied_fp32"."""
+    memory and the threads of a CTA.  ``layout`` is "int8" (fp32 or bf16
+    h: one layout), "tied_fp32" or "tied_bf16"."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
-    lib, tied = _lib(), LAYOUTS.index(layout)
-    return {f: lib.lmhead_topk_plan(tied, i)
+    lib, form = _lib(), LAYOUTS.index(layout)
+    return {f: lib.lmhead_topk_plan(form, i)
             for i, f in enumerate(PLAN_FIELDS)}
 
 
@@ -108,7 +113,10 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         raise ValueError("hidden must be (B, D)")
     B, D = hidden.shape
     dev = hidden.device
-    check_tensor("hidden", hidden, dev, (B, D), torch.float32, True)
+    hd = hidden.dtype
+    if hd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hidden must be fp32 or bf16, got {hd}")
+    check_tensor("hidden", hidden, dev, (B, D), hd, True)
     w_ptr = w8_ptr = s_ptr = None
     if quant is not None:
         w8, scale = quant
@@ -118,11 +126,13 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         w8_ptr, s_ptr = w8.data_ptr(), scale.data_ptr()
     else:
         V = weight.shape[0]
-        check_tensor("weight", weight, dev, (V, D), torch.float32, True)
+        # the tied forms take the weight in h's dtype
+        check_tensor("weight", weight, dev, (V, D), hd, True)
         w_ptr = weight.data_ptr()
-    if V < LANES or V % 4 or D % 4 or B == 0:
+    dmod = 8 if hd == torch.bfloat16 else 4    # 16-byte rows of h
+    if V < LANES or V % 4 or D % dmod or B == 0:
         raise ValueError(f"the head kernel needs V >= {LANES}, V % 4 == 0, "
-                         f"D % 4 == 0 and B > 0 (B={B}, D={D}, V={V})")
+                         f"D % {dmod} == 0 and B > 0 (B={B}, D={D}, V={V})")
     mask_ptr = None
     if mask is not None:
         check_tensor("mask", mask, dev, (B, V), torch.int32, True)
@@ -136,6 +146,7 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         err = lib.lmhead_topk(
             hidden.data_ptr(), w_ptr, w8_ptr, s_ptr, mask_ptr, float(penalty),
             cand.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, D, V,
+            int(hd == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     count_launch(lmhead_topk, err)
     return vals, idx
@@ -146,8 +157,9 @@ def lmhead_topk(hidden: torch.Tensor, weight: Optional[torch.Tensor],
                 quant=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Processed-logits exact top-128 straight from the hidden state.
 
-    hidden: (B, D) fp32.  ``weight``: the tied fp32 embedding (V, D), or
-    None with ``quant=(w8 (D, V) int8, scale (V,) fp32)``.  ``mask``: the
+    hidden: (B, D) fp32 or bf16.  ``weight``: the tied embedding (V, D)
+    (on the card in hidden's dtype), or None with ``quant=(w8 (D, V) int8,
+    scale (V,) fp32)``.  ``mask``: the
     (B, V) int32 ``token_state_mask`` or None.  Returns (vals (B, 128)
     fp32, idx (B, 128) int32).  CPU tensors take ``lmhead_topk_plain``;
     CUDA tensors launch the kernel or raise (also under grad mode when an

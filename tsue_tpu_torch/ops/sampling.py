@@ -8,6 +8,7 @@ the reference: temperature 0.9, top-k 40, top-p 0.9, repetition penalty
   the penalty when positive, multiplied when negative;
 - no-repeat-ngram: tokens completing an already-seen n-gram are banned
   (``NEG_INF``);
+- ``apply_top_k`` and ``apply_top_p``, the filters as functions;
 - top-k then top-p filtering, then the draw, through the tie-exact
   (B, k+1)-slot sampler of the JAX package (``_topk_topp_slots``,
   ``_tie_blocks``, ``_draw_sliced``), with one generator for the batch
@@ -111,6 +112,19 @@ def sorted_desc(logits: torch.Tensor, k: int):
     desc, index asc) — ``lax.top_k``'s order, ties included."""
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k filtering (``tsue_tpu/ops/sampling.py:85``): logits below the
+    k-th largest of their row become ``NEG_INF`` (ties at the k-th value
+    are all kept); ``k`` <= 0 or >= V leaves them as they are.  The
+    sampler itself draws through the tie-exact slots of
+    ``_topk_topp_slots`` and masks nothing."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < thresh, torch.full_like(logits, NEG_INF),
+                       logits)
 
 
 def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:

@@ -58,8 +58,11 @@ class Predictor:
         parameter tree).  ``device``: the CUDA device by default; the CPU
         (the kernels' plain versions) only when asked for.
 
+        Each parameter takes the dtype of its entry in ``params`` (bf16
+        parameters compute in bf16).
+
         ``quantize_decode``: ``generate_context`` decodes with int8 weights
-        (``ops/quant.py``), built once from the fp32 parameters.
+        (``ops/quant.py``), built once from the parameters.
         ``fused_head``: decode through the fused LM-head + top-k kernel
         (``ops/lmhead_topk.py``), which never materialises the (B, V)
         logits; composes with ``quantize_decode``; the static
@@ -103,6 +106,12 @@ class Predictor:
         with torch.device(self.device):
             self.model = TrajectoryModel(cfg.model, cfg.data.seq_len,
                                          cfg.data.out_len)
+        # each parameter takes its state's dtype: a bf16 checkpoint serves
+        # in bf16, as the JAX package applies its bf16 tree
+        for name, p in self.model.named_parameters():
+            t = params.get(name)
+            if t is not None and t.is_floating_point() and t.dtype != p.dtype:
+                p.data = p.data.to(t.dtype)
         self.model.load_state_dict(params, strict=True)
         self.model.eval()
 

@@ -1,17 +1,20 @@
 """Structured metric logging and seeding.
 
-The port's copy of ``tsue_tpu/utils/logging.py``: a JSONL metric stream
-next to the stdout echo (ref scripts/train.py:1220, 1326 print only), and
-one seeding helper for the host-side RNGs (ref scripts/seed_fix_train.py:
-2-32).  Device randomness in the port flows through explicit
-``torch.Generator``s, as the JAX package's flows through explicit keys.
+The port's copy of ``tsue_tpu/utils/logging.py``: a JSONL metric stream next
+to the stdout echo (ref scripts/train.py:1220, 1326 print only), one seeding
+helper for the host-side RNGs (ref scripts/seed_fix_train.py: 2-32), and
+``profile_trace``, a ``torch.profiler`` trace of a block.  Device randomness
+in the port flows through explicit ``torch.Generator``s, as the JAX
+package's flows through explicit keys.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,3 +54,22 @@ class MetricLogger:
 
     def close(self):
         self._f.close()
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the block (host, and the CUDA device
+    when there is one), written to ``out_dir`` as a Chrome trace
+    (``trace.json``); a no-op for ``None``, as the JAX package's
+    ``jax.profiler`` context."""
+    if out_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
