@@ -193,6 +193,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -601,15 +602,36 @@ def head_inputs(dev, g, exact: bool):
     return h, w, (w8, scale), mask
 
 
-def head_checks(dev, gpu, timer, lm_head_ms):
-    """The fused head at the decode shape (B 16, V 128256), both layouts,
-    on exact inputs (indices and values identical to the plain version)
-    and random ones (values within TOL, index sets equal apart from ties),
-    each with a second call that must give the same bits.  Beside each
-    form, the unfused product's time: for the int8 form ``lm_head_ms``
-    (int8_checks' lm_head row), for the tied form ``h @ w.t()`` in cuBLAS
-    fp32 with TF32 off (timed only, never called by the port); the form's
-    time less it is what the selection and merge cost."""
+def head_split_ms(timer, args, split) -> dict:
+    """The head form's product alone and its selection and merge alone on
+    ``args``: the text variants ``split`` (head_variants.SPLIT, built by
+    ``head_variants.split_libs``) swapped in under the wrapper for the
+    timing only."""
+    import tsue_tpu_torch.ops.lmhead_topk as LT
+    own = LT._lib
+    out = {}
+    try:
+        for name, lib in split.items():
+            LT._lib = lambda lib=lib: lib    # noqa: E731
+            out[name] = timer.ms(lambda: LT.lmhead_topk(*args))
+    finally:
+        LT._lib = own
+    return {"product_ms": out["product_only"],
+            "selection_and_merge_ms": out["select_only"]}
+
+
+def head_checks(dev, gpu, timer, lm_head_ms, split):
+    """The fused head at the decode shape (B 16, V 128256), both fp32
+    layouts, on exact inputs (indices and values identical to the plain
+    version) and random ones (values within TOL, index sets equal apart
+    from ties), each with a second call that must give the same bits.
+    Beside each form: its product alone and its selection and merge alone
+    (``head_split_ms``); the library call of the same function, timed only
+    and never called by the port (tied: ``torch.topk(h @ w.t(), 128)`` in
+    cuBLAS fp32 with TF32 off; int8: ``torch.topk((h @ w8f) * scale,
+    128)`` with w8f the int8 head in fp32 beforehand); and the unfused
+    product (int8: ``lm_head_ms``, int8_checks' lm_head row; tied: ``h @
+    w.t()``)."""
     import torch
     from tsue_tpu_torch.ops.lmhead_topk import (LANES, lmhead_topk,
                                                 lmhead_topk_plain,
@@ -671,6 +693,10 @@ def head_checks(dev, gpu, timer, lm_head_ms):
                 unfused_ms, unfused = lm_head_ms, ("unfused int8 LM-head "
                                                    "product (int8_matmul "
                                                    "lm_head row)")
+                w8f = quant[0].float()
+                lib = lambda: torch.topk(  # noqa: E731
+                    (h @ w8f) * quant[1], LANES)
+                library = "torch.topk((h @ w8f) * scale), w8f fp32"
             else:
                 # the tied form multiplies on the tensor cores in TF32:
                 # three products of big and small terms (csrc/lmhead_topk.cu)
@@ -678,17 +704,22 @@ def head_checks(dev, gpu, timer, lm_head_ms):
                           TF32_FLOPS)
                 unfused_ms = timer.ms(lambda: h @ w.t())
                 unfused = "unfused product h @ w.t() (cuBLAS fp32, TF32 off)"
-            print(f"lmhead_topk {name}: {ms:.4f} ms against the {unfused}'s "
-                  f"{unfused_ms:.4f} ms: selection and merge "
-                  f"~{ms - unfused_ms:.4f} ms; bound {b[0]:.4f} ms; plain "
-                  f"{plain_ms:.4f} ms; gpu: {gpu}", flush=True)
+                lib = lambda: torch.topk(h @ w.t(), LANES)  # noqa: E731
+                library = "torch.topk(h @ w.t()), cuBLAS fp32, TF32 off"
+            lib_ms = timer.ms(lib)
+            parts = head_split_ms(timer, args, split)
+            print(f"lmhead_topk {name}: {ms:.4f} ms (product alone "
+                  f"{parts['product_ms']:.4f}, selection and merge alone "
+                  f"{parts['selection_and_merge_ms']:.4f}); bound "
+                  f"{b[0]:.4f} ms ({b[0] / ms:.0%}); library {lib_ms:.4f} "
+                  f"ms ({library}); the {unfused}'s {unfused_ms:.4f} ms; "
+                  f"plain {plain_ms:.4f} ms; gpu: {gpu}", flush=True)
             rows.append(row("lmhead_topk", name, gpu, err, rel, ms, plain_ms,
-                            b, None, timer.floor_ms, layout=layout,
-                            exact=exact,
+                            b, lib_ms, timer.floor_ms, layout=layout,
+                            exact=exact, library=library,
                             repeat_bit_identical=same,
                             plan=lmhead_topk_plan(layout),
-                            unfused_product_ms=unfused_ms,
-                            selection_and_merge_ms=ms - unfused_ms))
+                            unfused_product_ms=unfused_ms, **parts))
         del h, w, quant, mask
     return rows
 
@@ -698,13 +729,16 @@ def attend_checks(dev, gpu, timer):
     generation (and at 592 slots with a decode step per row, the
     continuous batcher's tick), and a speculative window's (W 8 over 600
     slots, greedy; W 4 over 596, the sampled pool's) with its (B, W, S)
-    per-query mask, each row with its launch plan and a second call that
-    must give the same bits."""
+    per-query mask, each row with its launch plan, a second call that must
+    give the same bits, and the library call's time: SDPA over the cache
+    dequantised to fp32 beforehand (timed only, never called by the
+    port)."""
     import torch
+    import torch.nn.functional as F
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
                                              attend_int8_kv_plain,
                                              attend_int8_kv_plan,
-                                             quantize_cache)
+                                             dequantize_kv, quantize_cache)
     g = torch.Generator(device=dev).manual_seed(3)
     B, Hq, Hkv, D = 16, 32, 8, 64
     rows = []
@@ -733,6 +767,14 @@ def attend_checks(dev, gpu, timer):
         err, rel = errors(out, ref)
         plain_ms = timer.ms(lambda: attend_int8_kv_plain(q, cache, mask))
         ms = timer.ms(lambda: attend_int8_kv(q, cache, mask))
+        kd, vd = (dequantize_kv(x8, xs).transpose(1, 2)
+                  for x8, xs in ((cache[0], cache[1]), (cache[2], cache[3])))
+        qd = q.transpose(1, 2)
+        amask = (mask.bool()[:, None, None, :] if mask.dim() == 2
+                 else mask.bool()[:, None])
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=amask, enable_gqa=True))
+        del kd, vd
         # the (query, key) pairs the call attends: a key mask's row sums
         # times W, a per-query mask's sum
         pairs = mask.bool().sum().item() * (W if mask.dim() == 2 else 1)
@@ -741,7 +783,9 @@ def attend_checks(dev, gpu, timer):
         rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq={W}"
                         + (" per-row steps" if per_row else "")
                         + (" (B, W, S) mask" if W > 1 else ""), gpu,
-                        err, rel, ms, plain_ms, b, None, timer.floor_ms,
+                        err, rel, ms, plain_ms, b, lib_ms, timer.floor_ms,
+                        library="SDPA over the cache dequantised to fp32 "
+                                "beforehand",
                         plan={**plan, "ctas": plan["splits"] * B * W * Hkv},
                         repeat_bit_identical=bool(torch.equal(out, again))))
         check(torch.allclose(out, ref, **TOL),
@@ -3837,7 +3881,7 @@ def _bf16_ulp_err(out, ref):
     return d.max().item(), (d / (ulp + 1e-6 * r.max())).max().item()
 
 
-def bf16_decode_kernel_checks(dev, gpu, timer):
+def bf16_decode_kernel_checks(dev, gpu, timer, split):
     """The bf16 forms at the shapes phase 14 launches: the int8 product on
     bf16 x at the seven projections of a decode step (bf16 out) and the LM
     head (fp32 out), M = 16; the int8-KV attention on bf16 q over the
@@ -3848,7 +3892,9 @@ def bf16_decode_kernel_checks(dev, gpu, timer):
     its plain version, a repeat bit-identical, with the library call's time
     beside: (x @ w8.to(bf16)) * scale; SDPA over the cache dequantised to
     bf16 beforehand; cuBLAS bf16 h @ W^T (the int8 head's weight as bf16)
-    and torch.topk.  Returns the rows by kernel."""
+    and torch.topk; the head's forms also with their product alone and
+    their selection and merge alone (``head_split_ms``).  Returns the rows
+    by kernel."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
@@ -3975,16 +4021,23 @@ def bf16_decode_kernel_checks(dev, gpu, timer):
                     (h @ w8b).float() * quant[1], LANES)
                 wb = nbytes(*quant)
             lib_ms = timer.ms(lib)
+            parts = head_split_ms(timer, args, split)
             # one bf16 product a weight (csrc/lmhead_topk.cu)
             b = bound(wb + nbytes(h, hmask, vals, idx),
                       2.0 * h.shape[0] * h.shape[1] * 128256, BF16_FLOPS)
+            print(f"lmhead_topk {name}: {ms:.4f} ms (product alone "
+                  f"{parts['product_ms']:.4f}, selection and merge alone "
+                  f"{parts['selection_and_merge_ms']:.4f}); bound "
+                  f"{b[0]:.4f} ms ({b[0] / ms:.0%}); library {lib_ms:.4f} "
+                  f"ms (cuBLAS bf16 h @ W^T, then torch.topk); plain "
+                  f"{plain_ms:.4f} ms; gpu: {gpu}", flush=True)
             rows["lmhead_topk"].append(row(
                 "lmhead_topk", name, gpu, err, rel, ms, plain_ms, b, lib_ms,
                 timer.floor_ms, layout=layout, exact=exact, form="bf16",
                 repeat_bit_identical=same,
                 library="cuBLAS bf16 h @ W^T, then torch.topk",
                 plan=lmhead_topk_plan("int8" if layout != "tied_bf16"
-                                      else "tied_bf16")))
+                                      else "tied_bf16"), **parts))
         del h, w, quant, hmask
     torch.cuda.empty_cache()
     return rows
@@ -4127,7 +4180,7 @@ def int8_witness(gpu, mllm, inputs, tables, ref_ids, study_drift):
           f"{dp['top1_agree']} differ by more than {QQ_WITNESS_BOUND}")
 
 
-def bf16_decode_phase(dev, gpu):
+def bf16_decode_phase(dev, gpu, head_split):
     """Phase 14: the bf16 forms' kernel checks, quality_quant at
     Llama-3.2-1B's widths in bf16 (B 16, prompt 144, 64 new tokens) with
     the Llama's weights an HF-named state dict loaded by load_hf_llama,
@@ -4148,7 +4201,7 @@ def bf16_decode_phase(dev, gpu):
     from tsue_tpu_torch.ops.sampling import SamplingConfig
     t_phase = time.time()
     timer = Timer(dev)
-    rows = bf16_decode_kernel_checks(dev, gpu, timer)
+    rows = bf16_decode_kernel_checks(dev, gpu, timer, head_split)
     del timer
     llama, qcfg = LlamaConfig(vocab_size=128256), QFormerConfig()
     L = llama.num_layers
@@ -4258,6 +4311,16 @@ def bf16_decode_phase(dev, gpu):
                   "bf16 fused head greedy (bf16; int8 w + KV)": fused}
 
 
+def _build_head_split(out: dict) -> None:
+    """head_variants.split_libs() into ``out`` (or its error), in a
+    thread."""
+    try:
+        import head_variants
+        out.update(head_variants.split_libs())
+    except Exception as exc:    # reported by the caller's check
+        out["error"] = repr(exc)
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -4273,9 +4336,19 @@ def main() -> int:
 
     from tsue_tpu_torch.ops._build import build_all
     t0 = time.time()
+    # the head's product-alone and selection-alone variants, built beside
+    # the kernels (head_variants.py; timed beside the head's forms only)
+    head_split: dict = {}
+    split_build = threading.Thread(target=_build_head_split,
+                                   args=(head_split,))
+    split_build.start()
     libs = build_all(list(KERNELS))
+    split_build.join()
+    check("error" not in head_split, "the head's split variants did not "
+          f"build: {head_split.get('error')}")
     print(f"build: {', '.join(KERNELS)} in {time.time() - t0:.1f}s "
-          "(one nvcc each, in parallel)", flush=True)
+          "(one nvcc each, in parallel, with the head's two split "
+          "variants)", flush=True)
     for name, (_, report) in libs.items():
         for line in report.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -4291,7 +4364,8 @@ def main() -> int:
                       if x["shape"].startswith("lm_head M=16"))
     rows = {"flash_attn_fwd": flash_checks(dev, gpu, timer),
             "int8_matmul": int8_rows,
-            "lmhead_topk": head_checks(dev, gpu, timer, lm_head_ms),
+            "lmhead_topk": head_checks(dev, gpu, timer, lm_head_ms,
+                                       head_split),
             "attend_int8_kv": attend_checks(dev, gpu, timer),
             **fused_checks(dev, gpu, timer)}
     for name, extra in bf16_checks(dev, gpu, timer).items():
@@ -4323,7 +4397,7 @@ def main() -> int:
     eval_counts = eval_from_disk_phase(dev, gpu)
     p12_counts = bf16_remat_phase(dev, gpu)
     p13_counts = comparison_phase(dev, gpu)
-    p14_rows, p14_counts = bf16_decode_phase(dev, gpu)
+    p14_rows, p14_counts = bf16_decode_phase(dev, gpu, head_split)
     for name, extra in p14_rows.items():
         rows[name] += extra
 

@@ -1,42 +1,54 @@
 #!/usr/bin/env python3
 """Time text variants of the fused LM-head kernel side by side on one GPU.
 
-    python3 head_variants.py [--out build/head_variants.json]
+    python3 head_variants.py [--old-source DIR/lmhead_topk.cu ...]
+                             [--variants a,b] [--out FILE]
 
 Each variant is ``tsue_tpu_torch/csrc/lmhead_topk.cu`` with some edits
 (``EDITS``), built with nvcc into ``build/head_variants/`` (all in
-parallel) and swapped in under ``tsue_tpu_torch.ops.lmhead_topk``.  Every
-variant is timed on its form (the unedited source on both) at the decode
+parallel) and swapped in under ``tsue_tpu_torch.ops.lmhead_topk``;
+each ``--old-source`` adds an earlier source unedited as a variant named
+after its directory (e.g. ``git show
+<commit>:tsue_tpu_torch/csrc/lmhead_topk.cu`` written to
+``runs/old/lmhead_topk.cu``: variant ``old``).  Every variant is timed on each of the kernel's four
+forms (int8 head with fp32 or bf16 h, tied fp32, tied bf16) at the decode
 shape of chip_smoke.py (B 16, D 2048, V 128256, random inputs with a
-token-state mask) with chip_smoke.py's timer (L2 flushed, median of 15),
-in two rounds, the second in reverse order, so a drift of the card does
-not favour one variant.  The variants answer where each form's time goes
-(names with ``f32_`` are the tied fp32 form's, the others the int8
-form's):
+token-state mask and penalty 1.2) with chip_smoke.py's timer (L2 flushed,
+median of 15), in two rounds, the second in reverse order (old, base, ...,
+base, old), so a drift of the card does not favour one variant.  The
+variants answer where each form's time goes:
 
-  no_merge      the tile kernel alone (head_merge not launched)
-  product_only  the tile kernel without its selection: the product, the
-                processing and the keys written to shared memory
+  tiles_only    the tile kernels alone (head_merge not launched)
+  product_only  the tile kernels without their selection and no merge:
+                the product, the processing and the keys or values
+                written to shared memory
+  select_only   the selection and the merge alone: no copies and no
+                products; the epilogues key pseudo-random logits of
+                (row, column) through the mask and penalty
+  select_tile_only
+                select_only without the merge: the epilogues and the
+                tiles' selection
+  merge_launch_only, merge_loads_only, merge_bound_only
+                head_merge cut short: at once, after its loads, after
+                the bound
   copies_only   the ring's copies alone (no fragment, no mma, no
                 selection, no merge)
-  no_copies     the product's arithmetic alone (no copy into the ring, no
-                selection, no merge)
-  t256, t1024   8 or 32 warps a CTA instead of 16 (128 or 32 columns a
-                warp); with _product_only, without the selection and merge
-  k16           16 K rows a stage (7 stages in the keys' 128 KB)
-  s6            6 stages of 32 K rows (210 KB)
-  unrolled      the two k16 steps of a stage unrolled
-  f32_k<d>_s<n> the tied form with d D positions a stage and n stages
-                (the source's choice: 16 and 3)
-  f32_no_l2_prefetch, f32_l2_256
-                the tied form's weight copies without the L2 prefetch of
-                the 128-byte line around each, or with 256 bytes
+  tsel_search_only, tsel_gather_only
+                the tiles' selection cut short: after its search, after
+                its gather (before the keys are ordered and written)
+  b16_rows128   the tied bf16 form with boxes of 128 rows (8 stages of
+                18 KB) instead of 256 (4 of 34 KB)
+  b16_s3        the tied bf16 form with 3 stages instead of 4
 
-The variants named ``*only`` and ``no_*`` do not compute the function and
-are not checked; every other variant is held to the plain version (TOL).
-The edits reach every instantiation of a form's kernel (the tied form's
-bf16 twin, the int8 form's bf16-h twin); the runs time the fp32 forms.
-It needs a CUDA device and nvcc, and prints the card beside every time.
+The variants named ``*_only`` do not compute the function and are not
+checked; every other variant is held to the plain version (TOL), and
+the earlier sources to the current one bit for bit on the forms whose
+product the tied bf16 redesign left alone.  It also counts, from the logits of each form's inputs,
+how many of head_merge's 126 x 128 candidates of a row a filter by the
+largest of the tiles' 128th keys would keep, and, for the current source
+each earlier one and each variant, the device time of each of the head's
+kernels per call (torch.profiler, L2 flushed before each call).  It needs a CUDA
+device and nvcc, and prints the card beside every time.
 """
 from __future__ import annotations
 
@@ -48,118 +60,226 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-_NEXT = {"int8": "\n\n// ---- the fp32 tied form",
-         "f32": "\n\n__global__ void __launch_bounds__(kMergeThreads)"}
-_MERGE = ("  head_merge<<<B, kMergeThreads, kMergeSmem, stream>>>(cand, vals, "
-          "idx,\n                                                       "
+_MERGE = ("  head_merge<<<B, kMergeThreads, 0, stream>>>(cand, vals, idx, "
           "n_tiles);\n")
-_COMPUTE = {"int8": ("      cp_commit();\n      const unsigned char* ws = "
-                     "smem_raw + (st % kStages)"),
-            "f32": ("      cp_commit();\n      const unsigned char* ws =\n"
-                    "          smem_raw + (st % kF32Stages)")}
-_CP16 = ('  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" '
-         '::"r"(s),\n               "l"(src), "r"(bytes));')
-_NO_CP16 = "  (void)s; (void)src; (void)bytes;"
-_L2 = "cp.async.cg.shared.global.L2::128B"
-_CP16_W = ('  asm volatile("' + _L2 + ' [%0], [%1], 16, %2;\\n"\n'
-           '               ::"r"(s), "l"(src), "r"(bytes));')
-
-
-def _product_only(form):
-    """Edits that drop the form's selection and the merge launch."""
-    select = ("    __syncthreads();\n"
-              "    select_tile(keys, cand, b0, B, tile, n_tiles);\n  }\n}")
-    return [(_MERGE, ""), (select + _NEXT[form],
-                           "    __syncthreads();\n  }\n}" + _NEXT[form])]
-
-
-def _copies_only(form):
-    """Edits that also skip the product's arithmetic."""
-    return _product_only(form) + [(_COMPUTE[form], _COMPUTE[form].replace(
-        "cp_commit();\n", "cp_commit();\n      if (D > 0) continue;\n"))]
-
-
-def _shape(threads=512, ks=32, stages=None):
-    """Edits of the int8 form's threads a CTA, K rows a stage and ring
-    stages."""
-    out = []
-    if threads != 512:
-        out.append(("constexpr int kI8Threads = 512;",
-                    f"constexpr int kI8Threads = {threads};"))
-    if ks != 32:
-        out.append(("constexpr int kKS = 32; ", f"constexpr int kKS = {ks}; "))
-    if stages is not None:
-        out.append(("constexpr int kStages = kKeyBytes / kStageBytes;",
-                    f"constexpr int kStages = {stages};"))
-    return out
-
-
-def _f32_shape(ks=16, stages=3, threads=512):
-    """Edits of the tied form's D positions a stage, ring stages and
-    threads a CTA."""
-    out = []
-    if ks != 16:
-        out.append(("constexpr int kF32KS = 16;",
-                    f"constexpr int kF32KS = {ks};"))
-    if stages != 3:
-        out.append(("constexpr int kF32Stages = 3;",
-                    f"constexpr int kF32Stages = {stages};"))
-    if threads != 512:
-        out.append(("constexpr int kF32Threads = 512;",
-                    f"constexpr int kF32Threads = {threads};"))
-    return out
-
-
-_UNROLL1 = "#pragma unroll 1   // unrolled, the two steps' fragments spill"
-EDITS = {   # variant: [(text in the source, its replacement), ...]
-    "no_merge": [(_MERGE, "")],
-    "product_only": _product_only("int8"),
-    "copies_only": _copies_only("int8"),
-    "no_copies": _product_only("int8") + [(_CP16, _NO_CP16)],
-    "t256": _shape(256),
-    "t256_product_only": _shape(256) + _product_only("int8"),
-    "t1024": _shape(1024),
-    "t1024_product_only": _shape(1024) + _product_only("int8"),
-    "k16": _shape(ks=16),
-    "s6": _shape(stages=6),
-    "unrolled": [(_UNROLL1, "#pragma unroll")],
-    "f32_no_merge": [(_MERGE, "")],
-    "f32_product_only": _product_only("f32"),
-    "f32_copies_only": _copies_only("f32"),
-    "f32_no_copies": _product_only("f32") + [(_CP16, _NO_CP16),
-                                             (_CP16_W, _NO_CP16)],
-    "f32_no_l2_prefetch": [(_L2, "cp.async.cg.shared.global")],
-    "f32_l2_256": [(_L2, "cp.async.cg.shared.global.L2::256B")],
-    "f32_k16_s2": _f32_shape(stages=2),
-    "f32_k8_s3": _f32_shape(ks=8),
-    "f32_k8_s6": _f32_shape(ks=8, stages=6),
-    "f32_t256": _f32_shape(threads=256),
-    "f32_t256_product_only": _f32_shape(threads=256) + _product_only("f32"),
+_SELECT = [("    select_tile(keys, cand, b0, B, v0, V, tile, n_tiles);\n",
+            "", 2),
+           ("    select_tile(vals, cand, b0, B, v0, V, tile, n_tiles);\n",
+            "", 1)]
+_NOISE = '''
+// a pseudo-random logit in [-0.5, 0.5) of (row, column)
+__device__ __forceinline__ float noise(int b, int v) {
+  uint32_t x = (uint32_t)b * 0x9E3779B9u ^ (uint32_t)v * 0x85EBCA6Bu;
+  x ^= x >> 15;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 12;
+  x *= 0x297A2D39u;
+  x ^= x >> 15;
+  return (float)(x >> 8) * (1.f / 16777216.f) - 0.5f;
 }
 
+// ---- the selection ----'''
 
-def build(sources: dict, out_dir: Path) -> dict:
+
+def _product_only():
+    return [(_MERGE, "", 1)] + _SELECT
+
+
+_FULL_WAIT = "      mbar_wait(&full[s], (gs / kB16Stages) & 1);\n"
+_TMA = ("          tma_load(ws, &tw, k0, v0 + (st / nk) * kB16Rows, "
+        "&full[s]);\n          tma_load(ws + kB16WBytes, &th, k0, b0, "
+        "&full[s]);\n")
+
+
+def _copies_only():
+    """The cp.async forms skip their fragments and products after each
+    stage's copies; the tied bf16 form's consumer warps release each
+    stage as soon as it lands."""
+    return _product_only() + [
+        ("      cp_commit();\n      const ",
+         "      cp_commit();\n      if (D > 0) continue;\n      const ", 2),
+        (_FULL_WAIT, _FULL_WAIT + "      if (D > 0) {\n        __syncwarp();"
+         "\n        if (lane == 0) mbar_arrive(&empty[s]);\n        "
+         "continue;\n      }\n", 1)]
+
+
+def _select_only():
+    """No copies (the int8 and tied fp32 loops run no stage; the tied bf16
+    form's producer issues nothing and its consumers run only each chunk's
+    last stage, over stale shared memory, without waiting), pseudo-random
+    logits into the epilogues."""
+    return [
+        ("\n// ---- the selection ----", _NOISE, 1),
+        ("      if (st < nst) load_stage(st);\n", "", 2),
+        ("    for (int st = 0; st < nst; ++st) {\n      cp_wait",
+         "    for (int st = 0; st < 0; ++st) {\n      cp_wait", 2),
+        ("    if (lane == 0) {\n      int g = 0;   // stages issued",
+         "    if (lane == 0 && D < 0) {\n      int g = 0;   // stages issued",
+         1),
+        (_FULL_WAIT, "      if (kst != nk - 1) continue;\n", 1),
+        ("const float val = acc[i][j][2 * half + c4] * sv[j];",
+         "const float val = noise(b, v + j) * sv[j];", 1),
+        ("processed(acc[t][2 * half], m2.x, penalty)",
+         "processed(noise(b, v), m2.x, penalty)", 2),
+        ("processed(acc[t][2 * half + 1], m2.y, penalty)",
+         "processed(noise(b, v + 1), m2.y, penalty)", 2),
+    ]
+
+
+_MERGE_START = ("  const u64* src = cand + (size_t)b * n_tiles * kSeg;\n"
+                "  int par = 0;\n")
+_MERGE_LOADED = "    if (e < m) {\n"
+_MERGE_BOUND = "    __syncthreads();   // the bound is set\n"
+_LEAVE = "      if (n_tiles > 0) return;\n"
+_SEL_GATHER = ("  u64* buf = reinterpret_cast<u64*>(row);\n"
+               "  __syncwarp();   // the row was read out\n")
+_SEL_SORT = ("  u64 x[4];\n#pragma unroll\n  for (int i = 0; i < 4; ++i) x[i] = "
+             "buf[4 * lane + i];\n")
+EDITS = {   # variant: [(text in the source, its replacement, count), ...]
+    "merge_launch_only": [(_MERGE_START, _MERGE_START + _LEAVE, 1)],
+    "merge_loads_only": [(_MERGE_LOADED, (
+        "    {\n      u64 x = 0;\n      for (int j = 0; j < kMergeKeys; ++j) "
+        "x ^= key[j];\n      if (x == 42) vals[0] = 1.f;\n"
+        + _LEAVE + "    }\n" + _MERGE_LOADED), 1)],
+    "merge_bound_only": [(_MERGE_BOUND, _MERGE_BOUND + (
+        "      if (tid == 0 && bound == 42) vals[0] = 1.f;\n") + _LEAVE, 1)],
+    "tiles_only": [(_MERGE, "", 1)],
+    "product_only": _product_only(),
+    "select_only": _select_only(),
+    "select_tile_only": _select_only() + [(_MERGE, "", 1)],
+    "copies_only": _copies_only(),
+    "tsel_search_only": [(_SEL_GATHER, "  if (n_tiles > 0) {\n    if (t == "
+                          "42u) cand[0] = exact;\n    return;\n  }\n"
+                          + _SEL_GATHER, 1)],
+    "tsel_gather_only": [(_SEL_SORT, "  if (n_tiles > 0) {\n    if (buf[lane]"
+                          " == 42) cand[0] = 0;\n    return;\n  }\n"
+                          + _SEL_SORT, 1)],
+    "b16_rows128": [("constexpr int kB16Rows = 256;",
+                     "constexpr int kB16Rows = 128;", 1)],
+    "b16_s3": [("constexpr int kB16Stages =\n    (kMaxSmem - kB16Static - "
+                "kAlign - kValBytes) / kB16StageBytes;",
+                "constexpr int kB16Stages = 3;", 1)],
+}
+FORMS = ("int8", "int8_bf16_h", "tied_fp32", "tied_bf16")
+# the forms whose variants are timed (the others: every form)
+ONLY = {"b16_rows128": ("tied_bf16",), "b16_s3": ("tied_bf16",),
+        "merge_launch_only": ("int8",), "merge_loads_only": ("int8",),
+        "merge_bound_only": ("int8",)}
+# the forms whose product the redesign of the tied bf16 form left alone:
+# the earlier sources give their bits
+SAME_PRODUCT = ("int8", "int8_bf16_h", "tied_fp32")
+
+
+# the variants chip_smoke.py times beside each form: its product alone
+# and its selection and merge alone
+SPLIT = ("product_only", "select_only")
+
+
+def variant_source(base: str, name: str) -> str:
+    """The source ``base`` with variant ``name``'s edits."""
+    text = base
+    for old, new, count in EDITS[name]:
+        cs.check(text.count(old) == count,
+                 f"variant {name}: {text.count(old)} of {count} copies of "
+                 "an edit's text found")
+        text = text.replace(old, new)
+    return text
+
+
+def split_libs() -> dict:
+    """The ``SPLIT`` variants of the current source, built into
+    ``build/head_split/`` (for chip_smoke.py)."""
+    from tsue_tpu_torch.ops._build import BUILD_DIR, CSRC
+    base = (CSRC / "lmhead_topk.cu").read_text()
+    return build({name: variant_source(base, name) for name in SPLIT},
+                 BUILD_DIR / "head_split", report=False)
+
+
+def build(sources: dict, out_dir: Path, report: bool = True) -> dict:
     """nvcc each variant's source into a library, all at once; print the
-    tile kernels' registers and spills of each."""
+    kernels' registers, spills and shared memory of each (``report``)."""
     from tsue_tpu_torch.ops._build import build_variants
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = build_variants(sources, out_dir, {
         "lmhead_topk_plan": [i32, i32],
         "lmhead_topk": [ptr] * 5 + [ctypes.c_float] + [ptr] * 3 + [i32] * 4
         + [ptr]})
-    for name, (_, report) in libs.items():
-        lines = report.splitlines()
+    for name, (_, text) in libs.items():
+        lines = text.splitlines() if report else []
         for i, line in enumerate(lines):
-            for kernel in ("head_tile_topk_i8", "head_tile_topk_tied"):
-                if "entry function" in line and kernel in line:
-                    print(f"ptxas {name} {kernel}: " + " ".join(
-                        x.split("info    :")[-1].strip()
-                        for x in lines[i + 2:i + 4]), flush=True)
+            if "entry function" in line and "head_" in line:
+                kernel = line.split("'")[1] if "'" in line else line
+                print(f"ptxas {name} {kernel}: " + " ".join(
+                    x.split("info    :")[-1].strip()
+                    for x in lines[i + 1:i + 4]), flush=True)
     return {name: lib for name, (lib, _) in libs.items()}
+
+
+def filter_survivors(args, penalty: float) -> dict:
+    """Of head_merge's candidates (each 1024-column tile's top 128 of a
+    row), how many lie at or above the largest of the tiles' 128th values
+    (what a filter by that bound would keep), and how many at or above
+    head_merge's bound, the 128th of the lists' leading keys.  From the
+    plain logits."""
+    import torch
+    import torch.nn.functional as F
+    h, w, mask, _, quant = args
+    hf = h.float()
+    if quant is not None:
+        logits = (hf @ quant[0].float()) * quant[1]
+    else:
+        logits = hf @ w.float().t()
+    pen = torch.where(logits > 0, logits / penalty, logits * penalty)
+    logits = torch.where((mask & 1) != 0, pen, logits)
+    logits = logits.masked_fill((mask & 2) != 0, -1e9)
+    B, V = logits.shape
+    n = -(-V // 1024)
+    tiles = F.pad(logits, (0, n * 1024 - V), value=float("-inf")).view(
+        B, n, 1024)
+    top = tiles.topk(128, dim=-1).values            # (B, n, 128)
+    bound = top[:, :, -1].max(dim=1).values          # (B,)
+    keep = (top >= bound[:, None, None]).sum(dim=(1, 2)).float()
+    # head_merge's own bound: the 128th of the lists' leading m keys
+    m = min(128, 256 // n)
+    pool = top[:, :, :m].reshape(B, -1).topk(128, dim=-1).values[:, -1]
+    sur = (top >= pool[:, None, None]).sum(dim=(1, 2)).float()
+    return {"candidates": n * 128, "kept_min": keep.min().item(),
+            "kept_mean": keep.mean().item(), "kept_max": keep.max().item(),
+            "pool_bound_kept_mean": sur.mean().item(),
+            "pool_bound_kept_max": sur.max().item()}
+
+
+def kernel_device_us(fn, flush, reps: int = 10) -> dict:
+    """Mean device microseconds a call of each CUDA kernel ``fn`` launches
+    (torch.profiler; ``flush`` written before each call, outside the
+    kernels' names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "head_" in e.key:
+            name = "head_merge" if "head_merge" in e.key else "tile"
+            out[name] = out.get(name, 0) + round(
+                e.self_device_time_total / reps, 2)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-source", type=Path, action="append",
+                    default=[], help="an earlier lmhead_topk.cu, timed "
+                    "under its directory's name (repeatable)")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names of EDITS to build (default "
+                         "all)")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the timings here as JSON")
     args = ap.parse_args()
@@ -173,37 +293,61 @@ def main() -> int:
     gpu = cs.gpu_line()
     print(gpu, flush=True)
     base = (CSRC / "lmhead_topk.cu").read_text()
-    sources = {"base": base}
-    for name, edits in EDITS.items():
-        text = base
-        for old, new in edits:
-            cs.check(text.count(old) == 1, f"variant {name}: edit not found")
-            text = text.replace(old, new)
-        sources[name] = text
+    names = list(EDITS) if args.variants is None else [
+        x for x in args.variants.split(",") if x]
+    olds = {path.parent.name: path.read_text() for path in args.old_source}
+    sources = {**olds, "base": base}
+    for name in names:
+        sources[name] = variant_source(base, name)
     libs = build(sources, BUILD_DIR / "head_variants")
     dev = torch.device("cuda:0")
     timer = cs.Timer(dev)
     g = torch.Generator(device=dev).manual_seed(2)
     h, w, quant, mask = cs.head_inputs(dev, g, exact=False)
-    forms = {"int8": (h, None, mask, 1.2, quant),
-             "f32": (h, w, mask, 1.2, None)}
-    runs = [(f"base_{form}", "base", form) for form in forms]
-    runs += [(name, name, "f32" if name.startswith("f32_") else "int8")
-             for name in EDITS]
+    BF = torch.bfloat16
+    hb, wb = h.to(BF), w.to(BF)
+    penalty = 1.2
+    forms = {"int8": (h, None, mask, penalty, quant),
+             "int8_bf16_h": (hb, None, mask, penalty, quant),
+             "tied_fp32": (h, w, mask, penalty, None),
+             "tied_bf16": (hb, wb, mask, penalty, None)}
+    for form, a in forms.items():
+        print(f"filter {form}: " + json.dumps(filter_survivors(a, penalty)),
+              flush=True)
+    order = list(olds) + ["base"] + names
+    runs = [(f"{name} {form}", name, form) for name in order
+            for form in ONLY.get(name, FORMS)]
+    outs: dict = {}
     times: dict = {}
-    for order in (runs, runs[::-1]):
-        for label, name, form in order:
-            args_ = forms[form]
+    for rnd in (runs, runs[::-1]):
+        for label, name, form in rnd:
+            a = forms[form]
             LT._lib = lambda lib=libs[name]: lib    # the wrapper's binding
-            vals, idx = LT.lmhead_topk(*args_)
-            if "only" not in name and "no_" not in name:
-                rv, ri = LT.lmhead_topk_plain(*args_)
-                torch.cuda.synchronize()
+            vals, idx = LT.lmhead_topk(*a)
+            torch.cuda.synchronize()
+            if not name.endswith("_only"):
+                rv, ri = LT.lmhead_topk_plain(*a)
                 cs.check(torch.allclose(vals, rv, **cs.TOL),
                          f"{label} disagrees with the plain version")
-            ms = timer.ms(lambda: LT.lmhead_topk(*args_))
+                outs[label] = (vals, idx)
+            ms = timer.ms(lambda: LT.lmhead_topk(*a))
             times.setdefault(label, []).append(ms)
             print(f"{label}: {ms:.4f} ms; gpu: {gpu}", flush=True)
+    for old in olds:
+        for form in SAME_PRODUCT:
+            ov, oi = outs[f"{old} {form}"]
+            nv, ni = outs[f"base {form}"]
+            cs.check(torch.equal(ov, nv) and torch.equal(oi, ni),
+                     f"{form}: the source's bits differ from {old}'s")
+        print(f"{old} and the source bit-identical on " + ", ".join(
+            SAME_PRODUCT), flush=True)
+    for name in order:
+        LT._lib = lambda lib=libs[name]: lib
+        for form in ONLY.get(name, FORMS):
+            us = kernel_device_us(lambda: LT.lmhead_topk(*forms[form]),
+                                  timer.flush)
+            print(f"device us a call, {name} {form}: {json.dumps(us)}; "
+                  f"gpu: {gpu}", flush=True)
     summary = {name: min(v) for name, v in times.items()}
     print(json.dumps({"gpu": gpu, "min_ms_of_two_rounds": summary}),
           flush=True)

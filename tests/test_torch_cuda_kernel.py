@@ -242,15 +242,27 @@ def _tie_runs(w, quant, V, step):
 
 
 def test_lmhead_topk_plan_layouts(dev):
-    """Both forms tile the vocabulary in the same 1024 columns, split the
-    tile evenly across their warps and fit their ring and keys in a
-    block's shared memory; an unknown layout raises."""
+    """Every form tiles the vocabulary in 1024 columns, splits the tile
+    evenly across 16 warps (one a batch row in the selection) and fits its
+    ring and keys in a block's shared memory; the tied bf16 form streams
+    whole 128-byte lines of 256-row chunks (TMA boxes, a producer warp
+    more) beside its 32-bit values, on a 1024-byte-aligned ring; an unknown
+    layout raises."""
     plans = {layout: LT.lmhead_topk_plan(layout) for layout in LT.LAYOUTS}
     for layout, plan in plans.items():
-        assert plan["tile_cols"] == 1024, plan
-        assert plan["warp_cols"] * plan["threads"] // 32 == 1024, plan
+        assert plan["tile_cols"] == 1024 and plan["warp_cols"] * 16 == 1024
         assert plan["stages"] >= 2 and plan["k_rows_per_stage"] % 8 == 0
-        assert 16 * 1024 * 8 <= plan["smem_bytes"] <= 232448, plan
+        assert plan["tile_cols"] % plan["stage_rows"] == 0, plan
+        assert plan["smem_bytes"] <= 232448, plan
+    for layout in ("int8", "tied_fp32"):
+        assert plans[layout]["threads"] == 512
+        assert plans[layout]["stage_rows"] == 1024
+        assert plans[layout]["smem_bytes"] >= 16 * 1024 * 8   # the keys
+    bf = plans["tied_bf16"]
+    assert bf["threads"] == 512 + 32
+    assert bf["k_rows_per_stage"] * 2 == 128 and bf["stage_rows"] == 256
+    assert bf["stages"] >= 3 and bf["smem_bytes"] == (
+        1024 + bf["stages"] * (256 + 16) * 128 + 16 * 1024 * 4), bf
     with pytest.raises(ValueError, match="layout"):
         LT.lmhead_topk_plan("bf16")
 
@@ -1528,3 +1540,123 @@ def test_lmhead_topk_bf16_random_close(dev):
         assert (idx == ri).float().mean() > 0.99
     with pytest.raises(TypeError):
         LT.lmhead_topk(h, w.float(), None)
+
+
+# the four forms: (h's dtype, tied weight or the int8 head)
+HEAD_FORMS = {"int8": (torch.float32, False), "int8_bf16_h": (BF, False),
+              "tied_fp32": (torch.float32, True), "tied_bf16": (BF, True)}
+
+
+def _head_form_inputs(dev, g, form, B, D, V):
+    """Integer inputs, exact in the form's types: h in [-3, 3], a tied
+    weight in [-2, 2] or an int8 head in [-4, 4] with power-of-two
+    scales."""
+    hd, tied = HEAD_FORMS[form]
+    h, w, quant = _exact_head(dev, g, B, D, V, "tied" if tied else "int8")
+    return h.to(hd), None if w is None else w.to(hd), quant
+
+
+def _head_case(dev, g, form, case):
+    """[(h, w, quant, mask, penalty), ...] for one selection case."""
+    hd, tied = HEAD_FORMS[form]
+    D = 128
+    if case == "all_equal":
+        # every logit of a row equal: the 128 lowest indices, in order;
+        # with every token banned, the same (the ban's -1e9 ties)
+        h, w, quant = _head_form_inputs(dev, g, form, 3, D, 3000)
+        h[:] = 1
+        if tied:
+            w[:] = 1
+        else:
+            quant[0][:] = 1
+            quant[1][:] = 0.5
+        mask = torch.full((3, 3000), 2, dtype=torch.int32, device=dev)
+        return [(h, w, quant, None, 1.0), (h, w, quant, mask, 1.0)]
+    if case == "few_unbanned":
+        # rows with 0, 5, 127 and 128 unbanned tokens spread over the
+        # tiles: those first, then the banned ones by index
+        V = 5000
+        h, w, quant = _head_form_inputs(dev, g, form, 4, D, V)
+        mask = torch.full((4, V), 2, dtype=torch.int32, device=dev)
+        for b, n in enumerate((0, 5, 127, 128)):
+            keep = torch.randperm(V, generator=g, device=dev)[:n]
+            mask[b, keep] = torch.randint(0, 2, (n,), generator=g,
+                                          device=dev).int()
+        return [(h, w, quant, mask, 2.0)]
+    if case == "signed_zero":
+        # -0.0 beside +0.0 (int8: zero columns times negative scales;
+        # tied: zero weight rows against a negative h), with a few
+        # positive and negative logits around them: one value
+        h, w, quant = _head_form_inputs(dev, g, form, 2, D, 2048)
+        h[:] = -1
+        zero = torch.rand(2048, generator=g, device=dev) < 0.9
+        if tied:
+            w[zero] = 0
+        else:
+            quant[0][:, zero] = 0
+            quant[1][zero & (torch.arange(2048, device=dev) % 2 == 0)] *= -1
+        return [(h, w, quant, None, 1.0)]
+    if case == "batch_1_17":
+        out = []
+        for B in (1, 17):
+            h, w, quant = _head_form_inputs(dev, g, form, B, D, 3000)
+            mask = torch.randint(0, 4, (B, 3000), generator=g,
+                                 device=dev).int()
+            out.append((h, w, quant, mask, 2.0))
+        return out
+    if case == "short_vocab":
+        # V = 128: one tile of 128 columns; V = 1028: a tail tile of 4
+        out = []
+        for V in (128, 1028):
+            h, w, quant = _head_form_inputs(dev, g, form, 5, D, V)
+            mask = torch.randint(0, 4, (5, V), generator=g, device=dev).int()
+            out += [(h, w, quant, None, 1.0), (h, w, quant, mask, 2.0)]
+        return out
+    assert case == "one_tile"
+    # every row's top 128 inside one tile, row b's in tile b % 8: h[b, b %
+    # 8] = 100 against a weight of 2 at position p in tile p's columns
+    # (scales 1), the other positions' sums at most 240 in size
+    B, V = 9, 8 * 1024
+    h, w, quant = _head_form_inputs(dev, g, form, B, D, V)
+    h[:, :8] = 0
+    h[:, 8:] = h[:, 8:].clamp(-1, 1)
+    for b in range(B):
+        h[b, b % 8] = 100
+    hot = 2 * (torch.arange(V, device=dev)[:, None] // 1024
+               == torch.arange(8, device=dev)[None, :])
+    if tied:
+        w[:, :8] = hot.to(w.dtype)
+    else:
+        quant[0][:8] = hot.t().to(torch.int8)
+        quant[1][:] = 1
+    return [(h, w, quant, None, 1.0)]
+
+
+@pytest.mark.parametrize("case", ["all_equal", "few_unbanned",
+                                  "signed_zero", "batch_1_17",
+                                  "short_vocab", "one_tile"])
+@pytest.mark.parametrize("form", list(HEAD_FORMS))
+def test_lmhead_topk_selection_cases(dev, form, case):
+    """The selection's edge cases on each of the four forms, exact inputs:
+    indices and values identical to a stable descending sort of the
+    processed logits, a repeated call bit-identical, one counted launch a
+    call."""
+    g = torch.Generator(device=dev).manual_seed(
+        71 + list(HEAD_FORMS).index(form))
+    for h, w, quant, mask, pen in _head_case(dev, g, form, case):
+        before = LT.lmhead_topk.launches
+        vals, idx = LT.lmhead_topk(h, w, mask, penalty=pen, quant=quant)
+        again = LT.lmhead_topk(h, w, mask, penalty=pen, quant=quant)
+        assert LT.lmhead_topk.launches == before + 2
+        rv, ri = LT.lmhead_topk_plain(h, w, mask, penalty=pen, quant=quant)
+        torch.cuda.synchronize()
+        where = (form, case, tuple(h.shape), pen)
+        assert torch.equal(idx, ri), where
+        assert torch.equal(vals, rv), where
+        assert torch.equal(again[0], vals) and torch.equal(again[1], idx)
+        if case == "all_equal":
+            assert torch.equal(idx[0], torch.arange(
+                128, device=dev, dtype=torch.int32)), where
+        if case == "one_tile":
+            rows = torch.arange(idx.shape[0], device=dev)[:, None]
+            assert (idx // 1024 == rows % 8).all(), where

@@ -92,15 +92,17 @@ def _lib():
 
 LAYOUTS = ("int8", "tied_fp32", "tied_bf16")
 PLAN_FIELDS = ("tile_cols", "warp_cols", "k_rows_per_stage", "stages",
-               "smem_bytes", "threads")
+               "smem_bytes", "threads", "stage_rows")
 
 
 def lmhead_topk_plan(layout: str = "int8") -> dict:
     """The layout of one form of the kernel (builds the kernel): the vocab
-    columns a CTA (the same in both forms), the columns a warp owns, the K
-    (= D) rows a stage of the cp.async ring, the ring's stages, the shared
-    memory and the threads of a CTA.  ``layout`` is "int8" (fp32 or bf16
-    h: one layout), "tied_fp32" or "tied_bf16"."""
+    columns a CTA (the tile: one CTA a tile, one candidate list a tile and
+    batch row), the tile's columns a warp owns, the K (= D) rows a stage of
+    the cp.async ring, the ring's stages, the shared memory and the threads
+    of a CTA, and the vocab columns a stage holds (the whole tile, or the
+    tied bf16 form's 256-row chunk).  ``layout`` is "int8" (fp32 or bf16 h:
+    one layout), "tied_fp32" or "tied_bf16"."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     lib, form = _lib(), LAYOUTS.index(layout)
@@ -138,7 +140,9 @@ def _lmhead_cuda(hidden, weight, mask, penalty, quant):
         check_tensor("mask", mask, dev, (B, V), torch.int32, True)
         mask_ptr = mask.data_ptr()
     lib = _lib()
-    n_tiles = -(-V // lib.lmhead_topk_plan(int(quant is None), 0))
+    layout = ("int8" if quant is not None else
+              "tied_bf16" if hd == torch.bfloat16 else "tied_fp32")
+    n_tiles = -(-V // lib.lmhead_topk_plan(LAYOUTS.index(layout), 0))
     cand = torch.empty(B, n_tiles, LANES, device=dev, dtype=torch.int64)
     vals = torch.empty(B, LANES, device=dev, dtype=torch.float32)
     idx = torch.empty(B, LANES, device=dev, dtype=torch.int32)
