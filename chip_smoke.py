@@ -457,14 +457,15 @@ def attended(kw):
     return pairs
 
 
-def flash_checks(dev, gpu, timer):
+def flash_checks(dev, gpu, timer, cases=None, **marks):
+    """``cases`` (default ``attention_cases``); ``marks`` go on each row."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.flash import (_DT, _lib, flash_attention,
                                           flash_attention_form,
                                           flash_attention_plain, rope_bthd)
     rows = []
-    for name, kw in attention_cases(dev):
+    for name, kw in (cases if cases is not None else attention_cases(dev)):
         out = flash_attention(**kw)
         ref = flash_attention_plain(**kw)
         torch.cuda.synchronize()
@@ -503,7 +504,7 @@ def flash_checks(dev, gpu, timer):
                         else list(kw["mask"].shape),
                         form=flash_attention_form(*call, kw["q"].dtype,
                                                   kw["k"].dtype),
-                        splits=splits))
+                        splits=splits, **marks))
         check(ok, f"flash_attn_fwd disagrees with the plain version at "
                   f"{name}: max abs err {err} (atol/rtol {TOL})")
     return rows
@@ -515,19 +516,21 @@ INT8_SHAPES = (   # (name, K, N, projections of this shape per layer)
     ("lm_head", 2048, 128256, 0))
 
 
-def int8_checks(dev, gpu, timer):
+def int8_checks(dev, gpu, timer, cases=None, **marks):
     """Each projection shape at the decode batch M = 16 (with the library
     call's time), q_proj also at M = 1 and M = 128, the ends of the row
     range the kernel takes; each row with its launch plan and a second call
-    that must give the same bits."""
+    that must give the same bits.  ``cases``: (name, K, N, per layer, M)
+    in place of these; ``marks`` go on each row."""
     import torch
     from tsue_tpu_torch.ops.quant import (int8_matmul, int8_matmul_plan,
                                           int8_matmul_ref, quantize_weight)
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    cases = [(name, K, N, per_layer, 16)
-             for name, K, N, per_layer in INT8_SHAPES]
-    cases += [("q_proj", 2048, 2048, 0, M) for M in (1, 128)]
+    if cases is None:
+        cases = [(name, K, N, per_layer, 16)
+                 for name, K, N, per_layer in INT8_SHAPES]
+        cases += [("q_proj", 2048, 2048, 0, M) for M in (1, 128)]
     for name, K, N, per_layer, M in cases:
         x = torch.randn(M, K, generator=g, device=dev)
         w8, s = quantize_weight(torch.randn(K, N, generator=g, device=dev)
@@ -567,7 +570,8 @@ def int8_checks(dev, gpu, timer):
                         rel, ms, plain_ms, b, lib_ms, timer.floor_ms,
                         per_layer=per_layer,
                         library=lib_note, plan=int8_matmul_plan(M, K, N),
-                        repeat_bit_identical=bool(torch.equal(out, again))))
+                        repeat_bit_identical=bool(torch.equal(out, again)),
+                        **marks))
         check(ok, f"int8_matmul disagrees with the plain version at {name} "
                   f"M={M}: max abs err {err} (rtol 1e-4, atol {atol})")
         check(torch.equal(out, again), f"int8_matmul at {name} M={M}: a "
@@ -575,14 +579,14 @@ def int8_checks(dev, gpu, timer):
     return rows
 
 
-def head_inputs(dev, g, exact: bool):
-    """hidden (16, 2048), tied fp32 weight (128256, 2048), int8 head and a
+def head_inputs(dev, g, exact: bool, B: int = 16):
+    """hidden (B, 2048), tied fp32 weight (128256, 2048), int8 head and a
     token-state mask from a history with repeats (penalty and bans)."""
     import torch
     from tsue_tpu_torch.ops.lmhead_topk import token_state_mask
     from tsue_tpu_torch.ops.quant import quantize_weight
     from tsue_tpu_torch.ops.sampling import SamplingConfig
-    B, D, V = 16, 2048, 128256
+    D, V = 2048, 128256
     if exact:   # integer dot products: no summation order changes a logit
         h = torch.randint(-3, 4, (B, D), generator=g, device=dev).float()
         w = torch.randint(-2, 3, (V, D), generator=g, device=dev).float()
@@ -620,7 +624,8 @@ def head_split_ms(timer, args, split) -> dict:
             "selection_and_merge_ms": out["select_only"]}
 
 
-def head_checks(dev, gpu, timer, lm_head_ms, split):
+def head_checks(dev, gpu, timer, lm_head_ms, split, B=16,
+                exacts=(True, False), **marks):
     """The fused head at the decode shape (B 16, V 128256), both fp32
     layouts, on exact inputs (indices and values identical to the plain
     version) and random ones (values within TOL, index sets equal apart
@@ -631,16 +636,19 @@ def head_checks(dev, gpu, timer, lm_head_ms, split):
     cuBLAS fp32 with TF32 off; int8: ``torch.topk((h @ w8f) * scale,
     128)`` with w8f the int8 head in fp32 beforehand); and the unfused
     product (int8: ``lm_head_ms``, int8_checks' lm_head row; tied: ``h @
-    w.t()``)."""
+    w.t()``).  ``B`` rows and ``exacts`` in place of 16 and both kinds
+    of input (``lm_head_ms`` None: the unfused int8 product timed here);
+    ``marks`` go on each row."""
     import torch
     from tsue_tpu_torch.ops.lmhead_topk import (LANES, lmhead_topk,
                                                 lmhead_topk_plain,
                                                 lmhead_topk_plan)
+    from tsue_tpu_torch.ops.quant import int8_matmul
     g = torch.Generator(device=dev).manual_seed(2)
     penalty = 1.2
     rows = []
-    for exact in (True, False):
-        h, w, quant, mask = head_inputs(dev, g, exact)
+    for exact in exacts:
+        h, w, quant, mask = head_inputs(dev, g, exact, B)
         for layout in ("int8", "tied_fp32"):
             args = ((h, None, mask, penalty, quant) if layout == "int8"
                     else (h, w, mask, penalty, None))
@@ -649,7 +657,8 @@ def head_checks(dev, gpu, timer, lm_head_ms, split):
             rv, ri = lmhead_topk_plain(*args)
             torch.cuda.synchronize()
             err, rel = errors(vals, rv)
-            name = f"{layout} {'exact' if exact else 'random'} B=16 V=128256"
+            name = (f"{layout} {'exact' if exact else 'random'} B={B} "
+                    "V=128256")
             same = torch.equal(again[0], vals) and torch.equal(again[1], idx)
             check(same, f"lmhead_topk {name}: a repeated call differs")
             if exact:
@@ -693,6 +702,9 @@ def head_checks(dev, gpu, timer, lm_head_ms, split):
                 unfused_ms, unfused = lm_head_ms, ("unfused int8 LM-head "
                                                    "product (int8_matmul "
                                                    "lm_head row)")
+                if unfused_ms is None:
+                    unfused_ms = timer.ms(lambda: int8_matmul(
+                        h, quant[0], quant[1]))
                 w8f = quant[0].float()
                 lib = lambda: torch.topk(  # noqa: E731
                     (h @ w8f) * quant[1], LANES)
@@ -719,12 +731,12 @@ def head_checks(dev, gpu, timer, lm_head_ms, split):
                             exact=exact, library=library,
                             repeat_bit_identical=same,
                             plan=lmhead_topk_plan(layout),
-                            unfused_product_ms=unfused_ms, **parts))
+                            unfused_product_ms=unfused_ms, **parts, **marks))
         del h, w, quant, mask
     return rows
 
 
-def attend_checks(dev, gpu, timer):
+def attend_checks(dev, gpu, timer, cases=None, heads=(32, 8), **marks):
     """The decode step's int8-KV attention at the three cache lengths of
     generation (and at 592 slots with a decode step per row, the
     continuous batcher's tick), and a speculative window's (W 8 over 600
@@ -732,7 +744,8 @@ def attend_checks(dev, gpu, timer):
     per-query mask, each row with its launch plan, a second call that must
     give the same bits, and the library call's time: SDPA over the cache
     dequantised to fp32 beforehand (timed only, never called by the
-    port)."""
+    port).  ``cases`` (S, per-row steps, W) and ``heads`` (query, KV) in
+    place of these; ``marks`` go on each row."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv,
@@ -740,10 +753,11 @@ def attend_checks(dev, gpu, timer):
                                              attend_int8_kv_plan,
                                              dequantize_kv, quantize_cache)
     g = torch.Generator(device=dev).manual_seed(3)
-    B, Hq, Hkv, D = 16, 32, 8, 64
+    B, (Hq, Hkv), D = 16, heads, 64
     rows = []
-    for S, per_row, W in ((336, False, 1), (464, False, 1), (592, True, 1),
-                          (600, True, 8), (596, True, 4), (592, False, 1)):
+    for S, per_row, W in (cases or (
+            (336, False, 1), (464, False, 1), (592, True, 1), (600, True, 8),
+            (596, True, 4), (592, False, 1))):
         k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
         cache = quantize_cache([(k, v)])[0]
@@ -780,14 +794,15 @@ def attend_checks(dev, gpu, timer):
         pairs = mask.bool().sum().item() * (W if mask.dim() == 2 else 1)
         b = bound(nbytes(q, *cache, mask, out), 4.0 * D * Hq * pairs)
         plan = attend_int8_kv_plan(S, Hq // Hkv, D)
-        rows.append(row("attend_int8_kv", f"S={S} B=16 32/8x64 Tq={W}"
+        rows.append(row("attend_int8_kv", f"S={S} B=16 {Hq}/{Hkv}x64 Tq={W}"
                         + (" per-row steps" if per_row else "")
                         + (" (B, W, S) mask" if W > 1 else ""), gpu,
                         err, rel, ms, plain_ms, b, lib_ms, timer.floor_ms,
                         library="SDPA over the cache dequantised to fp32 "
                                 "beforehand",
                         plan={**plan, "ctas": plan["splits"] * B * W * Hkv},
-                        repeat_bit_identical=bool(torch.equal(out, again))))
+                        repeat_bit_identical=bool(torch.equal(out, again)),
+                        **marks))
         check(torch.allclose(out, ref, **TOL),
               f"attend_int8_kv disagrees with the plain version at S={S}: "
               f"max abs err {err}")
@@ -796,13 +811,15 @@ def attend_checks(dev, gpu, timer):
     return rows
 
 
-def fused_checks(dev, gpu, timer):
+def fused_checks(dev, gpu, timer, cases=None, **marks):
     """RMSNorm (M, 2048) and the SwiGLU down-projection (M, 8192) x (8192,
     2048) at M = B * (16 image + 512 text tokens): training at batch 16
     (also the predict chunk with the fused switch on) and at batch 8.
     SwiGLU: rtol 1e-4, atol 1e-5 of the largest output, ``tol_used`` the
     largest |out - ref| / (atol + rtol |ref|); its launch plan, a repeated
-    call bit-identical, and the cuBLAS time of h @ w alone beside."""
+    call bit-identical, and the cuBLAS time of h @ w alone beside.
+    ``cases``: (paths, B, FFN width, with RMSNorm) in place of these;
+    ``marks`` go on each row."""
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
@@ -810,25 +827,29 @@ def fused_checks(dev, gpu, timer):
                                           swiglu_matmul_plan)
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {"rmsnorm": [], "swiglu_matmul": []}
-    D, I = 2048, 8192
-    for paths, B in (("train_18_30 b16 / predict b16", 16),
-                     ("lora_only_18_18 b8", 8)):
+    D = 2048
+    for paths, B, I, norm in (cases or (
+            ("train_18_30 b16 / predict b16", 16, 8192, True),
+            ("lora_only_18_18 b8", 8, 8192, True))):
         M = B * (16 + TEXT_TOKENS)
-        x = torch.randn(M, D, generator=g, device=dev)
-        scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
-        out = fused_rmsnorm(x, scale, 1e-5)
-        ref = rmsnorm_plain(x, scale, 1e-5)
-        torch.cuda.synchronize()
-        err, rel = errors(out, ref)
-        check(torch.allclose(out, ref, **TOL),
-              f"rmsnorm disagrees with the plain version at M={M}: {err}")
-        plain_ms = timer.ms(lambda: rmsnorm_plain(x, scale, 1e-5))
-        ms = timer.ms(lambda: fused_rmsnorm(x, scale, 1e-5))
-        lib_ms = timer.ms(lambda: F.rms_norm(x, (D,), scale, 1e-5))
-        b = bound(nbytes(x, scale, out), 4.0 * M * D)
-        rows["rmsnorm"].append(row("rmsnorm", f"{paths}: M={M} K={D}", gpu,
-                                   err, rel, ms, plain_ms, b, lib_ms,
-                                   timer.floor_ms, batch=B))
+        if not norm:
+            x = out = ref = None
+        else:
+            x = torch.randn(M, D, generator=g, device=dev)
+            scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+            out = fused_rmsnorm(x, scale, 1e-5)
+            ref = rmsnorm_plain(x, scale, 1e-5)
+            torch.cuda.synchronize()
+            err, rel = errors(out, ref)
+            check(torch.allclose(out, ref, **TOL),
+                  f"rmsnorm disagrees with the plain version at M={M}: {err}")
+            plain_ms = timer.ms(lambda: rmsnorm_plain(x, scale, 1e-5))
+            ms = timer.ms(lambda: fused_rmsnorm(x, scale, 1e-5))
+            lib_ms = timer.ms(lambda: F.rms_norm(x, (D,), scale, 1e-5))
+            b = bound(nbytes(x, scale, out), 4.0 * M * D)
+            rows["rmsnorm"].append(row("rmsnorm", f"{paths}: M={M} K={D}", gpu,
+                                       err, rel, ms, plain_ms, b, lib_ms,
+                                       timer.floor_ms, batch=B, **marks))
         del x, out, ref
         gate = torch.randn(M, I, generator=g, device=dev)
         up = torch.randn(M, I, generator=g, device=dev)
@@ -867,10 +888,65 @@ def fused_checks(dev, gpu, timer):
             "swiglu_matmul", f"{paths}: {label}", gpu, err, rel, ms,
             plain_ms, b, None, timer.floor_ms, batch=B, cublas_hw_ms=hw_ms,
             fp32_fma_bound_ms=bound(moved, flops)[0], plan=plan,
-            tol_used=used))
+            tol_used=used, **marks))
         del gate, up, w, out, ref
     torch.cuda.empty_cache()
-    return rows
+    return {k: v for k, v in rows.items() if v}
+
+
+def shard_shape_checks(dev, gpu, timer, head_split):
+    """Phase 3 at the local shapes of phase 15's parallel paths, Llama-3.2-1B
+    at TP 2 (heads, KV heads and FFN halved on each rank) and DP 2 (the
+    batch halved): flash at 16/4 heads of 64 (B 16, 528 tokens, RoPE) and
+    at 32/8 (B 8), its decode step at 16/4 over 592 slots; the int8
+    product at each TP 2 projection (M 16); the int8-KV attention at 16/4;
+    the SwiGLU down-projection at K 4096 (the TP 2 rank's partial sum
+    before the reduce); the fused head at B 8 (DP 2: every rank holds the
+    whole table).  Each row carries ``shard=True``; the main-path lines
+    leave them out."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import LlamaConfig
+    from tsue_tpu_torch.models.llama import rope_inv_freq
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    T, S = 16 + TEXT_TOKENS, 592
+    inv = torch.as_tensor(rope_inv_freq(LlamaConfig()), device=dev)
+
+    def llama(B, Hq, Hkv):
+        lens = torch.as_tensor(np.linspace(200, T, B).astype(np.int64),
+                               device=dev)
+        mask = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+        ang = (mask.cumsum(1) - 1).clamp_min(0).float()[..., None] * inv
+        return dict(q=randn(B, T, Hq, 64), k=randn(B, T, Hkv, 64),
+                    v=randn(B, T, Hkv, 64), mask=mask, is_causal=True,
+                    rope=(torch.cos(ang), torch.sin(ang)))
+    dmask = (torch.arange(S, device=dev)[None]
+             < torch.randint(300, S, (16, 1), generator=g, device=dev)).int()
+    flash = [("TP 2 llama_self 16/4x64 B16", llama(16, 16, 4)),
+             ("DP 2 llama_self 32/8x64 B8", llama(8, 32, 8)),
+             ("TP 2 gen_decode_fp32_cache 16/4x64 S592",
+              dict(q=randn(16, 1, 16, 64), k=randn(16, S, 4, 64),
+                   v=randn(16, S, 4, 64), mask=dmask))]
+    out = {"flash_attn_fwd": flash_checks(dev, gpu, timer, flash,
+                                          shard=True)}
+    out["int8_matmul"] = int8_checks(dev, gpu, timer, [
+        ("TP 2 q_proj", 2048, 1024, 0, 16),
+        ("TP 2 k_proj/v_proj", 2048, 256, 0, 16),
+        ("TP 2 gate_proj/up_proj", 2048, 4096, 0, 16),
+        ("TP 2 o_proj", 1024, 2048, 0, 16),
+        ("TP 2 down_proj", 4096, 2048, 0, 16)], shard=True)
+    out["attend_int8_kv"] = attend_checks(
+        dev, gpu, timer, ((592, False, 1),), heads=(16, 4), shard=True)
+    out.update(fused_checks(dev, gpu, timer, (
+        ("TP 2 rank b16, a partial sum before the reduce", 16, 4096,
+         False),), shard=True))
+    out["lmhead_topk"] = head_checks(dev, gpu, timer, None, head_split, B=8,
+                                     exacts=(False,), shard=True)
+    return out
 
 
 BF_TOL = dict(atol=2 ** -6, rtol=2 ** -7)   # bf16 outputs: a few ulps
@@ -4311,6 +4387,274 @@ def bf16_decode_phase(dev, gpu, head_split):
                   "bf16 fused head greedy (bf16; int8 w + KV)": fused}
 
 
+# --------------------------------------------------------------------------
+# 15. the parallel paths on the one card
+# --------------------------------------------------------------------------
+
+PARALLEL_NEW_TOKENS = 16
+PARALLEL_TIMEOUT_S = 600
+LOGIT_TOL = 1e-3       # of max |logit|: TP 2 sums each product in halves
+
+
+def parallel_train_cfg():
+    """"train_18_30" (frozen_mllm, fp32, batch 16) with every dropout at 0:
+    a data rank then draws no mask, and its step equals one process's."""
+    from tsue_tpu_torch.config import get_preset
+    cfg = get_preset("train_18_30")
+    m = cfg.model
+    return cfg.replace(model=dataclasses.replace(
+        m, llama=dataclasses.replace(m.llama, lora_dropout=0.0),
+        qformer=dataclasses.replace(m.qformer, dropout=0.0),
+        lane=dataclasses.replace(m.lane, dropout=0.0),
+        ltsf=dataclasses.replace(m.ltsf, dropout=0.0)))
+
+
+def parallel_work(dev, tp=None, dp=None) -> dict:
+    """Phase 15's work in one process (``tp``, ``dp`` None) or on a rank of
+    the two (``tp`` the TP 2 mesh, ``dp`` the DP 2 mesh of the same ranks):
+    (a) at the width of phase 5 a Predictor with the three decode switches
+    on: the prefill's last-position logits on seeded prompts, a greedy
+    ``generate_context`` of 16 tracks (16 new tokens) with its launches,
+    and a ``predict`` request (K = 10); (b) one stage-2 step of
+    ``parallel_train_cfg`` with the fused switch on, clip + SGD at a
+    learning rate of 1 (an update affine in the gradient, large beside an
+    fp32 ulp of the weights), on DP 2 and (c) on DP 2 with FSDP."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.models.tsue import TrajectoryModel, init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.ops.sampling import SamplingConfig
+    from tsue_tpu_torch.parallel.sharding import gather_state
+    from tsue_tpu_torch.runner import _place_for_training, to_device
+    from tsue_tpu_torch.serve import Predictor
+    from tsue_tpu_torch.train.trainer import make_train_step
+    from tsue_tpu_torch.parallel.mesh import shard_batch
+    out = {}
+    cfg, state = full_width_state(dev)
+    B, N = 16, PARALLEL_NEW_TOKENS
+    pred = Predictor(cfg, state, batch_size=B, num_candidates=10,
+                     quantize_decode=True, fused_head=True, quantize_kv=True,
+                     device=dev, mesh=tp)
+    del state
+    rng = np.random.default_rng(15)
+    vision = torch.from_numpy(rng.standard_normal(
+        (B, cfg.data.seq_len, cfg.data.vision_dim)).astype(np.float32)
+        ).to(dev)
+    ids = torch.from_numpy(rng.integers(
+        3, min(50000, cfg.model.llama.vocab_size), (B, 144)).astype(
+        np.int32)).to(dev)
+    mask = torch.ones(B, 144, dtype=torch.int32, device=dev)
+    mllm = pred._mllm()
+    with torch.no_grad():
+        _, last, _, _ = mllm.prefill(vision, ids, mask, 144 + 16 + N)
+        out["logits"] = mllm.llama.logits_from_hidden(
+            last, quant_ok=True).float().cpu()
+    greedy = SamplingConfig(do_sample=False)
+    tracks = make_synthetic_tracks(num_tracks=B, track_len=400, seed=15)
+    pred.generate_context(tracks, max_new_tokens=N, sampling=greedy)
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    pred.generate_context(tracks, max_new_tokens=N, sampling=greedy)
+    torch.cuda.synchronize(dev)
+    out["generate_s"] = time.perf_counter() - t0
+    out["generate_counts"] = read_counts()
+    out["ids"] = pred.last_request["ids"]
+    out["generate_steps"] = sum(c["steps"] for c in
+                                pred.last_request["chunks"])
+    req = make_synthetic_tracks(num_tracks=2, track_len=400, seed=16)
+    pred.predict(req)
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pred.predict(req, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize(dev)
+    out["predict_s"] = time.perf_counter() - t0
+    out["predict_counts"] = read_counts()
+    out["pred"] = np.stack([r["pred_pixel_xy"] for r in res])
+    who = "one process" if tp is None else f"rank {tp.rank}"
+    print(f"parallel {who}: (a) serving done", flush=True)
+    del pred, mllm, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = parallel_train_cfg()
+    ds = build_windows(make_synthetic_tracks(num_tracks=8, track_len=600,
+                                             seed=5), tcfg.data,
+                       get_tokenizer())
+    batch = to_device(next(iter(BatchIterator(
+        ds, tcfg.train.batch_size, seed=tcfg.train.seed,
+        length_buckets=tcfg.data.length_buckets))), dev)
+    step = make_train_step(tcfg)
+    for key, fsdp in (("dp", False), ("fsdp", True)):
+        if dp is None and key == "fsdp":
+            break
+        c = tcfg.replace(mesh=dataclasses.replace(tcfg.mesh, fsdp=fsdp))
+        with torch.device(dev):
+            model = TrajectoryModel(c.model, c.data.seq_len, c.data.out_len)
+        init_params(model, torch.Generator(device=dev).manual_seed(
+            c.train.seed))
+        if dp is None:
+            out["start"] = {n: p.detach().cpu().clone()
+                            for n, p in model.named_parameters()}
+        st = _place_for_training(c, model, dp)
+        st.optimizer.adamw = torch.optim.SGD(st.optimizer.params, lr=1.0,
+                                             foreach=False)
+        trainable = {n for n, p in st.model.named_parameters()
+                     if p.requires_grad}
+        with fused_scope("on"):
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = step(st, shard_batch(batch, dp))["loss"]
+            torch.cuda.synchronize(dev)
+            out[f"{key}_s"] = time.perf_counter() - t0
+            out[f"{key}_counts"] = read_counts()
+        out[f"{key}_loss"] = float(loss)
+        whole = gather_state(dict(st.model.named_parameters()), dp)
+        out[f"{key}_params"] = {n: v.cpu() for n, v in whole.items()
+                                if n in trainable}
+        print(f"parallel {who}: ({'b' if key == 'dp' else 'c'}) {key} step "
+              "done", flush=True)
+        del st, model, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of phase 15's two ranks, on cuda:0 over gloo (a crash prints
+    the rank's Python stack)."""
+    import faulthandler
+    import torch
+    faulthandler.enable()
+    import torch.distributed as dist
+    from tsue_tpu_torch.ops._build import build_all
+    from tsue_tpu_torch.parallel import mesh as M
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    build_all(list(KERNELS))          # built by the parent: loads only
+    tp = M.make_mesh(2, device=dev)
+    dp = M.make_mesh(1, device=dev)
+    M.reset_counts()
+    out = parallel_work(dev, tp, dp)
+    out["collectives"] = dict(M.COUNTS)
+    out["mesh"] = (tp.data, tp.model, tp.model_rank, dp.data, dp.data_rank)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _close_updates(ref, other, start) -> float:
+    """The largest parameter difference over the largest update
+    (``tests/test_multichip.py:54-71``'s rule: at most 1e-5)."""
+    scale = max(float((ref[k] - start[k]).abs().max()) for k in ref)
+    check(scale > 0, "phase 15: the step moved no parameter")
+    return max(float((ref[k] - other[k]).abs().max()) for k in ref) / scale
+
+
+def parallel_phase(dev, gpu) -> dict:
+    """Phase 15: the parallel layer on the one card.  NCCL refuses two
+    ranks on one device, so two ranks share cuda:0 over gloo, which runs
+    every tensor collective the port issues on CUDA tensors (another kind
+    raises in ``parallel.mesh``; none is staged through the host).  The
+    one-process run of ``parallel_work`` comes first, then the two ranks
+    run it on their meshes: (a) TP 2 serving, the prefill logits within
+    ``LOGIT_TOL`` of max |logit|, greedy ids equal on at least 0.9 of the
+    positions, the deterministic prediction within ``PX_TOL`` px, each
+    rank's launches those of one process; (b) the DP 2 and (c) FSDP over
+    DP 2 step, the loss within rtol 1e-5 and every update within 1e-5 of
+    the largest.  Two ranks on one card measure no scaling: their rates
+    are printed for the record only.  Returns the ranks' launches by run."""
+    import shutil
+    import socket
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from tsue_tpu_torch.parallel.mesh import GLOO_CUDA_OPS
+    t_phase = time.time()
+    ref = parallel_work(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path("runs") / f"chip_smoke_parallel_{os.getpid()}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank, args=(r, port, str(out_dir)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 15: a rank failed (exit codes {[p.exitcode for p in procs]})")
+    outs = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check([o["mesh"] for o in outs] == [(1, 2, 0, 2, 0), (1, 2, 1, 2, 1)],
+          f"phase 15: mesh layout {[o['mesh'] for o in outs]}")
+    scale = ref["logits"].abs().max().item()
+    counts = {}
+    for r, o in enumerate(outs):
+        lerr = (o["logits"] - ref["logits"]).abs().max().item() / scale
+        share = float((o["ids"] == ref["ids"]).mean())
+        perr = float(np.abs(o["pred"] - ref["pred"]).max())
+        print(f"parallel TP 2 rank {r}: prefill logits max |diff| "
+              f"{lerr:.3e} of max |logit| {scale:.3f} (tolerance "
+              f"{LOGIT_TOL}); greedy ids equal on {share:.4f} of "
+              f"{o['ids'].size} positions; prediction max |diff| {perr:.3e} "
+              f"px (tolerance {PX_TOL}); gpu: {gpu}", flush=True)
+        check(lerr <= LOGIT_TOL, f"phase 15 rank {r}: logits {lerr}")
+        check(share >= 0.9, f"phase 15 rank {r}: greedy share {share}")
+        check(perr <= PX_TOL, f"phase 15 rank {r}: prediction {perr} px")
+        for what in ("generate", "predict"):
+            check(o[f"{what}_counts"] == ref[f"{what}_counts"],
+                  f"phase 15 rank {r} {what}: launches "
+                  f"{o[what + '_counts']} != one process's "
+                  f"{ref[what + '_counts']}")
+        for key in ("dp", "fsdp"):
+            rel = abs(o[f"{key}_loss"] - ref["dp_loss"]) / abs(ref["dp_loss"])
+            upd = _close_updates(ref["dp_params"], o[f"{key}_params"],
+                                 ref["start"])
+            print(f"parallel {key.upper()} over DP 2 rank {r}: loss "
+                  f"{o[key + '_loss']:.6f} (one process "
+                  f"{ref['dp_loss']:.6f}, rel {rel:.2e}); largest parameter "
+                  f"difference {upd:.2e} of the largest update; step "
+                  f"{o[key + '_s']:.3f}s (one process {ref['dp_s']:.3f}s); "
+                  f"launches {json.dumps(o[key + '_counts'])}", flush=True)
+            check(rel <= 1e-5, f"phase 15 rank {r} {key}: loss rel {rel}")
+            check(upd <= 1e-5, f"phase 15 rank {r} {key}: updates {upd}")
+        toks = o["ids"].shape[0] * o["generate_steps"]
+        print(f"parallel rank {r}: generate {o['generate_s']:.3f}s "
+              f"({toks / o['generate_s']:.1f} tokens/s; one process "
+              f"{ref['generate_s']:.3f}s), predict {o['predict_s']:.3f}s "
+              f"(one process {ref['predict_s']:.3f}s) -- two ranks share "
+              f"one card: no scaling is measured; collectives "
+              f"{json.dumps(o['collectives'])}; gpu: {gpu}", flush=True)
+        tensor_kinds = {k for k in o["collectives"] if "object" not in k
+                        and k != "barrier"}
+        check(o["collectives"].get("all_reduce", 0) > 0
+              and tensor_kinds <= GLOO_CUDA_OPS,
+              f"phase 15 rank {r}: collectives {o['collectives']}")
+        for run in ("generate", "predict", "dp", "fsdp"):
+            counts[f"phase 15 {run} rank {r}"] = o[f"{run}_counts"]
+    print(f"parallel phase: {time.time() - t_phase:.1f}s in all; gpu: {gpu}",
+          flush=True)
+    return counts
+
+
 def _build_head_split(out: dict) -> None:
     """head_variants.split_libs() into ``out`` (or its error), in a
     thread."""
@@ -4370,6 +4714,9 @@ def main() -> int:
             **fused_checks(dev, gpu, timer)}
     for name, extra in bf16_checks(dev, gpu, timer).items():
         rows[name] += extra
+    for name, extra in shard_shape_checks(dev, gpu, timer,
+                                          head_split).items():
+        rows[name] += extra
     reset_counts()
     rows.update(nlinear=nlinear_checks(dev, gpu, timer),
                 lora_matmul=lora_checks(dev, gpu, timer),
@@ -4400,12 +4747,15 @@ def main() -> int:
     p14_rows, p14_counts = bf16_decode_phase(dev, gpu, head_split)
     for name, extra in p14_rows.items():
         rows[name] += extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    p15_counts = parallel_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
         decoder layer's seven projections; the three kernels with no path:
         where they would sit, at batch 16)."""
-        r = rows[name]
+        r = [x for x in rows[name] if not x.get("shard")]
         if name == "flash_attn_fwd":
             pick = [r[0]]                      # Llama self-attention, RoPE
         elif name == "int8_matmul":
@@ -4453,7 +4803,8 @@ def main() -> int:
            for mode in ("fast", "parity")},
         **{run: c[name] for run, c in p12_counts.items()},
         **{run: c[name] for run, c in p13_counts.items()},
-        **{run: c[name] for run, c in p14_counts.items()}}
+        **{run: c[name] for run, c in p14_counts.items()},
+        **{run: c[name] for run, c in p15_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:
@@ -4505,6 +4856,13 @@ def main() -> int:
             entry["grad_max_abs_err"] = grad_errs[name]
         if name in p14_rows:
             entry["bf16_forms"] = bf16_forms(name)
+        shards = [x for x in rows[name] if x.get("shard")]
+        if shards:
+            # phase 3 at phase 15's local shapes
+            entry["shard_shapes"] = {x["shape"]: {
+                k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "max_abs_err")}
+                for x in shards}
         kernels.append(entry)
     print(f"chip_smoke: {time.time() - t_start:.1f}s in all, the build "
           f"included; gpu: {gpu}", flush=True)

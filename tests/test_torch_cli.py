@@ -240,8 +240,8 @@ def test_http_unknown_path_is_404(http, method):
 
 @pytest.mark.parametrize("command,argv,error", [
     ("stage1", ["--pipeline-parallel", "2"], NotImplementedError),
-    ("serve", ["--model-parallel", "2"], NotImplementedError),
-    ("serve", ["--fsdp"], NotImplementedError),
+    ("serve", ["--model-parallel", "2"], ValueError),
+    ("serve", ["--fsdp"], SystemExit),
     ("serve", ["--batcher", "continuous", "--fused-head"], ValueError),
     ("train", ["--rng-impl", "rbg"], SystemExit),
 ])
@@ -249,9 +249,10 @@ def test_flags_not_taken_raise_before_any_work(tmp_path, command, argv,
                                                error):
     """A flag whose work is not ported yet raises NotImplementedError
     naming its ROADMAP item, the continuous batcher with the fused head a
-    ValueError, and a JAX-only flag is unknown to the parser; each before
-    any work (no output, and the default CUDA device is never asked
-    for)."""
+    ValueError, a model degree that does not divide the world (one
+    process) a ValueError, --fsdp without --model-parallel and a JAX-only
+    flag are parser errors; each before any work (no output, and the
+    default CUDA device is never asked for)."""
     mod = {"train": train, "test": test, "stage1": stage1,
            "serve": serve}[command]
     with pytest.raises(error) as e:
@@ -273,7 +274,7 @@ def test_module_dispatches_to_the_commands(capsys):
         main(["predict"])
     with pytest.raises(SystemExit, match="usage"):
         main([])
-    with pytest.raises(NotImplementedError, match="--fsdp"):
+    with pytest.raises(SystemExit):
         main(["serve", "--fsdp"])
     assert main(["serve"] + CPU + ["--synthetic-tracks", "1",
                                    "--serve-batch-size", "2"])["results"] > 0

@@ -1660,3 +1660,171 @@ def test_lmhead_topk_selection_cases(dev, form, case):
         if case == "one_tile":
             rows = torch.arange(idx.shape[0], device=dev)[:, None]
             assert (idx // 1024 == rows % 8).all(), where
+
+
+# ---------------------------------------------------------------------------
+# The local shapes of the parallel layer (Llama-3.2-1B at TP 2 and DP 2)
+# ---------------------------------------------------------------------------
+
+TP2_INT8 = ((2048, 1024), (2048, 256), (2048, 4096), (1024, 2048),
+            (4096, 2048))     # (K, N): q, k/v, gate/up, o, down at TP 2
+
+
+@pytest.mark.parametrize("K,N", TP2_INT8)
+def test_int8_matmul_tp2_shard_shapes(dev, K, N):
+    """The int8 product at each TP 2 rank's projection shape, the decode
+    batch M = 16: one counted launch, the plain version's values, a repeat
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    x = torch.randn(16, K, generator=g, device=dev)
+    w8, s = Q.quantize_weight(torch.randn(K, N, generator=g, device=dev))
+    before = Q.int8_matmul.launches
+    out = Q.int8_matmul(x, w8, s)
+    assert Q.int8_matmul.launches == before + 1
+    ref = Q.int8_matmul_ref(x, w8, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(out, Q.int8_matmul(x, w8, s))
+
+
+@pytest.mark.parametrize("case", ["tp2_prefill", "dp2_prefill",
+                                  "tp2_decode"])
+def test_flash_parallel_shard_shapes(dev, case):
+    """Flash at the parallel layer's local shapes: the Llama prefill with
+    RoPE at 16/4 heads of 64 (TP 2, B 16) and at 32/8 (DP 2, B 8), 528
+    tokens, and the decode step at 16/4 over 592 slots."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    B, Hq, Hkv = {"tp2_prefill": (16, 16, 4), "dp2_prefill": (8, 32, 8),
+                  "tp2_decode": (16, 16, 4)}[case]
+    decode = case == "tp2_decode"
+    q, k, v, mask, cs = _inputs(dev, g, B, 1 if decode else 528,
+                                592 if decode else 528, Hq, Hkv, 64, "some",
+                                not decode)
+    kw = dict(q=q, k=k, v=v, mask=mask, is_causal=not decode, rope=cs)
+    out = flash_attention(**kw)
+    ref = flash_attention_plain(**kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+def test_swiglu_matmul_tp2_shard(dev):
+    """The SwiGLU down-projection of a TP 2 rank: (M, 4096) x (4096, 2048),
+    the partial sum that the row-split reduce adds up."""
+    g = torch.Generator(device=dev).manual_seed(4096)
+    M = 16 * 528
+    gate = torch.randn(M, 4096, generator=g, device=dev)
+    up = torch.randn(M, 4096, generator=g, device=dev)
+    w = torch.randn(4096, 2048, generator=g, device=dev) * 4096 ** -0.5
+    out = FU.swiglu_matmul(gate, up, w)
+    ref = FU.swiglu_matmul_plain(gate, up, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_attend_int8_kv_tp2_shard(dev):
+    """The int8-KV decode attention at a TP 2 rank's 16/4 heads of 64."""
+    g = torch.Generator(device=dev).manual_seed(164)
+    k = torch.randn(16, 592, 4, 64, generator=g, device=dev)
+    v = torch.randn(16, 592, 4, 64, generator=g, device=dev)
+    cache = KV.quantize_cache([(k, v)])[0]
+    q = torch.randn(16, 1, 16, 64, generator=g, device=dev)
+    lens = torch.randint(300, 592, (16, 1), generator=g, device=dev)
+    mask = (torch.arange(592, device=dev)[None] < lens).int()
+    out = KV.attend_int8_kv(q, cache, mask)
+    ref = KV.attend_int8_kv_plain(q, cache, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+def _tp_rank(rank, port, q):
+    """One of two ranks on cuda:0 over gloo: a column-split LoRA projection,
+    SiLU, a row-split one (``models.llama.LoRADense``), the output and the
+    gradients of the input and of every weight against one process."""
+    import torch.distributed as dist
+    from tsue_tpu_torch.models.llama import LoRADense
+    from tsue_tpu_torch.parallel import mesh as M
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    mesh = M.make_mesh(2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 64, generator=g, device=dev)
+
+    def net(m):
+        mid = 128 // (m.model if m is not None else 1)   # the rank's share
+        col = LoRADense(64, mid, lora_r=4, split="col", mesh=m).to(dev)
+        row = LoRADense(mid, 64, lora_r=4, split="row", mesh=m).to(dev)
+        return col, row
+    ref_col, ref_row = net(None)
+    for p in list(ref_col.parameters()) + list(ref_row.parameters()):
+        with torch.no_grad():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
+    names = {"col.kernel": (1, ref_col.kernel), "col.lora_a": (None,
+             ref_col.lora_a), "col.lora_b": (1, ref_col.lora_b),
+             "row.kernel": (0, ref_row.kernel), "row.lora_a": (0,
+             ref_row.lora_a), "row.lora_b": (None, ref_row.lora_b)}
+    col, row = net(mesh)
+    for n, (dim, full) in names.items():
+        mod = col if n.startswith("col") else row
+        part = full if dim is None else full.chunk(2, dim)[rank]
+        with torch.no_grad():
+            getattr(mod, n.split(".")[1]).copy_(part)
+    xr, xs = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ref = ref_row(torch.nn.functional.silu(ref_col(xr)))
+    out = row(torch.nn.functional.silu(col(xs)))
+    ref.square().sum().backward()
+    out.square().sum().backward()
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    errs = {"out": rel(out, ref), "x": rel(xs.grad, xr.grad)}
+    for n, (dim, full) in names.items():
+        mod = col if n.startswith("col") else row
+        gr = getattr(mod, n.split(".")[1]).grad
+        if dim is not None:
+            gr = M.all_gather_cat(gr, mesh.model_group, dim)
+        errs[n] = rel(gr, full.grad)
+    try:    # a kind gloo does not run on CUDA tensors raises
+        M._collective("all_to_all", mesh.model_group, x, lambda t: t)
+        refused = False
+    except RuntimeError:
+        refused = True
+    q.put((rank, errs, dict(M.COUNTS), refused))
+    dist.destroy_process_group()
+
+
+def test_tp_functions_gradients_gloo_on_cuda(dev):
+    """Megatron's copy and reduce Functions on two ranks sharing the card
+    over gloo: the output and every gradient equal one process's to 1e-5
+    (relative to the largest), the input's gradient whole on both ranks
+    (copy's backward all-reduces once, reduce's backward passes through);
+    only the kinds gloo runs on CUDA tensors were issued, and another kind
+    raises."""
+    import socket
+    import torch.multiprocessing as mp
+    from tsue_tpu_torch.parallel import mesh as M
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = [q.get(timeout=180) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    for rank, errs, counts, refused in res:
+        assert all(v <= 1e-5 for v in errs.values()), (rank, errs)
+        assert counts["all_reduce"] > 0, counts
+        assert set(counts) <= M.GLOO_CUDA_OPS, counts
+        assert refused

@@ -58,7 +58,9 @@ PORT_MODULES = (
     "tsue_tpu_torch.models.llama_loader", "tsue_tpu_torch.utils.debug",
     "tsue_tpu_torch.utils.checks", "tsue_tpu_torch.cli.quality_quant",
     "tsue_tpu_torch.cli.params", "tsue_tpu_torch.cli.roi_map",
-    "tsue_tpu_torch.cli.plot", "chip_smoke", "flash_variants",
+    "tsue_tpu_torch.cli.plot", "tsue_tpu_torch.parallel",
+    "tsue_tpu_torch.parallel.mesh", "tsue_tpu_torch.parallel.sharding",
+    "tsue_tpu_torch.parallel.serve_tp", "chip_smoke", "flash_variants",
     "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 

@@ -393,14 +393,16 @@ def _predictor(fused_head=False):
 
 @pytest.mark.parametrize("what", ["mesh", "fused_head"])
 def test_not_taken_raises(stacks, what):
-    """What the batcher does not take raises: a mesh (not ported yet), and
-    the fused head (the JAX package drops it without a word; the port
-    refuses it)."""
+    """What the batcher does not take raises: a mesh whose data axis does
+    not divide the slots (the pool shards slot-major over data), and the
+    fused head (the JAX package drops it without a word; the port refuses
+    it)."""
+    from tsue_tpu_torch.parallel.mesh import Mesh
     _, _, port = stacks[True]
     greedy = SamplingConfig(do_sample=False)
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP A: parallel"):
-            _pool(port, greedy, mesh=object())
+        with pytest.raises(ValueError, match="must divide the mesh's data"):
+            _pool(port, greedy, mesh=Mesh(data=4), num_slots=2)
     else:
         with pytest.raises(ValueError, match="fused_head"):
             _predictor(fused_head=True).continuous_batcher(num_slots=2)

@@ -10,6 +10,12 @@ maps the flags onto a preset as the JAX scripts do.  ``add_roi_args`` and
 whose work is not ported yet is taken by the parser and raises
 ``NotImplementedError``, naming its ROADMAP item, before any work
 (``refuse_not_ported``).
+
+``add_mesh_args`` (--model-parallel, --fsdp) and ``setup_mesh`` run a
+command over a (data, model) mesh: under torchrun (``python -m
+torch.distributed.run --nproc_per_node N -m tsue_tpu_torch.cli ...``)
+each process joins the group (NCCL on the card, gloo with --device cpu),
+and on the card rank 0 builds the kernels before the others load them.
 """
 from __future__ import annotations
 
@@ -18,10 +24,8 @@ import dataclasses
 import json
 
 NOT_PORTED = (   # (flag, its dest, whether a value asks for the work, item)
-    ("--model-parallel", "model_parallel", bool, "parallel"),
-    ("--fsdp", "fsdp", bool, "parallel"),
     ("--pipeline-parallel", "pipeline_parallel", lambda v: v > 1,
-     "parallel"),
+     "parallel: the pipeline"),
 )
 
 
@@ -59,6 +63,51 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "256,384,512, the preset default); 'none' disables "
                         "bucketing")
     return p
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model-parallel", type=int, default=0,
+                   help="tensor-parallel degree: ranks of a model group "
+                        "(must divide the world size; launch with "
+                        "torchrun)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="with --model-parallel: also shard the large "
+                        "parameters over the data axis (FSDP2)")
+
+
+def check_mesh_args(p: argparse.ArgumentParser, args) -> None:
+    """--fsdp needs --model-parallel (``scripts/serve.py:260-261``)."""
+    if getattr(args, "fsdp", False) and not args.model_parallel:
+        p.error("--fsdp requires --model-parallel")
+
+
+def setup_mesh(args):
+    """The mesh a command runs on, or None for one plain process: joins
+    torchrun's process group (NCCL, or gloo for --device cpu) and lays out
+    ``--model-parallel`` (``parallel.mesh.make_mesh``, which raises where
+    it does not divide the world).  On the card rank 0 builds every
+    kernel first and the others wait, so no two ranks compile at once."""
+    from tsue_tpu_torch.parallel.mesh import (barrier, distributed,
+                                              initialize_distributed,
+                                              is_primary, make_mesh)
+    initialize_distributed("gloo" if args.device == "cpu" else "nccl")
+    mp = getattr(args, "model_parallel", 0) or 0
+    if not (distributed() or mp > 1):
+        return None
+    if args.device != "cpu" and distributed():
+        if is_primary():
+            from tsue_tpu_torch.ops._build import CSRC, build_all
+            build_all(sorted(f.stem for f in CSRC.glob("*.cu")))
+        barrier()
+    return make_mesh(max(mp, 1), device=args.device)
+
+
+def with_mesh(cfg, args):
+    """``cfg`` with ``--model-parallel``/``--fsdp`` in its MeshConfig."""
+    if not getattr(args, "model_parallel", 0):
+        return cfg
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, model_parallel=args.model_parallel, fsdp=args.fsdp))
 
 
 def parse_length_buckets(spec: str):
@@ -204,5 +253,8 @@ def refuse_not_ported(args) -> None:
 
 
 def finish(metrics: dict) -> dict:
-    print(json.dumps(metrics))
+    """Print the command's JSON line (rank 0 only under torchrun)."""
+    from tsue_tpu_torch.parallel.mesh import is_primary
+    if is_primary():
+        print(json.dumps(metrics))
     return metrics

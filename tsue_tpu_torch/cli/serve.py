@@ -37,39 +37,54 @@ serves /generate through the continuous slot-pool batcher
 decodes /generate and --generate with prompt-lookup speculative decoding
 (``eval/speculative.py``) through either batcher: greedy on the static one
 (the plain head), the window mode of the continuous one (a request's ids
-are the plain pool's).  --model-parallel and --fsdp are not ported yet and
-raise.
+are the plain pool's).
+
+Sharded serving: launched by torchrun (``python -m torch.distributed.run
+--nproc_per_node N -m tsue_tpu_torch.cli serve ...``; NCCL on the card,
+gloo with --device cpu), every rank builds the predictor over a (data,
+model) mesh, --model-parallel N ranks to a tensor-parallel group (N must
+divide the world size) and --fsdp sharding the large parameters over data
+(it needs --model-parallel).  Batch mode: every rank runs, rank 0 writes.
+HTTP mode: rank 0 listens and parses each request, broadcasts it to every
+rank, every rank runs it, rank 0 answers; a rank on which a request fails
+logs it and exits, which ends the job.
 """
 from __future__ import annotations
 
 import json
+import logging
 import threading
 from collections import Counter
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch
 
-from tsue_tpu_torch.cli._common import (apply_overrides, base_parser, finish,
-                                        refuse_not_ported)
+from tsue_tpu_torch.cli._common import (add_mesh_args, apply_overrides,
+                                        base_parser, check_mesh_args, finish,
+                                        refuse_not_ported, setup_mesh)
+
+log = logging.getLogger(__name__)
 
 
-def build_predictor(args, cfg):
+def build_predictor(args, cfg, mesh=None):
     """The Predictor the flags ask for: over the ``--ckpt`` artifact
     (``Predictor.from_checkpoint``), or over the random weights of
-    ``runner.build_model_and_params``."""
+    ``runner.build_model_and_params``; on ``mesh`` when one is given."""
     from tsue_tpu_torch.data import get_tokenizer
     from tsue_tpu_torch.runner import build_model_and_params
     from tsue_tpu_torch.serve import Predictor
+    device = mesh.device if mesh is not None else args.device
     kw = dict(batch_size=args.serve_batch_size,
               num_candidates=args.candidates,
               tokenizer=get_tokenizer(args.tokenizer),
               quantize_decode=args.quantize_decode,
               fused_head=args.fused_head, quantize_kv=args.quantize_kv,
-              device=args.device)
+              device=device, mesh=mesh, fsdp=args.fsdp)
     if args.ckpt:
         return Predictor.from_checkpoint(cfg, args.ckpt,
                                          mllm_ckpt=args.mllm_ckpt, **kw)
-    model = build_model_and_params(cfg, kw["tokenizer"], args.device,
+    model = build_model_and_params(cfg, kw["tokenizer"], device,
                                    args.mllm_ckpt)
     return Predictor(cfg.replace(model=model.cfg), model.state_dict(), **kw)
 
@@ -124,13 +139,58 @@ def _dropped(tracks, results):
     return dropped
 
 
+def parse_request(args, path: str, req: dict):
+    """A /predict or /generate request body -> ``(path, tracks,
+    max_new_tokens)``: the tracks coerced, the length clamped to the
+    startup cap.  Under a mesh rank 0 parses before it broadcasts, so a
+    malformed body is answered without the other ranks."""
+    tracks = _coerce_tracks(req.get("tracks", []))
+    mnt = max(1, min(int(req.get("max_new_tokens", args.max_new_tokens)),
+                     args.max_new_tokens))
+    return path, tracks, mnt
+
+
+def run_request(predictor, args, path: str, tracks, max_new_tokens: int):
+    """One parsed request's results (every rank of a mesh runs it); a
+    /generate request decodes the startup cap's steps and trims the rows
+    (compile_cap)."""
+    if path == "/predict":
+        return predictor.predict(tracks)
+    gen = (predictor.generate_context_batched
+           if args.batcher == "continuous" else predictor.generate_context)
+    return gen(tracks, max_new_tokens=max_new_tokens,
+               compile_cap=args.max_new_tokens, speculative=args.speculative)
+
+
+def follow(predictor, args) -> None:
+    """A non-zero rank's serving loop under a mesh: run each request that
+    rank 0 broadcasts, until it broadcasts None.  A request that fails
+    here is logged and its error raised: the ranks are out of step (rank 0
+    may wait in a collective this rank will not join), so the process
+    ends, its connections close, rank 0's collective fails and that
+    request is answered 500, and torchrun ends the job."""
+    from tsue_tpu_torch.parallel.mesh import broadcast_object
+    while True:
+        msg = broadcast_object(None)
+        if msg is None:
+            return
+        try:
+            run_request(predictor, args, *msg)
+        except Exception:
+            log.exception("rank %d: the %s request failed; leaving the mesh",
+                          torch.distributed.get_rank(), msg[0])
+            raise
+
+
 def make_server(predictor, args) -> ThreadingHTTPServer:
     """The HTTP API over ``predictor`` on 127.0.0.1:``args.port`` (0: any
     free port), not yet serving: run ``serve_forever`` (in a thread, for a
     test), then ``shutdown`` and ``server_close``.  Requests are served one
     at a time (one lock); ``args`` gives ``max_new_tokens`` (the cap a
     /generate request is clamped to, and the decode length it is served
-    by) and ``batcher``."""
+    by) and ``batcher``.  Under a mesh (rank 0 only) each request is
+    broadcast to the other ranks (``follow``) before it runs."""
+    from tsue_tpu_torch.parallel.mesh import broadcast_object, distributed
     lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
@@ -164,23 +224,13 @@ def make_server(predictor, args) -> ThreadingHTTPServer:
                 if self.path not in ("/predict", "/generate"):
                     self._reply(404, {"error": f"unknown path {self.path}"})
                     return
-                req = json.loads(raw or b"{}")
-                tracks = _coerce_tracks(req.get("tracks", []))
+                msg = parse_request(args, self.path,
+                                    json.loads(raw or b"{}"))
+                tracks = msg[1]
                 with lock:
-                    if self.path == "/predict":
-                        res = predictor.predict(tracks)
-                    else:
-                        # clamp to the startup cap and decode that many
-                        # steps, trimming the rows (compile_cap)
-                        mnt = max(1, min(int(req.get("max_new_tokens",
-                                                     args.max_new_tokens)),
-                                         args.max_new_tokens))
-                        gen = (predictor.generate_context_batched
-                               if args.batcher == "continuous"
-                               else predictor.generate_context)
-                        res = gen(tracks, max_new_tokens=mnt,
-                                  compile_cap=args.max_new_tokens,
-                                  speculative=args.speculative)
+                    if distributed():
+                        broadcast_object(msg)
+                    res = run_request(predictor, args, *msg)
                 payload = {"results": [_jsonable(r) for r in res]}
                 dropped = _dropped(tracks, res)
                 if dropped:
@@ -221,11 +271,7 @@ def parser():
                    choices=("static", "continuous"),
                    help="generation scheduling: static batches or the "
                         "continuous slot-pool batcher")
-    p.add_argument("--model-parallel", type=int, default=0,
-                   help="tensor-parallel serving (not ported yet: raises "
-                        "when > 0)")
-    p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters (not ported yet: raises)")
+    add_mesh_args(p)
     p.add_argument("--max-new-tokens", type=int, default=64)
     p.add_argument("--generate", action="store_true",
                    help="batch mode: generate context text instead of "
@@ -239,7 +285,9 @@ def parser():
 
 
 def main(argv=None) -> dict:
-    args = parser().parse_args(argv)
+    p = parser()
+    args = p.parse_args(argv)
+    check_mesh_args(p, args)
     refuse_not_ported(args)
     if args.batcher == "continuous" and args.fused_head:
         raise ValueError("--batcher continuous does not take --fused-head: "
@@ -247,7 +295,9 @@ def main(argv=None) -> dict:
                          "logits")
     from tsue_tpu_torch.config import get_preset
     cfg = apply_overrides(get_preset(args.preset), args)
-    predictor = build_predictor(args, cfg)
+    mesh = setup_mesh(args)
+    predictor = build_predictor(args, cfg, mesh)
+    primary = mesh is None or mesh.is_primary()
 
     if args.port is not None:
         predictor.warmup()
@@ -255,6 +305,9 @@ def main(argv=None) -> dict:
             predictor.prepare_generation(
                 args.max_new_tokens, speculative=args.speculative,
                 batched=(args.batcher == "continuous"))
+        if not primary:
+            follow(predictor, args)
+            return {"served": True}
         srv = make_server(predictor, args)
         # tests and supervisors sync on this line
         print(f"SERVING port={srv.server_address[1]}", flush=True)
@@ -264,6 +317,9 @@ def main(argv=None) -> dict:
             pass
         finally:
             srv.server_close()
+            if mesh is not None:
+                from tsue_tpu_torch.parallel.mesh import broadcast_object
+                broadcast_object(None)
         return {"served": True}
 
     tracks = _load_tracks(args, cfg)
@@ -275,6 +331,9 @@ def main(argv=None) -> dict:
     else:
         results = predictor.predict(tracks)
     lines = [json.dumps(_jsonable(r)) for r in results]
+    if not primary:
+        return {"results": len(results), "out": args.out,
+                "mode": "generate" if args.generate else "predict"}
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

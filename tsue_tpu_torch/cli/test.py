@@ -1,11 +1,15 @@
 """K-candidate MC-dropout eval of a checkpoint: ``python -m
 tsue_tpu_torch.cli test [flags]`` (the port's ``scripts/test.py``, 18->18;
 ``--preset test_6_12`` is ``scripts/test_10.py``).  Reports min ADE / FDE
-/ RMSE over K candidates of the fast or the parity rollout."""
+/ RMSE over K candidates of the fast or the parity rollout.  Under
+torchrun the ranks score their rows and report the global metrics
+(``--model-parallel``, ``--fsdp`` as ``train``)."""
 from __future__ import annotations
 
-from tsue_tpu_torch.cli._common import (apply_overrides, base_parser, finish,
-                                        refuse_not_ported)
+from tsue_tpu_torch.cli._common import (add_mesh_args, apply_overrides,
+                                        base_parser, check_mesh_args, finish,
+                                        refuse_not_ported, setup_mesh,
+                                        with_mesh)
 
 
 def main(argv=None) -> dict:
@@ -19,11 +23,14 @@ def main(argv=None) -> dict:
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--candidate-mode", default="fast",
                    choices=("fast", "parity"))
+    add_mesh_args(p)
     args = p.parse_args(argv)
+    check_mesh_args(p, args)
     refuse_not_ported(args)
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.runner import run_stage2
-    cfg = apply_overrides(get_preset(args.preset), args)
+    cfg = with_mesh(apply_overrides(get_preset(args.preset), args), args)
+    mesh = setup_mesh(args)
     return finish(run_stage2(cfg, args.data, args.out_dir,
                              mllm_ckpt=args.mllm_ckpt,
                              epochs=args.epochs or 0,
@@ -31,7 +38,7 @@ def main(argv=None) -> dict:
                              synthetic_tracks=args.synthetic_tracks,
                              candidate_mode=args.candidate_mode,
                              tokenizer_path=args.tokenizer,
-                             device=args.device))
+                             device=args.device, mesh=mesh))
 
 
 if __name__ == "__main__":

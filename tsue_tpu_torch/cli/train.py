@@ -1,9 +1,14 @@
 """Stage-2 TSUE trainer: ``python -m tsue_tpu_torch.cli train [flags]``
-(the port's ``scripts/train.py``: 18->30, frozen MLLM by default)."""
+(the port's ``scripts/train.py``: 18->30, frozen MLLM by default).  Under
+torchrun every rank trains its rows of each batch (``--model-parallel N``:
+tensor-parallel groups of N ranks; ``--fsdp``: FSDP over the data axis);
+rank 0 writes."""
 from __future__ import annotations
 
-from tsue_tpu_torch.cli._common import (apply_overrides, base_parser, finish,
-                                        refuse_not_ported)
+from tsue_tpu_torch.cli._common import (add_mesh_args, apply_overrides,
+                                        base_parser, check_mesh_args, finish,
+                                        refuse_not_ported, setup_mesh,
+                                        with_mesh)
 
 
 def main(argv=None) -> dict:
@@ -22,18 +27,21 @@ def main(argv=None) -> dict:
     p.add_argument("--resume", action="store_true",
                    help="resume from the last --save-every state; the "
                         "continued run equals an uninterrupted one")
+    add_mesh_args(p)
     args = p.parse_args(argv)
+    check_mesh_args(p, args)
     refuse_not_ported(args)
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.runner import run_stage2
-    cfg = apply_overrides(get_preset(args.preset), args)
+    cfg = with_mesh(apply_overrides(get_preset(args.preset), args), args)
+    mesh = setup_mesh(args)
     return finish(run_stage2(cfg, args.data, args.out_dir, args.mllm_ckpt,
                              args.epochs,
                              synthetic_tracks=args.synthetic_tracks,
                              viz_every=args.viz_every,
                              save_every=args.save_every, resume=args.resume,
                              tokenizer_path=args.tokenizer,
-                             device=args.device))
+                             device=args.device, mesh=mesh))
 
 
 if __name__ == "__main__":

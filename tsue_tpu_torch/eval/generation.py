@@ -2,7 +2,7 @@
 
 Counterpart of ``tsue_tpu/eval/generation.py`` (``head_arrays``, the
 generator of ``make_generate_fn``, ``postprocess_text``, ``prompt_only``,
-``trim_and_decode``, ``generate_texts`` and, for one process,
+``trim_and_decode``, ``generate_texts`` and
 ``distributed_generate_and_save``): condition on the fused [image-tokens ||
 prompt] prefix, decode with the HF-semantics sampler of
 ``ops/sampling.py``, stop each sequence at EOS, and cut the text at the
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tsue_tpu_torch.ops.sampling import SamplingConfig, process_and_sample
+from tsue_tpu_torch.parallel.sharding import grad_free
 
 CUTOFF_MARKER = "No right-following vehicle."
 
@@ -37,15 +38,20 @@ CUTOFF_MARKER = "No right-following vehicle."
 def head_arrays(mllm):
     """LM-head weights for the fused sampler: (the raw tied embedding
     (V, D) in the parameters' dtype, fp32 or bf16, None), or (None,
-    (lm_head_w8, lm_head_scale)) when int8 tables are attached."""
+    (lm_head_w8, lm_head_scale)) when int8 tables are attached.  A sharded
+    model's whole table (``llama.head_table``, placed by
+    ``parallel.serve_tp``) stands in for its shard."""
     llama = mllm.llama
+    whole = llama.head_table
     if llama.lm_head_w8 is not None:
-        return None, (llama.lm_head_w8, llama.lm_head_scale)
+        return None, (whole if whole is not None
+                      else (llama.lm_head_w8, llama.lm_head_scale))
     if not llama.cfg.tie_word_embeddings:
         raise NotImplementedError(
             "fused_head needs the tied embedding (V, D) layout or the int8 "
             "tables; the untied head is a Dense")
-    return llama.model.embed_tokens.weight, None
+    return (whole if whole is not None
+            else llama.model.embed_tokens.weight), None
 
 
 class DecodeProgram:
@@ -87,7 +93,7 @@ class DecodeProgram:
         self.steps = 0
         self._events = None
 
-    @torch.inference_mode()
+    @grad_free("mllm")
     def __call__(self, vision: Optional[torch.Tensor],
                  prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -249,48 +255,71 @@ def distributed_generate_and_save(mllm, tokenizer, dataset, out_path: str,
                                   seed: int, batch_size: int = 8,
                                   max_new_tokens: int = 128,
                                   cfg: Optional[SamplingConfig] = None,
-                                  reference_texts: Optional[dict] = None):
-    """The generation eval (ref check_generation.py:331-369) in one process
-    (``tsue_tpu/eval/generation.py:241-304`` without the gather): generate
-    from the prompt span of every window of ``dataset`` in order, batch i
-    drawing from ``utils.random.step_generator(seed, i)`` (the counterpart
-    of ``fold_in(key(seed), i)``), and write generated-vs-reference pairs
+                                  reference_texts: Optional[dict] = None,
+                                  mesh=None):
+    """The generation eval (ref check_generation.py:331-369,
+    ``tsue_tpu/eval/generation.py:241-304``): generate from the prompt span
+    of every window of ``dataset`` in order, batch i drawing from
+    ``utils.random.step_generator(seed, i)`` (the counterpart of
+    ``fold_in(key(seed), i)``), and write generated-vs-reference pairs
     (``reference_texts``: track_id -> ground-truth context) to
     ``out_path``.  Returns the records of the real (not wrap-padded)
-    windows."""
+    windows.
+
+    Under a mesh (``mllm`` the rank's local shard) every data rank
+    generates its contiguous rows of each batch (drawing from the batch's
+    stream folded with its data rank), the rows are gathered in the
+    one-process order, rank 0 decodes and writes the file once, and every
+    rank waits at a barrier; rank 0 returns the records, the others an
+    empty list."""
     from tsue_tpu_torch.data.dataset import BatchIterator
+    from tsue_tpu_torch.parallel import mesh as M
     from tsue_tpu_torch.utils.random import step_generator
 
     cfg = cfg or SamplingConfig()
     dev = next(mllm.parameters()).device
+    shards = (mesh.data_rank, mesh.data) if mesh is not None else (0, 1)
     gen = None
-    records = []
-    for i, batch in enumerate(BatchIterator(dataset, batch_size=batch_size,
-                                            shuffle=False)):
+    local = []
+    for i, batch in enumerate(BatchIterator(
+            dataset, batch_size=batch_size, shuffle=False,
+            process_index=shards[0], process_count=shards[1])):
         if gen is None:
             gen = make_generate_fn(mllm, cfg, max_new_tokens,
                                    batch["input_ids"].shape[1],
                                    tokenizer.eos_id, tokenizer.pad_id)
         ids, prompt_mask = prompt_only(batch)
+        g = step_generator(seed, i, dev)
+        if mesh is not None and mesh.data > 1:
+            from tsue_tpu_torch.parallel.serve_tp import data_rank_generator
+            g = data_rank_generator(g, mesh)
         out = gen(torch.from_numpy(batch["vision"]).to(dev),
                   torch.from_numpy(ids).to(dev),
-                  torch.from_numpy(prompt_mask).to(dev),
-                  step_generator(seed, i, dev)).cpu().numpy()
-        for tid, row, v in zip(batch["track_id"], out, batch["valid"]):
-            if not v:
-                continue
-            rec = {"track_id": int(tid),
-                   "generated": trim_and_decode(row, tokenizer)}
-            if reference_texts is not None:
-                rec["reference"] = reference_texts.get(int(tid), "")
-            records.append(rec)
-    if not records:
-        return []
-    with open(out_path, "w") as f:
-        for rec in records:
-            f.write(f"[track {rec['track_id']}]\n"
-                    f"GENERATED: {rec['generated']}\n")
-            if "reference" in rec:
-                f.write(f"REFERENCE: {rec['reference']}\n")
-            f.write("\n")
+                  torch.from_numpy(prompt_mask).to(dev), g).cpu().numpy()
+        local.append((batch["track_id"], out, batch["valid"]))
+    # batch-major, data rank within: the one-process row order
+    per_rank = (M.all_gather_object(local, mesh.data_group)
+                if mesh is not None and mesh.data > 1 else [local])
+    records = []
+    if M.is_primary(mesh):
+        for b in range(len(local)):
+            for rank_batches in per_rank:
+                tids, rows, valid = rank_batches[b]
+                for tid, row, v in zip(tids, rows, valid):
+                    if not v:
+                        continue
+                    rec = {"track_id": int(tid),
+                           "generated": trim_and_decode(row, tokenizer)}
+                    if reference_texts is not None:
+                        rec["reference"] = reference_texts.get(int(tid), "")
+                    records.append(rec)
+        if records:
+            with open(out_path, "w") as f:
+                for rec in records:
+                    f.write(f"[track {rec['track_id']}]\n"
+                            f"GENERATED: {rec['generated']}\n")
+                    if "reference" in rec:
+                        f.write(f"REFERENCE: {rec['reference']}\n")
+                    f.write("\n")
+    M.barrier()
     return records

@@ -34,16 +34,18 @@ def ade_fde(pred: torch.Tensor, target: torch.Tensor,
 
 
 def candidate_rollout(model, batch: Dict[str, torch.Tensor],
-                      num_candidates: int, seed: int) -> torch.Tensor:
+                      num_candidates: int, seed: int,
+                      stream: int = 0) -> torch.Tensor:
     """Parity mode: K stochastic forwards of the whole model (dropout in
     the lane encoder, the Q-Former, the LoRA adapters and the forecaster),
     the reference's ``model.train()``-inside-``no_grad`` sampling (ref
     scripts/test.py:1308-1309).  Candidate k drops from
     ``step_generator(seed, k)``, so it is reproducible and does not depend
-    on K.  Returns (B, K, 2, T_out)."""
+    on K; ``stream`` (a data rank) draws another stream of each.
+    Returns (B, K, 2, T_out)."""
     dev = batch["traj_in"].device
     preds = [model(batch, deterministic=False,
-                   generator=step_generator(seed, k, dev))
+                   generator=step_generator(seed, k, dev, stream))
              for k in range(num_candidates)]
     return torch.stack(preds, dim=1)
 

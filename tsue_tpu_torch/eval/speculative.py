@@ -42,6 +42,7 @@ import torch
 
 from tsue_tpu_torch.ops.sampling import (SamplingConfig, row_uniform_blocks,
                                          sample_from_uniforms, uniform_widths)
+from tsue_tpu_torch.parallel.sharding import grad_free
 
 CHUNK = 8     # window forwards between two reads of the device
 
@@ -193,7 +194,7 @@ class SpeculativeProgram:
         self.forwards = 0
         self._events = None
 
-    @torch.inference_mode()
+    @grad_free("mllm")
     def __call__(self, vision: Optional[torch.Tensor],
                  prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
                  generators: Optional[Sequence[torch.Generator]] = None):

@@ -9,6 +9,12 @@ image-token span), and generation support: the soft-prefix prefill into a
 KV cache, the cached decode step and the speculative window forward
 (``fusion.py:87-194``).  The blocks
 drop (Q-Former, LoRA) when a ``generator`` is passed, and only then.
+
+Under tensor parallelism (``mesh.model > 1``) the Llama is this rank's
+local shard (``models/llama.py``) and the image tokens' projection to the
+LLM width is split by columns, as the JAX package's rule for a
+``q_proj`` kernel splits it: this rank's slice of the output features,
+gathered whole, then the whole bias.
 """
 from __future__ import annotations
 
@@ -22,23 +28,50 @@ from tsue_tpu_torch.models.llama import (IGNORE_LABEL, LlamaForCausalLM,
                                          init_kv_cache)
 from tsue_tpu_torch.models.layers import Dense
 from tsue_tpu_torch.models.qformer import QFormer
+from tsue_tpu_torch.parallel.mesh import copy_to_model, gather_from_model
+from tsue_tpu_torch.parallel.sharding import unsharded
+from tsue_tpu_torch.utils.precision import promote
+
+
+class ColumnDense(Dense):
+    """The image tokens' projection under TP: this rank's column slice of
+    the output features (weight ``(d_out / model, d_in)``), gathered
+    whole, then the whole bias ``(d_out,)``, which has no split rule."""
+
+    def __init__(self, d_in: int, d_out: int, mesh):
+        super().__init__(d_in, d_out // mesh.model)
+        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = promote(x, self.weight)
+        y = torch.nn.functional.linear(copy_to_model(x, self.mesh).to(dt),
+                                       self.weight.to(dt))
+        return gather_from_model(y, self.mesh) + self.bias.to(dt)
 
 
 class MultiModalLLM(nn.Module):
     def __init__(self, llama: LlamaConfig, qformer: QFormerConfig,
-                 use_vision: bool = True, dtype: torch.dtype = torch.float32):
+                 use_vision: bool = True, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.use_vision = use_vision
+        self.mesh = mesh
+        tp = mesh.model if mesh is not None else 1
         if use_vision:
             self.qformer = QFormer(qformer)
-            self.q_proj = (Dense(qformer.hidden_size, llama.hidden_size)
-                           if qformer.hidden_size != llama.hidden_size
-                           else nn.Identity())
+            if qformer.hidden_size == llama.hidden_size:
+                self.q_proj = nn.Identity()
+            elif tp > 1:
+                self.q_proj = ColumnDense(qformer.hidden_size,
+                                          llama.hidden_size, mesh)
+            else:
+                self.q_proj = Dense(qformer.hidden_size, llama.hidden_size)
             self.vision_modality_embedding = nn.Parameter(
                 torch.zeros(1, 1, llama.hidden_size))
         self.text_modality_embedding = nn.Parameter(
             torch.zeros(1, 1, llama.hidden_size))
-        self.llama = LlamaForCausalLM(llama, dtype)
+        self.llama = LlamaForCausalLM(llama, dtype, mesh)
 
     def image_tokens(self, vision: torch.Tensor,
                      generator: Optional[torch.Generator] = None
@@ -50,10 +83,11 @@ class MultiModalLLM(nn.Module):
              attention_mask: torch.Tensor,
              generator: Optional[torch.Generator] = None):
         """Fused embeddings and mask: returns (embeds, mask, n_img)."""
-        text = self.llama.embed(input_ids) + self.text_modality_embedding
-        if not (self.use_vision and vision is not None):
-            return text, attention_mask, 0
-        img = self.image_tokens(vision, generator).to(text.dtype)
+        with unsharded(self):   # the modality embeddings (FSDP)
+            text = self.llama.embed(input_ids) + self.text_modality_embedding
+            if not (self.use_vision and vision is not None):
+                return text, attention_mask, 0
+            img = self.image_tokens(vision, generator).to(text.dtype)
         n_img = img.shape[1]
         img_mask = torch.ones(text.shape[0], n_img, dtype=attention_mask.dtype,
                               device=attention_mask.device)

@@ -14,6 +14,19 @@ forward passes, and only then; a rematerialised layer's recompute replays
 the generator from the state it had at the layer's entry, so it draws the
 masks its forward drew (JAX's ``nn.remat`` replays its key).
 
+Tensor parallelism (a ``parallel.mesh.Mesh`` with ``model > 1``): the
+model is this rank's local shard, built from ``local_config`` (the heads,
+KV heads and FFN width divided by the model degree) with the shapes
+``parallel.sharding.shard_state`` cuts.  q/k/v and gate/up are split by
+columns, behind ``copy_to_model`` (identity forward, all-reduce backward);
+o and down by rows, followed by ``reduce_from_model`` (all-reduce forward,
+identity backward).  A column-split projection's LoRA keeps A whole and B
+split, a copy between them; a row-split one splits A and reduces before
+the whole B.  The embedding table is split on the feature dim and its
+lookups gathered whole (``gather_from_model``); the tied head takes this
+rank's feature slice of the hidden states and reduces the partial logits.
+The kernels see plain local tensors.
+
 KV caches are lists of per-layer tensors written in place (the JAX package
 returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
 int8 layer is ``(k8, ks, v8, vs)``.  Keys are roped before they are
@@ -55,6 +68,9 @@ from tsue_tpu_torch.ops.fused import (fused_enabled, fused_rmsnorm,
 from tsue_tpu_torch.ops.kv_quant import (attend_int8_kv, update_kv_int8,
                                          write_rows)
 from tsue_tpu_torch.ops.quant import int8_matmul
+from tsue_tpu_torch.parallel.mesh import (copy_to_model, gather_from_model,
+                                          reduce_from_model)
+from tsue_tpu_torch.parallel.sharding import unsharded
 from tsue_tpu_torch.utils.precision import promote
 from tsue_tpu_torch.utils.random import dropout
 
@@ -167,9 +183,13 @@ class LoRADense(nn.Module):
 
     def __init__(self, in_features: int, features: int, lora_r: int = 0,
                  lora_alpha: float = 32.0, lora_dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, split: str = "",
+                 mesh=None):
         super().__init__()
         self.dtype = dtype
+        # "col" or "row" under tensor parallelism (module docstring)
+        self.split = split if mesh is not None and mesh.model > 1 else ""
+        self.mesh = mesh
         self.lora_r = lora_r
         self.lora_alpha = lora_alpha
         self.lora_dropout = lora_dropout
@@ -194,23 +214,34 @@ class LoRADense(nn.Module):
                 swiglu_up: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         decode_quant = quant_ok and self.w8 is not None
+        col, row = self.split == "col", self.split == "row"
         if swiglu_up is not None:
             if not decode_quant and fused_enabled() and self.lora_r == 0:
-                return swiglu_matmul(x, swiglu_up, self._w(self.kernel, x))
+                y = swiglu_matmul(x, swiglu_up, self._w(self.kernel, x))
+                return reduce_from_model(y, self.mesh) if row else y
             x = F.silu(x) * swiglu_up
+        xm = copy_to_model(x, self.mesh) if col else x
         if decode_quant:
-            y = int8_matmul(x, self.w8, self.scale)
+            y = int8_matmul(xm, self.w8, self.scale)
         else:
-            y = self._dot(x, self.kernel).to(x.dtype)
+            y = self._dot(xm, self.kernel).to(x.dtype)
+        if row:
+            y = reduce_from_model(y, self.mesh)
         if self.lora_r > 0:
             h = dropout(x, self.lora_dropout, generator)
-            delta = self._dot(self._dot(h, self.lora_a), self.lora_b)
+            z = self._dot(h, self.lora_a)
+            if col:
+                z = copy_to_model(z, self.mesh)
+            elif row:
+                z = reduce_from_model(z, self.mesh)
+            delta = self._dot(z, self.lora_b)
             y = y + (self.lora_alpha / self.lora_r) * delta.to(y.dtype)
         return y
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         c = cfg
@@ -221,7 +252,9 @@ class LlamaAttention(nn.Module):
                              else c.num_heads * c.head_dim, out,
                              lora_r=lr if name in c.lora_targets else 0,
                              lora_alpha=c.lora_alpha,
-                             lora_dropout=c.lora_dropout, dtype=dtype)
+                             lora_dropout=c.lora_dropout, dtype=dtype,
+                             split="row" if name == "o_proj" else "col",
+                             mesh=mesh)
         self.q_proj = dense("q_proj", c.num_heads * c.head_dim)
         self.k_proj = dense("k_proj", c.num_kv_heads * c.head_dim)
         self.v_proj = dense("v_proj", c.num_kv_heads * c.head_dim)
@@ -284,15 +317,16 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         c = cfg
         self.gate_proj = LoRADense(c.hidden_size, c.intermediate_size,
-                                   dtype=dtype)
+                                   dtype=dtype, split="col", mesh=mesh)
         self.up_proj = LoRADense(c.hidden_size, c.intermediate_size,
-                                 dtype=dtype)
+                                 dtype=dtype, split="col", mesh=mesh)
         self.down_proj = LoRADense(c.intermediate_size, c.hidden_size,
-                                   dtype=dtype)
+                                   dtype=dtype, split="row", mesh=mesh)
 
     def forward(self, x, quant_ok=False):
         return self.down_proj(self.gate_proj(x, quant_ok), quant_ok,
@@ -300,12 +334,13 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.attn = LlamaAttention(cfg, dtype)
+        self.attn = LlamaAttention(cfg, dtype, mesh)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = LlamaMLP(cfg, dtype)
+        self.mlp = LlamaMLP(cfg, dtype, mesh)
 
     def forward(self, x, mask, rope, kv_cache=None, cache_index=None,
                 kv_mask=None, quant_ok=False, generator=None):
@@ -318,12 +353,17 @@ class LlamaModel(nn.Module):
     """Decoder stack over input embeddings (the fusion prepends image
     tokens at the embedding level)."""
 
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.mesh = mesh
+        tp = mesh.model if mesh is not None else 1
+        # under TP, this rank's slice of the feature dim
+        self.embed_tokens = nn.Embedding(cfg.vocab_size,
+                                         cfg.hidden_size // tp)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", LlamaLayer(cfg, dtype))
+            self.add_module(f"layer_{i}", LlamaLayer(cfg, dtype, mesh))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         # the policy's name is checked here, as nn.remat checks it at setup
         self._remat_ctx = remat_policy(cfg.remat_policy) if cfg.remat \
@@ -333,7 +373,7 @@ class LlamaModel(nn.Module):
                              persistent=False)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        return gather_from_model(self.embed_tokens(input_ids), self.mesh)
 
     def forward(self, inputs_embeds: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -406,16 +446,21 @@ class LlamaForCausalLM(nn.Module):
     ``lm_head_scale`` (V,)), decode calls (``quant_ok=True``) stream them
     through ``int8_matmul``."""
 
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
+        cfg = local_config(cfg, mesh)
         self.cfg = cfg
         self.dtype = dtype
-        self.model = LlamaModel(cfg, dtype)
+        self.mesh = mesh
+        self.model = LlamaModel(cfg, dtype, mesh)
         if not cfg.tie_word_embeddings:
             from tsue_tpu_torch.models.layers import Dense
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False)
         self.register_buffer("lm_head_w8", None, persistent=False)
         self.register_buffer("lm_head_scale", None, persistent=False)
+        # the fused head's whole table under TP (``parallel.serve_tp``)
+        self.head_table = None
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed(input_ids)
@@ -434,12 +479,30 @@ class LlamaForCausalLM(nn.Module):
         does (``llama.py:385-388``); the untied head is a Dense, its output
         taken to fp32."""
         if quant_ok and self.lm_head_w8 is not None:
-            return int8_matmul(hidden, self.lm_head_w8, self.lm_head_scale,
-                               out_dtype=torch.float32)
+            return reduce_from_model(int8_matmul(
+                self._feature_slice(hidden), self.lm_head_w8,
+                self.lm_head_scale, out_dtype=torch.float32), self.mesh)
         if self.cfg.tie_word_embeddings:
-            w = self.model.embed_tokens.weight
-            return hidden.float() @ w.to(self.dtype).float().t()
+            emb = self.model.embed_tokens
+            with unsharded(emb):
+                return self._tied_logits(hidden, emb.weight)
         return self.lm_head(hidden).float()
+
+    def _feature_slice(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Under TP, this rank's slice of the (whole) hidden states' feature
+        dim, behind a copy (its gradient is this slice's part alone)."""
+        m = self.mesh
+        if m is None or m.model == 1:
+            return hidden
+        return copy_to_model(hidden, m).chunk(m.model, -1)[m.model_rank]
+
+    def _tied_logits(self, hidden: torch.Tensor, w: torch.Tensor
+                     ) -> torch.Tensor:
+        """fp32 logits of the tied head (``w`` the (V, D) table, under TP
+        its feature slice): a reduce of the partial products."""
+        h = self._feature_slice(hidden)
+        return reduce_from_model(h.float() @ w.to(self.dtype).float().t(),
+                                 self.mesh)
 
     def forward(self, inputs_embeds, attention_mask=None, labels=None,
                 generator=None, compute_logits: bool = False
@@ -455,9 +518,15 @@ class LlamaForCausalLM(nn.Module):
         out = {"hidden": hidden}
         if labels is not None and self.cfg.loss_chunk and not compute_logits:
             w = self.head_weight().to(self.dtype).float()
+            if self.mesh is not None and self.mesh.model > 1:
+                if not self.cfg.tie_word_embeddings:
+                    raise NotImplementedError("the chunked loss under TP "
+                                              "takes the tied head")
+                fn = self._tied_logits
+            else:
+                fn = lambda h, w_: h.float() @ w_.t()   # noqa: E731
             out["loss"] = causal_lm_loss_chunked(
-                hidden, labels, lambda h, w_: h.float() @ w_.t(),
-                self.cfg.loss_chunk, w)
+                hidden, labels, fn, self.cfg.loss_chunk, w)
         elif compute_logits or labels is not None:
             out["logits"] = self.logits_from_hidden(hidden)
             if labels is not None:
@@ -517,6 +586,21 @@ def causal_lm_ce_sum_chunked(hidden: torch.Tensor, labels: torch.Tensor,
                                    y[:, i:i + chunk], weight, logits_fn,
                                    use_reentrant=False)
     return total, (y != IGNORE_LABEL).sum()
+
+
+def local_config(cfg: LlamaConfig, mesh) -> LlamaConfig:
+    """The Llama config of one model rank's shard: heads, KV heads and FFN
+    width divided by the model degree (hidden width and vocabulary whole).
+    Raises where the degree does not divide them."""
+    if mesh is None or mesh.model == 1:
+        return cfg
+    import dataclasses
+    from tsue_tpu_torch.parallel.sharding import check_tensor_parallel
+    check_tensor_parallel(cfg, mesh)
+    tp = mesh.model
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp,
+                               intermediate_size=cfg.intermediate_size // tp)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,

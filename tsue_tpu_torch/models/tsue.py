@@ -27,7 +27,10 @@ from tsue_tpu_torch.models.ltsf import PerChannelLinear, TransformerLTSF
 
 
 class TrajectoryModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, seq_len: int, out_len: int):
+    def __init__(self, cfg: ModelConfig, seq_len: int, out_len: int,
+                 mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh``; with ``model > 1`` the MLLM
+        is this rank's tensor-parallel shard (``models/llama.py``)."""
         super().__init__()
         self.cfg = cfg
         self.lane_encoder = LanePolygonEncoder(
@@ -38,7 +41,8 @@ class TrajectoryModel(nn.Module):
             dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                      else torch.float32)
             self.mllm = MultiModalLLM(cfg.llama, cfg.qformer,
-                                      use_vision=cfg.use_vision, dtype=dtype)
+                                      use_vision=cfg.use_vision, dtype=dtype,
+                                      mesh=mesh)
         self.ltsf = TransformerLTSF(
             seq_len=seq_len, out_len=out_len, d_model=cfg.ltsf.d_model,
             individual=cfg.ltsf.individual,

@@ -30,7 +30,15 @@ first batch (matplotlib, imported then).
 
 It runs on the CUDA device unless it is given ``device="cpu"``, and never
 falls back to the CPU on its own.  The ``TSUE_FUSED`` switch
-(``ops.fused``) applies as everywhere in the port.  Not taken yet (ROADMAP
+(``ops.fused``) applies as everywhere in the port.
+
+``run_stage2`` runs on a mesh (``parallel.mesh``) when the process is one
+of several (torchrun) or ``cfg.mesh`` asks for one: each rank takes its
+data rank's rows of every batch, the model is placed by
+``parallel.sharding`` (Megatron TP over ``cfg.mesh.model_parallel`` ranks,
+FSDP2 over data with ``cfg.mesh.fsdp``, DDP over data otherwise), the
+metrics are global on every rank, and only rank 0 writes
+(``tsue_tpu/runner.py:136-155``, ``:226-242``).  Not taken yet (ROADMAP
 A: parallel): stage 1's pipeline parallelism, which raises
 ``NotImplementedError`` when asked for.
 """
@@ -115,9 +123,12 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
             for k, v in batch.items()}
 
 
-def _batches(ds, cfg, shuffle, epoch=0):
+def _batches(ds, cfg, shuffle, epoch=0, mesh=None):
+    """The epoch's batches; under a mesh, the data rank's rows of each."""
     it = BatchIterator(ds, cfg.train.batch_size,
                        shuffle=shuffle, seed=cfg.train.seed,
+                       process_index=mesh.data_rank if mesh else 0,
+                       process_count=mesh.data if mesh else 1,
                        length_buckets=cfg.data.length_buckets)
     it.set_epoch(epoch)
     return it
@@ -207,7 +218,8 @@ def rebuild_for_eval(cfg: ExperimentConfig, data_path: Optional[str],
 @torch.no_grad()
 def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
              eval_candidates: int = 0, candidate_mode: str = "fast",
-             eval_seed: int = 1000, viz_dir: Optional[str] = None) -> Dict:
+             eval_seed: int = 1000, viz_dir: Optional[str] = None,
+             mesh=None) -> Dict:
     """Test loop (ref train.py:1256-1328 / test.py:1279-1396): the
     sample-weighted mean of the deterministic ADE/FDE over the test windows
     (wrap-padded rows excluded) and, with K = ``eval_candidates``, the
@@ -217,37 +229,48 @@ def evaluate(model: TrajectoryModel, dte, cfg: ExperimentConfig,
     model takes the fast rollout (the MLLM context once, K dropout
     forecasts), every other case the parity rollout (K whole stochastic
     forwards).  ``viz_dir``: the first test batch's first window is plotted
-    into ``<viz_dir>/viz`` (``tsue_tpu/runner.py:457-477``)."""
+    into ``<viz_dir>/viz`` (``tsue_tpu/runner.py:457-477``).
+
+    Under a mesh each rank scores its data rank's rows (its candidates
+    from the batch's seed folded with the data rank) and the sums of
+    (ADE n, FDE n, n) and the candidate metrics are all-reduced over data,
+    so every rank returns the global metrics (``tsue_tpu/runner.py:
+    397-440``); the plot is made by a single process only."""
     fast = candidate_mode == "fast" and model.cfg.use_llm
     dev = next(model.parameters()).device
     per_batch = []
     first = None
-    for i, batch in enumerate(_batches(dte, cfg, False)):
+    dp = mesh is not None and mesh.data > 1
+    for i, batch in enumerate(_batches(dte, cfg, False, mesh=mesh)):
         b = to_device(batch, dev)
         pred = model(b)
         cands = None
         if eval_candidates:
             if fast:
                 gen = torch.Generator(device=dev).manual_seed(eval_seed + i)
+                if dp:
+                    gen = step_generator(eval_seed + i, 0, dev,
+                                         stream=mesh.data_rank)
                 cands = fast_candidate_rollout(model, b, eval_candidates, gen)
             else:
                 cands = candidate_rollout(model, b, eval_candidates,
-                                          eval_seed + i)
+                                          eval_seed + i,
+                                          mesh.data_rank if dp else 0)
         per_batch.append(_batch_metrics(b, pred, cands))
         if first is None:
             first = (b, pred, cands)
-    out = _test_metrics(per_batch, eval_candidates)
-    if viz_dir and first is not None:
+    out = _test_metrics(per_batch, eval_candidates, mesh)
+    if viz_dir and first is not None and (mesh is None or mesh.size == 1):
         _plot_test_batch(os.path.join(viz_dir, "viz"), *first)
     return out
 
 
-def _test_metrics(per_batch, eval_candidates: int) -> Dict:
+def _test_metrics(per_batch, eval_candidates: int, mesh=None) -> Dict:
     """The sample-weighted means of per-batch entries [ADE, FDE, valid
     rows, (minADE, minFDE, minRMSE with K candidates)], read from the
     device once all batches are queued: ``test_ade``, ``test_fde`` and,
     with K and any valid row, ``min_ade``, ``min_fde``, ``min_rmse``,
-    ``K``."""
+    ``K``.  Under a mesh the weighted sums are summed over data first."""
     ade_sum = fde_sum = n_sum = 0.0
     min_sums = np.zeros(3)
     for entry in per_batch:
@@ -258,6 +281,12 @@ def _test_metrics(per_batch, eval_candidates: int) -> Dict:
         n_sum += nv
         if eval_candidates:
             min_sums += np.array(vals[3:6]) * nv
+    if mesh is not None and mesh.data > 1:
+        from tsue_tpu_torch.parallel.mesh import all_reduce_scalars
+        tot = all_reduce_scalars([ade_sum, fde_sum, n_sum, *min_sums],
+                                 mesh.data_group, mesh.device)
+        ade_sum, fde_sum, n_sum = (float(x) for x in tot[:3])
+        min_sums = tot[3:]
     n = max(n_sum, 1.0)
     out = {"test_ade": ade_sum / n if n_sum else float("nan"),
            "test_fde": fde_sum / n if n_sum else float("nan")}
@@ -367,7 +396,7 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
                restore_ckpt: Optional[str] = None, viz_every: int = 0,
                candidate_mode: str = "fast",
                tokenizer_path: Optional[str] = None, save_every: int = 0,
-               resume: bool = False, device="cuda") -> Dict:
+               resume: bool = False, device="cuda", mesh=None) -> Dict:
     """Stage-2 pipeline; returns the test metrics dict (``test_ade``,
     ``test_fde`` and, with ``eval_candidates``, ``min_ade``, ``min_fde``,
     ``min_rmse``, ``K``), as the JAX package's ``run_stage2``.  Metrics
@@ -386,27 +415,47 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     ``viz_every=N``: every N epochs (epoch % N == 0), the first validation
     window plotted into ``<out_dir>/<cfg.name>/viz`` and, for a model with
     an LLM, one generated context appended to ``generated_samples.txt``
-    there.  ``save_viz``: the test's first window plotted there too."""
+    there.  ``save_viz``: the test's first window plotted there too.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; without one, a process that is
+    one of several (torchrun), or a ``cfg.mesh`` asking for TP or FSDP,
+    makes its own (``make_mesh(cfg.mesh.model_parallel)`` on ``device``).
+    Every rank builds the one-process model from the seed, then keeps its
+    shard; rank 0 alone writes the metrics, ``meta.json`` and the best
+    artifact (gathered whole: the one-process file), which every rank
+    also keeps in memory; the per-epoch samples run in one process only.
+    ``save_every``/``resume`` take pure data parallelism (the train state
+    is whole on every rank) and raise under TP or FSDP."""
     if restore_ckpt:
         _check_restore_meta(restore_ckpt, mllm_ckpt)
-    dev = _train_device(device)
+    mesh = _stage2_mesh(cfg, mesh, device)
+    if mesh is not None and (save_every or resume) and (
+            mesh.model > 1 or (cfg.mesh.fsdp and mesh.data > 1)):
+        raise NotImplementedError(
+            "save_every/resume under TP or FSDP are not ported yet (ROADMAP "
+            "A: parallel): the optimizer state is sharded")
+    dev = _train_device(mesh.device if mesh is not None else device)
     seed_everything(cfg.train.seed)
     run_dir = os.path.join(out_dir, cfg.name)
-    logger = MetricLogger(run_dir)
+    primary = mesh is None or mesh.is_primary()
+    logger = MetricLogger(run_dir) if primary else None
     tokenizer = get_tokenizer(tokenizer_path)
     dtr, dva, dte = prepare_data(cfg, data_path, tokenizer, synthetic_tracks)
-    print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
+    if primary:
+        print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
 
     model = build_model_and_params(cfg, tokenizer, dev, mllm_ckpt)
     if restore_ckpt:
         restore_merge(restore_ckpt, model)
-    state = TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
+    tfilter = trainable_filter(model, cfg.train.freeze_regime)
+    state = _place_for_training(cfg, model, mesh)
+    model = state.model
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
-    tfilter = trainable_filter(model, cfg.train.freeze_regime)
-    ckpt = BestCheckpointer(os.path.join(run_dir, "ckpt"), tfilter)
+    ckpt = BestCheckpointer(os.path.join(run_dir, "ckpt"), tfilter,
+                            mesh=mesh)
     n_epochs = epochs if epochs is not None else cfg.train.epochs
-    if n_epochs > 0:
+    if n_epochs > 0 and primary:
         # provenance for _check_restore_meta: which stage-1 artifact, if
         # any, rebuilt the frozen subtree
         with open(os.path.join(ckpt.directory, "meta.json"), "w") as f:
@@ -434,20 +483,22 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     for epoch in range(start_epoch, n_epochs):
         # per-step losses stay on the device until the epoch ends
         step_losses = [train_step(state, to_device(b, dev))["loss"]
-                       for b in _batches(dtr, cfg, True, epoch)]
+                       for b in _batches(dtr, cfg, True, epoch, mesh)]
         val_losses = [eval_step(state, to_device(b, dev))["loss"]
-                      for b in _batches(dva, cfg, False)]
+                      for b in _batches(dva, cfg, False, mesh=mesh)]
         train_loss = (sum(float(x) for x in step_losses)
                       / max(len(step_losses), 1))
         # empty val split: NaN (never "best") instead of a misleading 0
         val_loss = (sum(float(x) for x in val_losses) / len(val_losses)
                     if val_losses else float("nan"))
-        logger.log(epoch, train_loss=train_loss, val_loss=val_loss)
+        if logger is not None:
+            logger.log(epoch, train_loss=train_loss, val_loss=val_loss)
         ckpt.maybe_save(val_loss, model)
-        if viz_every and epoch % viz_every == 0 and len(dva):
+        if viz_every and epoch % viz_every == 0 and len(dva) and \
+                (mesh is None or mesh.size == 1):
             _epoch_viz(model, state, eval_step, tokenizer, dva, cfg, run_dir,
                        epoch, dev)
-        if save_every and (epoch + 1) % save_every == 0:
+        if save_every and (epoch + 1) % save_every == 0 and primary:
             save_train_state(state_dir, state, epoch=epoch + 1,
                              best_val=ckpt.best_val,
                              trainable_filter=tfilter)
@@ -457,10 +508,54 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     if n_epochs > 0 and ckpt.best_val < float("inf"):
         ckpt.restore_best(model)
     metrics = evaluate(model, dte, cfg, eval_candidates, candidate_mode,
-                       viz_dir=run_dir if save_viz else None)
-    logger.log(n_epochs, **metrics)
-    logger.close()
+                       viz_dir=run_dir if save_viz else None, mesh=mesh)
+    if logger is not None:
+        logger.log(n_epochs, **metrics)
+        logger.close()
     return metrics
+
+
+def _stage2_mesh(cfg: ExperimentConfig, mesh, device):
+    """The mesh ``run_stage2`` runs on: the one given, or its own when the
+    process is one of several or ``cfg.mesh`` asks for TP or FSDP; None
+    for one plain process."""
+    from tsue_tpu_torch.parallel.mesh import distributed, make_mesh
+    if mesh is not None:
+        return mesh
+    if distributed() or cfg.mesh.model_parallel > 1 or cfg.mesh.fsdp:
+        return make_mesh(cfg.mesh.model_parallel, device=device)
+    return None
+
+
+def _place_for_training(cfg: ExperimentConfig, model: TrajectoryModel, mesh,
+                        fsdp_min_size: Optional[int] = None) -> TrainState:
+    """The train state over ``model`` (one-process, full) placed on
+    ``mesh``: the rank's TP shard (a local-shard model loaded with its cut
+    of the state), FSDP2 over data with ``cfg.mesh.fsdp``, DDP over data
+    otherwise (``tsue_tpu/runner.py:148-155``)."""
+    if mesh is None or mesh.size == 1:
+        return TrainState(model, make_optimizer(cfg, model), cfg.train.seed)
+    from tsue_tpu_torch.parallel.serve_tp import load_shards
+    from tsue_tpu_torch.parallel.sharding import (FSDP_MIN_SIZE,
+                                                  apply_fsdp)
+    if mesh.model > 1:
+        with torch.device(mesh.device):
+            local = TrajectoryModel(model.cfg, cfg.data.seq_len,
+                                    cfg.data.out_len, mesh=mesh)
+        load_shards(local, model.state_dict(), mesh)
+        model = local
+    set_trainable(model, cfg.train.freeze_regime)
+    forward = None
+    if mesh.data > 1:
+        if cfg.mesh.fsdp:
+            apply_fsdp(model, mesh, FSDP_MIN_SIZE if fsdp_min_size is None
+                       else fsdp_min_size)
+        else:
+            forward = torch.nn.parallel.DistributedDataParallel(
+                model, process_group=mesh.data_group,
+                broadcast_buffers=False, find_unused_parameters=True)
+    return TrainState(model, make_optimizer(cfg, model, mesh),
+                      cfg.train.seed, mesh=mesh, forward=forward)
 
 
 def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,

@@ -15,7 +15,10 @@ serves exactly the batches the JAX package serves.
 
 The predictor runs on the CUDA device unless it is given ``device="cpu"``.
 ``Predictor.from_checkpoint`` serves an artifact that ``run_stage2``
-wrote.  Meshes are not ported yet: the methods do not take one.
+wrote.  Under a mesh (``parallel.mesh.make_mesh``, one process per
+device) every rank builds the same ``Predictor``: the weights are its
+model-axis shards (``parallel.sharding``), every batch is split over the
+data axis and gathered whole, so every rank returns the whole answer.
 
 Usage:
     p = Predictor(cfg, state_dict, num_candidates=10)
@@ -39,6 +42,7 @@ from tsue_tpu_torch.config import ExperimentConfig
 from tsue_tpu_torch.data import build_windows, get_tokenizer
 from tsue_tpu_torch.eval.metrics import fast_candidate_rollout
 from tsue_tpu_torch.models.tsue import TrajectoryModel
+from tsue_tpu_torch.parallel.sharding import grad_free
 from tsue_tpu_torch.train.losses import denorm
 
 MODEL_KEYS = ("traj_in", "polygon", "polygon_len", "vision", "input_ids",
@@ -52,7 +56,8 @@ class Predictor:
                  params: Mapping[str, torch.Tensor], batch_size: int = 16,
                  num_candidates: int = 0, tokenizer=None,
                  quantize_decode: bool = False, fused_head: bool = False,
-                 quantize_kv: bool = False, device="cuda"):
+                 quantize_kv: bool = False, device="cuda", mesh=None,
+                 fsdp: bool = False):
         """``params``: a state dict of ``TrajectoryModel(cfg.model, ...)``
         (``convert.load_flax_params`` fills one from the JAX package's
         parameter tree).  ``device``: the CUDA device by default; the CPU
@@ -71,7 +76,27 @@ class Predictor:
         ``quantize_decode``), as the JAX package's do.  ``quantize_kv``:
         an int8 KV cache for every generation path, static, speculative
         and batched (``ops/kv_quant.py``; prefill stays exact).
-        Prediction is unaffected by all three."""
+        Prediction is unaffected by all three.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` (every rank of it constructs the
+        predictor, with the same one-process ``params``): the model is the
+        rank's tensor-parallel shard, on ``mesh.device``; ``batch_size``
+        must divide the data axis (each rank runs its rows of every
+        chunk); generation goes through ``parallel.serve_tp``'s sharded
+        program and the continuous batcher through a slot pool sharded
+        over data.  ``fsdp``: the large parameters are also sharded over
+        data (FSDP2), gathered layer by layer on use; it needs a mesh
+        (``tsue_tpu/serve.py:81-89``)."""
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_size % mesh.data:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide the mesh's data "
+                    f"axis ({mesh.data}): every request chunk is padded to "
+                    "batch_size and sharded over data")
+            device = mesh.device
+        elif fsdp:
+            raise ValueError("fsdp=True requires a mesh")
         self.cfg = cfg
         self.batch_size = batch_size
         self.num_candidates = num_candidates
@@ -103,6 +128,19 @@ class Predictor:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.tokenizer = tokenizer or get_tokenizer()
+        if mesh is not None:
+            # the rank's shards, placed once (parallel.serve_tp.place,
+            # tsue_tpu/serve.py:170-187); the int8 tables built from
+            # ``params`` before the cut, the rank's shards attached
+            from tsue_tpu_torch.parallel.serve_tp import place
+            llm = cfg.model.use_llm
+            self.model = place(
+                lambda m: TrajectoryModel(cfg.model, cfg.data.seq_len,
+                                          cfg.data.out_len, mesh=m),
+                params, mesh, fsdp,
+                quantize_decode=quantize_decode and llm,
+                fused_head=fused_head and llm)
+            return
         with torch.device(self.device):
             self.model = TrajectoryModel(cfg.model, cfg.data.seq_len,
                                          cfg.data.out_len)
@@ -137,7 +175,9 @@ class Predictor:
         from tsue_tpu_torch.train.checkpoint import restore_merge
         _check_restore_meta(ckpt_dir, mllm_ckpt)
         tokenizer = kw.pop("tokenizer", None) or get_tokenizer()
-        device = kw.pop("device", "cuda")
+        mesh = kw.get("mesh")
+        device = kw.pop("device", None) or (mesh.device if mesh is not None
+                                            else "cuda")
         model = build_model_and_params(cfg, tokenizer, device, mllm_ckpt)
         restore_merge(ckpt_dir, model)
         return cls(cfg.replace(model=model.cfg), model.state_dict(),
@@ -200,7 +240,8 @@ class Predictor:
         """The MLLM with its int8 tables attached when ``quantize_decode``
         (built once from the fp32 parameters)."""
         mllm = self.model.mllm
-        if self.quantize_decode and self._quant is None:
+        # under a mesh, ``place`` attached the rank's shards
+        if self.quantize_decode and self._quant is None and self.mesh is None:
             from tsue_tpu_torch.ops.quant import (attach_quant,
                                                   quantize_llama_params)
             self._quant = quantize_llama_params(mllm)
@@ -218,16 +259,22 @@ class Predictor:
         if speculative:
             from tsue_tpu_torch.eval.speculative import \
                 make_speculative_generate_fn
-            return make_speculative_generate_fn(
+            prog = make_speculative_generate_fn(
                 self._mllm(), sampling or SamplingConfig(do_sample=False),
                 max_new_tokens, prompt_len, self.tokenizer.eos_id,
                 self.tokenizer.pad_id, quantize_kv=self.quantize_kv)
-        return make_generate_fn(
-            self._mllm(), sampling or SamplingConfig(), max_new_tokens,
-            prompt_len, self.tokenizer.eos_id, self.tokenizer.pad_id,
-            fused_head=self.fused_head, quantize_kv=self.quantize_kv)
+        else:
+            prog = make_generate_fn(
+                self._mllm(), sampling or SamplingConfig(), max_new_tokens,
+                prompt_len, self.tokenizer.eos_id, self.tokenizer.pad_id,
+                fused_head=self.fused_head, quantize_kv=self.quantize_kv)
+        if self.mesh is None:
+            return prog
+        # the rows of every chunk split over data, gathered whole
+        from tsue_tpu_torch.parallel.serve_tp import ShardedProgram
+        return ShardedProgram(prog, self.mesh)
 
-    @torch.inference_mode()
+    @grad_free("model")
     def generate_context(self, tracks: Sequence[dict],
                          max_new_tokens: int = 64,
                          generator: Optional[torch.Generator] = None,
@@ -307,7 +354,8 @@ class Predictor:
         row, seeded from draws of ``generator`` (on any device), so an
         equal generator gives equal rows."""
         from tsue_tpu_torch.eval.speculative import SpeculativeProgram
-        if not (isinstance(gen, SpeculativeProgram) and gen.cfg.do_sample):
+        prog = getattr(gen, "program", gen)
+        if not (isinstance(prog, SpeculativeProgram) and prog.cfg.do_sample):
             return generator
         seeds = torch.randint(2 ** 62, (self.batch_size,),
                               generator=generator,
@@ -323,7 +371,7 @@ class Predictor:
                         if 1 < b < full})
         return tuple(below) + (full,)
 
-    @torch.inference_mode()
+    @grad_free("model")
     def prepare_generation(self, max_new_tokens: int = 64,
                            speculative: bool = False, sampling=None,
                            batched: bool = False,
@@ -419,9 +467,10 @@ class Predictor:
                         else self.cfg.data.max_length),
             max_new_tokens=max_new_tokens, eos_id=self.tokenizer.eos_id,
             pad_id=self.tokenizer.pad_id, chunk=chunk, window=window,
-            quantize_kv=self.quantize_kv, device=self.device)
+            quantize_kv=self.quantize_kv, device=self.device,
+            mesh=self.mesh)
 
-    @torch.inference_mode()
+    @grad_free("model")
     def generate_context_batched(self, tracks: Sequence[dict],
                                  max_new_tokens: int = 64, seed: int = 0,
                                  sampling=None,
@@ -510,14 +559,26 @@ class Predictor:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _predict(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.model(batch)
+        if self.mesh is None:
+            return self.model(batch)
+        from tsue_tpu_torch.parallel.mesh import all_gather_cat, shard_batch
+        return all_gather_cat(self.model(shard_batch(batch, self.mesh)),
+                              self.mesh.data_group, 0)
 
     def _rollout(self, batch: Dict[str, torch.Tensor],
                  generator: torch.Generator) -> torch.Tensor:
-        return fast_candidate_rollout(self.model, batch, self.num_candidates,
-                                      generator)
+        if self.mesh is None:
+            return fast_candidate_rollout(self.model, batch,
+                                          self.num_candidates, generator)
+        from tsue_tpu_torch.parallel.mesh import all_gather_cat, shard_batch
+        from tsue_tpu_torch.parallel.serve_tp import data_rank_generator
+        if self.mesh.data > 1:
+            generator = data_rank_generator(generator, self.mesh)
+        return all_gather_cat(fast_candidate_rollout(
+            self.model, shard_batch(batch, self.mesh), self.num_candidates,
+            generator), self.mesh.data_group, 0)
 
-    @torch.inference_mode()
+    @grad_free("model")
     def warmup(self) -> "Predictor":
         """Run every program once on dummy data (builds the kernels)."""
         b = self._dummy_batch()
@@ -543,7 +604,7 @@ class Predictor:
             "attention_mask": torch.ones(B, L, dtype=torch.int32, **kw),
         }
 
-    @torch.inference_mode()
+    @grad_free("model")
     def predict(self, tracks: Sequence[dict],
                 generator: Optional[torch.Generator] = None) -> List[Dict]:
         """Raw track dicts (all_data.pkl schema) -> per-window pixel

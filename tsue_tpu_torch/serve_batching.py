@@ -40,8 +40,14 @@ as the window-1 pool does one tick at a time: the host draws the blocks a
 chunk can reach before the chunk and sends them in one copy, so a
 request's ids equal the window-1 pool's.  The caches, the history and the
 output buffer carry ``window`` slots of slack, so a finished or empty
-row's window writes stay inside its own row.  Meshes are not ported yet
-and raise.
+row's window writes stay inside its own row.
+
+Under a mesh (``tsue_tpu/serve_batching.py:88-118``) the pool is sharded
+over data: each data rank holds ``num_slots / data`` slots and serves the
+requests whose index it owns (round robin), with the model ranks of a
+data rank running the same schedule on the local-shard MLLM; the results
+are gathered on every rank in request order.  A request's ids do not
+depend on its slot or pool, so they are the one-process pool's.
 """
 from __future__ import annotations
 
@@ -57,6 +63,7 @@ from tsue_tpu_torch.ops.kv_quant import quantize_cache
 from tsue_tpu_torch.ops.sampling import (SamplingConfig, host_to_device,
                                          process_and_sample_per_row,
                                          row_uniform_blocks, uniform_widths)
+from tsue_tpu_torch.parallel.sharding import grad_free
 from tsue_tpu_torch.utils.random import step_generator
 
 
@@ -99,9 +106,13 @@ class ContinuousBatcher:
                  device="cuda", mesh=None):
         if window < 1:
             raise ValueError("window must be >= 1")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("a mesh-sharded slot pool is not "
-                                      "ported yet (ROADMAP A: parallel)")
+            if num_slots % mesh.data:
+                raise ValueError(
+                    f"num_slots={num_slots} must divide the mesh's data axis "
+                    f"({mesh.data}): the pool shards slot-major over data")
+            num_slots //= mesh.data
         self.mllm = mllm
         self.sampling = sampling
         self.B = num_slots
@@ -285,7 +296,7 @@ class ContinuousBatcher:
             st.finished |= eos_hit | (live & (st.step >= st.max_new))
             live_ticks += live.sum()
 
-    @torch.inference_mode()
+    @grad_free("mllm")
     def run(self, requests: Sequence[Dict], seed: int = 0,
             refill: bool = True) -> List[np.ndarray]:
         """Decode all ``requests``; returns per-request int32 token arrays
@@ -306,7 +317,31 @@ class ContinuousBatcher:
 
         ``self.last_run`` keeps the run's ticks, chunks, admissions, mean
         live slots per tick and, on a CUDA device, the admission prefills'
-        and the decode chunks' device ms (CUDA events)."""
+        and the decode chunks' device ms (CUDA events).
+
+        Under a mesh every rank passes the same ``requests``; the data
+        rank serves every ``data``-th one from its own index, and the
+        results are gathered whole (``last_run`` is the rank's pool's)."""
+        if self.mesh is not None and self.mesh.data > 1:
+            from tsue_tpu_torch.parallel.mesh import all_gather_object
+            m = self.mesh
+            mine = list(range(m.data_rank, len(requests), m.data))
+            reqs = []
+            for i in mine:
+                r = dict(requests[i])
+                if r.get("generator") is None:
+                    r["generator"] = step_generator(seed, i)
+                reqs.append(r)
+            local = self._run(reqs, seed, refill)
+            out: List[Optional[np.ndarray]] = [None] * len(requests)
+            for idx, rows in all_gather_object((mine, local), m.data_group):
+                for i, row in zip(idx, rows):
+                    out[i] = row
+            return out
+        return self._run(requests, seed, refill)
+
+    def _run(self, requests: Sequence[Dict], seed: int, refill: bool
+             ) -> List[np.ndarray]:
         results: Dict[int, np.ndarray] = {}
         queue: deque = deque()
         for rid, req in enumerate(requests):

@@ -163,13 +163,23 @@ class BestCheckpointer:
     trainable parameters: in the frozen-MLLM regime the 1.3B frozen
     parameters never change and are rebuilt from the seed, so writing them
     on every improvement would be gigabytes of copies for nothing.
-    ``restore_best`` merges the saved subset back over the model."""
+    ``restore_best`` merges the saved subset back over the model.
 
-    def __init__(self, directory: str, trainable_filter: NameFilter = None):
+    Under a mesh (``parallel.mesh.Mesh``, the module a rank's shard) every
+    rank calls ``maybe_save`` with the same val loss: the subset is
+    gathered whole (``parallel.sharding.gather_state``, a collective), rank
+    0 writes the one-process file, and every rank keeps its own shard of
+    it in memory, which ``restore_best`` copies back
+    (``tsue_tpu/runner.py:226-233``)."""
+
+    def __init__(self, directory: str, trainable_filter: NameFilter = None,
+                 mesh=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.best_val = float("inf")
         self.trainable_filter = trainable_filter
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._best_local: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def best_path(self) -> str:
@@ -181,14 +191,33 @@ class BestCheckpointer:
         if not math.isfinite(val_loss) or val_loss >= self.best_val:
             return False
         self.best_val = val_loss
-        _write(self.best_path, _trainable_subset(module.state_dict(),
-                                                 self.trainable_filter))
+        subset = _trainable_subset(module.state_dict(), self.trainable_filter)
+        if self.mesh is None:
+            _write(self.best_path, subset)
+            return True
+        from tsue_tpu_torch.parallel.sharding import gather_state
+        whole = gather_state(subset, self.mesh)
+        if self.mesh.is_primary():
+            _write(self.best_path, whole)
+        self._best_local = {k: _local(v).detach().clone()
+                            for k, v in subset.items()}
         return True
 
     def restore_best(self, module: nn.Module) -> nn.Module:
-        """Merge the best artifact over ``module``, in place."""
+        """Merge the best artifact over ``module``, in place (under a mesh,
+        the rank's shard kept in memory)."""
+        if self.mesh is not None and self._best_local is not None:
+            own = module.state_dict()
+            with torch.no_grad():
+                for k, v in self._best_local.items():
+                    _local(own[k]).copy_(v)
+            return module
         return _restore_subset(module, _read(self.best_path),
                                self.trainable_filter, self.best_path)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 # ---------------------------------------------------------------------------

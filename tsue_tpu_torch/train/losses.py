@@ -23,12 +23,16 @@ def denorm(traj: torch.Tensor, norm_stat: torch.Tensor) -> torch.Tensor:
 
 def denorm_mse_loss(pred: torch.Tensor, target: torch.Tensor,
                     norm_stat: torch.Tensor,
-                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    valid: Optional[torch.Tensor] = None,
+                    n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MSE_x + MSE_y on denormalized coords (ref scripts/train.py:959-961).
-    ``valid`` (B,) masks the batch iterator's wrap-around padding rows."""
+    ``valid`` (B,) masks the batch iterator's wrap-around padding rows.
+    ``n_valid``: the valid rows of the whole batch when these rows are a
+    data rank's part of it (the parts then sum to the batch's loss)."""
     se = (denorm(pred, norm_stat) - denorm(target, norm_stat)) ** 2
     if valid is None:
         return se[:, 0].mean() + se[:, 1].mean()
     w = valid.float()[:, None]                                   # (B, 1)
-    denom = (w.sum() * se.shape[2]).clamp_min(1.0)
+    denom = ((w.sum() if n_valid is None else n_valid)
+             * se.shape[2]).clamp_min(1.0)
     return (se[:, 0] * w).sum() / denom + (se[:, 1] * w).sum() / denom

@@ -19,16 +19,28 @@ from them and hands only the trainable ones to ``torch.optim.AdamW``:
 The train step's dropout draws from ``utils.random.step_generator(seed,
 step)``, the counterpart of ``fold_in(key(seed), state.step)``; torch
 cannot reproduce JAX's masks, so parity is tested with dropout at 0.
+
+Under a mesh (``TrainState.mesh``; ``runner.run_stage2`` places the model)
+each data rank trains on its rows of the global batch: the loss is the
+global batch's (its valid-row count summed over data), the gradients are
+averaged over data by DDP or, with FSDP, reduce-scattered by FSDP2 (the
+replicated rest all-reduced), and the guard and the clip read the global
+gradient: every element counted once, over the model ranks' shards and
+the data ranks' FSDP shards.  Dropout draws from the step's stream folded
+with the data rank, the same on the model ranks of a data rank; a mesh
+step equals the one-process step with dropout at 0 (the rows' masks
+differ otherwise).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from tsue_tpu_torch.config import ExperimentConfig
+from tsue_tpu_torch.parallel import mesh as M
 from tsue_tpu_torch.train.losses import denorm_mse_loss
 from tsue_tpu_torch.utils.random import step_generator
 
@@ -82,14 +94,23 @@ class GuardedAdamW:
     ``multi_transform`` (``trainer.py:84-108``)."""
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float,
-                 weight_decay: float, grad_clip=None, nan_guard: bool = True):
+                 weight_decay: float, grad_clip=None, nan_guard: bool = True,
+                 mesh=None, tp_sharded: Optional[List[bool]] = None):
+        """``mesh``, ``tp_sharded`` (per parameter, cut over the model
+        axis): the guard and the clip read the global gradient (module
+        docstring)."""
         self.params = list(params)
+        sharded = any(hasattr(p, "to_local") for p in self.params)
+        # the per-tensor loop where FSDP2's DTensors sit beside plain ones
+        kw = {"foreach": False} if sharded else {}
         self.adamw = torch.optim.AdamW(self.params, lr=lr,
                                        weight_decay=weight_decay,
-                                       betas=(0.9, 0.999), eps=1e-8)
+                                       betas=(0.9, 0.999), eps=1e-8, **kw)
         self.grad_clip = grad_clip
         self.nan_guard = nan_guard
         self.notfinite_count = 0
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.tp_sharded = tp_sharded or [False] * len(self.params)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -105,6 +126,8 @@ class GuardedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if self.mesh is not None:
+            return self._mesh_step(grads)
         if self.nan_guard:
             finite = bool(torch.stack(
                 [torch.isfinite(g).all() for g in grads]).all())
@@ -117,6 +140,37 @@ class GuardedAdamW:
             keep = norm < self.grad_clip
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.grad_clip))
+        self.adamw.step()
+
+    def _mesh_step(self, grads) -> None:
+        """``step`` over sharded gradients: one all-reduce decides the
+        guard for every rank, the square norms sum each element once."""
+        mesh = self.mesh
+        loc = [_local(g) for g in grads]
+        dev = loc[0].device
+        if self.nan_guard:
+            bad = torch.stack([~torch.isfinite(g).all() for g in loc]).any()
+            bad = bad.to(torch.float32).reshape(1)
+            M.COUNTS["all_reduce"] += 1
+            torch.distributed.all_reduce(bad, torch.distributed.ReduceOp.MAX)
+            finite = not bool(bad)
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
+                return
+        if self.grad_clip:
+            # [replicated, model-cut, data-cut, both]
+            sq = torch.zeros(4, dtype=torch.float64, device=dev)
+            for g, lg, tp in zip(grads, loc, self.tp_sharded):
+                k = int(tp) + 2 * int(hasattr(g, "to_local"))
+                sq[k] += torch.linalg.vector_norm(lg).double() ** 2
+            sq[[1, 3]] = M.all_reduce(sq[[1, 3]].contiguous(),
+                                      mesh.model_group)
+            sq[[2, 3]] = M.all_reduce(sq[[2, 3]].contiguous(),
+                                      mesh.data_group)
+            norm = float(sq.sum().sqrt())
+            if norm >= self.grad_clip:
+                for lg in loc:
+                    lg.mul_(self.grad_clip / norm)
         self.adamw.step()
 
     def state_dict(self) -> Dict:
@@ -144,13 +198,25 @@ def set_trainable(model: nn.Module, regime: str) -> List[nn.Parameter]:
     return trainable
 
 
-def make_optimizer(cfg: ExperimentConfig, model: nn.Module) -> GuardedAdamW:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (FSDP2), or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def make_optimizer(cfg: ExperimentConfig, model: nn.Module,
+                   mesh=None) -> GuardedAdamW:
     """``set_trainable`` under ``cfg.train.freeze_regime``, then
     AdamW(lr, weight_decay) with clip and guard over the trainable
-    parameters."""
+    parameters (under ``mesh``, over the global gradient)."""
     tcfg = cfg.train
-    return GuardedAdamW(set_trainable(model, tcfg.freeze_regime), tcfg.lr,
-                        tcfg.weight_decay, tcfg.grad_clip, tcfg.nan_guard)
+    trainable = set_trainable(model, tcfg.freeze_regime)
+    tp = None
+    if mesh is not None:
+        from tsue_tpu_torch.parallel.sharding import tp_sharded
+        names = {id(p): n for n, p in model.named_parameters()}
+        tp = [tp_sharded(names[id(p)], _local(p), mesh) for p in trainable]
+    return GuardedAdamW(trainable, tcfg.lr, tcfg.weight_decay,
+                        tcfg.grad_clip, tcfg.nan_guard, mesh, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +232,8 @@ class TrainState:
     optimizer: GuardedAdamW
     seed: int = 0
     step: int = 0
+    mesh: Optional[object] = None     # parallel.mesh.Mesh
+    forward: Optional[nn.Module] = None   # the DDP wrapper, under DP
 
 
 def make_train_step(cfg: ExperimentConfig) -> Callable:
@@ -176,14 +244,30 @@ def make_train_step(cfg: ExperimentConfig) -> Callable:
     stop_llm = cfg.train.freeze_regime == "frozen_mllm" and cfg.model.use_llm
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
+        mesh = state.mesh
         gen = step_generator(state.seed, state.step,
                              batch["traj_in"].device)
-        pred = state.model(batch, deterministic=False,
-                           stop_llm_grad=stop_llm, generator=gen)
-        loss = denorm_mse_loss(pred, batch["traj_out"], batch["norm_stat"],
-                               batch.get("valid"))
+        if mesh is not None and mesh.data > 1:
+            gen = step_generator(state.seed, state.step,
+                                 batch["traj_in"].device,
+                                 stream=mesh.data_rank)
+        pred = (state.forward or state.model)(
+            batch, deterministic=False, stop_llm_grad=stop_llm,
+            generator=gen)
         state.optimizer.zero_grad()
-        loss.backward()
+        if mesh is None or mesh.data == 1:
+            loss = denorm_mse_loss(pred, batch["traj_out"],
+                                   batch["norm_stat"], batch.get("valid"))
+            loss.backward()
+        else:
+            part = data_parallel_loss(pred, batch, mesh)
+            # DDP and FSDP average over data: scale the rank's part up
+            (part * mesh.data).backward()
+            if state.forward is None:
+                from tsue_tpu_torch.parallel.sharding import \
+                    sync_replicated_grads
+                sync_replicated_grads(state.optimizer.params, mesh)
+            loss = M.all_reduce(part.detach().clone(), mesh.data_group)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach()}
@@ -196,8 +280,23 @@ def make_eval_step(cfg: ExperimentConfig) -> Callable:
     forward, no gradient."""
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
+        mesh = state.mesh
         pred = state.model(batch)
-        loss = denorm_mse_loss(pred, batch["traj_out"], batch["norm_stat"],
-                               batch.get("valid"))
+        if mesh is None or mesh.data == 1:
+            loss = denorm_mse_loss(pred, batch["traj_out"],
+                                   batch["norm_stat"], batch.get("valid"))
+        else:
+            loss = M.all_reduce(data_parallel_loss(pred, batch, mesh),
+                                mesh.data_group)
         return {"loss": loss, "pred": pred}
     return step
+
+
+def data_parallel_loss(pred: torch.Tensor, batch: Dict[str, torch.Tensor],
+                       mesh) -> torch.Tensor:
+    """This data rank's part of the global batch's ``denorm_mse_loss``:
+    its rows' squared errors over the global valid-row count (summed over
+    data), so the parts sum to the one-process loss."""
+    n = M.all_reduce(batch["valid"].float().sum(), mesh.data_group)
+    return denorm_mse_loss(pred, batch["traj_out"], batch["norm_stat"],
+                           batch["valid"], n_valid=n)

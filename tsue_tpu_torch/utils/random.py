@@ -38,11 +38,14 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def step_generator(seed: int, step: int, device=None) -> torch.Generator:
+def step_generator(seed: int, step: int, device=None,
+                   stream: int = 0) -> torch.Generator:
     """The generator of training step ``step`` of a run seeded ``seed``: a
     fresh stream per (seed, step), so a step can be repeated exactly.  The
     pair is mixed into one 64-bit seed: the CPU generator (mt19937) keeps
-    only a seed's low 32 bits, the CUDA one (Philox) all 64."""
-    g = torch.Generator(device=device)
-    return g.manual_seed(_mix64(((seed & 0xFFFFFFFF) << 32)
-                                | (step & 0xFFFFFFFF)))
+    only a seed's low 32 bits, the CUDA one (Philox) all 64.  ``stream``
+    > 0 (a data rank) mixes in once more: another stream of the step."""
+    key = _mix64(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    if stream:
+        key = _mix64(key ^ (stream & _M64))
+    return torch.Generator(device=device).manual_seed(key)
