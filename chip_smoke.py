@@ -174,17 +174,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the int8_w arm's teacher-forced rollout twice more, once through the
      kernel and once through the plain int8 product (ops.quant.plain_int8)
      on the same weights, both top-1 figures printed and held within one
-     point of each other (the kernel's share of the int8 arms' gap).
+     point of each other (the kernel's share of the int8 arms' gap);
+ 15. the parallel layer: two ranks on cuda:0 over gloo (NCCL refuses two
+     ranks on one device): TP 2 serving at phase 5's width (prefill
+     logits, greedy ids, a prediction, launches against one process's),
+     a DP 2 and an FSDP step of "train_18_30" against one process, and
+     run_stage2 of phase 4's small configuration under TP 2 interrupted
+     after one epoch and resumed to two (test metrics and train state
+     equal to the straight run's);
+ 16. the GPipe pipeline: two ranks on cuda:0 over gloo, pp 2 at the full
+     width of "train_18_30" stage 1 (Llama-3.2-1B, lora_only, batch 16, 4
+     microbatches of 4 rows, the fused switch on, every dropout 0, random
+     weights from the preset's seed, phase 8's batches): a clip + SGD step
+     against one process's (the loss within rel 1e-5 of the whole batch's
+     step and of the step over the same 4 microbatches, whose gradients
+     one process sums; the updates within 1e-5 of the largest against the
+     latter, and against the whole batch's with the term of the Q-Former
+     ReLU units that change sign between the whole batch's forward and
+     the microbatches' removed: the units must lie within 1e-5 of zero,
+     and the microbatches with the whole batch's ReLU masks must give the
+     whole batch's updates within 1e-5; the whole batch's step with the
+     fused switch off printed beside), the base Llama bit-identical and
+     LoRA and the front-end moved, a repeated AdamW step bit-identical,
+     the eval loss equal on both ranks, each rank's launches against the
+     table the schedule implies, the staged sends (2 x 4 a step of (4,
+     528, 2048) fp32 through pinned host buffers), ms per step and peak
+     memory beside phase 8's, and the joined model (gathered on the host)
+     exported by rank 0 (the one-process file), read back strictly in
+     one process and equal bit for bit to each rank's own state.
 Phase 3 also checks flash at the comparison models' shapes: MMTrans's
 self-attention (B 16, 70 keys, 8 heads of 16, a key mask) and the UNet's
 cross-attention over one key (B 32 and B 10, 18 queries, 1 head of 64),
-their bound the larger of the roofline's and the timer's launch floor.
+their bound the larger of the roofline's and the timer's launch floor;
+and flash, RMSNorm and SwiGLU at phase 16's microbatch shapes (B 4: 2112
+rows), reported under ``microbatch_shapes``.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -894,6 +924,28 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
     return {k: v for k, v in rows.items() if v}
 
 
+def llama_case(dev, g, B, Hq, Hkv):
+    """Flash's arguments at the Llama's self-attention of B rows of 16
+    image + 512 text tokens (row lengths 200..528, RoPE, causal) with Hq/Hkv
+    heads of 64."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.config import LlamaConfig
+    from tsue_tpu_torch.models.llama import rope_inv_freq
+    T = 16 + TEXT_TOKENS
+    inv = torch.as_tensor(rope_inv_freq(LlamaConfig()), device=dev)
+    lens = torch.as_tensor(np.linspace(200, T, B).astype(np.int64),
+                           device=dev)
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    ang = (mask.cumsum(1) - 1).clamp_min(0).float()[..., None] * inv
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    return dict(q=randn(B, T, Hq, 64), k=randn(B, T, Hkv, 64),
+                v=randn(B, T, Hkv, 64), mask=mask, is_causal=True,
+                rope=(torch.cos(ang), torch.sin(ang)))
+
+
 def shard_shape_checks(dev, gpu, timer, head_split):
     """Phase 3 at the local shapes of phase 15's parallel paths, Llama-3.2-1B
     at TP 2 (heads, KV heads and FFN halved on each rank) and DP 2 (the
@@ -904,26 +956,16 @@ def shard_shape_checks(dev, gpu, timer, head_split):
     before the reduce); the fused head at B 8 (DP 2: every rank holds the
     whole table).  Each row carries ``shard=True``; the main-path lines
     leave them out."""
-    import numpy as np
     import torch
-    from tsue_tpu_torch.config import LlamaConfig
-    from tsue_tpu_torch.models.llama import rope_inv_freq
     g = torch.Generator(device=dev).manual_seed(6)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    T, S = 16 + TEXT_TOKENS, 592
-    inv = torch.as_tensor(rope_inv_freq(LlamaConfig()), device=dev)
+    S = 592
 
     def llama(B, Hq, Hkv):
-        lens = torch.as_tensor(np.linspace(200, T, B).astype(np.int64),
-                               device=dev)
-        mask = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
-        ang = (mask.cumsum(1) - 1).clamp_min(0).float()[..., None] * inv
-        return dict(q=randn(B, T, Hq, 64), k=randn(B, T, Hkv, 64),
-                    v=randn(B, T, Hkv, 64), mask=mask, is_causal=True,
-                    rope=(torch.cos(ang), torch.sin(ang)))
+        return llama_case(dev, g, B, Hq, Hkv)
     dmask = (torch.arange(S, device=dev)[None]
              < torch.randint(300, S, (16, 1), generator=g, device=dev)).int()
     flash = [("TP 2 llama_self 16/4x64 B16", llama(16, 16, 4)),
@@ -946,6 +988,25 @@ def shard_shape_checks(dev, gpu, timer, head_split):
          False),), shard=True))
     out["lmhead_topk"] = head_checks(dev, gpu, timer, None, head_split, B=8,
                                      exacts=(False,), shard=True)
+    return out
+
+
+def microbatch_shape_checks(dev, gpu, timer):
+    """Phase 3 at phase 16's microbatch shapes: "train_18_30" stage 1 at
+    batch 16 in 4 microbatches is B 4 a microbatch, 4 x 528 = 2112 rows:
+    flash at the Llama's 32/8 heads of 64 (RoPE, causal), RMSNorm (2112,
+    2048) and the SwiGLU down-projection (2112, 8192) x (8192, 2048).
+    Each row carries ``microbatch=True``; the main-path lines leave them
+    out."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(16)
+    mb = 16 // PIPE_MICRO
+    out = {"flash_attn_fwd": flash_checks(
+        dev, gpu, timer, [(f"pipeline microbatch llama_self 32/8x64 B{mb}",
+                           llama_case(dev, g, mb, 32, 8))], microbatch=True)}
+    out.update(fused_checks(dev, gpu, timer, (
+        (f"pipeline microbatch b{mb} (train_18_30 stage 1, pp 2, "
+         f"{PIPE_MICRO} microbatches)", mb, 8192, True),), microbatch=True))
     return out
 
 
@@ -2769,6 +2830,21 @@ def train_phase(dev, gpu, preset: str, bf16: bool = False):
 # 8. stage-1 MLLM fine-tuning at full width
 # --------------------------------------------------------------------------
 
+def stage1_batches(cfg, dev, n: int = 6):
+    """Stage 1's first ``n`` batches of ``cfg`` (phases 8 and 16): windows
+    of 8 synthetic tracks (seed 5) with the byte tokenizer, on ``dev``."""
+    from tsue_tpu_torch.data import (BatchIterator, build_windows,
+                                     get_tokenizer, make_synthetic_tracks)
+    from tsue_tpu_torch.runner import to_device
+    tracks = make_synthetic_tracks(num_tracks=8, track_len=600, seed=5)
+    ds = build_windows(tracks, cfg.data, get_tokenizer())
+    batches = [to_device(b, dev) for _, b in zip(range(n), BatchIterator(
+        ds, cfg.train.batch_size, seed=cfg.train.seed,
+        length_buckets=cfg.data.length_buckets))]
+    check(len(batches) == n, f"stage1: too few windows ({len(ds)})")
+    return batches
+
+
 def stage1_phase(dev, gpu):
     """Stage-1 steps of the preset "train_18_30" (its batch 16, lr 5e-4,
     fp32, the stage-1 default lora_only freeze, LoRA r 8 on q/v, the dense
@@ -2780,12 +2856,9 @@ def stage1_phase(dev, gpu):
     to the tokenizer's; it runs at the small configuration."""
     import torch
     from tsue_tpu_torch.config import get_preset
-    from tsue_tpu_torch.data import (BatchIterator, build_windows,
-                                     get_tokenizer, make_synthetic_tracks)
     from tsue_tpu_torch.models.fusion import IGNORE_LABEL, MultiModalLLM
     from tsue_tpu_torch.models.tsue import init_params
     from tsue_tpu_torch.ops.fused import fused_scope
-    from tsue_tpu_torch.runner import to_device
     from tsue_tpu_torch.train.stage1 import (make_stage1_eval_step,
                                              make_stage1_optimizer,
                                              make_stage1_train_step)
@@ -2795,11 +2868,7 @@ def stage1_phase(dev, gpu):
     cfg = get_preset("train_18_30")
     m, B = cfg.model, cfg.train.batch_size
     L = m.llama.num_layers
-    tracks = make_synthetic_tracks(num_tracks=8, track_len=600, seed=5)
-    ds = build_windows(tracks, cfg.data, get_tokenizer())
-    batches = [to_device(b, dev) for _, b in zip(range(6), BatchIterator(
-        ds, B, seed=cfg.train.seed, length_buckets=cfg.data.length_buckets))]
-    check(len(batches) == 6, f"stage1: too few windows ({len(ds)})")
+    batches = stage1_batches(cfg, dev)
     T = m.qformer.num_query_tokens + batches[0]["input_ids"].shape[1]
     supervised = [int((b["labels"] != IGNORE_LABEL).sum()) for b in batches]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2943,6 +3012,20 @@ def stage1_phase(dev, gpu):
 EVAL_TRACKS = 5     # 15 windows a track: train 45, val 15, test 15
 
 
+def same(x, y) -> bool:
+    """Equal nested artifacts, tensors bit for bit."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return isinstance(y, torch.Tensor) and torch.equal(x, y)
+    if isinstance(x, dict):
+        return (isinstance(y, dict) and x.keys() == y.keys()
+                and all(same(x[k], y[k]) for k in x))
+    if isinstance(x, (list, tuple)):
+        return (type(x) is type(y) and len(x) == len(y)
+                and all(same(a, b) for a, b in zip(x, y)))
+    return x == y
+
+
 def eval_from_disk_phase(dev, gpu):
     """The reference's train-then-test flow through ``run_stage2``, at full
     Llama-3.2-1B width: preset "test_18_18" (scripts/test.py: frozen_mllm,
@@ -3002,18 +3085,6 @@ def eval_from_disk_phase(dev, gpu):
     def artifact(path):
         return torch.load(os.path.join(path, ck.STATE_FILE),
                           weights_only=True)
-
-    def same(x, y):
-        """Equal nested artifacts, tensors bit for bit."""
-        if isinstance(x, torch.Tensor):
-            return isinstance(y, torch.Tensor) and torch.equal(x, y)
-        if isinstance(x, dict):
-            return (isinstance(y, dict) and x.keys() == y.keys()
-                    and all(same(x[k], y[k]) for k in x))
-        if isinstance(x, (list, tuple)):
-            return (type(x) is type(y) and len(x) == len(y)
-                    and all(same(a, b) for a, b in zip(x, y)))
-        return x == y
 
     try:
         with fused_scope("on"):
@@ -4523,6 +4594,40 @@ def parallel_work(dev, tp=None, dp=None) -> dict:
     return out
 
 
+def tp2_resume_runs(dev, tp, out_dir: str) -> dict:
+    """``run_stage2`` of phase 4's small configuration (fp32, joint, batch
+    4, 5 synthetic tracks, the fused switch on) under TP 2: two epochs
+    with a train state every epoch, and a twin of one epoch resumed to
+    two.  Returns both runs' metrics, their launches, and on rank 0
+    whether the two final train states (gathered whole, the one-process
+    file) are equal bit for bit."""
+    import torch
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import run_stage2
+    from tsue_tpu_torch.train.checkpoint import STATE_FILE
+    cfg = small_train_cfg("joint")
+    run = dict(synthetic_tracks=5, device=dev, mesh=tp, save_every=1)
+    with fused_scope("on"):
+        reset_counts()
+        t0 = time.perf_counter()
+        straight = run_stage2(cfg, out_dir=os.path.join(out_dir, "s2a"),
+                              epochs=2, **run)
+        run_stage2(cfg, out_dir=os.path.join(out_dir, "s2b"), epochs=1,
+                   **run)
+        resumed = run_stage2(cfg, out_dir=os.path.join(out_dir, "s2b"),
+                             epochs=2, resume=True, **run)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    equal = None
+    if tp.is_primary():
+        equal = same(*(torch.load(os.path.join(
+            out_dir, r, cfg.name, "ckpt", "state", STATE_FILE),
+            weights_only=True) for r in ("s2a", "s2b")))
+    return dict(straight=straight, resumed=resumed, state_equal=equal,
+                s=secs, counts=counts)
+
+
 def _parallel_rank(rank: int, port: int, out_dir: str) -> None:
     """One of phase 15's two ranks, on cuda:0 over gloo (a crash prints
     the rank's Python stack)."""
@@ -4544,6 +4649,7 @@ def _parallel_rank(rank: int, port: int, out_dir: str) -> None:
     M.reset_counts()
     out = parallel_work(dev, tp, dp)
     out["collectives"] = dict(M.COUNTS)
+    out["resume"] = tp2_resume_runs(dev, tp, out_dir)
     out["mesh"] = (tp.data, tp.model, tp.model_rank, dp.data, dp.data_rank)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -4561,15 +4667,18 @@ def parallel_phase(dev, gpu) -> dict:
     """Phase 15: the parallel layer on the one card.  NCCL refuses two
     ranks on one device, so two ranks share cuda:0 over gloo, which runs
     every tensor collective the port issues on CUDA tensors (another kind
-    raises in ``parallel.mesh``; none is staged through the host).  The
+    raises in ``parallel.mesh``; no collective is staged through the
+    host).  The
     one-process run of ``parallel_work`` comes first, then the two ranks
     run it on their meshes: (a) TP 2 serving, the prefill logits within
     ``LOGIT_TOL`` of max |logit|, greedy ids equal on at least 0.9 of the
     positions, the deterministic prediction within ``PX_TOL`` px, each
     rank's launches those of one process; (b) the DP 2 and (c) FSDP over
     DP 2 step, the loss within rtol 1e-5 and every update within 1e-5 of
-    the largest.  Two ranks on one card measure no scaling: their rates
-    are printed for the record only.  Returns the ranks' launches by run."""
+    the largest; (d) ``run_stage2`` under TP 2 interrupted and resumed
+    (``tp2_resume_runs``), equal to the straight run.  Two ranks on one
+    card measure no scaling: their rates are printed for the record only.
+    Returns the ranks' launches by run."""
     import shutil
     import socket
     import numpy as np
@@ -4650,8 +4759,522 @@ def parallel_phase(dev, gpu) -> dict:
               f"phase 15 rank {r}: collectives {o['collectives']}")
         for run in ("generate", "predict", "dp", "fsdp"):
             counts[f"phase 15 {run} rank {r}"] = o[f"{run}_counts"]
+        res = o["resume"]
+        print(f"parallel TP 2 run_stage2 rank {r} (small configuration): "
+              f"straight 2 epochs {json.dumps(res['straight'])}, 1 epoch "
+              f"resumed to 2 {json.dumps(res['resumed'])}; train states "
+              f"equal: {res['state_equal']}; three runs {res['s']:.1f}s; "
+              f"gpu: {gpu}", flush=True)
+        check(res["resumed"] == res["straight"] == outs[0]["resume"]
+              ["straight"], f"phase 15 rank {r}: the resumed TP 2 run's "
+              f"metrics {res['resumed']} != {res['straight']}")
+        check(r > 0 or res["state_equal"], "phase 15: the resumed TP 2 "
+              "run's train state differs from the straight run's")
+        counts[f"phase 15 run_stage2 TP 2 resumed rank {r}"] = res["counts"]
     print(f"parallel phase: {time.time() - t_phase:.1f}s in all; gpu: {gpu}",
           flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------
+# 16. the GPipe pipeline on the one card
+# --------------------------------------------------------------------------
+
+PIPE_STAGES = 2
+PIPE_MICRO = 4
+PIPE_TIMEOUT_S = 600
+
+
+def pipeline_cfg():
+    """"train_18_30" stage 1 (lora_only, batch 16, fp32) on a pipeline of
+    ``PIPE_STAGES`` x ``PIPE_MICRO`` microbatches, every dropout at 0: a
+    step then equals one process's up to the order of its sums."""
+    from tsue_tpu_torch.config import get_preset
+    cfg = get_preset("train_18_30")
+    m = cfg.model
+    return cfg.replace(
+        model=dataclasses.replace(
+            m, llama=dataclasses.replace(m.llama, lora_dropout=0.0),
+            qformer=dataclasses.replace(m.qformer, dropout=0.0)),
+        mesh=dataclasses.replace(cfg.mesh, pipeline_parallel=PIPE_STAGES,
+                                 microbatches=PIPE_MICRO))
+
+
+def pipeline_launches(cfg, stage: int) -> dict:
+    """The launches of one pipelined step's forward on ``stage`` (the
+    backward recomputes through the plain versions): the Llama's flash,
+    two RMSNorms and a SwiGLU a layer of the stage's a microbatch, the
+    Q-Former's flash (dropout 0: no plain path) on stage 0 and the final
+    RMSNorm on the last stage, a microbatch each."""
+    m, M = cfg.model, PIPE_MICRO
+    Ls = m.llama.num_layers // PIPE_STAGES
+    qf = m.qformer.num_encoder_layers + 2 * m.qformer.num_decoder_layers
+    last = stage == PIPE_STAGES - 1
+    return dict(train_forward_launches(0), flash_attn_fwd=M * (
+        Ls + (qf if stage == 0 else 0)), rmsnorm=M * (2 * Ls + int(last)),
+        swiglu_matmul=M * Ls)
+
+
+def _sgd(state):
+    """The optimizer's clip and guard with SGD at lr 1 in place of AdamW:
+    an update affine in the gradient (phase 15's comparison step)."""
+    import torch
+    state.optimizer.adamw = torch.optim.SGD(state.optimizer.params, lr=1.0,
+                                            foreach=False)
+
+
+class PinnedRelu:
+    """The Q-Former FFNs' ReLU masks of a whole batch, replayed on its
+    microbatches.  ``ReLU'`` jumps at 0, so a unit whose pre-activation
+    lies within rounding of 0 may change sign between the whole batch's
+    forward and a microbatch's (the products take other cuBLAS kernels at
+    other row counts), and its token's whole contribution to that FFN's
+    gradient comes or goes.  ``record()`` patches ``FFN.forward`` to keep
+    each Q-Former FFN's mask (pre-activation > 0) over the whole batch;
+    ``replay(rows)`` to take the consecutive ``rows``-row slices of it on
+    consecutive calls (the microbatches in order), counting the units whose
+    own sign differs and the largest |pre-activation| among them.  Every
+    dropout is 0 here."""
+
+    def __init__(self, mllm):
+        from tsue_tpu_torch.models.layers import FFN
+        self.cls = FFN
+        self.names = {m: n for n, m in mllm.qformer.named_modules()
+                      if isinstance(m, FFN)}
+        self.masks: dict = {}
+        self.calls: dict = {}
+        self.flips, self.flip_pre = 0, 0.0
+
+    def _patched(self, rows):
+        import torch
+        pin = self
+
+        def forward(ffn, x, generator=None):
+            pre = ffn.Dense_0(x)
+            name = pin.names[ffn]
+            if rows is None:
+                pin.masks[name] = pre > 0
+                return ffn.Dense_1(torch.relu(pre))
+            i = pin.calls[name] = pin.calls.get(name, -1) + 1
+            mask = pin.masks[name][i * rows:(i + 1) * rows]
+            flip = mask != (pre > 0)
+            pin.flips += int(flip.sum())
+            if flip.any():
+                pin.flip_pre = max(pin.flip_pre,
+                                   float(pre.detach()[flip].abs().max()))
+            return ffn.Dense_1(pre * mask)
+        return forward
+
+    @contextlib.contextmanager
+    def _using(self, rows):
+        self.calls.clear()
+        orig = self.cls.forward
+        self.cls.forward = self._patched(rows)
+        try:
+            yield self
+        finally:
+            self.cls.forward = orig
+
+    def record(self):
+        return self._using(None)
+
+    def replay(self, rows: int):
+        return self._using(rows)
+
+
+def pipeline_reference(dev) -> dict:
+    """The one-process stage-1 steps that phase 16's ranks are held to:
+    ``pipeline_cfg``'s MLLM from the preset's seed, phase 8's first batch,
+    clip + SGD, the fused switch on unless said; "full" the whole batch at
+    once (``make_stage1_train_step``), its Q-Former FFNs' ReLU masks
+    recorded (``PinnedRelu``); "full_plain" the same with the fused switch
+    off (the same function, rounded otherwise); "micro" the same
+    ``PIPE_MICRO`` microbatches as the pipeline, their gradients summed in
+    one process (``make_pipelined_stage1_step`` on a one-process mesh);
+    "micro_pinned" the same with the whole batch's ReLU masks.  Returns
+    each step's loss, seconds and trainable parameters after it, the
+    trainable parameters before (on the host), and the ReLU units whose
+    sign the microbatches change with the largest |pre-activation| among
+    them."""
+    import torch
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.parallel.mesh import Mesh
+    from tsue_tpu_torch.parallel.pipeline import make_pipelined_stage1_step
+    from tsue_tpu_torch.train.stage1 import (make_stage1_optimizer,
+                                             make_stage1_train_step)
+    from tsue_tpu_torch.train.trainer import TrainState
+    from tsue_tpu_torch.utils.random import step_generator
+    cfg = pipeline_cfg()
+    m = cfg.model
+    batch = stage1_batches(cfg, dev, 1)[0]
+    with torch.device(dev):
+        mllm = MultiModalLLM(m.llama, m.qformer, m.use_vision)
+    init_params(mllm, torch.Generator(device=dev).manual_seed(cfg.train.seed))
+    state = TrainState(mllm, make_stage1_optimizer(cfg, mllm), cfg.train.seed)
+    _sgd(state)
+    params = dict(mllm.named_parameters())
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    start = {n: params[n].detach().clone() for n in trainable}
+    full_step = make_stage1_train_step()
+    micro_step, _ = make_pipelined_stage1_step(Mesh(device=dev), PIPE_MICRO)
+    out = dict(start={n: t.cpu() for n, t in start.items()})
+    pin = PinnedRelu(mllm)
+    rows = cfg.train.batch_size // PIPE_MICRO
+    for key, fused, scope, step in (
+            ("full", "on", pin.record(), lambda: full_step(
+                state, batch, step_generator(0, 0, dev))),
+            ("full_plain", "off", contextlib.nullcontext(), lambda: full_step(
+                state, batch, step_generator(0, 0, dev))),
+            ("micro", "on", contextlib.nullcontext(), lambda: micro_step(
+                state, batch, 0, 0)),
+            ("micro_pinned", "on", pin.replay(rows), lambda: micro_step(
+                state, batch, 0, 0))):
+        with torch.no_grad():
+            for n in trainable:
+                params[n].copy_(start[n])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with fused_scope(fused), scope:
+            loss = float(step()["lm_loss"])
+        torch.cuda.synchronize(dev)
+        out[key] = dict(loss=loss, s=time.perf_counter() - t0, after={
+            n: params[n].detach().cpu() for n in trainable})
+    out["relu_flips"], out["relu_flip_pre"] = pin.flips, pin.flip_pre
+    del state, mllm, params, start, pin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def update_diff(ref, other, start, scale):
+    """The largest parameter difference over ``scale`` (the largest
+    update) and the three tensors that hold the largest differences."""
+    diffs = sorted(((float((ref[n] - other[n]).abs().max()), n)
+                    for n in other), reverse=True)
+    worst = [(n, d / scale, float((ref[n] - start[n]).abs().max()) / scale)
+             for d, n in diffs[:3]]
+    return diffs[0][0] / scale, worst
+
+
+def _pipeline_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of phase 16's two pipeline stages, on cuda:0 over gloo (a crash
+    prints the rank's Python stack)."""
+    import faulthandler
+    import torch
+    faulthandler.enable()
+    import torch.distributed as dist
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    from tsue_tpu_torch.ops._build import build_all
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.parallel import mesh as M
+    from tsue_tpu_torch.parallel import pipeline as P
+    from tsue_tpu_torch.train.checkpoint import STATE_FILE, export_mllm
+    from tsue_tpu_torch.train.stage1 import make_stage1_optimizer
+    from tsue_tpu_torch.train.trainer import TrainState
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=PIPE_STAGES)
+    build_all(list(KERNELS))          # built by the parent: loads only
+    t_rank = time.perf_counter()
+    mesh = P.make_pipeline_mesh(PIPE_STAGES, dev)
+    cfg = pipeline_cfg()
+    m = cfg.model
+    batches = stage1_batches(cfg, dev)
+    # every rank builds the whole MLLM from the seed and keeps its stage
+    with torch.device(dev):
+        whole = MultiModalLLM(m.llama, m.qformer, m.use_vision)
+    init_params(whole, torch.Generator(device=dev).manual_seed(
+        cfg.train.seed))
+    stage = P.stage_of(whole, mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = TrainState(stage, make_stage1_optimizer(cfg, stage, mesh=mesh),
+                       cfg.train.seed, mesh=mesh)
+    adamw = state.optimizer.adamw
+    train_step, eval_step = P.make_pipelined_stage1_step(mesh, PIPE_MICRO)
+    params = dict(stage.named_parameters())
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    frozen = {n: p.detach().clone() for n, p in params.items()
+              if not p.requires_grad}
+    start = {n: params[n].detach().clone() for n in trainable}
+    out = {"mesh": (mesh.data, mesh.pipe, mesh.pipe_rank),
+           "layers": stage.llama.model.layer_ids,
+           "build_s": time.perf_counter() - t_rank}
+
+    def restore(snap, opt=None):
+        with torch.no_grad():
+            for n in trainable:
+                params[n].copy_(snap[n])
+        if opt is not None:
+            # a copy: the optimizer keeps the tensors it is given
+            state.optimizer.load_state_dict(copy.deepcopy(opt))
+
+    with fused_scope("on"):
+        # (a) the comparison step: clip + SGD, phase 8's first batch
+        _sgd(state)
+        reset_counts()
+        M.reset_counts()
+        t0 = time.perf_counter()
+        out["cmp_loss"] = float(train_step(state, batches[0], 0, 0)
+                                ["lm_loss"])
+        torch.cuda.synchronize(dev)
+        out["cmp_s"] = time.perf_counter() - t0
+        out["cmp_counts"] = read_counts()
+        out["cmp_transfers"] = dict(M.COUNTS)
+        out["cmp_params"] = {n: params[n].detach().cpu() for n in trainable}
+        out["cmp_moved"] = [n for n in trainable
+                            if not torch.equal(params[n], start[n])]
+        restore(start)
+        state.optimizer.adamw = adamw
+        # (b) AdamW: a warmup step, then a step twice from one state
+        torch.cuda.reset_peak_memory_stats(dev)
+        train_step(state, batches[1], 0, 1)
+        torch.cuda.synchronize(dev)
+        snap = {n: params[n].detach().clone() for n in trainable}
+        opt = copy.deepcopy(state.optimizer.state_dict())
+        runs = []
+        for _ in range(2):
+            restore(snap, opt)
+            reset_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = float(train_step(state, batches[2], 0, 2)["lm_loss"])
+            torch.cuda.synchronize(dev)
+            runs.append((time.perf_counter() - t0, loss, read_counts(),
+                         {n: params[n].detach().clone() for n in trainable}))
+        out["ms"] = [r[0] * 1e3 for r in runs]
+        out["losses"] = [r[1] for r in runs]
+        out["step_counts"] = runs[0][2]
+        out["repeat_equal"] = runs[0][1] == runs[1][1] and all(
+            torch.equal(runs[0][3][n], runs[1][3][n]) for n in trainable)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del runs, snap, opt
+        # (c) the eval step
+        reset_counts()
+        out["eval"] = float(eval_step(state, batches[5])["lm_loss"])
+        out["eval_counts"] = read_counts()
+    out["frozen_equal"] = all(torch.equal(params[n], t)
+                              for n, t in frozen.items())
+    del frozen, start, batches
+    # (d) the join: every rank gathers the whole model on the host (as
+    # run_stage1 joins it), rank 0 exports the one-process artifact, each
+    # rank compares the file with its own state
+    t0 = time.perf_counter()
+    joined = P.gather_stages(stage, mesh, "cpu")
+    path = os.path.join(out_dir, "export")
+    if rank == 0:
+        with torch.device(dev):
+            mllm = MultiModalLLM(m.llama, m.qformer, m.use_vision)
+        mllm.load_state_dict(joined)
+        export_mllm(mllm, path)
+        del mllm
+    del joined
+    M.barrier()
+    out["join_s"] = time.perf_counter() - t0
+    stored = torch.load(os.path.join(path, STATE_FILE), mmap=True,
+                        weights_only=True)
+    own = stage.state_dict()
+    out["export_equal"] = all(torch.equal(stored[k], v.cpu())
+                              for k, v in own.items())
+    out["export_keys"] = len(stored)
+    out["rank_s"] = time.perf_counter() - t_rank
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    M.barrier()
+    dist.destroy_process_group()
+
+
+def pipeline_phase(dev, gpu) -> dict:
+    """Phase 16: the GPipe pipeline of stage 1 on the one card, two stages
+    as two ranks on cuda:0 over gloo: every activation and its gradient
+    goes through ``parallel.mesh``'s staged sends (gloo cannot send a CUDA
+    tensor).  The one-process reference runs first and is freed; then the
+    ranks (``_pipeline_rank``) are held to it and to the checks of the
+    module docstring.  Two ranks on one card measure no scaling.  Returns
+    the ranks' launches by run."""
+    import shutil
+    import socket
+    import torch
+    import torch.multiprocessing as mp
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.train.checkpoint import import_mllm
+    t_phase = time.time()
+    ref = pipeline_reference(dev)
+    cfg = pipeline_cfg()
+    m = cfg.model
+    out_dir = Path("runs") / f"chip_smoke_pipeline_{os.getpid()}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_pipeline_rank, args=(r, port, str(out_dir)))
+             for r in range(PIPE_STAGES)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PIPE_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          "phase 16: a rank failed (exit codes "
+          f"{[p.exitcode for p in procs]})")
+    outs = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(PIPE_STAGES)]
+    # the export, read back strictly in one process
+    t0 = time.time()
+    with torch.device(dev):
+        one = MultiModalLLM(m.llama, m.qformer, m.use_vision)
+    import_mllm(one, str(out_dir / "export"))
+    n_keys = len(one.state_dict())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    read_s = time.time() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    L, B = m.llama.num_layers, cfg.train.batch_size
+    bm, T = B // PIPE_MICRO, m.qformer.num_query_tokens + TEXT_TOKENS
+    act_bytes = bm * T * m.llama.hidden_size * 4
+    full, micro, pinned = ref["full"], ref["micro"], ref["micro_pinned"]
+    scale = max(float((full["after"][n] - ref["start"][n]).abs().max())
+                for n in full["after"])
+    check(scale > 0, "phase 16: the reference step moved no parameter")
+    # the ReLU units the microbatches flip, and their term in the update
+    kink = {n: micro["after"][n] - pinned["after"][n] for n in micro["after"]}
+    mf, worst = update_diff(full["after"], micro["after"], ref["start"],
+                            scale)
+    mp, worst_p = update_diff(full["after"], pinned["after"], ref["start"],
+                              scale)
+    spread, worst_s = update_diff(full["after"], ref["full_plain"]["after"],
+                                  ref["start"], scale)
+    print(f"pipeline reference, one process: the whole batch's step loss "
+          f"{full['loss']:.6f} in {full['s'] * 1e3:.1f} ms (the fused "
+          f"switch off: {ref['full_plain']['loss']:.6f}, updates "
+          f"{spread:.2e} of the largest apart, worst {worst_s}); the "
+          f"{PIPE_MICRO} microbatches' step loss {micro['loss']:.6f} in "
+          f"{micro['s'] * 1e3:.1f} ms, updates {mf:.2e} of the largest "
+          f"from the whole batch's (worst tensors, difference and own "
+          f"largest update over the largest: {worst}); "
+          f"{ref['relu_flips']} ReLU unit(s) of the Q-Former's FFNs change "
+          f"sign between the whole batch's forward and the microbatches' "
+          f"(|pre-activation| at most {ref['relu_flip_pre']:.2e}); with "
+          f"the whole batch's ReLU masks the microbatches' updates are "
+          f"{mp:.2e} of the largest from the whole batch's (tolerance "
+          f"1e-5; worst {worst_p}); gpu: {gpu}", flush=True)
+    check(ref["relu_flip_pre"] <= 1e-5, "phase 16: a ReLU unit the "
+          "microbatches flip lies off zero by "
+          f"{ref['relu_flip_pre']:.2e}: more than rounding")
+    check(mp <= 1e-5, f"phase 16: the microbatches' step with the whole "
+          f"batch's ReLU masks is {mp:.2e} of the largest update from the "
+          f"whole batch's")
+    phase8 = TRAIN_STATS.get("stage1", {})
+    counts = {}
+    check([o["mesh"] for o in outs] == [(1, PIPE_STAGES, r)
+                                        for r in range(PIPE_STAGES)],
+          f"phase 16: mesh layout {[o['mesh'] for o in outs]}")
+    for r, o in enumerate(outs):
+        Ls = L // PIPE_STAGES
+        check(o["layers"] == list(range(r * Ls, (r + 1) * Ls)),
+              f"phase 16 rank {r}: layers {o['layers']}")
+        rel = {k: abs(o["cmp_loss"] - x["loss"]) / abs(x["loss"])
+               for k, x in (("full", full), ("micro", micro))}
+        upd, worst = update_diff(micro["after"], o["cmp_params"],
+                                 ref["start"], scale)
+        upd_full, worst_full = update_diff(full["after"], o["cmp_params"],
+                                           ref["start"], scale)
+        # against the whole batch's step, the flipped units' term removed
+        upd_whole, worst_whole = update_diff(full["after"], {
+            n: t - kink[n] for n, t in o["cmp_params"].items()},
+            ref["start"], scale)
+        moved = set(o["cmp_moved"])
+        lora = [n for n in o["cmp_params"] if n.endswith("lora_b")]
+        front = [n for n in o["cmp_params"] if n.startswith("qformer.")]
+        print(f"pipeline rank {r} (stage {r}, layers {o['layers'][0]}-"
+              f"{o['layers'][-1]}): clip + SGD step loss {o['cmp_loss']:.6f} "
+              f"(one process, whole batch {full['loss']:.6f}: rel "
+              f"{rel['full']:.2e}; the same microbatches {micro['loss']:.6f}"
+              f": rel {rel['micro']:.2e}; tolerance 1e-5); largest "
+              f"parameter difference {upd:.2e} of the largest update "
+              f"against the one-process step over the same microbatches "
+              f"(tolerance 1e-5; worst {worst}), {upd_whole:.2e} against "
+              f"the whole batch's with the flipped ReLU units' term "
+              f"removed (tolerance 1e-5; worst {worst_whole}), "
+              f"{upd_full:.2e} with it (worst {worst_full}); {len(moved)} of "
+              f"{len(o['cmp_params'])} trainable tensors moved; base Llama "
+              f"bit-identical after all steps: {o['frozen_equal']}; gpu: "
+              f"{gpu}", flush=True)
+        check(max(rel.values()) <= 1e-5, f"phase 16 rank {r}: loss rel {rel}")
+        check(upd <= 1e-5, f"phase 16 rank {r}: updates {upd}")
+        check(upd_whole <= 1e-5, f"phase 16 rank {r}: updates against the "
+              f"whole batch's step {upd_whole}")
+        check(o["frozen_equal"], f"phase 16 rank {r}: the base Llama moved")
+        check(lora and set(lora) <= moved,
+              f"phase 16 rank {r}: LoRA B did not move")
+        check(front and set(front) <= moved | {
+            n for n in front if not full["after"][n].ne(
+                ref["start"][n]).any()},
+            f"phase 16 rank {r}: the Q-Former did not move")
+        check(o["repeat_equal"], f"phase 16 rank {r}: a repeated step from "
+                                 "the same state and seeds differs")
+        want = pipeline_launches(cfg, r)
+        for run in ("cmp", "step"):
+            check(o[f"{run}_counts"] == want, f"phase 16 rank {r} {run}: "
+                  f"launches {o[run + '_counts']} != {want}")
+        check(o["eval_counts"] == want, f"phase 16 rank {r} eval: launches "
+              f"{o['eval_counts']} != {want}")
+        tr = o["cmp_transfers"]
+        staged = {k: tr.get(k, 0) for k in (
+            "send_staged", "recv_staged", "send_staged_bytes",
+            "recv_staged_bytes")}
+        want_staged = dict(send_staged=PIPE_MICRO, recv_staged=PIPE_MICRO,
+                           send_staged_bytes=PIPE_MICRO * act_bytes,
+                           recv_staged_bytes=PIPE_MICRO * act_bytes)
+        print(f"pipeline rank {r}: transfers a step {json.dumps(tr)} (2 x "
+              f"{PIPE_MICRO} staged a boundary, ({bm}, {T}, "
+              f"{m.llama.hidden_size}) fp32 = {act_bytes} bytes each); "
+              f"launches a step {json.dumps(o['step_counts'])}; gpu: {gpu}",
+              flush=True)
+        check(staged == want_staged and not tr.get("send")
+              and not tr.get("recv"),
+              f"phase 16 rank {r}: transfers {tr} != {want_staged}")
+        check(o["export_equal"] and o["export_keys"] == n_keys,
+              f"phase 16 rank {r}: the export differs from the rank's state")
+        counts[f"phase 16 pipeline step (clip + SGD) rank {r}"] = \
+            o["cmp_counts"]
+        counts[f"phase 16 pipeline steps (AdamW, 3) rank {r}"] = {
+            k: 3 * v for k, v in o["step_counts"].items()}
+        counts[f"phase 16 pipeline eval rank {r}"] = o["eval_counts"]
+        ms = ", ".join(f"{t:.1f}" for t in o["ms"])
+        ms8 = ", ".join(f"{t:.1f}" for t in phase8.get("ms", []))
+        print(f"pipeline rank {r}: AdamW step {ms} ms (losses "
+              f"{o['losses']}, repeat bit-identical) against phase 8's "
+              f"one-process {ms8} ms; "
+              f"clip + SGD step {o['cmp_s'] * 1e3:.1f} ms (one process "
+              f"{full['s'] * 1e3:.1f} ms); peak memory {o['peak_gib']:.2f} "
+              f"GiB (phase 8, one process: "
+              f"{phase8.get('peak_gib', float('nan')):.2f} GiB); eval loss "
+              f"{o['eval']:.6f}; build {o['build_s']:.1f}s, join + export "
+              f"{o['join_s']:.1f}s, rank {o['rank_s']:.1f}s -- two ranks "
+              f"share one card: no scaling is measured; gpu: {gpu}",
+              flush=True)
+    check(len({o["eval"] for o in outs}) == 1, "phase 16: eval losses "
+          f"differ across ranks {[o['eval'] for o in outs]}")
+    check(len({o["cmp_loss"] for o in outs}) == 1,
+          "phase 16: the step's loss differs across ranks")
+    print(f"pipeline phase: export of {n_keys} tensors read back strictly "
+          f"in one process in {read_s:.1f}s, equal to both ranks' states; "
+          f"{time.time() - t_phase:.1f}s in all; gpu: {gpu}", flush=True)
     return counts
 
 
@@ -4717,6 +5340,8 @@ def main() -> int:
     for name, extra in shard_shape_checks(dev, gpu, timer,
                                           head_split).items():
         rows[name] += extra
+    for name, extra in microbatch_shape_checks(dev, gpu, timer).items():
+        rows[name] += extra
     reset_counts()
     rows.update(nlinear=nlinear_checks(dev, gpu, timer),
                 lora_matmul=lora_checks(dev, gpu, timer),
@@ -4750,12 +5375,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p15_counts = parallel_phase(dev, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p16_counts = pipeline_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
         decoder layer's seven projections; the three kernels with no path:
         where they would sit, at batch 16)."""
-        r = [x for x in rows[name] if not x.get("shard")]
+        r = [x for x in rows[name] if not x.get("shard")
+             and not x.get("microbatch")]
         if name == "flash_attn_fwd":
             pick = [r[0]]                      # Llama self-attention, RoPE
         elif name == "int8_matmul":
@@ -4804,7 +5433,8 @@ def main() -> int:
         **{run: c[name] for run, c in p12_counts.items()},
         **{run: c[name] for run, c in p13_counts.items()},
         **{run: c[name] for run, c in p14_counts.items()},
-        **{run: c[name] for run, c in p15_counts.items()}}
+        **{run: c[name] for run, c in p15_counts.items()},
+        **{run: c[name] for run, c in p16_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:
@@ -4856,13 +5486,15 @@ def main() -> int:
             entry["grad_max_abs_err"] = grad_errs[name]
         if name in p14_rows:
             entry["bf16_forms"] = bf16_forms(name)
-        shards = [x for x in rows[name] if x.get("shard")]
-        if shards:
-            # phase 3 at phase 15's local shapes
-            entry["shard_shapes"] = {x["shape"]: {
-                k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "max_abs_err")}
-                for x in shards}
+        for mark, key in (("shard", "shard_shapes"),
+                          ("microbatch", "microbatch_shapes")):
+            # phase 3 at phase 15's local and phase 16's microbatch shapes
+            marked = [x for x in rows[name] if x.get(mark)]
+            if marked:
+                entry[key] = {x["shape"]: {
+                    k: x[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "max_abs_err")} for x in marked}
         kernels.append(entry)
     print(f"chip_smoke: {time.time() - t_start:.1f}s in all, the build "
           f"included; gpu: {gpu}", flush=True)

@@ -239,7 +239,7 @@ def test_http_unknown_path_is_404(http, method):
 
 
 @pytest.mark.parametrize("command,argv,error", [
-    ("stage1", ["--pipeline-parallel", "2"], NotImplementedError),
+    ("stage1", ["--pipeline-parallel", "2"], ValueError),
     ("serve", ["--model-parallel", "2"], ValueError),
     ("serve", ["--fsdp"], SystemExit),
     ("serve", ["--batcher", "continuous", "--fused-head"], ValueError),
@@ -247,18 +247,15 @@ def test_http_unknown_path_is_404(http, method):
 ])
 def test_flags_not_taken_raise_before_any_work(tmp_path, command, argv,
                                                error):
-    """A flag whose work is not ported yet raises NotImplementedError
-    naming its ROADMAP item, the continuous batcher with the fused head a
-    ValueError, a model degree that does not divide the world (one
-    process) a ValueError, --fsdp without --model-parallel and a JAX-only
-    flag are parser errors; each before any work (no output, and the
-    default CUDA device is never asked for)."""
+    """The continuous batcher with the fused head is a ValueError, a model
+    or pipeline degree that does not divide the world (one process) a
+    ValueError, --fsdp without --model-parallel and a JAX-only flag are
+    parser errors; each before any work (no output, and the default CUDA
+    device is never asked for)."""
     mod = {"train": train, "test": test, "stage1": stage1,
            "serve": serve}[command]
-    with pytest.raises(error) as e:
+    with pytest.raises(error):
         mod.main(argv + ["--out-dir", str(tmp_path / "out")])
-    if error is NotImplementedError:
-        assert "ROADMAP A:" in str(e.value)
     assert not (tmp_path / "out").exists()
 
 

@@ -449,7 +449,7 @@ def test_decode_kernels_rows_independent(dev, kernel):
         assert torch.equal(full[b:b + 1], one), b
 
 
-@pytest.mark.parametrize("M", [128, 129, 8448])
+@pytest.mark.parametrize("M", [128, 129, 2112, 8448])
 def test_rmsnorm_matches_plain(dev, M):
     """Rows of K = 128, 2048 and 8192 (the kernel's widest); a row of zeros
     (the eps alone), rows of large values.  Both sides take fp32 sums of
@@ -471,7 +471,7 @@ def test_rmsnorm_matches_plain(dev, M):
                                    msg=lambda m: f"M={M} K={K}: {m}")
 
 
-@pytest.mark.parametrize("M", [128, 129, 8448])
+@pytest.mark.parametrize("M", [128, 129, 2112, 8448])
 def test_swiglu_matmul_matches_plain(dev, M):
     """K = 128 and 8192, N = 128; a row tail (M = 129) and the gate up to
     +-60, where sigmoid saturates at both ends.  The fp32 sums run in
@@ -1689,14 +1689,16 @@ def test_int8_matmul_tp2_shard_shapes(dev, K, N):
 
 
 @pytest.mark.parametrize("case", ["tp2_prefill", "dp2_prefill",
-                                  "tp2_decode"])
+                                  "tp2_decode", "pp_microbatch"])
 def test_flash_parallel_shard_shapes(dev, case):
     """Flash at the parallel layer's local shapes: the Llama prefill with
-    RoPE at 16/4 heads of 64 (TP 2, B 16) and at 32/8 (DP 2, B 8), 528
-    tokens, and the decode step at 16/4 over 592 slots."""
+    RoPE at 16/4 heads of 64 (TP 2, B 16), at 32/8 (DP 2, B 8) and at a
+    pipeline microbatch's B 4 (batch 16 in 4 microbatches), 528 tokens,
+    and the decode step at 16/4 over 592 slots."""
     g = torch.Generator(device=dev).manual_seed(len(case))
     B, Hq, Hkv = {"tp2_prefill": (16, 16, 4), "dp2_prefill": (8, 32, 8),
-                  "tp2_decode": (16, 16, 4)}[case]
+                  "tp2_decode": (16, 16, 4),
+                  "pp_microbatch": (4, 32, 8)}[case]
     decode = case == "tp2_decode"
     q, k, v, mask, cs = _inputs(dev, g, B, 1 if decode else 528,
                                 592 if decode else 528, Hq, Hkv, 64, "some",
@@ -1828,3 +1830,184 @@ def test_tp_functions_gradients_gloo_on_cuda(dev):
         assert counts["all_reduce"] > 0, counts
         assert set(counts) <= M.GLOO_CUDA_OPS, counts
         assert refused
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point transfers and the pipeline (parallel/mesh.py, pipeline.py)
+# ---------------------------------------------------------------------------
+
+def _spawn(target, n, *args, timeout=180):
+    """Run ``target(rank, port, queue, *args)`` on ``n`` spawned ranks;
+    returns what each put on the queue, by rank."""
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, q) + args)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(q.get(timeout=timeout) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+    return res
+
+
+def _send_rank(rank, port, q, backend):
+    """Rank 0 sends an fp32, a bf16 and an int64 CUDA tensor to rank 1,
+    which sends the fp32 one back doubled, through ``parallel.mesh``'s
+    ``isend``/``irecv`` (rank r on cuda:r under NCCL, both on cuda:0 under
+    gloo)."""
+    import torch.distributed as dist
+    from tsue_tpu_torch.parallel import mesh as M
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sent = [torch.randn(4, 33, 7, generator=g, device=dev),
+            torch.randn(300, generator=g, device=dev).bfloat16(),
+            torch.randint(-2 ** 40, 2 ** 40, (17,), generator=g,
+                          device=dev)]
+    M.reset_counts()
+    if rank == 0:
+        works = [M.isend(t, 1) for t in sent]
+        for w in works:
+            w.wait()
+        back = torch.empty_like(sent[0])
+        M.irecv(back, 1).wait()
+        ok = torch.equal(back, 2 * sent[0])
+    else:
+        got = [torch.empty_like(t) for t in sent]
+        works = [M.irecv(t, 0) for t in got]
+        for w in works:
+            w.wait()
+        ok = all(torch.equal(a, b) for a, b in zip(got, sent))
+        M.isend(2 * got[0], 0).wait()
+    torch.cuda.synchronize()
+    q.put((rank, (ok, dict(M.COUNTS), [t.numel() * t.element_size()
+                                       for t in sent])))
+    dist.destroy_process_group()
+
+
+def test_staged_send_gloo_on_cuda(dev):
+    """Two ranks on cuda:0 over gloo (which cannot send a CUDA tensor):
+    every transfer goes through a pinned host buffer, the values arrive
+    exactly, and each is counted as staged with its bytes, none as
+    direct."""
+    res = _spawn(_send_rank, 2, "gloo")
+    (ok0, c0, sizes), (ok1, c1, _) = res[0], res[1]
+    assert ok0 and ok1
+    assert c0 == {"send_staged": 3, "send_staged_bytes": sum(sizes),
+                  "recv_staged": 1, "recv_staged_bytes": sizes[0]}, c0
+    assert c1 == {"recv_staged": 3, "recv_staged_bytes": sum(sizes),
+                  "send_staged": 1, "send_staged_bytes": sizes[0]}, c1
+
+
+def test_direct_send_nccl(dev):
+    """Under NCCL a CUDA tensor is sent directly (no staging).  NCCL refuses
+    two ranks on one device (``ncclInvalidUsage``), so this needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL refuses two ranks on one device: a NCCL send "
+                    "needs two cards")
+    res = _spawn(_send_rank, 2, "nccl")
+    assert res[0][0] and res[1][0]
+    assert res[0][1] == {"send": 3, "recv": 1}, res[0][1]
+    assert res[1][1] == {"recv": 3, "send": 1}, res[1][1]
+
+
+def _pipeline_rank(rank, port, q):
+    """One stage of a 2-stage pipeline of a small MLLM on cuda:0 over gloo:
+    the pipelined loss and its backward over 2 microbatches."""
+    import torch.distributed as dist
+    from tsue_tpu_torch.parallel import mesh as M
+    from tsue_tpu_torch.parallel import pipeline as P
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    mesh = P.make_pipeline_mesh(2, dev)
+    whole, batch = _pipeline_model(dev)
+    stage = P.stage_of(whole, mesh)
+    M.reset_counts()
+    loss = P.pipelined_lm_loss(stage, mesh, batch, 2, backward=True)
+    counts = dict(M.COUNTS)
+    grads = {}
+    for n, p in stage.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if P.layer_index(n) is None:
+            # the outer part: each stage holds its share of the gradient
+            # (the front-end on stage 0, the final norm and the tied head
+            # on stage 1), summed over the two here
+            dist.all_reduce(g, group=mesh.pipe_group)
+        grads[n] = g.cpu().numpy()      # by value through the queue
+    q.put((rank, (float(loss), grads, counts)))
+    dist.destroy_process_group()
+
+
+def _pipeline_model(dev):
+    """A 4-layer MLLM 128 wide and a batch of 8 rows of 4 image + 60 text
+    tokens, one row padded."""
+    import dataclasses
+    from tsue_tpu_torch.config import LlamaConfig, QFormerConfig
+    from tsue_tpu_torch.models.fusion import MultiModalLLM
+    from tsue_tpu_torch.models.tsue import init_params
+    llama = dataclasses.replace(LlamaConfig.tiny(256), hidden_size=128,
+                                intermediate_size=256, num_layers=4,
+                                head_dim=32, lora_dropout=0.0)
+    qf = QFormerConfig(hidden_size=32, num_heads=2, num_encoder_layers=1,
+                       num_decoder_layers=1, num_query_tokens=4, dropout=0.0)
+    with torch.device(dev):
+        m = MultiModalLLM(llama, qf)
+    init_params(m, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(3, 250, (8, 60), generator=g, device=dev)
+    mask = torch.ones(8, 60, dtype=torch.int32, device=dev)
+    mask[3, 40:] = 0
+    labels = torch.where(mask > 0, ids, -100)
+    labels[:, :10] = -100
+    return m, dict(vision=torch.randn(8, 6, 512, generator=g, device=dev),
+                   input_ids=ids, attention_mask=mask, labels=labels)
+
+
+def test_pipeline_gloo_on_cuda(dev):
+    """The pipelined LM loss on two ranks sharing the card over gloo: the
+    loss and every gradient equal one process's to 1e-5 (relative to the
+    tensor's largest): each stage's layers, and the outer part (the
+    Q-Former, the projection, the modality embeddings, the tied
+    embedding, the final norm) summed over the stages.  A key bias of the
+    Q-Former's attention shifts each softmax row by a constant, so its
+    gradient is zero in exact arithmetic and fp32 noise here: it is held
+    to 1e-5 of the model's largest gradient.  The activations and their
+    gradients are sent staged, 2 + 2 a rank of (4, 64, 128) fp32."""
+    from tsue_tpu_torch.parallel import pipeline as P
+    ref_model, batch = _pipeline_model(dev)
+    ref = ref_model.lm_loss(batch["vision"], batch["input_ids"],
+                            batch["attention_mask"], batch["labels"])
+    ref.backward()
+    ref_grads = {n: p.grad.cpu() for n, p in ref_model.named_parameters()}
+    largest = max(float(g.abs().max()) for g in ref_grads.values())
+    res = _spawn(_pipeline_rank, 2)
+    act = 4 * 64 * 128 * 4
+    for rank, (loss, grads, counts) in res.items():
+        assert loss == pytest.approx(float(ref), rel=1e-5)
+        outer = [n for n in ref_grads if P.layer_index(n) is None]
+        assert outer and set(outer) <= set(grads), sorted(grads)
+        for n, gr in grads.items():
+            err = float((torch.from_numpy(gr) - ref_grads[n]).abs().max())
+            scale = largest if n.endswith(".k.bias") else float(
+                ref_grads[n].abs().max())
+            assert err <= 1e-5 * scale + 1e-12, (n, err, scale)
+        assert counts["send_staged"] == counts["recv_staged"] == 2, counts
+        assert counts["send_staged_bytes"] == 2 * act, counts
+        assert "send" not in counts and "recv" not in counts, counts

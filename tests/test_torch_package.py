@@ -1,8 +1,7 @@
 """Package-level properties of the port: no JAX and nothing of the JAX
 package, a strict weight bridge, the CUDA device by default (serving, the
 continuous batcher, the CLI, stage-1 and stage-2 training), no kernel launch on CPU tensors, no decode
-kernel (nor the ADE/FDE kernel) under autograd, and the options not ported
-yet raising."""
+kernel (nor the ADE/FDE kernel) under autograd."""
 import os
 import subprocess
 import sys
@@ -60,7 +59,8 @@ PORT_MODULES = (
     "tsue_tpu_torch.cli.params", "tsue_tpu_torch.cli.roi_map",
     "tsue_tpu_torch.cli.plot", "tsue_tpu_torch.parallel",
     "tsue_tpu_torch.parallel.mesh", "tsue_tpu_torch.parallel.sharding",
-    "tsue_tpu_torch.parallel.serve_tp", "chip_smoke", "flash_variants",
+    "tsue_tpu_torch.parallel.serve_tp", "tsue_tpu_torch.parallel.pipeline",
+    "chip_smoke", "flash_variants",
     "head_variants", "lora_variants", "swiglu_variants", "nlinear_variants")
 
 
@@ -343,20 +343,3 @@ def test_training_defaults_to_cuda():
         run_stage1(cfg, epochs=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model_and_params(cfg, ByteTokenizer())
-
-
-@pytest.mark.parametrize("option", ["stage1_pipeline"])
-def test_options_not_ported_yet_raise(option, tmp_path):
-    """What the runners do not take yet raises NotImplementedError before
-    any work: stage 1's pipeline parallelism.  (Taken since: ``mllm_ckpt``
-    with stage 1; ``restore_ckpt``, ``save_every`` and ``resume`` with
-    checkpoints on disk; ``viz_every``, ``save_viz``, remat and bfloat16
-    with the rest of training, tested in ``test_torch_viz.py``,
-    ``test_torch_remat.py`` and ``test_torch_bf16.py``.)"""
-    import dataclasses
-    from tsue_tpu_torch.config import get_preset
-    from tsue_tpu_torch.runner import run_stage1
-    cfg = get_preset("train_18_30")
-    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pipeline_parallel=2))
-    with pytest.raises(NotImplementedError):
-        run_stage1(cfg, out_dir=str(tmp_path), epochs=0, device="cpu")

@@ -6,27 +6,21 @@
 ``--rng-impl``, which names JAX PRNG implementations.  ``apply_overrides``
 maps the flags onto a preset as the JAX scripts do.  ``add_roi_args`` and
 ``resolve_roi`` are the lane-ROI flags of the map commands, and
-``build_mllm_bf16`` the bf16 decode substrate of ``quality_quant``. A flag
-whose work is not ported yet is taken by the parser and raises
-``NotImplementedError``, naming its ROADMAP item, before any work
-(``refuse_not_ported``).
+``build_mllm_bf16`` the bf16 decode substrate of ``quality_quant``.
 
 ``add_mesh_args`` (--model-parallel, --fsdp) and ``setup_mesh`` run a
 command over a (data, model) mesh: under torchrun (``python -m
 torch.distributed.run --nproc_per_node N -m tsue_tpu_torch.cli ...``)
 each process joins the group (NCCL on the card, gloo with --device cpu),
-and on the card rank 0 builds the kernels before the others load them.
+and on the card rank 0 builds the kernels before the others load them
+(``parallel.mesh.join_torchrun``, which ``run_stage1`` calls itself for
+``stage1 --pipeline-parallel``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-
-NOT_PORTED = (   # (flag, its dest, whether a value asks for the work, item)
-    ("--pipeline-parallel", "pipeline_parallel", lambda v: v > 1,
-     "parallel: the pipeline"),
-)
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -83,22 +77,14 @@ def check_mesh_args(p: argparse.ArgumentParser, args) -> None:
 
 def setup_mesh(args):
     """The mesh a command runs on, or None for one plain process: joins
-    torchrun's process group (NCCL, or gloo for --device cpu) and lays out
+    the process group (``parallel.mesh.join_torchrun``) and lays out
     ``--model-parallel`` (``parallel.mesh.make_mesh``, which raises where
-    it does not divide the world).  On the card rank 0 builds every
-    kernel first and the others wait, so no two ranks compile at once."""
-    from tsue_tpu_torch.parallel.mesh import (barrier, distributed,
-                                              initialize_distributed,
-                                              is_primary, make_mesh)
-    initialize_distributed("gloo" if args.device == "cpu" else "nccl")
+    it does not divide the world)."""
+    from tsue_tpu_torch.parallel.mesh import join_torchrun, make_mesh
+    several = join_torchrun(args.device)
     mp = getattr(args, "model_parallel", 0) or 0
-    if not (distributed() or mp > 1):
+    if not (several or mp > 1):
         return None
-    if args.device != "cpu" and distributed():
-        if is_primary():
-            from tsue_tpu_torch.ops._build import CSRC, build_all
-            build_all(sorted(f.stem for f in CSRC.glob("*.cu")))
-        barrier()
     return make_mesh(max(mp, 1), device=args.device)
 
 
@@ -239,17 +225,6 @@ def apply_overrides(cfg, args):
                 remat_policy=(args.remat_policy or
                               cfg.model.llama.remat_policy))))
     return cfg
-
-
-def refuse_not_ported(args) -> None:
-    """Raise ``NotImplementedError`` for the first flag of ``args`` whose
-    work is not ported yet (``NOT_PORTED``); a flag the command does not
-    take, or left unset, asks for nothing."""
-    for flag, dest, asks, item in NOT_PORTED:
-        value = getattr(args, dest, None)
-        if value is not None and asks(value):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP A: {item})")
 
 
 def finish(metrics: dict) -> dict:

@@ -5,8 +5,7 @@ one of cv, cs_lstm, social_lstm, stgcnn, trajectron, mmtrans, gail;
 ``--k K`` adds the K-candidate eval (cv takes 10 when K is 0)."""
 from __future__ import annotations
 
-from tsue_tpu_torch.cli._common import (apply_overrides, base_parser, finish,
-                                        refuse_not_ported)
+from tsue_tpu_torch.cli._common import apply_overrides, base_parser, finish
 from tsue_tpu_torch.models.baselines import BASELINE_NAMES
 
 
@@ -16,7 +15,6 @@ def main(argv=None) -> dict:
     p.add_argument("--k", type=int, default=0,
                    help="K-candidate eval (ref test_baseline_* scripts)")
     args = p.parse_args(argv)
-    refuse_not_ported(args)
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.runner import run_baseline
     cfg = apply_overrides(get_preset("ablation_no_llm"), args)

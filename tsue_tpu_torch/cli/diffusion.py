@@ -6,8 +6,7 @@ chains of ``--timesteps`` steps; ``--mode predict`` evaluates a stage-2
 checkpoint (``--ckpt``) as the ``test`` command does."""
 from __future__ import annotations
 
-from tsue_tpu_torch.cli._common import (apply_overrides, base_parser, finish,
-                                        refuse_not_ported)
+from tsue_tpu_torch.cli._common import apply_overrides, base_parser, finish
 
 
 def main(argv=None) -> dict:
@@ -23,7 +22,6 @@ def main(argv=None) -> dict:
     p.add_argument("--timesteps", type=int, default=1000)
     p.add_argument("--samples", type=int, default=5)
     args = p.parse_args(argv)
-    refuse_not_ported(args)
     from tsue_tpu_torch.config import get_preset
     cfg = apply_overrides(get_preset("mllm_free_18_18"), args)
     if args.mode == "generate":

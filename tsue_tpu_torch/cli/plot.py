@@ -15,8 +15,7 @@ the card's machine does not have: plot on the CPU (``--device cpu``).
 from __future__ import annotations
 
 from tsue_tpu_torch.cli._common import (add_roi_args, apply_overrides,
-                                        base_parser, finish,
-                                        refuse_not_ported, resolve_roi)
+                                        base_parser, finish, resolve_roi)
 
 
 def main(argv=None) -> dict:
@@ -29,7 +28,6 @@ def main(argv=None) -> dict:
     p.add_argument("--max-samples", type=int, default=32)
     add_roi_args(p)
     args = p.parse_args(argv)
-    refuse_not_ported(args)
     import torch
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.data import BatchIterator, get_tokenizer

@@ -62,7 +62,7 @@ import torch
 
 from tsue_tpu_torch.cli._common import (add_mesh_args, apply_overrides,
                                         base_parser, check_mesh_args, finish,
-                                        refuse_not_ported, setup_mesh)
+                                        setup_mesh)
 
 log = logging.getLogger(__name__)
 
@@ -288,7 +288,6 @@ def main(argv=None) -> dict:
     p = parser()
     args = p.parse_args(argv)
     check_mesh_args(p, args)
-    refuse_not_ported(args)
     if args.batcher == "continuous" and args.fused_head:
         raise ValueError("--batcher continuous does not take --fused-head: "
                          "the continuous batcher samples from the full "

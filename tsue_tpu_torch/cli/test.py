@@ -8,8 +8,7 @@ from __future__ import annotations
 
 from tsue_tpu_torch.cli._common import (add_mesh_args, apply_overrides,
                                         base_parser, check_mesh_args, finish,
-                                        refuse_not_ported, setup_mesh,
-                                        with_mesh)
+                                        setup_mesh, with_mesh)
 
 
 def main(argv=None) -> dict:
@@ -26,7 +25,6 @@ def main(argv=None) -> dict:
     add_mesh_args(p)
     args = p.parse_args(argv)
     check_mesh_args(p, args)
-    refuse_not_ported(args)
     from tsue_tpu_torch.config import get_preset
     from tsue_tpu_torch.runner import run_stage2
     cfg = with_mesh(apply_overrides(get_preset(args.preset), args), args)

@@ -53,7 +53,9 @@ class ColumnDense(Dense):
 class MultiModalLLM(nn.Module):
     def __init__(self, llama: LlamaConfig, qformer: QFormerConfig,
                  use_vision: bool = True, dtype: torch.dtype = torch.float32,
-                 mesh=None):
+                 mesh=None, layers=None):
+        """``layers``: the decoder layers a pipeline stage holds (all by
+        default; ``parallel.pipeline``)."""
         super().__init__()
         self.use_vision = use_vision
         self.mesh = mesh
@@ -71,7 +73,7 @@ class MultiModalLLM(nn.Module):
                 torch.zeros(1, 1, llama.hidden_size))
         self.text_modality_embedding = nn.Parameter(
             torch.zeros(1, 1, llama.hidden_size))
-        self.llama = LlamaForCausalLM(llama, dtype, mesh)
+        self.llama = LlamaForCausalLM(llama, dtype, mesh, layers)
 
     def image_tokens(self, vision: torch.Tensor,
                      generator: Optional[torch.Generator] = None

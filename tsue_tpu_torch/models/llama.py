@@ -27,6 +27,11 @@ lookups gathered whole (``gather_from_model``); the tied head takes this
 rank's feature slice of the hidden states and reduces the partial logits.
 The kernels see plain local tensors.
 
+Pipeline parallelism (``parallel.pipeline``): a stage's model holds only
+its own decoder layers (``layers``), under their global names
+(``layer_{i}``), beside the whole outer part (embedding, final norm,
+head).
+
 KV caches are lists of per-layer tensors written in place (the JAX package
 returns new ones).  An fp32 layer is ``(k, v)``, each (B, S, Hkv, Dh); an
 int8 layer is ``(k8, ks, v8, vs)``.  Keys are roped before they are
@@ -51,7 +56,7 @@ in the promoted dtype with fp32 sums, returning x's dtype.  So:
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -351,10 +356,12 @@ class LlamaLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """Decoder stack over input embeddings (the fusion prepends image
-    tokens at the embedding level)."""
+    tokens at the embedding level).  ``layers``: the indices of the
+    decoder layers this model holds (a pipeline stage's), all of them by
+    default."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
-                 mesh=None):
+                 mesh=None, layers: Optional[Sequence[int]] = None):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
@@ -362,7 +369,9 @@ class LlamaModel(nn.Module):
         # under TP, this rank's slice of the feature dim
         self.embed_tokens = nn.Embedding(cfg.vocab_size,
                                          cfg.hidden_size // tp)
-        for i in range(cfg.num_layers):
+        self.layer_ids = list(range(cfg.num_layers) if layers is None
+                              else layers)
+        for i in self.layer_ids:
             self.add_module(f"layer_{i}", LlamaLayer(cfg, dtype, mesh))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         # the policy's name is checked here, as nn.remat checks it at setup
@@ -381,9 +390,11 @@ class LlamaModel(nn.Module):
                 kv_caches: Optional[List] = None, cache_index=0,
                 kv_mask: Optional[torch.Tensor] = None,
                 quant_ok: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                normed: bool = True) -> torch.Tensor:
         """inputs_embeds (B, T, D); attention_mask (B, T), 1 = real token.
-        Returns the final-normed hidden states (B, T, D).
+        Returns the final-normed hidden states (B, T, D) (``normed=False``:
+        the last layer's output, as a pipeline stage hands it on).
 
         ``kv_caches`` (per layer, see the module docstring) are written in
         place at ``cache_index`` (an int, or (B,) per-row slots): without ``kv_mask`` this is the prefill
@@ -414,15 +425,15 @@ class LlamaModel(nn.Module):
         x = inputs_embeds
         remat = (self.cfg.remat and kv_caches is None
                  and torch.is_grad_enabled())
-        for i in range(self.cfg.num_layers):
+        for j, i in enumerate(self.layer_ids):
             layer = getattr(self, f"layer_{i}")
             if remat:
                 x = self._checkpointed(layer, x, mask, rope, generator)
                 continue
-            cache = None if kv_caches is None else kv_caches[i]
+            cache = None if kv_caches is None else kv_caches[j]
             x = layer(x, mask, rope, cache, cache_index, kv_mask, quant_ok,
                       generator)
-        return self.final_norm(x)
+        return self.final_norm(x) if normed else x
 
     def _checkpointed(self, layer, x, mask, rope, generator):
         gen = _replay(generator)
@@ -447,13 +458,13 @@ class LlamaForCausalLM(nn.Module):
     through ``int8_matmul``."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.float32,
-                 mesh=None):
+                 mesh=None, layers: Optional[Sequence[int]] = None):
         super().__init__()
         cfg = local_config(cfg, mesh)
         self.cfg = cfg
         self.dtype = dtype
         self.mesh = mesh
-        self.model = LlamaModel(cfg, dtype, mesh)
+        self.model = LlamaModel(cfg, dtype, mesh, layers)
         if not cfg.tie_word_embeddings:
             from tsue_tpu_torch.models.layers import Dense
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False)
@@ -517,33 +528,49 @@ class LlamaForCausalLM(nn.Module):
                             generator=generator)
         out = {"hidden": hidden}
         if labels is not None and self.cfg.loss_chunk and not compute_logits:
-            w = self.head_weight().to(self.dtype).float()
-            if self.mesh is not None and self.mesh.model > 1:
-                if not self.cfg.tie_word_embeddings:
-                    raise NotImplementedError("the chunked loss under TP "
-                                              "takes the tied head")
-                fn = self._tied_logits
-            else:
-                fn = lambda h, w_: h.float() @ w_.t()   # noqa: E731
-            out["loss"] = causal_lm_loss_chunked(
-                hidden, labels, fn, self.cfg.loss_chunk, w)
+            s, n = self.ce_sum(hidden, labels)
+            out["loss"] = s / n.clamp_min(1)
         elif compute_logits or labels is not None:
             out["logits"] = self.logits_from_hidden(hidden)
             if labels is not None:
                 out["loss"] = causal_lm_loss(out["logits"], labels)
         return out
 
+    def ce_sum(self, hidden: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(CE sum, valid-token count) of the next-token loss over the
+        final-normed ``hidden``: in chunks with ``cfg.loss_chunk`` (no
+        (B, T, V) logits), else over the dense logits."""
+        if not self.cfg.loss_chunk:
+            return causal_lm_ce_sum(self.logits_from_hidden(hidden), labels)
+        w = self.head_weight().to(self.dtype).float()
+        if self.mesh is not None and self.mesh.model > 1:
+            if not self.cfg.tie_word_embeddings:
+                raise NotImplementedError("the chunked loss under TP "
+                                          "takes the tied head")
+            fn = self._tied_logits
+        else:
+            fn = lambda h, w_: h.float() @ w_.t()   # noqa: E731
+        return causal_lm_ce_sum_chunked(hidden, labels, fn,
+                                        self.cfg.loss_chunk, w)
+
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
     """Next-token cross entropy with -100 ignored (HF semantics): the mean
     over the valid shifted tokens (0 when there are none)."""
+    s, n = causal_lm_ce_sum(logits, labels)
+    return s / n.clamp_min(1)
+
+
+def causal_lm_ce_sum(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(CE sum, valid-token count) of :func:`causal_lm_loss`."""
     V = logits.shape[-1]
     shift = logits[:, :-1].float().reshape(-1, V)
     y = labels[:, 1:].reshape(-1).long()
-    nll = F.cross_entropy(shift, y, ignore_index=IGNORE_LABEL,
-                          reduction="sum")
-    return nll / (y != IGNORE_LABEL).sum().clamp_min(1)
+    return (F.cross_entropy(shift, y, ignore_index=IGNORE_LABEL,
+                            reduction="sum"), (y != IGNORE_LABEL).sum())
 
 
 def causal_lm_loss_chunked(hidden: torch.Tensor, labels: torch.Tensor,

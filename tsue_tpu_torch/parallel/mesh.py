@@ -12,24 +12,35 @@ tensors, with every collective written out here.
   reshapes its devices, ``(data, model)`` row-major: rank ``r`` has data
   rank ``r // model`` and model rank ``r % model``; the model group of a
   data rank is its ``model`` consecutive ranks, the data group of a model
-  rank every ``model``-th rank.
+  rank every ``model``-th rank.  ``parallel.pipeline.make_pipeline_mesh``
+  lays out ``(data, pipe)`` the same way (``Mesh.pipe``).
 - ``initialize_distributed(backend)`` reads torchrun's contract and joins
   the process group; the caller names the backend (NCCL for one GPU a
   rank, gloo on the CPU and for two ranks sharing one card).
+  ``join_torchrun(device)`` is the commands' join: the backend from the
+  device, and on the card rank 0 building the kernels before the others
+  load them.
 - The collective helpers (``all_reduce``, ``all_gather_cat``,
-  ``broadcast``, the object forms) and the three autograd Functions of
-  Megatron's tensor parallelism (``copy_to_model``, ``reduce_from_model``,
-  ``gather_from_model``) are what the port's modules call.
+  ``broadcast``, the object forms), the point-to-point ``isend`` and
+  ``irecv`` (the pipeline's activations and their gradients) and the
+  three autograd Functions of Megatron's tensor parallelism
+  (``copy_to_model``, ``reduce_from_model``, ``gather_from_model``) are
+  what the port's modules call.
 
 Gloo on CUDA tensors.  NCCL refuses two ranks on one device
 (``ncclInvalidUsage``), so two ranks sharing a card run over gloo.  Gloo
 takes CUDA tensors for all-reduce, broadcast and all-gather, the only
 tensor collectives this module issues (``GLOO_CUDA_OPS``; found on an H100
-with PyTorch 2.11, where reduce-scatter and all-to-all ran too and a
-point-to-point send failed), so nothing is staged through the host; a
-CUDA tensor in a gloo group for any other kind raises.  ``COUNTS`` counts
-every collective of this module by kind; FSDP2's own all-gathers and
-reduce-scatters are not counted here.
+with PyTorch 2.11, where reduce-scatter and all-to-all ran too), so those
+are never staged through the host; a CUDA tensor in a gloo group for any
+other collective raises.  A point-to-point send of a CUDA tensor failed
+there (``writev: Bad address``), so ``isend``/``irecv`` carry a CUDA
+tensor in a gloo group through a pinned host buffer, which the receiver
+copies back onto its device: the one transfer staged through the host,
+counted apart (``send_staged``, ``recv_staged`` and their bytes).  Under
+NCCL, and for CPU tensors, a send goes directly.  ``COUNTS`` counts every
+collective and transfer of this module by kind; FSDP2's own all-gathers
+and reduce-scatters are not counted here.
 
 Not ported: the TPU-VM heuristics of the JAX module (the metadata-server
 and device-file probes of ``_on_tpu_vm``): the port is started by torchrun,
@@ -62,9 +73,9 @@ def reset_counts() -> None:
 
 @dataclass
 class Mesh:
-    """A ``(data, model)`` layout of the world and this rank's place in
-    it.  ``data_group``/``model_group`` are None where the axis has size
-    1 (nothing to talk to)."""
+    """A ``(data, model)`` or ``(data, pipe)`` layout of the world and
+    this rank's place in it.  ``data_group``/``model_group``/``pipe_group``
+    are None where the axis has size 1 (nothing to talk to)."""
     data: int = 1
     model: int = 1
     rank: int = 0
@@ -74,14 +85,18 @@ class Mesh:
     model_group: Optional[dist.ProcessGroup] = None
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     _device_mesh: object = None
+    # the pipeline's stages (``parallel.pipeline``): this rank's stage
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: Optional[dist.ProcessGroup] = None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "model": self.model}
+        return {"data": self.data, "model": self.model, "pipe": self.pipe}
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.model * self.pipe
 
     def is_primary(self) -> bool:
         return self.rank == 0
@@ -139,6 +154,22 @@ def initialize_distributed(backend: str) -> bool:
             f"init_process_group({backend!r}) failed; refusing to continue "
             f"as a one-process job: {e}") from e
     return dist.get_world_size() > 1
+
+
+def join_torchrun(device) -> bool:
+    """Join torchrun's process group, unless one is joined, with the
+    backend of ``device``'s type: gloo on the CPU, NCCL on the card.  On
+    the card rank 0 then builds every kernel and the others wait, so no
+    two ranks compile at once.  Returns whether the process is one of
+    several."""
+    if not (dist.is_available() and dist.is_initialized()):
+        cpu = torch.device(device).type == "cpu"
+        if initialize_distributed("gloo" if cpu else "nccl") and not cpu:
+            if is_primary():
+                from tsue_tpu_torch.ops._build import CSRC, build_all
+                build_all(sorted(f.stem for f in CSRC.glob("*.cu")))
+            barrier()
+    return distributed()
 
 
 def _resolve_device(device) -> torch.device:
@@ -303,6 +334,58 @@ def all_reduce_scalars(values, group, device) -> np.ndarray:
     """Sum a few float64 scalars over ``group`` (metrics)."""
     t = torch.tensor(np.asarray(values, np.float64), device=device)
     return all_reduce(t, group).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point transfers
+# ---------------------------------------------------------------------------
+
+class Transfer:
+    """A posted send or receive.  ``wait()`` completes it; a staged
+    receive then copies its host buffer onto the device.  The buffers
+    live until then."""
+
+    def __init__(self, work, buf: torch.Tensor,
+                 dest: Optional[torch.Tensor] = None):
+        self.work, self.buf, self.dest = work, buf, dest
+
+    def wait(self) -> None:
+        self.work.wait()
+        if self.dest is not None:
+            self.dest.copy_(self.buf)
+        self.buf = self.dest = None
+
+
+def _staged(t: torch.Tensor, group, kind: str) -> Optional[torch.Tensor]:
+    """The pinned host buffer of a transfer that gloo cannot make from a
+    CUDA tensor (module docstring), counted with its bytes; None where
+    the transfer goes directly, counted as ``kind``."""
+    if not (t.is_cuda and dist.get_backend(group) == "gloo"):
+        COUNTS[kind] += 1
+        return None
+    COUNTS[f"{kind}_staged"] += 1
+    COUNTS[f"{kind}_staged_bytes"] += t.numel() * t.element_size()
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def isend(t: torch.Tensor, dst: int, group=None) -> Transfer:
+    """Post a send of ``t`` to global rank ``dst`` of ``group``.  The
+    caller keeps ``t`` unchanged until the transfer is waited on."""
+    t = t.contiguous()
+    buf = _staged(t, group, "send")
+    if buf is None:
+        return Transfer(dist.isend(t, dst, group=group), t)
+    buf.copy_(t)       # synchronous: on the host before the send is posted
+    return Transfer(dist.isend(buf, dst, group=group), buf)
+
+
+def irecv(t: torch.Tensor, src: int, group=None) -> Transfer:
+    """Post a receive into ``t`` (contiguous) from global rank ``src`` of
+    ``group``; ``t`` holds the data once the transfer is waited on."""
+    buf = _staged(t, group, "recv")
+    if buf is None:
+        return Transfer(dist.irecv(t, src, group=group), t)
+    return Transfer(dist.irecv(buf, src, group=group), buf, t)
 
 
 # ---------------------------------------------------------------------------

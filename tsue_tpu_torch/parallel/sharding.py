@@ -22,7 +22,10 @@ What XLA's partitioner does from these specs, the port does by hand:
 (the local-shard Llama of ``models/llama.py`` has exactly their shapes),
 ``apply_fsdp`` hands the data-axis placement to FSDP2 (``fully_shard``),
 and ``gather_state`` is the inverse of both: the full state, on every
-rank, in the one-process layout.
+rank, in the one-process layout.  ``local_state`` cuts a full state the
+other way, to a rank's TP shards and FSDP DTensors laid out as a given
+state's (a checkpoint read back under a mesh), and ``load_local`` copies
+it over a sharded module's.
 """
 from __future__ import annotations
 
@@ -266,6 +269,42 @@ def gather_state(state: Mapping[str, torch.Tensor], mesh: Optional[M.Mesh]
                     v = M.all_gather_cat(v, mesh.model_group, dim)
         out[k] = v
     return out
+
+
+def local_state(full: Mapping[str, torch.Tensor],
+                like: Mapping[str, torch.Tensor], mesh: M.Mesh
+                ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``gather_state``: each entry of the full (one-process)
+    ``full`` cut to this rank's part, laid out as ``like``'s entry of the
+    same name: its model-axis shard (``shard_state``), and where ``like``'s
+    is an FSDP DTensor, a DTensor of this data rank's even slice on the
+    same dim, placed as ``like``'s.  No collective."""
+    out = {}
+    for k, v in shard_state(full, mesh).items():
+        t = like[k]
+        if hasattr(t, "to_local"):
+            from torch.distributed.tensor import DTensor
+            (place,) = t.placements
+            piece = v.chunk(mesh.data, place.dim)[mesh.data_rank]
+            v = DTensor.from_local(
+                piece.to(t.to_local().device).contiguous(), t.device_mesh,
+                t.placements, run_check=False)
+        out[k] = v
+    return out
+
+
+def load_local(module_state: Mapping[str, torch.Tensor],
+               full: Mapping[str, torch.Tensor], mesh: M.Mesh) -> None:
+    """Copy a full state's entries over this rank's parts of
+    ``module_state`` (a sharded module's ``state_dict()``), in place."""
+    with torch.no_grad():
+        for k, v in local_state(full, module_state, mesh).items():
+            t = module_state[k]
+            _local_tensor(t).copy_(_local_tensor(v))
+
+
+def _local_tensor(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _tp_local_spec(name: str, t: torch.Tensor) -> Spec:

@@ -38,9 +38,10 @@ data rank's rows of every batch, the model is placed by
 ``parallel.sharding`` (Megatron TP over ``cfg.mesh.model_parallel`` ranks,
 FSDP2 over data with ``cfg.mesh.fsdp``, DDP over data otherwise), the
 metrics are global on every rank, and only rank 0 writes
-(``tsue_tpu/runner.py:136-155``, ``:226-242``).  Not taken yet (ROADMAP
-A: parallel): stage 1's pipeline parallelism, which raises
-``NotImplementedError`` when asked for.
+(``tsue_tpu/runner.py:136-155``, ``:226-242``); its train state is
+gathered whole, so a sharded run saves and resumes the one-process file.
+``run_stage1`` with ``cfg.mesh.pipeline_parallel > 1`` trains on the GPipe
+pipeline of ``parallel.pipeline`` over a ``(data, pipe)`` mesh.
 """
 from __future__ import annotations
 
@@ -421,19 +422,15 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
     one of several (torchrun), or a ``cfg.mesh`` asking for TP or FSDP,
     makes its own (``make_mesh(cfg.mesh.model_parallel)`` on ``device``).
     Every rank builds the one-process model from the seed, then keeps its
-    shard; rank 0 alone writes the metrics, ``meta.json`` and the best
-    artifact (gathered whole: the one-process file), which every rank
-    also keeps in memory; the per-epoch samples run in one process only.
-    ``save_every``/``resume`` take pure data parallelism (the train state
-    is whole on every rank) and raise under TP or FSDP."""
+    shard; rank 0 alone writes the metrics, ``meta.json``, the best
+    artifact and the train state, each gathered whole (the one-process
+    file: ``tsue_tpu/runner.py:192-206``, ``:264-268``), and every rank
+    also keeps the best artifact's shard in memory; a resume cuts the file
+    to each rank's shards.  The per-epoch samples run in one process
+    only."""
     if restore_ckpt:
         _check_restore_meta(restore_ckpt, mllm_ckpt)
     mesh = _stage2_mesh(cfg, mesh, device)
-    if mesh is not None and (save_every or resume) and (
-            mesh.model > 1 or (cfg.mesh.fsdp and mesh.data > 1)):
-        raise NotImplementedError(
-            "save_every/resume under TP or FSDP are not ported yet (ROADMAP "
-            "A: parallel): the optimizer state is sharded")
     dev = _train_device(mesh.device if mesh is not None else device)
     seed_everything(cfg.train.seed)
     run_dir = os.path.join(out_dir, cfg.name)
@@ -498,7 +495,7 @@ def run_stage2(cfg: ExperimentConfig, data_path: Optional[str] = None,
                 (mesh is None or mesh.size == 1):
             _epoch_viz(model, state, eval_step, tokenizer, dva, cfg, run_dir,
                        epoch, dev)
-        if save_every and (epoch + 1) % save_every == 0 and primary:
+        if save_every and (epoch + 1) % save_every == 0:
             save_train_state(state_dir, state, epoch=epoch + 1,
                              best_val=ckpt.best_val,
                              trainable_filter=tfilter)
@@ -577,37 +574,76 @@ def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,
 
     The MLLM is built without a dtype, so it trains in fp32 whatever
     ``ModelConfig.dtype`` says, as the JAX package's ``run_stage1`` builds
-    it (``tsue_tpu/runner.py:747-753``); ``LlamaConfig.remat`` applies."""
-    if cfg.mesh.pipeline_parallel > 1:
-        raise NotImplementedError("run_stage1 with pipeline_parallel > 1 is "
-                                  "not ported yet (ROADMAP A: parallel)")
-    dev = _train_device(device)
+    it (``tsue_tpu/runner.py:747-753``); ``LlamaConfig.remat`` applies.
+
+    ``cfg.mesh.pipeline_parallel`` = pp > 1 trains on the GPipe pipeline
+    (``parallel.pipeline``; ``tsue_tpu/runner.py:755-809``) over a
+    ``(data, pipe)`` mesh of torchrun's processes (the group joined here
+    if it is not yet: NCCL, or gloo on the CPU): every rank builds the
+    whole MLLM from the seed and keeps its stage; each data rank trains on
+    its rows of every batch, in ``cfg.mesh.microbatches`` clamped to the
+    largest divisor of its rows.  Afterwards the stages' layers are joined
+    on every rank (``gather_stages``), rank 0 exports the one-process
+    artifact and writes the dump, which every data rank helps generate."""
+    mesh = _pipeline_mesh(cfg, device)
+    dev = _train_device(mesh.device if mesh is not None else device)
+    primary = mesh is None or mesh.is_primary()
     seed_everything(cfg.train.seed)
     out_dir = os.path.join(out_dir, f"stage1_{cfg.name}")
-    logger = MetricLogger(out_dir)
+    logger = MetricLogger(out_dir) if primary else None
     tokenizer = get_tokenizer(tokenizer_path)
     dtr, dva, dte, raw = prepare_data(cfg, data_path, tokenizer,
                                       synthetic_tracks, return_tracks=True)
-    print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
+    if primary:
+        print(f"windows: train={len(dtr)} val={len(dva)} test={len(dte)}")
     with torch.device(dev):
         mllm = MultiModalLLM(_vocab_resized(cfg.model.llama, tokenizer),
                              cfg.model.qformer, cfg.model.use_vision)
     init_params(mllm, torch.Generator(device=dev).manual_seed(cfg.train.seed))
-    state = TrainState(mllm, make_stage1_optimizer(cfg, mllm), cfg.train.seed)
-    train_step, eval_step = make_stage1_train_step(), make_stage1_eval_step()
+    if mesh is None:
+        state = TrainState(mllm, make_stage1_optimizer(cfg, mllm),
+                           cfg.train.seed)
+        one_step, eval_step = (make_stage1_train_step(),
+                               make_stage1_eval_step())
+
+        def train_step(state, b, epoch, si):
+            return one_step(state, b, step_generator(epoch, si, dev))
+    else:
+        from tsue_tpu_torch.parallel.pipeline import (
+            make_pipelined_stage1_step, stage_of)
+        stage = stage_of(mllm, mesh)
+        del mllm
+        state = TrainState(stage, make_stage1_optimizer(cfg, stage,
+                                                        mesh=mesh),
+                           cfg.train.seed, mesh=mesh)
+        train_step, eval_step = make_pipelined_stage1_step(
+            mesh, _microbatch_count(cfg, mesh))
     n_epochs = epochs if epochs is not None else cfg.train.epochs
     train_loss = float("nan")
     for epoch in range(n_epochs):
         # per-step losses stay on the device until the epoch ends
-        losses = [train_step(state, to_device(b, dev),
-                             step_generator(epoch, si, dev))["lm_loss"]
-                  for si, b in enumerate(_batches(dtr, cfg, True, epoch))]
+        losses = [train_step(state, to_device(b, dev), epoch, si)["lm_loss"]
+                  for si, b in enumerate(_batches(dtr, cfg, True, epoch,
+                                                  mesh))]
         val = [float(eval_step(state, to_device(b, dev))["lm_loss"])
-               for b in _batches(dva, cfg, False)]
+               for b in _batches(dva, cfg, False, mesh=mesh)]
         train_loss = sum(float(x) for x in losses) / max(len(losses), 1)
-        logger.log(epoch, lm_loss=train_loss,
-                   val_lm_loss=float(np.mean(val)) if val else float("nan"))
-    if export_path:
+        if logger is not None:
+            logger.log(epoch, lm_loss=train_loss, val_lm_loss=float(
+                np.mean(val)) if val else float("nan"))
+    if mesh is not None:
+        # back to the one process's tree, joined on the host as the JAX
+        # package joins it (``tsue_tpu/runner.py:803-809``); the stage is
+        # freed before the whole model is built on the device
+        from tsue_tpu_torch.parallel.pipeline import gather_stages
+        whole = gather_stages(stage, mesh, "cpu")
+        del state, stage
+        with torch.device(dev):
+            mllm = MultiModalLLM(_vocab_resized(cfg.model.llama, tokenizer),
+                                 cfg.model.qformer, cfg.model.use_vision)
+        mllm.load_state_dict(whole)
+        del whole
+    if export_path and primary:
         export_mllm(mllm, export_path)      # run_stage2(mllm_ckpt=...)
     out = {"final_lm_loss": train_loss}
     if generation_dump:
@@ -622,10 +658,42 @@ def run_stage1(cfg: ExperimentConfig, data_path: Optional[str] = None,
                 pass
         recs = distributed_generate_and_save(
             mllm, tokenizer, dte, os.path.join(out_dir, generation_dump),
-            seed=9, max_new_tokens=48, reference_texts=refs)
+            seed=9, max_new_tokens=48, reference_texts=refs, mesh=mesh)
         out["generated"] = len(recs)
-    logger.close()
+    if logger is not None:
+        logger.close()
     return out
+
+
+def _pipeline_mesh(cfg: ExperimentConfig, device):
+    """The ``(data, pipe)`` mesh of ``cfg.mesh.pipeline_parallel`` > 1
+    over torchrun's processes (the group joined where it is not:
+    ``parallel.mesh.join_torchrun``); None for one plain process.  Raises
+    where the degree does not divide the world or the batch the data
+    axis."""
+    pp = cfg.mesh.pipeline_parallel
+    if pp <= 1:
+        return None
+    from tsue_tpu_torch.parallel.mesh import join_torchrun
+    from tsue_tpu_torch.parallel.pipeline import make_pipeline_mesh
+    join_torchrun(device)
+    mesh = make_pipeline_mesh(pp, device)
+    if cfg.train.batch_size % mesh.data:
+        raise ValueError(f"batch_size={cfg.train.batch_size} must be "
+                         "divisible by the data-parallel degree "
+                         f"{mesh.data}")
+    return mesh
+
+
+def _microbatch_count(cfg: ExperimentConfig, mesh) -> int:
+    """``cfg.mesh.microbatches`` clamped to the largest divisor of a data
+    rank's rows (an upper bound, as in ``tsue_tpu/runner.py:766-774``)."""
+    B, dp = cfg.train.batch_size, mesh.data
+    n = max(m for m in range(1, cfg.mesh.microbatches + 1)
+            if B % (m * dp) == 0)
+    if mesh.is_primary():
+        print(f"pipeline: pp={mesh.pipe} dp={dp} microbatches={n}")
+    return n
 
 
 def _no_text_cfg(cfg: ExperimentConfig) -> ExperimentConfig:

@@ -20,7 +20,9 @@ Flax paths.
   subset, the whole optimizer state (AdamW's moments and steps, the
   non-finite guard's count), the epoch and the best val loss in one file,
   saved crash-safe (the reference saves no optimizer state and cannot
-  resume);
+  resume); under a mesh the parameters and moments are gathered whole, so
+  the file is the one process's whatever the mesh, and cut back to each
+  rank's shards on restore;
 - ``export_mllm``/``import_mllm``: the stage-1 artifact (ref
   mllm_lora_ddp_finetuned.pt, consumed at scripts/train.py:1137-1138);
 - ``strip_lora``: drops the LoRA factors (the no-LoRA ablation's loader,
@@ -35,7 +37,7 @@ from __future__ import annotations
 import math
 import os
 import shutil
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -205,15 +207,24 @@ class BestCheckpointer:
 
     def restore_best(self, module: nn.Module) -> nn.Module:
         """Merge the best artifact over ``module``, in place (under a mesh,
-        the rank's shard kept in memory)."""
-        if self.mesh is not None and self._best_local is not None:
-            own = module.state_dict()
-            with torch.no_grad():
-                for k, v in self._best_local.items():
-                    _local(own[k]).copy_(v)
+        the rank's shard kept in memory, or, where this run saved none (a
+        resumed run whose best epoch came before it), the file cut to the
+        rank's shards)."""
+        if self.mesh is None:
+            return _restore_subset(module, _read(self.best_path),
+                                   self.trainable_filter, self.best_path)
+        own = module.state_dict()
+        if self._best_local is None:
+            stored = _read(self.best_path)
+            _check_keys(self.best_path, stored,
+                        _trainable_subset(own, self.trainable_filter))
+            from tsue_tpu_torch.parallel.sharding import load_local
+            load_local(own, stored, self.mesh)
             return module
-        return _restore_subset(module, _read(self.best_path),
-                               self.trainable_filter, self.best_path)
+        with torch.no_grad():
+            for k, v in self._best_local.items():
+                _local(own[k]).copy_(v)
+        return module
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -223,6 +234,36 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Full train-state save/resume (step + trainable subset + optimizer)
 # ---------------------------------------------------------------------------
+
+def _sharded(state):
+    """``state.mesh`` where the state is laid out on one of several
+    processes, else None."""
+    mesh = state.mesh
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _optimizer_names(state) -> List[str]:
+    """The parameter name of each of the optimizer's parameters (its
+    state's indices)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.optimizer.params]
+
+
+def _map_moments(opt_state: Dict, names: List[str], fn) -> Dict:
+    """``opt_state`` (``GuardedAdamW.state_dict()``'s form) with every
+    per-parameter tensor of AdamW's state (the moments; not the 0-d step
+    counts) replaced by the entry of ``fn({parameter name: tensor})``,
+    moment by moment, in the parameters' order."""
+    adamw = opt_state["adamw"]
+    per = {i: dict(s) for i, s in adamw["state"].items()}
+    keys = sorted({k for s in per.values() for k, v in s.items()
+                   if isinstance(v, torch.Tensor) and v.dim() > 0})
+    for key in keys:
+        done = fn({names[i]: s[key] for i, s in per.items()})
+        for i, s in per.items():
+            s[key] = done[names[i]]
+    return dict(opt_state, adamw=dict(adamw, state=per))
+
 
 def save_train_state(path: str, state, *, epoch: int = 0,
                      best_val: float = float("inf"),
@@ -234,17 +275,29 @@ def save_train_state(path: str, state, *, epoch: int = 0,
     - ``trainable_filter`` restricts the stored parameters to the trainable
       ones (the frozen ones are rebuilt from the seed at restore, as for
       ``BestCheckpointer``); the optimizer state is stored whole;
+    - under a mesh (``state.mesh``) every rank calls it: the parameters
+      and each AdamW moment are gathered whole by the parameter's own
+      spec (``parallel.sharding.gather_state``, a collective) and rank 0
+      writes the one-process file;
     - the save is crash-safe: it writes ``<path>.tmp``, moves the previous
       state to ``<path>.old``, renames, then removes ``.old``;
       ``train_state_path`` falls back to ``.old`` if a crash lands between
       the renames, so the last durable state is never lost."""
+    params = _trainable_subset(state.model.state_dict(), trainable_filter)
+    optimizer = state.optimizer.state_dict()
+    mesh = _sharded(state)
+    if mesh is not None:
+        from tsue_tpu_torch.parallel.sharding import gather_state
+        params = gather_state(params, mesh)
+        optimizer = _map_moments(optimizer, _optimizer_names(state),
+                                 lambda d: gather_state(d, mesh))
+        if not mesh.is_primary():
+            return
     path = os.path.abspath(path)
     tmp, old = path + ".tmp", path + ".old"
     shutil.rmtree(tmp, ignore_errors=True)
-    _write(tmp, {"step": int(state.step),
-                 "params": _trainable_subset(state.model.state_dict(),
-                                             trainable_filter),
-                 "optimizer": state.optimizer.state_dict(),
+    _write(tmp, {"step": int(state.step), "params": params,
+                 "optimizer": optimizer,
                  "epoch": int(epoch), "best_val": float(best_val)})
     shutil.rmtree(old, ignore_errors=True)
     if os.path.exists(path):
@@ -268,15 +321,31 @@ def restore_train_state(path: str, state, *,
     """Restore into ``state`` (a ``TrainState`` built as the saved one was:
     the same model and optimizer), in place.  ``trainable_filter`` must be
     the one used at save time; the stored parameters merge over the
-    model's, whose frozen ones the caller rebuilt from the seed.  Returns
+    model's, whose frozen ones the caller rebuilt from the seed.  Under a
+    mesh every rank reads the file and cuts the parameters and the AdamW
+    moments to its shards (``parallel.sharding.local_state``), each FSDP
+    moment placed as its parameter is: a file written on any mesh, or by
+    one process, resumes on any other.  Returns
     ``(state, {"epoch", "best_val"})``."""
     resolved = train_state_path(path)
     if resolved is None:
         raise FileNotFoundError(f"no train state at {path} (or .old)")
     stored = _read(resolved)
-    _restore_subset(state.model, stored["params"], trainable_filter,
-                    resolved)
-    state.optimizer.load_state_dict(stored["optimizer"])
+    mesh = _sharded(state)
+    if mesh is None:
+        _restore_subset(state.model, stored["params"], trainable_filter,
+                        resolved)
+        state.optimizer.load_state_dict(stored["optimizer"])
+    else:
+        from tsue_tpu_torch.parallel.sharding import load_local, local_state
+        own = state.model.state_dict()
+        _check_keys(resolved, stored["params"],
+                    _trainable_subset(own, trainable_filter))
+        load_local(own, stored["params"], mesh)
+        params = dict(state.model.named_parameters())
+        state.optimizer.load_state_dict(_map_moments(
+            stored["optimizer"], _optimizer_names(state),
+            lambda d: local_state(d, {n: params[n] for n in d}, mesh)))
     state.step = stored["step"]
     return state, {"epoch": stored["epoch"], "best_val": stored["best_val"]}
 

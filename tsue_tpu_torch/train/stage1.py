@@ -38,12 +38,17 @@ def stage1_freeze_label(path_strs: Tuple[str, ...],
 
 
 def make_stage1_optimizer(cfg: ExperimentConfig, model: nn.Module,
-                          regime: str = "lora_only") -> GuardedAdamW:
+                          regime: str = "lora_only",
+                          mesh=None) -> GuardedAdamW:
     """Label every parameter with ``stage1_freeze_label``, set
     ``requires_grad`` from the label, and return AdamW(lr, weight_decay)
     behind the clip ``cfg.train.grad_clip or 1.0`` and, with
     ``cfg.train.nan_guard``, the non-finite guard over the trainable ones
-    (``tsue_tpu/train/stage1.py:32-58``)."""
+    (``tsue_tpu/train/stage1.py:32-58``).  On a pipeline's mesh (``model``
+    a stage's) the guard and the clip read the global gradient, the
+    stage's own decoder layers once per stage
+    (``tsue_tpu/parallel/pipeline.py:277-322``: in the layers only LoRA
+    trains, which this rule says of them too)."""
     tcfg = cfg.train
     trainable = []
     for name, p in model.named_parameters():
@@ -51,8 +56,15 @@ def make_stage1_optimizer(cfg: ExperimentConfig, model: nn.Module,
         p.requires_grad_(train)
         if train:
             trainable.append(p)
+    own = None
+    if mesh is not None and mesh.pipe > 1:
+        stack = model.llama.model
+        layers = {id(p) for i in stack.layer_ids
+                  for p in stack.get_submodule(f"layer_{i}").parameters()}
+        own = [id(p) in layers for p in trainable]
     return GuardedAdamW(trainable, tcfg.lr, tcfg.weight_decay,
-                        tcfg.grad_clip or 1.0, tcfg.nan_guard)
+                        tcfg.grad_clip or 1.0, tcfg.nan_guard, mesh,
+                        stage_own=own)
 
 
 def make_stage1_train_step() -> Callable:

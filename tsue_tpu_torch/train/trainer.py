@@ -29,7 +29,9 @@ gradient: every element counted once, over the model ranks' shards and
 the data ranks' FSDP shards.  Dropout draws from the step's stream folded
 with the data rank, the same on the model ranks of a data rank; a mesh
 step equals the one-process step with dropout at 0 (the rows' masks
-differ otherwise).
+differ otherwise).  On a pipeline's mesh (``parallel.pipeline``) a
+stage's own decoder layers are counted once per stage (``stage_own``)
+and the replicated rest once in all.
 """
 from __future__ import annotations
 
@@ -95,22 +97,26 @@ class GuardedAdamW:
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float,
                  weight_decay: float, grad_clip=None, nan_guard: bool = True,
-                 mesh=None, tp_sharded: Optional[List[bool]] = None):
+                 mesh=None, tp_sharded: Optional[List[bool]] = None,
+                 stage_own: Optional[List[bool]] = None):
         """``mesh``, ``tp_sharded`` (per parameter, cut over the model
-        axis): the guard and the clip read the global gradient (module
+        axis), ``stage_own`` (per parameter, one pipeline stage's own):
+        the guard and the clip read the global gradient (module
         docstring)."""
         self.params = list(params)
         sharded = any(hasattr(p, "to_local") for p in self.params)
         # the per-tensor loop where FSDP2's DTensors sit beside plain ones
-        kw = {"foreach": False} if sharded else {}
+        self.foreach = False if sharded else None
         self.adamw = torch.optim.AdamW(self.params, lr=lr,
                                        weight_decay=weight_decay,
-                                       betas=(0.9, 0.999), eps=1e-8, **kw)
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       foreach=self.foreach)
         self.grad_clip = grad_clip
         self.nan_guard = nan_guard
         self.notfinite_count = 0
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.tp_sharded = tp_sharded or [False] * len(self.params)
+        self.stage_own = stage_own or [False] * len(self.params)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -158,15 +164,17 @@ class GuardedAdamW:
             if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return
         if self.grad_clip:
-            # [replicated, model-cut, data-cut, both]
-            sq = torch.zeros(4, dtype=torch.float64, device=dev)
-            for g, lg, tp in zip(grads, loc, self.tp_sharded):
-                k = int(tp) + 2 * int(hasattr(g, "to_local"))
+            # square norms by the axes a gradient is cut over: bit 1 model,
+            # bit 2 data (FSDP), bit 4 pipe (a stage's own layers)
+            sq = torch.zeros(8, dtype=torch.float64, device=dev)
+            for g, lg, tp, own in zip(grads, loc, self.tp_sharded,
+                                      self.stage_own):
+                k = int(tp) + 2 * int(hasattr(g, "to_local")) + 4 * int(own)
                 sq[k] += torch.linalg.vector_norm(lg).double() ** 2
-            sq[[1, 3]] = M.all_reduce(sq[[1, 3]].contiguous(),
-                                      mesh.model_group)
-            sq[[2, 3]] = M.all_reduce(sq[[2, 3]].contiguous(),
-                                      mesh.data_group)
+            for bit, group in ((1, mesh.model_group), (2, mesh.data_group),
+                               (4, mesh.pipe_group)):
+                cut = [k for k in range(8) if k & bit]
+                sq[cut] = M.all_reduce(sq[cut].contiguous(), group)
             norm = float(sq.sum().sqrt())
             if norm >= self.grad_clip:
                 for lg in loc:
@@ -174,11 +182,20 @@ class GuardedAdamW:
         self.adamw.step()
 
     def state_dict(self) -> Dict:
-        return {"adamw": self.adamw.state_dict(),
-                "notfinite_count": self.notfinite_count}
+        """AdamW's state (moments, step counts, hyperparameters) and the
+        guard's count.  The per-tensor loop choice is left out: it belongs
+        to the placement, so the state is the same whatever the mesh."""
+        adamw = self.adamw.state_dict()
+        for group in adamw["param_groups"]:
+            group.pop("foreach", None)
+        return {"adamw": adamw, "notfinite_count": self.notfinite_count}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Load ``state_dict()``'s form; the loop choice stays this
+        optimizer's."""
         self.adamw.load_state_dict(state["adamw"])
+        for group in self.adamw.param_groups:
+            group["foreach"] = self.foreach
         self.notfinite_count = state["notfinite_count"]
 
 
