@@ -201,7 +201,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      528, 2048) fp32 through pinned host buffers), ms per step and peak
      memory beside phase 8's, and the joined model (gathered on the host)
      exported by rank 0 (the one-process file), read back strictly in
-     one process and equal bit for bit to each rank's own state.
+     one process and equal bit for bit to each rank's own state;
+ 17. the reference's checkpoint migrated (run right after phase 5, over
+     its state): the state exported to the reference's stage-2 layout
+     (``convert.flax_params``, ``models.torch_export``) and written with
+     torch.save, the import_ref command (--stage2 --preset test_18_18) on
+     that file, every tensor of its artifact equal to the state,
+     Predictor.from_checkpoint on it answering phase 5's first request
+     bit for bit, with the fused switch off and on (launches as phase
+     5's), the file's size, the reference key count and the export, save,
+     import and load seconds; then export_ref -> import_ref of phase 4's
+     small configuration, bit for bit.
 Phase 3 also checks flash at the comparison models' shapes: MMTrans's
 self-attention (B 16, 70 keys, 8 heads of 16, a key mask) and the UNet's
 cross-attention over one key (B 32 and B 10, 18 queries, 1 head of 64),
@@ -1815,6 +1825,165 @@ def predict_phase(dev, gpu, cfg, state):
     del pred
     torch.cuda.empty_cache()
     return {"flash_attn_fwd": launches}, fused_counts
+
+
+# --------------------------------------------------------------------------
+# 17. the reference's checkpoint migrated into the port at full width
+# --------------------------------------------------------------------------
+
+def same_predictions(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x[k], y[k]) for x, y in zip(a, b)
+        for k in ("pred_pixel_xy", "candidates_pixel_xy"))
+
+
+def reference_ckpt_phase(dev, gpu, cfg, state, fused_counts):
+    """Phase 17 (run right after phase 5, over its state): the state
+    exported to the reference's stage-2 layout (``flax_params`` and
+    ``models.torch_export``) and written with ``torch.save``, as the
+    reference writes its best-val checkpoint; the ``import_ref`` command
+    (``--stage2 --preset test_18_18``: fp32, as the file) on that file;
+    every tensor of its artifact equal to the state;
+    ``Predictor.from_checkpoint`` on the artifact (a byte tokenizer of the
+    file's vocabulary) serving the state bit for bit and answering phase
+    5's first request, with the fused switch off and on, bit for bit as a
+    Predictor over the state itself (the preset's fp32), with phase 5's
+    launches; then ``export_ref`` -> ``import_ref`` of phase 4's small
+    configuration, bit for bit.  The temporary files live under ``runs/``
+    and are removed.  Returns the launch counts of the fused request."""
+    import shutil
+    import tempfile
+    import torch
+    from tsue_tpu_torch.cli import export_ref, import_ref
+    from tsue_tpu_torch.config import get_preset
+    from tsue_tpu_torch.convert import flax_params
+    from tsue_tpu_torch.data import make_synthetic_tracks
+    from tsue_tpu_torch.data.tokenizer import ByteTokenizer, get_tokenizer
+    from tsue_tpu_torch.models import torch_export as te
+    from tsue_tpu_torch.models.tsue import TrajectoryModel
+    from tsue_tpu_torch.ops.fused import fused_scope
+    from tsue_tpu_torch.runner import build_model_and_params
+    from tsue_tpu_torch.serve import Predictor
+    from tsue_tpu_torch.train.checkpoint import STATE_FILE, save_state_dict
+
+    t_phase = time.time()
+    cfg32 = get_preset(cfg.name)       # what import_ref builds: fp32
+    check(cfg32.model == dataclasses.replace(cfg.model, dtype="float32"),
+          "phase 17's preset is not phase 5's configuration in fp32")
+    tracks = make_synthetic_tracks(num_tracks=4, track_len=400, seed=1)
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="reference_ckpt_", dir=runs)
+    ref_pt = os.path.join(tmp, "best_val_checkpoint.pt")
+    imported = os.path.join(tmp, "imported")
+
+    def artifact(path):
+        return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                          weights_only=True)
+
+    def unequal(got, want):
+        """Keys whose tensors differ (fp32 files, bf16-valued states)."""
+        check(set(got) == set(want), "imported keys differ: "
+              f"{sorted(set(got) ^ set(want))[:4]}")
+        return [k for k, v in want.items()
+                if not torch.equal(got[k], v.detach().cpu().float())]
+
+    def requests(pred):
+        """Phase 5's first request, fused switch off then on; the launch
+        counts of the second."""
+        pred.warmup()
+        off = pred.predict(tracks, torch.Generator(device=dev).manual_seed(1))
+        reset_counts()
+        with fused_scope("on"):
+            on = pred.predict(tracks,
+                              torch.Generator(device=dev).manual_seed(1))
+        return off, on, read_counts()
+
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            model = TrajectoryModel(cfg.model, cfg.data.seq_len,
+                                    cfg.data.out_len)
+        model.load_state_dict(state)
+        exported = te.to_torch_state_dict(
+            te.export_reference_stage2(flax_params(model)))
+        t_export = time.perf_counter() - t0
+        del model
+        n_keys = len(exported)
+        n_params = sum(v.numel() for v in exported.values())
+        t0 = time.perf_counter()
+        torch.save(exported, ref_pt)
+        t_save = time.perf_counter() - t0
+        del exported
+        size = os.path.getsize(ref_pt)
+        t0 = time.perf_counter()
+        res = import_ref.main(["--stage2", "--preset", cfg.name,
+                               "--torch-ckpt", ref_pt, "--out", imported])
+        t_import = time.perf_counter() - t0
+        check(res["keys"] == n_keys, f"import_ref read {res['keys']} keys "
+              f"of {n_keys}")
+        bad = unequal(artifact(imported), state)
+        check(not bad, f"imported tensors differ from the state: {bad[:4]}")
+        print(f"reference checkpoint: {n_keys} keys, {n_params / 1e9:.4f}B "
+              f"values, file {size / 1e9:.3f} GB (fp32); export "
+              f"{t_export:.2f}s, torch.save {t_save:.2f}s, import_ref "
+              f"{t_import:.2f}s (load {res['load_s']:.2f}, convert "
+              f"{res['convert_s']:.2f}, save {res['save_s']:.2f}); every "
+              f"tensor of the artifact equal to the state; gpu: {gpu}",
+              flush=True)
+
+        t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(
+            cfg32, imported, device=dev, batch_size=16, num_candidates=10,
+            tokenizer=ByteTokenizer(cfg.model.llama.vocab_size))
+        torch.cuda.synchronize(dev)
+        t_load = time.perf_counter() - t0
+        served = pred.model.state_dict()
+        check(all(torch.equal(served[k], v) for k, v in state.items()),
+              "the served state differs from the exported one")
+        got_off, got_on, counts = requests(pred)
+        del pred, served
+        want_off, want_on, want_counts = requests(Predictor(
+            cfg32, state, batch_size=16, num_candidates=10, device=dev))
+        check(same_predictions(got_off, want_off), "the migrated model's "
+              "predictions differ from the state's")
+        check(same_predictions(got_on, want_on), "the migrated model's "
+              "fused-switch predictions differ from the state's")
+        check(counts == want_counts == fused_counts, f"migrated predict, "
+              f"fused on: launches {counts} (the state's {want_counts}) != "
+              f"phase 5's {fused_counts}")
+        print(f"reference checkpoint served: Predictor.from_checkpoint "
+              f"{t_load:.2f}s; phase 5's request ({len(got_off)} windows, "
+              f"K=10) bit-identical to a Predictor over the state, fused "
+              f"switch off and on; launches {json.dumps(counts)} as phase "
+              f"5's; gpu: {gpu}", flush=True)
+
+        # phase 4's small configuration: export_ref -> import_ref
+        scfg = small_cfg()
+        small = build_model_and_params(scfg, get_tokenizer(), dev)
+        save_state_dict(small, os.path.join(tmp, "small"))
+        t0 = time.perf_counter()
+        export_ref.export_reference(scfg, os.path.join(tmp, "small"),
+                                    os.path.join(tmp, "small.pt"),
+                                    stage2=True, device=dev)
+        import_ref.import_reference(scfg, os.path.join(tmp, "small.pt"),
+                                    os.path.join(tmp, "small_back"),
+                                    stage2=True, device=dev)
+        t_small = time.perf_counter() - t0
+        bad = unequal(artifact(os.path.join(tmp, "small_back")),
+                      small.state_dict())
+        check(not bad, f"small export_ref -> import_ref differs: {bad[:4]}")
+        print(f"reference checkpoint, phase 4's configuration: export_ref -> "
+              f"import_ref {t_small:.2f}s, bit for bit", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"reference checkpoint phase: {time.time() - t_phase:.1f}s in all; "
+          f"gpu: {gpu}", flush=True)
+    return {"predict_fused (migrated reference checkpoint)": counts}
 
 
 # --------------------------------------------------------------------------
@@ -5354,6 +5523,8 @@ def main() -> int:
     cfg, state = full_width_state(dev)
     predict_counts, fused_predict_counts = predict_phase(dev, gpu, cfg,
                                                          state)
+    ref_ckpt_counts = reference_ckpt_phase(dev, gpu, cfg, state,
+                                           fused_predict_counts)
     gen_counts, head_counts, off_counts = generation_phase(dev, gpu, cfg,
                                                            state)
     pool_counts, http_counts = serving_phase(dev, gpu, cfg, state)
@@ -5434,7 +5605,8 @@ def main() -> int:
         **{run: c[name] for run, c in p13_counts.items()},
         **{run: c[name] for run, c in p14_counts.items()},
         **{run: c[name] for run, c in p15_counts.items()},
-        **{run: c[name] for run, c in p16_counts.items()}}
+        **{run: c[name] for run, c in p16_counts.items()},
+        **{run: c[name] for run, c in ref_ckpt_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
         if name in NO_PATH:

@@ -21,10 +21,16 @@ prints its result as one JSON line:
 - ``params``: parameter counts per freeze regime (``scripts/check.py``);
 - ``roi_map``: the lane-ROI polygon map (``scripts/graph.py``);
 - ``plot``: test-split predictions over the lane map, and the map
-  (``scripts/plot.py``).
+  (``scripts/plot.py``);
+- ``import_ref``: the reference's own PyTorch checkpoint, stage 1 or
+  (``--stage2``) the whole model, into the port's artifact
+  (``scripts/import_reference_ckpt.py``);
+- ``export_ref``: a checkpoint of the port into the reference's state-dict
+  layout (``scripts/export_reference_ckpt.py``).
 
 Every command that runs a model runs it on the CUDA device unless given
 ``--device cpu``.
 """
 COMMANDS = ("train", "stage1", "test", "serve", "baseline", "diffusion",
-            "quality_quant", "params", "roi_map", "plot")
+            "quality_quant", "params", "roi_map", "plot", "import_ref",
+            "export_ref")

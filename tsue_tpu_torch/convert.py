@@ -25,6 +25,13 @@ Both are strict: every Flax leaf is consumed exactly once, every port
 parameter (every BatchNorm statistic) is filled, and every shape must
 match.  Neither imports jax.
 
+``flax_params(model)`` is the inverse of ``load_flax_params``, under the
+same type rules: the model's parameters as a Flax tree of fp32 numpy
+arrays, each ``MHA``'s q/k/v/o kernels and biases in DenseGeneral's
+``(D, H, Dh)`` / ``(H, Dh, D)`` / ``(H, Dh)`` layouts (its ``num_heads``
+gives H), so ``flax_params(load_flax_params(m, t))`` is ``t`` bit for bit.
+The reference-checkpoint exporter (``models.torch_export``) reads it.
+
 Only parameters and batch statistics cross the bridge.  The int8 decode tables (the JAX
 package's ``"quant"`` collection) are not carried: the port builds them
 from its own fp32 parameters (``ops.quant.quantize_llama_params``), and
@@ -40,6 +47,7 @@ import torch
 from torch import nn
 
 from tsue_tpu_torch.models.baselines.stgcnn import BatchNorm
+from tsue_tpu_torch.models.layers import MHA
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -146,3 +154,56 @@ def load_flax_batch_stats(model: nn.Module, tree: Mapping) -> nn.Module:
              for m, mod in model.named_modules() if isinstance(mod, BatchNorm)
              for b in ("running_mean", "running_var")}
     return _fill(model, tree, stats, _stat_leaf, "BatchNorm statistic")
+
+
+def _unflatten(flat: Mapping[Tuple[str, ...], np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _flax_leaf(mod: nn.Module, parent: nn.Module, child: str, name: str,
+               value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(Flax leaf name, value in the Flax layout): ``_convert_leaf``
+    backwards."""
+    if isinstance(mod, nn.Linear):
+        heads = parent.num_heads if isinstance(parent, MHA) else None
+        if name == "weight":
+            kernel = value.T
+            if heads and child in ("q", "k", "v"):
+                return "kernel", kernel.reshape(mod.in_features, heads, -1)
+            if heads and child == "o":
+                return "kernel", kernel.reshape(heads, -1, mod.out_features)
+            return "kernel", kernel
+        if name == "bias" and heads and child in ("q", "k", "v"):
+            return "bias", value.reshape(heads, -1)
+        return name, value
+    if isinstance(mod, (nn.LayerNorm, BatchNorm)):
+        return {"weight": "scale", "bias": "bias"}[name], value
+    if isinstance(mod, nn.Embedding):
+        return "embedding", value
+    if isinstance(mod, nn.Conv1d) and name == "weight":
+        return "kernel", value.transpose(2, 1, 0)
+    return name, value
+
+
+@torch.no_grad()
+def flax_params(model: nn.Module) -> Dict:
+    """``model``'s parameters as the Flax tree ``load_flax_params`` takes
+    (nested dicts of fp32 numpy arrays on the host)."""
+    parents = {f"{m}.{c}" if m else c: (mod, c)
+               for m, mod in model.named_modules()
+               for c, _ in mod.named_children()}
+    flat = {}
+    for mod_name, mod in model.named_modules():
+        parent, child = parents.get(mod_name, (None, ""))
+        for name, p in mod.named_parameters(recurse=False):
+            value = p.detach().to("cpu", torch.float32).numpy()
+            leaf, arr = _flax_leaf(mod, parent, child, name, value)
+            path = tuple(mod_name.split(".")) if mod_name else ()
+            flat[path + (leaf,)] = np.array(arr, order="C")
+    return _unflatten(flat)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -134,19 +135,28 @@ class GuardedAdamW:
         grads = [p.grad for p in self.params]
         if self.mesh is not None:
             return self._mesh_step(grads)
+        norm = None
         if self.nan_guard:
-            finite = bool(torch.stack(
-                [torch.isfinite(g).all() for g in grads]).all())
+            finite, norm = self._probe(grads)
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return
         if self.grad_clip:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads]))
+            if norm is None:
+                norm = global_norm(grads)
             keep = norm < self.grad_clip
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.grad_clip))
         self.adamw.step()
+
+    def _probe(self, grads: List[torch.Tensor]
+               ) -> Tuple[bool, Optional[torch.Tensor]]:
+        """(every gradient element finite, the global norm where the
+        probe computes it for the clip to reuse, else None): one
+        ``isfinite`` reduction a tensor (``optax.apply_if_finite``).
+        ``train.guard`` holds two other probes."""
+        return bool(torch.stack(
+            [torch.isfinite(g).all() for g in grads]).all()), None
 
     def _mesh_step(self, grads) -> None:
         """``step`` over sharded gradients: one all-reduce decides the
@@ -197,6 +207,13 @@ class GuardedAdamW:
         for group in self.adamw.param_groups:
             group["foreach"] = self.foreach
         self.notfinite_count = state["notfinite_count"]
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over every element of ``grads`` (``optax.global_norm``),
+    as the clip takes it."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads]))
 
 
 def set_trainable(model: nn.Module, regime: str) -> List[nn.Parameter]:
@@ -307,6 +324,34 @@ def make_eval_step(cfg: ExperimentConfig) -> Callable:
                                 mesh.data_group)
         return {"loss": loss, "pred": pred}
     return step
+
+
+def stack_epoch_batches(iterator, device=None) -> Dict[str, torch.Tensor]:
+    """One epoch of batches, each key stacked on a leading (num_batches)
+    axis on ``device``, for ``make_scan_epoch``
+    (``tsue_tpu/train/trainer.py:151``)."""
+    batches = list(iterator)
+    return {k: torch.from_numpy(np.stack([np.asarray(b[k])
+                                          for b in batches])).to(device)
+            for k in batches[0]}
+
+
+def make_scan_epoch(cfg: ExperimentConfig) -> Callable:
+    """Returns ``epoch(state, batches) -> (state, losses)``: a whole epoch
+    of ``make_train_step`` over the leading axis of
+    ``stack_epoch_batches``' tensors, ``losses`` (num_batches,).  The
+    counterpart of the JAX package's ``lax.scan`` epoch
+    (``tsue_tpu/train/trainer.py:161``): the same steps as the runner's
+    loop, bit for bit (each step's dropout from ``state.step``)."""
+    step = make_train_step(cfg)
+
+    def epoch(state: TrainState, batches: Dict[str, torch.Tensor]):
+        n = len(next(iter(batches.values())))
+        losses = [step(state, {k: v[i] for k, v in batches.items()})["loss"]
+                  for i in range(n)]
+        return state, torch.stack(losses)
+
+    return epoch
 
 
 def data_parallel_loss(pred: torch.Tensor, batch: Dict[str, torch.Tensor],
