@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check that the forms of the flash, SwiGLU and RMSNorm kernels that a
 change left alone give the same bits as an earlier source's, and time the
-redesigned bf16 forms beside the earlier ones, on one GPU.
+redesigned forms beside the earlier ones, on one GPU.
 
     python3 bits_vs_source.py --old-dir DIR [--out FILE]
 
@@ -16,14 +16,20 @@ one of them without a per-query mask at D <= 128 with fp32 q over bf16
 k/v; every one with all-bf16 operands that takes the tensor-core form
 "bf16_mma" or the decode form "bf16_decode"; the SwiGLU product in fp32
 and in bf16 at chip_smoke.py's fused shapes (batch 16 and 8); RMSNorm with
-fp32 x over fp32 and bf16 scales and with bf16 x and scale at the same
-rows.  Then the form redesigned since the earlier source, flash's wide
-form "bf16_wide" at chip_smoke.py's LTSF cross-attention (B 16, 18 queries
-over 528 keys, 2 heads of 1024, a key mask) with fp32 q over bf16 k/v and
-all bf16, is checked against its plain version (chip_smoke.py's BF_TOL)
-and timed with chip_smoke.py's timer in turns: old, new, new, old.  Exits
-1 on any difference or disagreement.  It needs a CUDA device and nvcc, and
-prints the card beside every time.
+bf16 x over fp32 and bf16 scales at the same rows.  Then the forms
+redesigned since the earlier source are checked against their plain
+versions and timed with chip_smoke.py's timer in turns, old, new, new,
+old: flash's wide form "bf16_wide" at chip_smoke.py's LTSF
+cross-attention (B 16, 18 queries over 528 keys, 2 heads of 1024, a key
+mask) with fp32 q over bf16 k/v and all bf16 (chip_smoke.py's BF_TOL);
+RMSNorm's "fp32_stream" at chip_smoke.py's fused rows (8448, 4224 and 2112
+rows of 2048) over fp32 and bf16 scales (chip_smoke.py's TOL), with
+``F.rms_norm`` timed beside, and a variant of the current source with its
+streaming cache hints toggled (``HINTS``), timed between the two new
+turns, and ``y.copy_(x)`` beside (the same bytes streamed by one copy);
+and "bf16_stream" at 8448 rows, timed the same way.  Exits 1 on any
+difference or disagreement.  It needs a CUDA device and nvcc, and prints
+the card beside every time.
 """
 from __future__ import annotations
 
@@ -36,6 +42,24 @@ from pathlib import Path
 import chip_smoke as cs
 from flash_variants import build as build_flash
 from swiglu_variants import _caller
+
+# the x loads and out stores of rmsnorm.cu without and with streaming
+# hints (ld.global.cs, st.global.cs); the variant swaps each pair
+HINTS = (("return __ldg(p); }", "return __ldcs(p); }"),
+         ("{ *p = v; }", "{ __stcs(p, v); }"))
+
+
+def toggled_hints(src: str) -> str:
+    """``src`` with each of ``HINTS`` swapped for its other half."""
+    for plain, hinted in HINTS:
+        if plain in src:
+            src = src.replace(plain, hinted)
+        elif hinted in src:
+            src = src.replace(hinted, plain)
+        else:
+            raise ValueError(f"rmsnorm.cu has neither {plain!r} nor "
+                             f"{hinted!r}")
+    return src
 
 
 def main() -> int:
@@ -52,7 +76,7 @@ def main() -> int:
         return 1
     import tsue_tpu_torch.ops.flash as FL
     import tsue_tpu_torch.ops.fused as FU
-    from tsue_tpu_torch.ops._build import BUILD_DIR, build_variants
+    from tsue_tpu_torch.ops._build import BUILD_DIR, CSRC, build_variants
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = cs.gpu_line()
     print(gpu, flush=True)
@@ -70,11 +94,15 @@ def main() -> int:
         "swiglu_matmul": [ptr] * 5 + [i32] * 3 + [ptr],
         "swiglu_matmul_bf16": [ptr] * 4 + [i32] * 3 + [ptr],
         "swiglu_matmul_ctas": []}), "new": FU._swiglu_lib()}
-    rms = {"old": old_lib("rmsnorm", {
-        "rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, i32, i32, ptr],
-        "rmsnorm_max_k": []}), "new": FU._rmsnorm_lib()}
+    rms_sig = {"rmsnorm": [ptr, ptr, ptr, i32, i32, ctypes.c_float, i32,
+                           i32, ptr],
+               "rmsnorm_max_k": []}
+    rms = {"old": old_lib("rmsnorm", rms_sig), "new": FU._rmsnorm_lib(),
+           "hints": build_variants(
+               {"hints": toggled_hints((CSRC / "rmsnorm.cu").read_text())},
+               out_dir / "rmsnorm_hints", rms_sig)["hints"][0]}
     dev = torch.device("cuda:0")
-    result: dict = {"gpu": gpu, "equal": {}, "bf16_ms": {}}
+    result: dict = {"gpu": gpu, "equal": {}, "ms": {}}
     wrong = []
 
     def flash_with(name, kw):
@@ -129,13 +157,11 @@ def main() -> int:
                  _caller(FU, swiglu["old"], gate, up, w)(),
                  _caller(FU, swiglu["new"], gate, up, w)())
             del gate, up, w
-        x = torch.randn(M, D, generator=g, device=dev)
+        x = torch.randn(M, D, generator=g, device=dev).to(bf)
         for sd in (torch.float32, bf):
             s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(sd)
-            same(f"rmsnorm fp32 x, {str(sd)[6:]} scale M={M}",
+            same(f"rmsnorm bf16 x, {str(sd)[6:]} scale M={M}",
                  rms_with("old", x, s), rms_with("new", x, s))
-        same(f"rmsnorm bf16 x, bf16 scale M={M}",
-             rms_with("old", x.to(bf), s), rms_with("new", x.to(bf), s))
         del x
 
     timer = cs.Timer(dev)
@@ -156,8 +182,40 @@ def main() -> int:
             if not torch.allclose(out.float(), ref.float(), **cs.BF_TOL):
                 wrong.append(f"{label} ({name})")
             ms = timer.ms(lambda: call(name))
-            result["bf16_ms"].setdefault(f"{label} {name}", []).append(ms)
+            result["ms"].setdefault(f"{label} {name}", []).append(ms)
             print(f"{label} {name}: {ms:.4f} ms; gpu: {gpu}", flush=True)
+
+    # RMSNorm: "fp32_stream" at the fused rows, "bf16_stream" at 8448
+    rms_cases = [(M, torch.float32, sd) for M in (8448, 4224, 2112)
+                 for sd in (torch.float32, bf)] + [(8448, bf, bf)]
+    for M, xd, sd in rms_cases:
+        x = torch.randn(M, D, generator=g, device=dev).to(xd)
+        s = (1.0 + 0.1 * torch.randn(D, generator=g, device=dev)).to(sd)
+        ref = FU.rmsnorm_plain(x, s, 1e-5).float()
+        tol = cs.TOL if xd == torch.float32 else cs.BF_TOL
+        label = (f"rmsnorm {str(xd)[6:]} x, {str(sd)[6:]} scale "
+                 f"({M}, {D})")
+        for name in ("old", "new", "hints", "hints", "new", "old"):
+            out = rms_with(name, x, s)
+            torch.cuda.synchronize()
+            if not torch.allclose(out.float(), ref, **tol):
+                wrong.append(f"{label} ({name})")
+            ms = timer.ms(lambda: rms_with(name, x, s))
+            result["ms"].setdefault(f"{label} {name}", []).append(ms)
+            print(f"{label} {name}: {ms:.5f} ms; gpu: {gpu}", flush=True)
+        s_x = s.to(xd)     # F.rms_norm takes one dtype
+        lib = timer.ms(lambda: torch.nn.functional.rms_norm(x, (D,), s_x,
+                                                            1e-5))
+        # the same bytes read once and written once by one PyTorch copy:
+        # what the card streams in practice
+        y = torch.empty_like(x)
+        copy = timer.ms(lambda: y.copy_(x))
+        result["ms"][f"{label} F.rms_norm"] = [lib]
+        result["ms"][f"{label} copy_"] = [copy]
+        print(f"{label} F.rms_norm: {lib:.5f} ms, copy_ of x: {copy:.5f} "
+              f"ms, launch floor {timer.floor_ms:.5f} ms; gpu: {gpu}",
+              flush=True)
+        del x, s, s_x, ref, y
     FL._lib = lambda: flash["new"]
     FU._rmsnorm_lib = lambda: rms["new"]
     result["wrong"] = wrong

@@ -133,8 +133,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launched again in the backward's recompute, ms per step and peak
      memory; stage 1 of "train_18_30" under "full" (peak memory beside
      phase 8's); run_stage2 of "test_18_18" in bf16 for one epoch and a
-     K=10 request through Predictor.from_checkpoint of its bf16 artifact,
-     bit for bit a Predictor over the merged state; the small
+     K=10 request through Predictor.from_checkpoint of its bf16 artifact
+     (fp32 parameters, launches as a fp32 request's), bit for bit a
+     Predictor over the merged state in fp32; the small
      configuration's per-epoch text sample (a bf16 MLLM's decode) twice,
      equal;
  13. the comparison models: (a) at their own widths on a small batch, the
@@ -207,8 +208,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (``convert.flax_params``, ``models.torch_export``) and written with
      torch.save, the import_ref command (--stage2 --preset test_18_18) on
      that file, every tensor of its artifact equal to the state,
-     Predictor.from_checkpoint on it answering phase 5's first request
-     bit for bit, with the fused switch off and on (launches as phase
+     Predictor.from_checkpoint on it under phase 5's "bfloat16"
+     configuration answering phase 5's first request bit for bit as phase
+     5 answered it, with the fused switch off and on (launches as phase
      5's), the file's size, the reference key count and the export, save,
      import and load seconds; then export_ref -> import_ref of phase 4's
      small configuration, bit for bit.
@@ -855,6 +857,9 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
     """RMSNorm (M, 2048) and the SwiGLU down-projection (M, 8192) x (8192,
     2048) at M = B * (16 image + 512 text tokens): training at batch 16
     (also the predict chunk with the fused switch on) and at batch 8.
+    RMSNorm: the form "fp32_stream", within TOL of the plain version, a
+    repeated call bit-identical and the first M / 4 rows (2112 of 8448)
+    bit-identical to the call on those rows alone, ``F.rms_norm`` beside.
     SwiGLU: rtol 1e-4, atol 1e-5 of the largest output, ``tol_used`` the
     largest |out - ref| / (atol + rtol |ref|); its launch plan, a repeated
     call bit-identical, and the cuBLAS time of h @ w alone beside.
@@ -863,7 +868,8 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
     import torch
     import torch.nn.functional as F
     from tsue_tpu_torch.ops.fused import (fused_rmsnorm, rmsnorm_plain,
-                                          swiglu_matmul, swiglu_matmul_plain,
+                                          rmsnorm_plan, swiglu_matmul,
+                                          swiglu_matmul_plain,
                                           swiglu_matmul_plan)
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {"rmsnorm": [], "swiglu_matmul": []}
@@ -877,19 +883,30 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
         else:
             x = torch.randn(M, D, generator=g, device=dev)
             scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+            plan = rmsnorm_plan(M, D, x.dtype, scale.dtype)
+            check(plan["form"] == "fp32_stream", f"rmsnorm M={M}: plan {plan}")
             out = fused_rmsnorm(x, scale, 1e-5)
             ref = rmsnorm_plain(x, scale, 1e-5)
             torch.cuda.synchronize()
             err, rel = errors(out, ref)
             check(torch.allclose(out, ref, **TOL),
                   f"rmsnorm disagrees with the plain version at M={M}: {err}")
+            check(torch.equal(out, fused_rmsnorm(x, scale, 1e-5)),
+                  f"rmsnorm M={M}: a repeated call differs")
+            sub = M // 4
+            check(torch.equal(out[:sub], fused_rmsnorm(x[:sub], scale, 1e-5)),
+                  f"rmsnorm: the first {sub} of {M} rows differ from the call "
+                  "on those rows alone")
             plain_ms = timer.ms(lambda: rmsnorm_plain(x, scale, 1e-5))
             ms = timer.ms(lambda: fused_rmsnorm(x, scale, 1e-5))
             lib_ms = timer.ms(lambda: F.rms_norm(x, (D,), scale, 1e-5))
             b = bound(nbytes(x, scale, out), 4.0 * M * D)
             rows["rmsnorm"].append(row("rmsnorm", f"{paths}: M={M} K={D}", gpu,
                                        err, rel, ms, plain_ms, b, lib_ms,
-                                       timer.floor_ms, batch=B, **marks))
+                                       timer.floor_ms, batch=B,
+                                       form=plan["form"], plan=plan,
+                                       repeat_bit_identical=True,
+                                       rows_bit_identical_to=sub, **marks))
         del x, out, ref
         gate = torch.randn(M, I, generator=g, device=dev)
         up = torch.randn(M, I, generator=g, device=dev)
@@ -1718,6 +1735,17 @@ def full_width_state(dev):
     return cfg, model.state_dict()
 
 
+def predict_flash_calls(m):
+    """(per predict, per rollout): the attention calls one K > 0 chunk of
+    ``Predictor.predict`` makes.  _predict runs every attention through
+    the kernel; the rollout's context does too, but its forecaster attends
+    under dropout in PyTorch ops."""
+    per_predict = (m.lane.num_layers + m.qformer.num_encoder_layers
+                   + 2 * m.qformer.num_decoder_layers + m.llama.num_layers
+                   + 2)
+    return per_predict, per_predict - 2
+
+
 def predict_phase(dev, gpu, cfg, state):
     import numpy as np
     import torch
@@ -1727,13 +1755,7 @@ def predict_phase(dev, gpu, cfg, state):
 
     K, B = 10, 16
     m = cfg.model
-    # the attention calls one chunk makes: _predict runs every attention
-    # through the kernel; the rollout's context does too, but its
-    # forecaster attends under dropout in PyTorch ops
-    per_predict = (m.lane.num_layers + m.qformer.num_encoder_layers
-                   + 2 * m.qformer.num_decoder_layers + m.llama.num_layers
-                   + 2)
-    per_rollout = per_predict - 2
+    per_predict, per_rollout = predict_flash_calls(m)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     pred = Predictor(cfg, state, batch_size=B, num_candidates=K, device=dev)
@@ -1824,7 +1846,7 @@ def predict_phase(dev, gpu, cfg, state):
                    time.perf_counter() - t0, request)
     del pred
     torch.cuda.empty_cache()
-    return {"flash_attn_fwd": launches}, fused_counts
+    return {"flash_attn_fwd": launches}, fused_counts, (out, fused)
 
 
 # --------------------------------------------------------------------------
@@ -1838,18 +1860,19 @@ def same_predictions(a, b) -> bool:
         for k in ("pred_pixel_xy", "candidates_pixel_xy"))
 
 
-def reference_ckpt_phase(dev, gpu, cfg, state, fused_counts):
+def reference_ckpt_phase(dev, gpu, cfg, state, fused_counts, first):
     """Phase 17 (run right after phase 5, over its state): the state
     exported to the reference's stage-2 layout (``flax_params`` and
     ``models.torch_export``) and written with ``torch.save``, as the
     reference writes its best-val checkpoint; the ``import_ref`` command
     (``--stage2 --preset test_18_18``: fp32, as the file) on that file;
     every tensor of its artifact equal to the state;
-    ``Predictor.from_checkpoint`` on the artifact (a byte tokenizer of the
-    file's vocabulary) serving the state bit for bit and answering phase
-    5's first request, with the fused switch off and on, bit for bit as a
-    Predictor over the state itself (the preset's fp32), with phase 5's
-    launches; then ``export_ref`` -> ``import_ref`` of phase 4's small
+    ``Predictor.from_checkpoint`` on the artifact under phase 5's
+    "bfloat16" configuration (a byte tokenizer of the file's vocabulary)
+    serving the state bit for bit in fp32 and answering phase 5's first
+    request, with the fused switch off and on, bit for bit as phase 5
+    answered it (``first``: its two answers), with phase 5's launches;
+    then ``export_ref`` -> ``import_ref`` of phase 4's small
     configuration, bit for bit.  The temporary files live under ``runs/``
     and are removed.  Returns the launch counts of the fused request."""
     import shutil
@@ -1936,29 +1959,29 @@ def reference_ckpt_phase(dev, gpu, cfg, state, fused_counts):
 
         t0 = time.perf_counter()
         pred = Predictor.from_checkpoint(
-            cfg32, imported, device=dev, batch_size=16, num_candidates=10,
+            cfg, imported, device=dev, batch_size=16, num_candidates=10,
             tokenizer=ByteTokenizer(cfg.model.llama.vocab_size))
         torch.cuda.synchronize(dev)
         t_load = time.perf_counter() - t0
         served = pred.model.state_dict()
-        check(all(torch.equal(served[k], v) for k, v in state.items()),
+        check(all(torch.equal(served[k], v) for k, v in state.items())
+              and {p.dtype for p in pred.model.parameters()}
+              == {torch.float32},
               "the served state differs from the exported one")
         got_off, got_on, counts = requests(pred)
         del pred, served
-        want_off, want_on, want_counts = requests(Predictor(
-            cfg32, state, batch_size=16, num_candidates=10, device=dev))
-        check(same_predictions(got_off, want_off), "the migrated model's "
-              "predictions differ from the state's")
-        check(same_predictions(got_on, want_on), "the migrated model's "
-              "fused-switch predictions differ from the state's")
-        check(counts == want_counts == fused_counts, f"migrated predict, "
-              f"fused on: launches {counts} (the state's {want_counts}) != "
-              f"phase 5's {fused_counts}")
+        check(same_predictions(got_off, first[0]), "the migrated model's "
+              "predictions differ from phase 5's")
+        check(same_predictions(got_on, first[1]), "the migrated model's "
+              "fused-switch predictions differ from phase 5's")
+        check(counts == fused_counts, f"migrated predict, fused on: "
+              f"launches {counts} != phase 5's {fused_counts}")
         print(f"reference checkpoint served: Predictor.from_checkpoint "
-              f"{t_load:.2f}s; phase 5's request ({len(got_off)} windows, "
-              f"K=10) bit-identical to a Predictor over the state, fused "
-              f"switch off and on; launches {json.dumps(counts)} as phase "
-              f"5's; gpu: {gpu}", flush=True)
+              f"{t_load:.2f}s under phase 5's bfloat16 configuration (fp32 "
+              f"parameters); phase 5's request ({len(got_off)} windows, "
+              f"K=10) bit-identical to phase 5's answers, fused switch off "
+              f"and on; launches {json.dumps(counts)} as phase 5's; gpu: "
+              f"{gpu}", flush=True)
 
         # phase 4's small configuration: export_ref -> import_ref
         scfg = small_cfg()
@@ -3604,8 +3627,12 @@ def bf16_checkpoint_request(dev, gpu):
     full width (bf16 parameters and moments; the vocabulary resized to the
     byte tokenizer's; 5 synthetic tracks, one epoch), its best artifact
     (bf16 leaves) served by ``Predictor.from_checkpoint`` for a K=10
-    request, which must equal, bit for bit, a ``Predictor`` over the same
-    merged state.  Returns the request's launch counts."""
+    request: fp32 parameters, as the JAX package restores into its fp32
+    init, so every kernel takes its fp32 form (the configuration rounds
+    the Llama's weights per call), flash launched as phase 5's request
+    launches it and nothing else; the request must equal, bit for bit, a
+    ``Predictor`` over the same merged state in fp32.  Returns the
+    request's launch counts."""
     import dataclasses
     import shutil
     import tempfile
@@ -3639,6 +3666,8 @@ def bf16_checkpoint_request(dev, gpu):
         tracks = make_synthetic_tracks(num_tracks=2, track_len=600, seed=9)
         kw = dict(device=dev, batch_size=16, num_candidates=10)
         served = Predictor.from_checkpoint(cfg, best, **kw)
+        check({p.dtype for p in served.model.parameters()}
+              == {torch.float32}, "bf16 checkpoint: served dtypes")
         reset_counts()
         t0 = time.perf_counter()
         got = served.predict(tracks)
@@ -3647,12 +3676,19 @@ def bf16_checkpoint_request(dev, gpu):
         counts = read_counts()
         del served
         gc.collect()
-        model = build_model_and_params(cfg, get_tokenizer(), dev)
-        check({p.dtype for p in model.parameters()} == {torch.bfloat16},
-              "bf16 checkpoint: build_model_and_params dtypes")
+        want_counts = dict.fromkeys(KERNELS, 0)
+        want_counts["flash_attn_fwd"] = math.ceil(len(got) / 16) * sum(
+            predict_flash_calls(cfg.model))
+        check(counts == want_counts, f"bf16 checkpoint: launches {counts} "
+                                     f"!= {want_counts}")
+        cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                      dtype="float32"))
+        model = build_model_and_params(cfg32, get_tokenizer(), dev)
+        check({p.dtype for p in model.parameters()} == {torch.float32},
+              "bf16 checkpoint: build_model_and_params dtypes in fp32")
         restore_merge(best, model)
         state = model.state_dict()
-        model_cfg = model.cfg
+        model_cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
         del model
         gc.collect()
         direct = Predictor(cfg.replace(model=model_cfg), state, **kw)
@@ -3662,12 +3698,13 @@ def bf16_checkpoint_request(dev, gpu):
             np.array_equal(a[k], b[k]) for a, b in zip(got, want)
             for k in ("pred_pixel_xy", "candidates_pixel_xy")),
               "bf16 checkpoint: from_checkpoint differs from Predictor over "
-              "the merged state")
+              "the merged state in fp32")
         print(f"bf16 checkpoint: run_stage2 test_18_18 bf16 1 epoch "
               f"{json.dumps(metrics)} in {train_s:.1f}s; from_checkpoint "
-              f"request of {len(got)} windows (K=10) in {req_s:.2f}s, equal "
-              f"to Predictor(cfg, state); launches {json.dumps(counts)}; "
-              f"gpu: {gpu}", flush=True)
+              f"(fp32 parameters, fp32 kernel forms) request of {len(got)} "
+              f"windows (K=10) in {req_s:.2f}s, equal to Predictor(cfg, "
+              f"state) over the merged state in fp32; launches "
+              f"{json.dumps(counts)}; gpu: {gpu}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -5521,10 +5558,11 @@ def main() -> int:
     small_reference_phase(dev)
     small_training_phase(dev)
     cfg, state = full_width_state(dev)
-    predict_counts, fused_predict_counts = predict_phase(dev, gpu, cfg,
-                                                         state)
+    predict_counts, fused_predict_counts, first_request = predict_phase(
+        dev, gpu, cfg, state)
     ref_ckpt_counts = reference_ckpt_phase(dev, gpu, cfg, state,
-                                           fused_predict_counts)
+                                           fused_predict_counts,
+                                           first_request)
     gen_counts, head_counts, off_counts = generation_phase(dev, gpu, cfg,
                                                            state)
     pool_counts, http_counts = serving_phase(dev, gpu, cfg, state)

@@ -577,30 +577,52 @@ def _flow_bf16():
                                                  dtype="bfloat16"))
 
 
+def _merged_fp32(cfg, best):
+    """(configuration, state): the model ``build_model_and_params`` builds
+    for ``cfg`` in fp32, the artifact ``best`` merged into it, under
+    ``cfg``'s dtype and the tokenizer's vocabulary."""
+    from tsue_tpu_torch.data import get_tokenizer
+    from tsue_tpu_torch.runner import build_model_and_params
+    from tsue_tpu_torch.train.checkpoint import restore_merge
+    fp32 = cfg.replace(model=dataclasses.replace(cfg.model, dtype="float32"))
+    model = build_model_and_params(fp32, get_tokenizer(), "cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    restore_merge(best, model)
+    return (cfg.replace(model=dataclasses.replace(model.cfg,
+                                                  dtype=cfg.model.dtype)),
+            model.state_dict())
+
+
 def test_bf16_run_is_served_from_its_checkpoint(tmp_path):
     """``run_stage2`` trains a bf16 configuration (bf16 parameters and
     moments, a bf16 best artifact), and ``Predictor.from_checkpoint`` of it
-    predicts what ``Predictor(cfg, state)`` predicts over the same merged
-    state: the model ``build_model_and_params`` builds (bf16) with the
-    artifact merged."""
+    serves fp32 parameters, as the JAX package restores into its fp32 init,
+    and predicts what ``Predictor(cfg, state)`` predicts over the same
+    merged state in fp32: the model built in fp32 with the artifact
+    merged, under the "bfloat16" configuration."""
     from test_torch_checkpoint import RUN
     from tsue_tpu_torch.data import get_tokenizer
     from tsue_tpu_torch.runner import build_model_and_params, run_stage2
     from tsue_tpu_torch.serve import Predictor
-    from tsue_tpu_torch.train.checkpoint import _read, restore_merge
+    from tsue_tpu_torch.train.checkpoint import _read
     cfg = _flow_bf16()
     metrics = run_stage2(cfg, out_dir=str(tmp_path), epochs=1, **RUN)
     assert np.isfinite(metrics["test_ade"])
     best = str(tmp_path / cfg.name / "ckpt" / "best")
     stored = _read(best)
     assert stored and {v.dtype for v in stored.values()} == {BF}
+    # training builds in bf16; serving the artifact keeps fp32
+    assert {p.dtype for p in build_model_and_params(
+        cfg, get_tokenizer(), "cpu").parameters()} == {BF}
     served = Predictor.from_checkpoint(cfg, best, device="cpu",
                                        batch_size=4, num_candidates=2)
-    model = build_model_and_params(cfg, get_tokenizer(), "cpu")
-    assert {p.dtype for p in model.parameters()} == {BF}
-    restore_merge(best, model)
-    direct = Predictor(cfg.replace(model=model.cfg), model.state_dict(),
-                       device="cpu", batch_size=4, num_candidates=2)
+    assert {p.dtype for p in served.model.parameters()} == {torch.float32}
+    direct_cfg, state = _merged_fp32(cfg, best)
+    assert served.model.cfg == direct_cfg.model
+    assert all(torch.equal(v, state[k])
+               for k, v in served.model.state_dict().items())
+    direct = Predictor(direct_cfg, state, device="cpu", batch_size=4,
+                       num_candidates=2)
     tracks = make_synthetic_tracks(num_tracks=2, track_len=300, seed=3)
     a, b = served.predict(tracks), direct.predict(tracks)
     assert a and len(a) == len(b)
@@ -608,6 +630,72 @@ def test_bf16_run_is_served_from_its_checkpoint(tmp_path):
         assert x.keys() == y.keys() and x["track_id"] == y["track_id"]
         for key in ("pred_pixel_xy", "candidates_pixel_xy"):
             np.testing.assert_array_equal(x[key], y[key])
+
+
+def _serve_cfg(c):
+    """``test_18_18`` at tiny widths under a "bfloat16" ``ModelConfig``,
+    in the config classes of module ``c``."""
+    base = c.get_preset("test_18_18")
+    return base.replace(
+        name="bf16_serve",
+        data=dataclasses.replace(base.data, max_length=32,
+                                 length_buckets=()),
+        model=c.ModelConfig(
+            llama=c.LlamaConfig.tiny(ByteTokenizer().vocab_size),
+            qformer=c.QFormerConfig(hidden_size=32, num_heads=2,
+                                    num_encoder_layers=1,
+                                    num_decoder_layers=1,
+                                    num_query_tokens=4),
+            lane=c.LaneEncoderConfig(d_model=16, nhead=2, num_layers=1),
+            ltsf=c.LTSFConfig(d_model=16, polygon_embed_dim=16),
+            dtype="bfloat16"))
+
+
+def test_from_checkpoint_serves_fp32_parameters_as_the_jax_package(tmp_path):
+    """``Predictor.from_checkpoint`` of a "bfloat16" configuration in both
+    packages, over one artifact of bf16 values that holds every parameter
+    (so neither package's initialisation enters), each written as a bf16
+    run writes it, by its package's own writer: both serve fp32 parameters
+    (the configuration rounds the Llama's weights per call, activations
+    stay fp32) and predict the same windows within 1e-3 px, four fp32 ulps
+    at the largest coordinate (3708 px): the two stacks sum in different
+    orders (measured 4.9e-4 to 5.5e-4 px; bf16 parameters, as the port
+    served them before, put the first window 0.79 px off)."""
+    from tsue_tpu.data.tokenizer import ByteTokenizer as JaxByteTokenizer
+    from tsue_tpu.serve import Predictor as JaxPredictor
+    from tsue_tpu.train.checkpoint import save_pytree
+    from tsue_tpu_torch.serve import Predictor
+    from tsue_tpu_torch.train.checkpoint import save_state_dict
+    jcfg, pcfg = _serve_cfg(jax_config), _serve_cfg(port_config)
+    T, F = pcfg.data.seq_len, pcfg.data.out_len
+    dummy = JaxPredictor(jcfg, None, batch_size=4)._dummy_batch()
+    model = JaxTrajectoryModel(jcfg.model, T, F)
+    params = jax.device_get(jax.jit(lambda b: model.init(
+        {"params": jax.random.key(5), "dropout": jax.random.key(6)}, b,
+        False))(dummy)["params"])
+    bf = jax.tree.map(lambda a: np.asarray(a, jnp.bfloat16), params)
+    save_pytree(str(tmp_path / "jax"), bf)
+    port_model = load_flax_params(
+        TrajectoryModel(pcfg.model, T, F),
+        jax.tree.map(lambda a: np.asarray(a, np.float32), bf))
+    save_state_dict(cast_params(port_model), str(tmp_path / "port"))
+    theirs = JaxPredictor.from_checkpoint(
+        jcfg, str(tmp_path / "jax"), dummy, batch_size=4,
+        tokenizer=JaxByteTokenizer())
+    ours = Predictor.from_checkpoint(pcfg, str(tmp_path / "port"),
+                                     device="cpu", batch_size=4,
+                                     tokenizer=ByteTokenizer())
+    tracks = make_synthetic_tracks(num_tracks=2, track_len=300, seed=11)
+    ref, out = theirs.predict(tracks), ours.predict(tracks)
+    assert len(out) == len(ref) > 0
+    for r, o in zip(ref, out):
+        assert o["track_id"] == r["track_id"]
+        np.testing.assert_allclose(o["pred_pixel_xy"],
+                                   np.asarray(r["pred_pixel_xy"]),
+                                   atol=1e-3, rtol=0)
+    assert {np.asarray(a).dtype for a in jax.tree.leaves(theirs.params)} \
+        == {np.dtype(np.float32)}
+    assert {p.dtype for p in ours.model.parameters()} == {torch.float32}
 
 
 def test_resumed_bf16_run_equals_the_uninterrupted_one(tmp_path):

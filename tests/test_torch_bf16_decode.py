@@ -451,10 +451,12 @@ def test_plain_int8_scope():
 
 def test_bf16_checkpoint_decodes_with_every_switch(tmp_path):
     """A bf16 ``run_stage2`` artifact served by ``Predictor.from_checkpoint``
-    with int8 weights, the int8 KV cache and the fused head: its greedy
-    generation runs in bf16 (int8 tables from the bf16 parameters) and,
-    with the switches off, too."""
-    from test_torch_bf16 import _flow_bf16
+    with int8 weights, the int8 KV cache and the fused head, and with the
+    switches off: fp32 parameters, as the JAX package restores into its
+    fp32 init (int8 tables from them), and greedy ids equal to those of a
+    ``Predictor`` over the same merged state in fp32 with the same
+    switches."""
+    from test_torch_bf16 import _flow_bf16, _merged_fp32
     from test_torch_checkpoint import RUN
     from tsue_tpu_torch.data import make_synthetic_tracks
     from tsue_tpu_torch.ops.sampling import SamplingConfig
@@ -463,19 +465,25 @@ def test_bf16_checkpoint_decodes_with_every_switch(tmp_path):
     cfg = _flow_bf16()
     run_stage2(cfg, out_dir=str(tmp_path), epochs=1, **RUN)
     best = str(tmp_path / cfg.name / "ckpt" / "best")
+    direct_cfg, state = _merged_fp32(cfg, best)
     tracks = make_synthetic_tracks(num_tracks=2, track_len=300, seed=3)
+    greedy = SamplingConfig(do_sample=False)
     texts = {}
     for on in (True, False):
-        pred = Predictor.from_checkpoint(
-            cfg, best, device="cpu", batch_size=2, quantize_decode=on,
-            quantize_kv=on, fused_head=on)
-        assert {p.dtype for p in pred.model.parameters()} == {BF}
+        kw = dict(device="cpu", batch_size=2, quantize_decode=on,
+                  quantize_kv=on, fused_head=on)
+        pred = Predictor.from_checkpoint(cfg, best, **kw)
+        assert {p.dtype for p in pred.model.parameters()} == {torch.float32}
         out = pred.generate_context(tracks, max_new_tokens=4,
-                                    sampling=SamplingConfig(do_sample=False))
+                                    sampling=greedy)
         assert len(out) == 2 and all(isinstance(r["context"], str)
                                      for r in out), out
         texts[on] = pred.last_request["ids"]
         assert texts[on].shape == (2, 4)
+        direct = Predictor(direct_cfg, state, **kw)
+        direct.generate_context(tracks, max_new_tokens=4, sampling=greedy)
+        np.testing.assert_array_equal(texts[on],
+                                      direct.last_request["ids"])
     if pred._quant is not None:
         assert all(t.dtype in (torch.int8, torch.float32)
                    for t in pred._quant.values())

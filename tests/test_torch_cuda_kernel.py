@@ -449,14 +449,26 @@ def test_decode_kernels_rows_independent(dev, kernel):
         assert torch.equal(full[b:b + 1], one), b
 
 
-@pytest.mark.parametrize("M", [128, 129, 2112, 8448])
-def test_rmsnorm_matches_plain(dev, M):
+def _capacity(K, scale_dtype=torch.float32):
+    """The rows one pass of the fp32 stream's grid covers at width K:
+    its CTAs times the rows a CTA step."""
+    plan = FU.rmsnorm_plan(1 << 24, K, torch.float32, scale_dtype)
+    return plan["ctas"] * (8 // plan["warps_per_row"])
+
+
+@pytest.mark.parametrize("rows", [128, 129, 2112, 4224, 8448, "capacity-1",
+                                  "capacity+1"])
+def test_rmsnorm_matches_plain(dev, rows):
     """Rows of K = 128, 2048 and 8192 (the kernel's widest); a row of zeros
-    (the eps alone), rows of large values.  Both sides take fp32 sums of
-    squares in different orders and the kernel's rsqrtf is within 2 ulp:
-    atol = rtol = 1e-5."""
-    g = torch.Generator(device=dev).manual_seed(M)
+    (the eps alone), rows of large values; M at the path's rows and one row
+    below and above what one pass of the grid covers at each K.  Both sides
+    take fp32 sums of squares in different orders and the kernel's rsqrtf
+    is within 2 ulp: atol = rtol = 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(
+        {"capacity-1": 1, "capacity+1": 2}.get(rows, rows))
     for K in (128, 2048, 8192):
+        M = (rows if isinstance(rows, int)
+             else _capacity(K) + int(rows[len("capacity"):]))
         x = torch.randn(M, K, generator=g, device=dev)
         x[0] = 0.0
         x[-1] *= 1e3
@@ -1263,7 +1275,7 @@ def test_rmsnorm_bf16_matches_plain(dev, dtypes):
     row, large
     rows, a row of bf16's largest values (the sum of squares overflows to
     inf, the output to 0) and one of its smallest normals: the plan's form
-    ("bf16_stream" for bf16 x, "row" for fp32), one launch, within one bf16
+    ("bf16_stream" for bf16 x, "fp32_stream" for fp32), one launch, within one bf16
     ulp of the plain version (rtol 2^-7), a repeat bit-identical."""
     xd, sd = (BF if t == "bf16" else torch.float32
               for t in dtypes.split("_"))
@@ -1279,7 +1291,8 @@ def test_rmsnorm_bf16_matches_plain(dev, dtypes):
         x = x.to(xd)
         scale = (1.0 + 0.1 * torch.randn(K, generator=g, device=dev)).to(sd)
         plan = FU.rmsnorm_plan(M, K, xd, sd)
-        assert plan["form"] == ("bf16_stream" if xd == BF else "row"), plan
+        assert plan["form"] == ("bf16_stream" if xd == BF
+                                else "fp32_stream"), plan
         if xd == BF:
             assert plan["warps_per_row"] == max(1, K // 1024), plan
         before = FU.fused_rmsnorm.launches
@@ -1293,6 +1306,49 @@ def test_rmsnorm_bf16_matches_plain(dev, dtypes):
                                    rtol=2 ** -7, msg=lambda m: (
                                        f"{dtypes} M={M} K={K}: {m}"))
         assert torch.equal(out, again)
+
+
+# K: (warps a row, 16-byte vectors a lane) of the fp32 stream
+FP32_SPLITS = {128: (1, 1), 256: (1, 2), 512: (1, 4), 1024: (2, 4),
+               2048: (4, 4), 4096: (8, 4), 8192: (8, 8)}
+
+
+@pytest.mark.parametrize("K", sorted(FP32_SPLITS))
+def test_rmsnorm_fp32_stream_edges(dev, K):
+    """The fp32 form at each split of K (one warp a row up to K = 512,
+    then 2, 4 and 8; eight vectors a lane at 8192), over fp32 and bf16
+    scales: M = 128, 129 (one row past a CTA step), one row below and
+    above what one pass of the grid covers, 2112 and 8448; a zero row and
+    a row of large values.  The plan, one launch, within 1e-5 of the plain
+    version (sums in another order), a repeat bit-identical, and the first
+    and last 128 rows bit-identical to the call on those rows alone: a
+    row's bits do not depend on M or on the grid."""
+    warps, vectors = FP32_SPLITS[K]
+    g = torch.Generator(device=dev).manual_seed(K)
+    for sd in (torch.float32, BF):
+        cap = _capacity(K, sd)
+        for M in (128, 129, cap - 1, cap + 1, 2112, 8448):
+            x = torch.randn(M, K, generator=g, device=dev)
+            x[0] = 0.0
+            x[-1] *= 1e3
+            scale = (1.0 + 0.1 * torch.randn(K, generator=g,
+                                              device=dev)).to(sd)
+            plan = FU.rmsnorm_plan(M, K, torch.float32, sd)
+            assert (plan["form"], plan["warps_per_row"],
+                    plan["vectors_per_lane"]) == (
+                        "fp32_stream", warps, vectors), plan
+            before = FU.fused_rmsnorm.launches
+            out = FU.fused_rmsnorm(x, scale, 1e-5)
+            assert FU.fused_rmsnorm.launches == before + 1
+            ref = FU.rmsnorm_plain(x, scale, 1e-5)
+            again = FU.fused_rmsnorm(x, scale, 1e-5)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5,
+                                       msg=lambda m: f"M={M} {sd}: {m}")
+            assert torch.equal(out, again), (M, sd)
+            for a in (0, M - 128):
+                part = FU.fused_rmsnorm(x[a:a + 128], scale, 1e-5)
+                assert torch.equal(out[a:a + 128], part), (M, sd, a)
 
 
 @pytest.mark.parametrize("M", [128, 129, 8448])

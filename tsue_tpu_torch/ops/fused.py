@@ -20,12 +20,11 @@ through the plain version, as the JAX package's ``custom_vjp``s recompute
 through XLA; it computes only the gradients autograd asks for.
 
 Dtypes, as the Pallas kernels take them: RMSNorm takes fp32 or bf16 x and
-scale, sums in fp32 and returns x's dtype (bf16 x takes the form
-"bf16_stream", ``rmsnorm_plan``); the SwiGLU product takes fp32
-or bf16 operands, all alike: silu in fp32 rounded to up's dtype, times up
-in that dtype, the product with W summed in fp32 and returned in gate's
-dtype.  In fp32 the kernels keep their forms and bits; bf16 has a form of
-its own in each.
+scale, sums in fp32 and returns x's dtype (one multi-row stream, the form
+"fp32_stream" or "bf16_stream" by x's dtype, ``rmsnorm_plan``); the SwiGLU
+product takes fp32 or bf16 operands, all alike: silu in fp32 rounded to
+up's dtype, times up in that dtype, the product with W summed in fp32 and
+returned in gate's dtype, bf16 in a form of its own.
 """
 from __future__ import annotations
 
@@ -109,19 +108,22 @@ def _rmsnorm_lib():
 
 
 # the C side's forms (rmsnorm_plan)
-_RMSNORM_FORMS = ("row", "bf16_stream")
+_RMSNORM_FORMS = ("fp32_stream", "bf16_stream")
 
 
 def rmsnorm_plan(M: int, K: int, x_dtype: torch.dtype,
                  scale_dtype: torch.dtype) -> dict:
     """The kernel's launch for (M, K) rows of ``x_dtype`` and a (K,) scale
     of ``scale_dtype``, as the CUDA library plans it (it builds the
-    library): ``form`` "row" (fp32 x: one CTA of 256 threads a row) or
-    "bf16_stream" (bf16 x: ``warps_per_row`` warps own a row, 1 up to K =
-    1024, then 2, 4 and 8 at K 2048, 4096 and 8192, with
-    ``vectors_per_lane`` 16-byte loads of x a lane, at most 4; a
-    persistent grid of ``ctas`` CTAs of 8 warps strides over the rows).  Raises for a call the kernels do not take
-    (K % 4, bf16 x K % 8, K above ``rmsnorm_max_k()``)."""
+    library): ``form`` "fp32_stream" or "bf16_stream" by x's dtype, one
+    kernel: a persistent grid of ``ctas`` CTAs of 8 warps strides over the
+    rows, ``warps_per_row`` warps own a row and each lane holds
+    ``vectors_per_lane`` 16-byte vectors of it (4 fp32 or 8 bf16
+    elements), both chosen by the row's count of vectors: up to 128 one
+    warp and 1, 2 or 4 vectors, then 2, 4 and 8 warps of 4 vectors up to
+    1024, and 8 warps of 8 vectors at 2048 (fp32 at K = 8192).  Raises for
+    a call the kernel does not take (K % 4, bf16 x K % 8, K above
+    ``rmsnorm_max_k()``)."""
     xb = _bf16_code("x", torch.empty(0, dtype=x_dtype))
     sb = _bf16_code("scale", torch.empty(0, dtype=scale_dtype))
     plan = (ctypes.c_int * 4)()

@@ -172,6 +172,18 @@ def join_torchrun(device) -> bool:
     return distributed()
 
 
+def leave_distributed() -> None:
+    """Leave the process group, where one was joined: a barrier, so that
+    no rank closes its transport while another still uses it, then
+    ``destroy_process_group``, so that the backend's threads are joined
+    before the interpreter exits.  A gloo rank left to exit with its group
+    alive can abort after its work is done ("terminate called without an
+    active exception")."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":

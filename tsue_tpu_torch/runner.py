@@ -144,13 +144,14 @@ def _vocab_resized(llama, tokenizer):
 
 
 def build_model_and_params(cfg: ExperimentConfig, tokenizer,
-                           device="cuda", mllm_ckpt: Optional[str] = None
-                           ) -> TrajectoryModel:
+                           device="cuda", mllm_ckpt: Optional[str] = None,
+                           cast: bool = True) -> TrajectoryModel:
     """The model with its parameters: the vocabulary resized to the
     tokenizer's, random weights from ``cfg.train.seed`` (a generator on
     ``device``), fp32, every floating parameter cast to bf16 for a
-    "bfloat16" ``ModelConfig`` (``tsue_tpu/runner.py:347-349``); then, with
-    ``mllm_ckpt``, the stage-1 artifact loaded strictly into its MLLM
+    "bfloat16" ``ModelConfig`` unless ``cast`` is False
+    (``tsue_tpu/runner.py:347-349``); then, with ``mllm_ckpt``, the
+    stage-1 artifact loaded strictly into its MLLM
     (``train.checkpoint.import_mllm``, in the MLLM's dtype)."""
     model_cfg = cfg.model
     if model_cfg.use_llm:
@@ -160,7 +161,7 @@ def build_model_and_params(cfg: ExperimentConfig, tokenizer,
     with torch.device(dev):
         model = TrajectoryModel(model_cfg, cfg.data.seq_len, cfg.data.out_len)
     init_params(model, torch.Generator(device=dev).manual_seed(cfg.train.seed))
-    if cfg.model.dtype == "bfloat16":
+    if cast and cfg.model.dtype == "bfloat16":
         cast_params(model)
     if mllm_ckpt:
         import_mllm(model, mllm_ckpt)       # the stage-1 handoff

@@ -165,7 +165,11 @@ class Predictor:
         ``mllm_ckpt``, the stage-1 artifact the training imported (a
         checkpoint whose ``meta.json`` records one raises without it).  So
         the frozen parameters are the ones the checkpoint was trained
-        with.  The JAX package's method initialises from ``key(0)`` where
+        with.  The parameters stay fp32 under any ``ModelConfig`` dtype and
+        each stored value takes their dtype, as the JAX package restores
+        into its fp32 init (``tsue_tpu/serve.py:134-140``): a "bfloat16"
+        artifact serves bf16-rounded weights with fp32 activations.  The
+        JAX package's method initialises from ``key(0)`` where
         its training initialises from ``cfg.train.seed``, and serves a
         frozen-regime artifact over another frozen MLLM than it was trained
         with (ROADMAP C, defects of the reference); the port does not copy
@@ -178,7 +182,8 @@ class Predictor:
         mesh = kw.get("mesh")
         device = kw.pop("device", None) or (mesh.device if mesh is not None
                                             else "cuda")
-        model = build_model_and_params(cfg, tokenizer, device, mllm_ckpt)
+        model = build_model_and_params(cfg, tokenizer, device, mllm_ckpt,
+                                       cast=False)
         restore_merge(ckpt_dir, model)
         return cls(cfg.replace(model=model.cfg), model.state_dict(),
                    tokenizer=tokenizer, device=device, **kw)
