@@ -213,13 +213,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      5 answered it, with the fused switch off and on (launches as phase
      5's), the file's size, the reference key count and the export, save,
      import and load seconds; then export_ref -> import_ref of phase 4's
-     small configuration, bit for bit.
+     small configuration, bit for bit;
+ 18. the trained-weight studies (last), through their commands' main at
+     the mid-size configuration they publish (Llama 4 layers of 256, 8/4
+     heads of 32, FFN 1024, vocabulary 384; Q-Former 128 wide, 8 heads of
+     16, 2 + 2 layers, 8 query tokens), only epochs, seeds and repeats
+     cut: study_fast_vs_parity (joint stage 2, 2 epochs on 40 tracks,
+     the fused switch on, K=10 in both modes over 2 seeds: study.json's
+     layout, finite metrics) and study_speculative_acceptance (stage 1, 3
+     epochs on 20 tracks, one plain and one speculative W8 greedy call:
+     the JAX script's keys; each row's window forwards between ceil(emitted
+     / 8) and its emitted tokens), the launches of each run and its
+     wall time.
 Phase 3 also checks flash at the comparison models' shapes: MMTrans's
 self-attention (B 16, 70 keys, 8 heads of 16, a key mask) and the UNet's
 cross-attention over one key (B 32 and B 10, 18 queries, 1 head of 64),
 their bound the larger of the roofline's and the timer's launch floor;
-and flash, RMSNorm and SwiGLU at phase 16's microbatch shapes (B 4: 2112
-rows), reported under ``microbatch_shapes``.
+flash, RMSNorm and SwiGLU at phase 16's microbatch shapes (B 4: 2112
+rows), reported under ``microbatch_shapes``; and at phase 18's study
+shapes (B 16, 8 + 640 tokens: the Llama's 8/4 heads of 32 with RoPE in
+the tiled form, the prefill, a decode step over 744 slots, a window of 8
+over 752, the LTSF cross-attention at 2 heads of 128, the Q-Former's
+three calls at 8 heads of 16; RMSNorm (10368, 256), SwiGLU (10368, 1024)
+x (1024, 256)), reported under ``study_shapes``.
 Every number is printed beside the nvidia-smi name and power limit.  The
 line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -863,7 +879,8 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
     SwiGLU: rtol 1e-4, atol 1e-5 of the largest output, ``tol_used`` the
     largest |out - ref| / (atol + rtol |ref|); its launch plan, a repeated
     call bit-identical, and the cuBLAS time of h @ w alone beside.
-    ``cases``: (paths, B, FFN width, with RMSNorm) in place of these;
+    ``cases``: (paths, B, FFN width, with RMSNorm[, tokens a row, model
+    width]) in place of these (16 + 512 tokens and 2048 by default);
     ``marks`` go on each row."""
     import torch
     import torch.nn.functional as F
@@ -873,11 +890,11 @@ def fused_checks(dev, gpu, timer, cases=None, **marks):
                                           swiglu_matmul_plan)
     g = torch.Generator(device=dev).manual_seed(4)
     rows = {"rmsnorm": [], "swiglu_matmul": []}
-    D = 2048
-    for paths, B, I, norm in (cases or (
+    for paths, B, I, norm, *width in (cases or (
             ("train_18_30 b16 / predict b16", 16, 8192, True),
             ("lora_only_18_18 b8", 8, 8192, True))):
-        M = B * (16 + TEXT_TOKENS)
+        T, D = width or (16 + TEXT_TOKENS, 2048)
+        M = B * T
         if not norm:
             x = out = ref = None
         else:
@@ -1034,6 +1051,78 @@ def microbatch_shape_checks(dev, gpu, timer):
     out.update(fused_checks(dev, gpu, timer, (
         (f"pipeline microbatch b{mb} (train_18_30 stage 1, pp 2, "
          f"{PIPE_MICRO} microbatches)", mb, 8192, True),), microbatch=True))
+    return out
+
+
+STUDY_TOKENS = 8 + 640   # the studies' 8 image tokens + 640 text tokens
+STUDY_NEW = 96           # the speculative study's new tokens
+
+
+def study_shape_checks(dev, gpu, timer):
+    """Phase 3 at phase 18's shapes, the studies' mid-size stack (B 16,
+    8 + 640 tokens): flash at the Llama's 8/4 heads of 32 with RoPE inside
+    (causal, a key mask), which takes the tiled form, the prefill without
+    RoPE, a decode step over 744 slots and the speculative window of 8
+    over 752 (a (B, W, S) mask), the LTSF cross-attention at 2 heads of
+    128 and the Q-Former's self, query and cross attention at 8 heads of
+    16; RMSNorm (10368, 256) and the SwiGLU down-projection (10368, 1024)
+    x (1024, 256) with the fused switch on.  Each row carries
+    ``study=True``; the main-path lines leave them out."""
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.cli._common import midsize_cfg
+    from tsue_tpu_torch.models.llama import rope_inv_freq
+    g = torch.Generator(device=dev).manual_seed(18)
+    B, T = 16, STUDY_TOKENS
+    llama = midsize_cfg("study").model.llama
+    Hq, Hkv, D = llama.num_heads, llama.num_kv_heads, llama.head_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def key_mask(S, lens):
+        return (torch.arange(S, device=dev)[None]
+                < torch.as_tensor(lens, device=dev)[:, None]).int()
+    lens = np.linspace(400, T, B).astype(np.int64)
+    mask = key_mask(T, lens)
+    inv = torch.as_tensor(rope_inv_freq(llama), device=dev)
+    ang = (mask.cumsum(1) - 1).clamp_min(0).float()[..., None] * inv
+    S1, Sw = T + STUDY_NEW, T + STUDY_NEW + 8
+    flash = [
+        (f"study llama_self {Hq}/{Hkv}x{D} B16 T{T}, RoPE", dict(
+            q=randn(B, T, Hq, D), k=randn(B, T, Hkv, D),
+            v=randn(B, T, Hkv, D), mask=mask, is_causal=True,
+            rope=(torch.cos(ang), torch.sin(ang)))),
+        (f"study gen_prefill {Hq}/{Hkv}x{D} B16 T{T}", dict(
+            q=randn(B, T, Hq, D), k=randn(B, T, Hkv, D),
+            v=randn(B, T, Hkv, D), mask=mask, is_causal=True)),
+        (f"study gen_decode {Hq}/{Hkv}x{D} Tq1 S{S1}", dict(
+            q=randn(B, 1, Hq, D), k=randn(B, S1, Hkv, D),
+            v=randn(B, S1, Hkv, D), mask=key_mask(S1, lens + 1))),
+        (f"study spec_window_w8 {Hq}/{Hkv}x{D} S{Sw}", dict(
+            q=randn(B, 8, Hq, D), k=randn(B, Sw, Hkv, D),
+            v=randn(B, Sw, Hkv, D),
+            mask=window_mask(dev, g, lens, T, 8, Sw))),
+        (f"study ltsf_cross 2x128 Tq18 Tk{T}", dict(
+            q=randn(B, 18, 2, 128), k=randn(B, T, 2, 128),
+            v=randn(B, T, 2, 128), mask=mask)),
+        ("study qformer_self 8x16 T18", dict(
+            q=randn(B, 18, 8, 16), k=randn(B, 18, 8, 16),
+            v=randn(B, 18, 8, 16))),
+        ("study qformer_query_self 8x16 T8", dict(
+            q=randn(B, 8, 8, 16), k=randn(B, 8, 8, 16),
+            v=randn(B, 8, 8, 16))),
+        ("study qformer_cross 8x16 Tq8 Tk18", dict(
+            q=randn(B, 8, 8, 16), k=randn(B, 18, 8, 16),
+            v=randn(B, 18, 8, 16)))]
+    out = {"flash_attn_fwd": flash_checks(dev, gpu, timer, flash,
+                                          study=True)}
+    check(out["flash_attn_fwd"][0]["form"] == "tiled",
+          f"the study's Llama attention took {out['flash_attn_fwd'][0]}")
+    out.update(fused_checks(dev, gpu, timer, (
+        ("study_fast_vs_parity b16 (fused switch on)", B,
+         llama.intermediate_size, True, T, llama.hidden_size),),
+        study=True))
     return out
 
 
@@ -5484,6 +5573,176 @@ def pipeline_phase(dev, gpu) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# 18. the trained-weight studies
+# --------------------------------------------------------------------------
+
+STUDY_SEEDS = 2
+# the keys of scripts/study_speculative_acceptance.py's JSON line
+SPEC_KEYS = ("tok_per_fwd", "token_agreement", "plain_tok_s", "spec_tok_s",
+             "speedup", "final_lm_loss", "window", "epochs", "split")
+
+
+def study_phase(dev, gpu) -> dict:
+    """Phase 18: the two trained-weight studies through their commands'
+    ``main`` at the mid-size configuration they publish
+    (``cli._common.midsize_cfg``), only epochs, seeds and repeats cut,
+    under a temporary out_dir removed afterwards.
+    (a) ``study_fast_vs_parity``: joint stage 2 for 2 epochs (of 30) on 40
+    synthetic tracks with the fused switch on, then K=10 in the fast and
+    the parity mode over 2 eval seeds (of 5): ``study.json``'s layout,
+    finite metrics, the file equal to the returned dict, launches (the
+    Llama's 2 L + 1 RMSNorms to L SwiGLU products a forward).
+    (b) ``study_speculative_acceptance``: stage 1 for 3 epochs (of 100) on
+    20 tracks, one plain and one speculative W8 greedy call (1 repeat of
+    3), the switch off: the JAX script's keys, finite rates; then the
+    export read back and the speculative program run once more on the
+    study's prompts: each row's window forwards between ceil(emitted / 8)
+    and its emitted tokens, and the study's tokens a forward; a plain and
+    a speculative call timed (ms a decode step, ms a window forward) and
+    profiled (busy and idle shares).  Returns the launch counts of the two
+    commands' runs."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tsue_tpu_torch.cli import study_fast_vs_parity as fvp
+    from tsue_tpu_torch.cli import study_speculative_acceptance as sa
+    from tsue_tpu_torch.cli._common import (apply_overrides, emitted,
+                                            midsize_cfg)
+    from tsue_tpu_torch.data import get_tokenizer
+    from tsue_tpu_torch.eval.generation import make_generate_fn
+    from tsue_tpu_torch.eval.speculative import make_speculative_generate_fn
+    from tsue_tpu_torch.ops.fused import fused_scope
+
+    t_phase = time.time()
+    L = midsize_cfg("study").model.llama.num_layers
+    runs = Path(__file__).resolve().parent / "runs"
+    runs.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="studies_", dir=runs)
+    counts = {}
+    try:
+        # (a) fast against parity
+        argv = ["--epochs", "2", "--seeds", str(STUDY_SEEDS), "--k", "10",
+                "--synthetic-tracks", "40", "--out-dir", tmp]
+        reset_counts()
+        t0 = time.time()
+        printed = io.StringIO()
+        with fused_scope("on"), contextlib.redirect_stdout(printed):
+            study = fvp.main(argv)
+        wall_a = time.time() - t0
+        c = read_counts()
+        counts["study fast_vs_parity (joint, 2 epochs, K=10, 2 seeds x "
+               "2 modes, fused switch on)"] = c
+        with open(os.path.join(tmp, "study_fast_vs_parity",
+                               "study.json")) as f:
+            check(json.load(f) == study, "study_fast_vs_parity: study.json "
+                  "differs from the returned dict")
+        check(list(study) == ["k", "seeds", "epochs", "summary", "raw"]
+              and (study["k"], study["seeds"], study["epochs"]) ==
+              (10, STUDY_SEEDS, 2), f"study_fast_vs_parity: {list(study)}")
+        raw = np.array([study["raw"][m] for m in ("fast", "parity")])
+        check(raw.shape == (2, STUDY_SEEDS, 3) and np.isfinite(raw).all()
+              and (raw > 0).all(), f"study_fast_vs_parity: raw {raw}")
+        check(all(set(v) == {"fast_mean", "fast_std", "parity_mean",
+                             "parity_std", "delta_pct"}
+                  and np.isfinite(list(v.values())).all()
+                  for v in study["summary"].values()),
+              f"study_fast_vs_parity: summary {study['summary']}")
+        check(c["flash_attn_fwd"] > 0 and c["swiglu_matmul"] > 0
+              and c["rmsnorm"] * L == c["swiglu_matmul"] * (2 * L + 1)
+              and not any(c[k] for k in c if k not in (
+                  "flash_attn_fwd", "rmsnorm", "swiglu_matmul")),
+              f"study_fast_vs_parity: launches {c}")
+        table = [ln for ln in printed.getvalue().splitlines()
+                 if ln.startswith("|")]
+        print("\n".join(table), flush=True)
+        print(f"study fast_vs_parity: {wall_a:.1f}s, launches "
+              f"{json.dumps(c)}; gpu: {gpu}", flush=True)
+
+        # (b) speculative acceptance
+        argv = ["--epochs", "3", "--synthetic-tracks", "20", "--reps", "1",
+                "--out-dir", tmp]
+        reset_counts()
+        t0 = time.time()
+        printed = io.StringIO()
+        with fused_scope("off"), contextlib.redirect_stdout(printed):
+            res = sa.main(argv)
+        wall_b = time.time() - t0
+        c = read_counts()
+        counts["study speculative (stage 1, 3 epochs, plain + W8 "
+               "greedy)"] = c
+        check(tuple(res) == SPEC_KEYS and json.loads(
+            printed.getvalue().splitlines()[-1]) == res,
+              f"study_speculative_acceptance: keys {list(res)}")
+        check(all(np.isfinite(res[k]) and res[k] > 0 for k in (
+            "tok_per_fwd", "plain_tok_s", "spec_tok_s", "speedup",
+            "final_lm_loss")) and 0 <= res["token_agreement"] <= 1
+            and (res["window"], res["epochs"]) == (8, 3),
+            f"study_speculative_acceptance: {res}")
+        check(c["flash_attn_fwd"] > 0 and not any(
+            c[k] for k in c if k != "flash_attn_fwd"),
+            f"study_speculative_acceptance: launches {c}")
+        args = sa.parser().parse_args(argv)
+        cfg = apply_overrides(midsize_cfg("study_spec_accept"), args)
+        tok = get_tokenizer(None)
+        mllm = sa.load_mllm(cfg, tok, os.path.join(tmp, "spec_accept_mllm"),
+                            dev)
+        inputs = [torch.from_numpy(a).to(dev) for a in sa.study_inputs(
+            cfg, None, tok, args.synthetic_tracks, args.split, args.bs)]
+        check(tuple(inputs[1].shape) == (16, 640),
+              f"study prompts {tuple(inputs[1].shape)}")
+        spec = make_speculative_generate_fn(
+            mllm, sa.greedy_config("none"), args.max_new,
+            inputs[1].shape[1], tok.eos_id, tok.pad_id, window=args.window,
+            with_stats=True)
+        ids, n_fwd = spec(*inputs, None)
+        ids, n_fwd = ids.cpu().numpy(), n_fwd.cpu().numpy()
+        rows = emitted(ids, tok.eos_id)
+        check(ids.shape == (16, args.max_new) and (n_fwd <= rows).all()
+              and (n_fwd >= -(-rows // args.window)).all(),
+              f"speculative forwards {n_fwd.tolist()} against emitted "
+              f"{rows.tolist()}")
+        check(round(int(rows.sum()) / float(n_fwd.sum()), 2)
+              == res["tok_per_fwd"], f"speculative tokens a forward "
+              f"{rows.sum()} / {n_fwd.sum()} against {res['tok_per_fwd']}")
+        print(f"study speculative: {wall_b:.1f}s, {json.dumps(res)}; "
+              f"forwards a row {n_fwd.tolist()}, emitted {rows.tolist()}; "
+              f"launches {json.dumps(c)}; gpu: {gpu}", flush=True)
+        # what a decode step and a window forward cost at this width: one
+        # warm call of each program, then each under the profiler
+        plain = make_generate_fn(mllm, sa.greedy_config("none"),
+                                 args.max_new, inputs[1].shape[1],
+                                 tok.eos_id, tok.pad_id)
+
+        def timed(fn):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn(*inputs, None)
+            torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0
+        timed(plain)
+        wall_p, wall_s = timed(plain), timed(spec)
+        print(f"study decode cost: plain {plain.steps} steps in "
+              f"{wall_p * 1e3:.1f} ms ({wall_p * 1e3 / plain.steps:.3f} ms a "
+              f"step, the prefill included), speculative {spec.forwards} "
+              f"window forwards in {wall_s * 1e3:.1f} ms "
+              f"({wall_s * 1e3 / spec.forwards:.3f} ms a forward); gpu: "
+              f"{gpu}", flush=True)
+        profile_device(dev, gpu, "study plain greedy call", wall_p,
+                       lambda: plain(*inputs, None))
+        profile_device(dev, gpu, "study speculative W8 call", wall_s,
+                       lambda: spec(*inputs, None))
+        del mllm, spec, plain
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"study phase: {time.time() - t_phase:.1f}s in all; gpu: {gpu}",
+          flush=True)
+    return counts
+
+
 def _build_head_split(out: dict) -> None:
     """head_variants.split_libs() into ``out`` (or its error), in a
     thread."""
@@ -5548,6 +5807,8 @@ def main() -> int:
         rows[name] += extra
     for name, extra in microbatch_shape_checks(dev, gpu, timer).items():
         rows[name] += extra
+    for name, extra in study_shape_checks(dev, gpu, timer).items():
+        rows[name] += extra
     reset_counts()
     rows.update(nlinear=nlinear_checks(dev, gpu, timer),
                 lora_matmul=lora_checks(dev, gpu, timer),
@@ -5587,13 +5848,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p16_counts = pipeline_phase(dev, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p18_counts = study_phase(dev, gpu)
 
     def head(name):
         """The kernel's line: its main-path shape (int8: the sum over one
         decoder layer's seven projections; the three kernels with no path:
         where they would sit, at batch 16)."""
         r = [x for x in rows[name] if not x.get("shard")
-             and not x.get("microbatch")]
+             and not x.get("microbatch") and not x.get("study")]
         if name == "flash_attn_fwd":
             pick = [r[0]]                      # Llama self-attention, RoPE
         elif name == "int8_matmul":
@@ -5644,6 +5908,7 @@ def main() -> int:
         **{run: c[name] for run, c in p14_counts.items()},
         **{run: c[name] for run, c in p15_counts.items()},
         **{run: c[name] for run, c in p16_counts.items()},
+        **{run: c[name] for run, c in p18_counts.items()},
         **{run: c[name] for run, c in ref_ckpt_counts.items()}}
         for name in KERNELS}
     for name in KERNELS:
@@ -5697,8 +5962,10 @@ def main() -> int:
         if name in p14_rows:
             entry["bf16_forms"] = bf16_forms(name)
         for mark, key in (("shard", "shard_shapes"),
-                          ("microbatch", "microbatch_shapes")):
-            # phase 3 at phase 15's local and phase 16's microbatch shapes
+                          ("microbatch", "microbatch_shapes"),
+                          ("study", "study_shapes")):
+            # phase 3 at phase 15's local, phase 16's microbatch and phase
+            # 18's study shapes
             marked = [x for x in rows[name] if x.get(mark)]
             if marked:
                 entry[key] = {x["shape"]: {

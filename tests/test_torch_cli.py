@@ -266,7 +266,9 @@ def test_module_dispatches_to_the_commands(capsys):
     from tsue_tpu_torch.cli.__main__ import main
     assert COMMANDS == ("train", "stage1", "test", "serve", "baseline",
                         "diffusion", "quality_quant", "params", "roi_map",
-                        "plot", "import_ref", "export_ref")
+                        "plot", "import_ref", "export_ref",
+                        "study_fast_vs_parity",
+                        "study_speculative_acceptance")
     with pytest.raises(SystemExit, match="usage"):
         main(["predict"])
     with pytest.raises(SystemExit, match="usage"):

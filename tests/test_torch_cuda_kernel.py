@@ -6,7 +6,8 @@ top-128, the int8-KV decode attention (also with per-query masks), the one-pass 
 down-projection, NLinear, the fused LoRA product and the per-sample
 ADE/FDE, and the gradients of the kernels in autograd Functions (flash,
 RMSNorm, SwiGLU, NLinear, LoRA) against autograd through their plain
-versions.
+versions; flash, RMSNorm and SwiGLU also at the trained-weight studies'
+mid-size shapes (``cli._common.midsize_cfg``; ``-k study``).
 
 These tests need a CUDA device and skip without one.  The machine with the
 card has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -2067,3 +2068,110 @@ def test_pipeline_gloo_on_cuda(dev):
         assert counts["send_staged"] == counts["recv_staged"] == 2, counts
         assert counts["send_staged_bytes"] == 2 * act, counts
         assert "send" not in counts and "recv" not in counts, counts
+
+
+# the studies' mid-size stack (``cli._common.midsize_cfg``): Llama 8/4
+# heads of 32, hidden 256, FFN 1024; Q-Former 8 heads of 16; 8 image
+# tokens before the text (640 tokens, buckets 256, 384, 512)
+STUDY_TOKENS = (8 + 256, 8 + 384, 8 + 512, 8 + 640)
+STUDY_ROWS = 16 * (8 + 640)
+
+
+def _study_flash_case(dev, g, case, T=8 + 640):
+    """Flash's arguments at one of the studies' calls (B 16)."""
+    B = 16
+    if case == "llama_rope":            # training and eval, RoPE inside
+        return _inputs(dev, g, B, T, T, 8, 4, 32, "some", True), True
+    if case == "gen_prefill":           # the prefill, RoPE outside
+        return _inputs(dev, g, B, T, T, 8, 4, 32, "some", False), True
+    if case == "decode":                # a plain decode step, 744 slots
+        return _inputs(dev, g, B, 1, T + 96, 8, 4, 32, "some", False), False
+    if case == "window_w8":             # a speculative window, 752 slots
+        q, k, v, _, _ = _inputs(dev, g, B, 8, T + 104, 8, 4, 32, "none",
+                                False)
+        return (q, k, v, _window_mask(dev, g, B, 8, T + 104, T), None), False
+    if case == "ltsf_cross":            # the forecaster over the context
+        return _inputs(dev, g, B, 18, T, 2, 2, 128, "some", False), False
+    Tq, Tk = {"qformer_self": (18, 18), "qformer_query_self": (8, 8),
+              "qformer_cross": (8, 18)}[case]
+    return _inputs(dev, g, B, Tq, Tk, 8, 8, 16, "none", False), False
+
+
+@pytest.mark.parametrize("case", [
+    *(f"llama_rope_T{T}" for T in STUDY_TOKENS), "gen_prefill", "decode",
+    "window_w8", "ltsf_cross", "qformer_self", "qformer_query_self",
+    "qformer_cross"])
+def test_flash_study_shapes(dev, case):
+    """Flash at the studies' mid-size shapes: the Llama's self-attention
+    at 8/4 heads of 32 with RoPE inside (causal, a key mask; 8 image
+    tokens + each text bucket), which takes the tiled form (the JAX
+    package folds it over heads, G * D = 64), the prefill without RoPE,
+    a decode step and a window of 8 over the cache, the LTSF
+    cross-attention at 2 heads of 128 over 648 keys and the Q-Former's
+    three calls at 8 heads of 16: one launch each, within 1e-4 of the
+    plain version, a repeat bit-identical."""
+    name, _, T = case.partition("_T")
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    (q, k, v, mask, cs), causal = _study_flash_case(
+        dev, g, name, int(T) if T else 8 + 640)
+    kw = dict(q=q, k=k, v=v, mask=mask, is_causal=causal, rope=cs)
+    (B, Tq, Hq, D), (Tk, Hkv) = q.shape, k.shape[1:3]
+    form = flash_attention_form(B, Tq, Tk, Hq, Hkv, D, cs is not None,
+                                mask is not None and mask.dim() == 3,
+                                q.dtype, k.dtype)
+    if name == "llama_rope":
+        assert form == "tiled", form
+    before = flash_attention.launches
+    out = flash_attention(**kw)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(**kw)
+    again = flash_attention(**kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **TOL,
+                               msg=lambda m: f"{case} ({form}): {m}")
+    assert torch.equal(out, again)
+
+
+def test_rmsnorm_fp32_stream_study_shape(dev):
+    """RMSNorm at the studies' (16 x 648, 256) fp32 rows: "fp32_stream",
+    one warp a row of two 16-byte vectors a lane, within 1e-5 of the plain
+    version, a repeat bit-identical, the first 2592 rows bit-identical to
+    the call on them alone."""
+    g = torch.Generator(device=dev).manual_seed(256)
+    x = torch.randn(STUDY_ROWS, 256, generator=g, device=dev)
+    scale = 1.0 + 0.1 * torch.randn(256, generator=g, device=dev)
+    plan = FU.rmsnorm_plan(STUDY_ROWS, 256, torch.float32, torch.float32)
+    assert (plan["form"], plan["warps_per_row"],
+            plan["vectors_per_lane"]) == ("fp32_stream", 1, 2), plan
+    before = FU.fused_rmsnorm.launches
+    out = FU.fused_rmsnorm(x, scale, 1e-5)
+    assert FU.fused_rmsnorm.launches == before + 1
+    ref = FU.rmsnorm_plain(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, FU.fused_rmsnorm(x, scale, 1e-5))
+    sub = STUDY_ROWS // 4
+    assert torch.equal(out[:sub], FU.fused_rmsnorm(x[:sub], scale, 1e-5))
+
+
+def test_swiglu_matmul_study_shape(dev):
+    """The SwiGLU down-projection at the studies' (16 x 648, 1024) x (1024,
+    256): its plan (81 row tiles of one column tile), one launch, rtol
+    1e-4 and atol 1e-5 of the largest output against the plain version,
+    a repeat bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(1024)
+    M, K, N = STUDY_ROWS, 1024, 256
+    plan = FU.swiglu_matmul_plan(M, K, N)
+    assert plan["form"] == "tf32x3" and plan["tiles"] == \
+        -(-M // plan["tile_m"]) * -(-N // plan["tile_n"])
+    gate = torch.randn(M, K, generator=g, device=dev) * 3
+    up = torch.randn(M, K, generator=g, device=dev)
+    w = torch.randn(K, N, generator=g, device=dev) * K ** -0.5
+    before = FU.swiglu_matmul.launches
+    out = FU.swiglu_matmul(gate, up, w)
+    assert FU.swiglu_matmul.launches == before + 1
+    ref = FU.swiglu_matmul_plain(gate, up, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(out, FU.swiglu_matmul(gate, up, w))

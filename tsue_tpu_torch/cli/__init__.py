@@ -26,11 +26,18 @@ prints its result as one JSON line:
   (``--stage2``) the whole model, into the port's artifact
   (``scripts/import_reference_ckpt.py``);
 - ``export_ref``: a checkpoint of the port into the reference's state-dict
-  layout (``scripts/export_reference_ckpt.py``).
+  layout (``scripts/export_reference_ckpt.py``);
+- ``study_fast_vs_parity``: the mid-size stack trained jointly, then K=10
+  min ADE / FDE / RMSE of the fast and the parity candidate modes over
+  several eval seeds (``scripts/study_fast_vs_parity.py``);
+- ``study_speculative_acceptance``: the mid-size byte MLLM trained with
+  stage 1, then plain against speculative greedy decoding, timed, with
+  the tokens a forward (``scripts/study_speculative_acceptance.py``).
 
 Every command that runs a model runs it on the CUDA device unless given
 ``--device cpu``.
 """
 COMMANDS = ("train", "stage1", "test", "serve", "baseline", "diffusion",
             "quality_quant", "params", "roi_map", "plot", "import_ref",
-            "export_ref")
+            "export_ref", "study_fast_vs_parity",
+            "study_speculative_acceptance")

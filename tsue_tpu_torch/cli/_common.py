@@ -5,8 +5,10 @@
 (the CUDA device by default) in place of ``--platform``; there is no
 ``--rng-impl``, which names JAX PRNG implementations.  ``apply_overrides``
 maps the flags onto a preset as the JAX scripts do.  ``add_roi_args`` and
-``resolve_roi`` are the lane-ROI flags of the map commands, and
-``build_mllm_bf16`` the bf16 decode substrate of ``quality_quant``.
+``resolve_roi`` are the lane-ROI flags of the map commands,
+``build_mllm_bf16`` the bf16 decode substrate of ``quality_quant``, and
+``midsize_cfg`` and ``emitted`` the mid-size configuration and the token
+count of the two trained-weight studies.
 
 ``add_mesh_args`` (--model-parallel, --fsdp) and ``setup_mesh`` run a
 command over a (data, model) mesh: under torchrun (``python -m
@@ -179,6 +181,44 @@ def build_mllm_bf16(batch_size: int = 16, prompt_len: int = 144,
         (batch_size, prompt_len)).astype(np.int32)).to(dev)
     mask = torch.ones(batch_size, prompt_len, dtype=torch.int32, device=dev)
     return mllm.eval(), (vision, ids, mask)
+
+
+def midsize_cfg(name: str, freeze_regime: str = "frozen_mllm"):
+    """The studies' mid-size stack (``scripts/study_fast_vs_parity.py:27-44``
+    and ``scripts/study_speculative_acceptance.py:27-43``, which differ
+    only in ``name`` and the fast-vs-parity study's ``"joint"`` regime): a
+    Llama of 4 layers, hidden 256, 8 query and 4 KV heads of 32,
+    intermediate 1024, vocabulary 384; a Q-Former of hidden 128, 8 heads,
+    2 + 2 layers and 8 query tokens; the default lane encoder and LTSF;
+    18 -> 18 windows, text up to 640 tokens, batch 16."""
+    from tsue_tpu_torch.config import (DataConfig, ExperimentConfig,
+                                       LaneEncoderConfig, LlamaConfig,
+                                       LTSFConfig, ModelConfig,
+                                       QFormerConfig, TrainConfig)
+    llama = LlamaConfig(vocab_size=384, hidden_size=256,
+                        intermediate_size=1024, num_layers=4, num_heads=8,
+                        num_kv_heads=4, head_dim=32, rope_scaling_factor=1.0)
+    model = ModelConfig(
+        llama=llama,
+        qformer=QFormerConfig(hidden_size=128, num_heads=8,
+                              num_encoder_layers=2, num_decoder_layers=2,
+                              num_query_tokens=8),
+        lane=LaneEncoderConfig(), ltsf=LTSFConfig())
+    return ExperimentConfig(
+        name=name, data=DataConfig(seq_len=18, out_len=18, max_length=640),
+        model=model,
+        train=TrainConfig(batch_size=16, freeze_regime=freeze_regime))
+
+
+def emitted(rows, eos_id: int):
+    """(B,) int64: the tokens each generated id row holds, up to and
+    including its first EOS, the whole row without one; the speculative
+    study counts their sum (``scripts/study_speculative_acceptance.py:
+    127-132``)."""
+    import numpy as np
+    rows = np.asarray(rows)
+    hit = rows == eos_id
+    return np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, rows.shape[1])
 
 
 def apply_overrides(cfg, args):
